@@ -1,0 +1,235 @@
+"""The triangle-only window counter: per window of a [W, eb] edge stack,
+(count, overflow) as int32.
+
+Port of the JAX package's `triangles.build_window_counter` body
+(triangles.py:397-430) and of its Pallas kernel
+`pallas_window._counter_call` (pallas_window.py:748-792, with
+`_tri_stage` :448-485). Each window runs clean -> multigraph degree ->
+orient low(deg, id) -> high(deg, id) -> dedupe + CSR positions ->
+scatter into a [vb+1, kb] neighbor table -> row intersection. `overflow`
+= Σ_v max(0, outdeg_v - kb) over distinct oriented out-degrees; `count`
+is exact whenever overflow is 0, and callers recount otherwise.
+
+`WindowCounter` (and `count_windows_device`, one call of it) launches
+the CUDA kernels (csrc/window_counter.cu builds the tables,
+csrc/intersect.cu intersects their rows) on CUDA tensors and runs
+`count_windows_plain`, the plain PyTorch version, on CPU ones; it never
+falls back from one to the other. With overflow > 0
+the two may differ in `count` (the kernel's truncated rows keep the
+first kb edges to arrive, the plain version the kb smallest ids), never
+in `overflow`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from . import intersect
+from .segment import bucket_size
+
+
+def orient_by_degree(s: torch.Tensor, d: torch.Tensor,
+                     deg: torch.Tensor):
+    """Orient each edge low(deg, id) -> high(deg, id); the sentinel maps
+    to itself. The tie-break of the JAX package's
+    triangles.orient_by_degree (triangles.py:334-342)."""
+    lo = torch.minimum(s, d)
+    hi = torch.maximum(s, d)
+    dlo, dhi = deg[lo], deg[hi]
+    swap = (dlo > dhi) | ((dlo == dhi) & (lo > hi))
+    return torch.where(swap, hi, lo), torch.where(swap, lo, hi)
+
+
+def dedupe_and_positions(a: torch.Tensor, b: torch.Tensor, sent: int,
+                         vb: int):
+    """One sort of the packed int64 key a·(vb+1) + b (the lexicographic
+    order of (a, b)), first-occurrence marking, and each valid edge's
+    column among the valid edges of its source by a prefix count — the
+    JAX package's dedupe_and_positions (triangles.py:345-376).
+
+    Returns (a_sorted, b_sorted, evalid, pos); pos is meaningless where
+    ~evalid. Within each source run the valid b's ascend and take
+    columns 0..deg-1."""
+    key, _ = torch.sort(a.to(torch.int64) * (vb + 1) + b.to(torch.int64))
+    a = torch.div(key, vb + 1, rounding_mode="floor").to(torch.int32)
+    b = (key % (vb + 1)).to(torch.int32)
+    n = key.shape[0]
+    first = torch.ones(n, dtype=torch.bool, device=key.device)
+    first[1:] = key[1:] != key[:-1]
+    evalid = first & (a < sent)
+    ev = evalid.to(torch.int64)
+    before = torch.cumsum(ev, 0) - ev     # valid edges strictly before i
+    idx = torch.arange(n, device=key.device)
+    run = torch.ones(n, dtype=torch.bool, device=key.device)
+    run[1:] = a[1:] != a[:-1]
+    run_start = torch.cummax(torch.where(run, idx, 0), 0).values
+    pos = before - before[run_start]
+    return a, b, evalid, pos
+
+
+def count_window_plain(src: torch.Tensor, dst: torch.Tensor,
+                       valid: torch.Tensor, vb: int, kb: int):
+    """One window [eb] -> (count, overflow) as 0-dim int32 tensors, in
+    plain PyTorch on the tensors' device. Ids outside [0, vb) count as
+    padding, as in the kernel."""
+    sent = vb
+    valid = (valid & (src != dst) & (src >= 0) & (src < vb)
+             & (dst >= 0) & (dst < vb))
+    s = torch.where(valid, src, sent)
+    d = torch.where(valid, dst, sent)
+    ones = valid.to(torch.int32)
+    deg = torch.zeros(vb + 1, dtype=torch.int32, device=src.device)
+    deg.index_add_(0, s, ones).index_add_(0, d, ones)
+    a, b = orient_by_degree(s, d, deg)
+    a, b, evalid, pos = dedupe_and_positions(a, b, sent, vb)
+    overflow = ((pos >= kb) & evalid).sum().to(torch.int32)
+    ok = evalid & (pos < kb)
+    rows = torch.where(ok, a, vb).to(torch.int64)
+    cols = pos.clamp(0, kb - 1)
+    nbr = torch.full((vb + 1, kb), sent, dtype=torch.int32,
+                     device=src.device)
+    nbr[rows, cols] = torch.where(ok, b, sent)
+    count = intersect.intersect_local_plain(nbr, a, b, evalid)
+    return count, overflow
+
+
+def count_windows_plain(src: torch.Tensor, dst: torch.Tensor,
+                        valid: torch.Tensor, vb: int, kb: int):
+    """[W, eb] stacks -> (count[W], overflow[W]) int32, window by window
+    in plain PyTorch."""
+    if src.shape[0] == 0:
+        empty = torch.zeros(0, dtype=torch.int32, device=src.device)
+        return empty, empty.clone()
+    pairs = [count_window_plain(src[w], dst[w], valid[w], vb, kb)
+             for w in range(src.shape[0])]
+    return (torch.stack([c for c, _ in pairs]),
+            torch.stack([o for _, o in pairs]))
+
+
+def hash_slots(eb: int) -> int:
+    """Slots of a window's edge hash set: a power of two ≥ 2·eb, so the
+    set is at most half full."""
+    return bucket_size(2 * eb)
+
+
+class CounterScratch:
+    """Device scratch of a `WindowCounter` for up to `windows` windows of
+    `eb` edges at (vb, kb), allocated once with torch.empty. At eb=32768,
+    vb=65536, kb=128 a 64-window scratch holds 2.15 GB of neighbor
+    tables, which the kernel never clears (rows are read only up to their
+    out-degree)."""
+
+    def __init__(self, windows: int, eb: int, vb: int, kb: int,
+                 device: torch.device):
+        self.windows, self.eb, self.vb, self.kb = windows, eb, vb, kb
+
+        def empty(*shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device=device)
+
+        self.deg = empty(windows, vb + 1)
+        self.outdeg = empty(windows, vb + 1)
+        self.table = empty(windows, vb + 1, kb)
+        self.hash = empty(windows, hash_slots(eb), dtype=torch.int64)
+        self.edge_a = empty(windows, eb)
+        self.edge_b = empty(windows, eb)
+        self.nedges = empty(windows)
+
+
+class WindowCounter:
+    """The window counter at fixed (vb, kb) on one device:
+    counter(src[W, eb], dst, valid) -> (count[W], overflow[W]) int32.
+
+    On a card it is the only owner of its `CounterScratch`: it allocates
+    one when a call brings more windows or another eb than the last, and
+    reuses it otherwise. Each call launches the table builder
+    (csrc/window_counter.cu, two kernels behind one entry) and the
+    intersect kernel on the current stream, with no synchronisation. On
+    the CPU it runs `count_windows_plain`."""
+
+    def __init__(self, vb: int, kb: int, device: torch.device):
+        self.vb, self.kb = vb, kb
+        self.device = torch.device(device)
+        self.scratch = None
+
+    def __call__(self, src, dst, valid):
+        if src.device != self.device:
+            raise ValueError("window counter on %s given tensors on %s"
+                             % (self.device, src.device))
+        if src.device.type == "cpu":
+            return count_windows_plain(src, dst, valid, self.vb, self.kb)
+        _check(src, dst, valid, self.vb, self.kb)
+        w, eb = src.shape
+        sc = self.scratch
+        if sc is None or w > sc.windows or eb != sc.eb:
+            self.scratch = None               # free before allocating
+            self.scratch = CounterScratch(w, eb, self.vb, self.kb,
+                                          src.device)
+        count = torch.empty(w, dtype=torch.int32, device=src.device)
+        overflow = torch.empty(w, dtype=torch.int32, device=src.device)
+        build_tables(src, dst, valid, self.scratch, overflow)
+        intersect_tables(self.scratch, count)
+        return count, overflow
+
+
+def count_windows_device(src: torch.Tensor, dst: torch.Tensor,
+                         valid: torch.Tensor, vb: int, kb: int):
+    """src/dst [W, eb] int32, valid [W, eb] bool -> (count[W],
+    overflow[W]) int32: one call of a `WindowCounter` made for it (the
+    CUDA kernels on CUDA tensors, `count_windows_plain` on CPU ones).
+    Callers that count many stacks keep a `WindowCounter` instead, so
+    that its scratch is reused."""
+    return WindowCounter(vb, kb, src.device)(src, dst, valid)
+
+
+def build_tables(src, dst, valid, scratch: CounterScratch,
+                 overflow: torch.Tensor) -> None:
+    """First stage of a `WindowCounter` call (csrc/window_counter.cu),
+    on checked CUDA stacks: fills the scratch's out-degrees, rows and
+    distinct-edge lists of the first W windows, and overflow[W]."""
+    w, eb = src.shape
+    sc = scratch
+    lib = kernels.library("window_counter")
+    code = lib.gs_window_tables(
+        src.data_ptr(), dst.data_ptr(), valid.data_ptr(), w, eb, sc.vb,
+        sc.kb, sc.deg.data_ptr(), sc.outdeg.data_ptr(),
+        sc.table.data_ptr(), sc.hash.data_ptr(), sc.hash.shape[1],
+        sc.edge_a.data_ptr(), sc.edge_b.data_ptr(), sc.nedges.data_ptr(),
+        overflow.data_ptr(), src.device.index, kernels.stream_of(src))
+    kernels.check("window_counter", code)
+    kernels.LAUNCHES["window_counter"] += 1
+
+
+def intersect_tables(scratch: CounterScratch, count: torch.Tensor) -> None:
+    """Second stage of a `WindowCounter` call: the intersect kernel over
+    the distinct edges of each of the first len(count) windows, rows
+    capped at their out-degrees."""
+    sc = scratch
+    intersect.launch(sc.table, sc.edge_a, sc.edge_b, count,
+                     rows=sc.vb + 1, k=sc.kb, sentinel=sc.vb, ep=sc.eb,
+                     windows=count.shape[0],
+                     table_stride=(sc.vb + 1) * sc.kb, edge_stride=sc.eb,
+                     nedges=sc.nedges, lens=sc.outdeg,
+                     lens_stride=sc.vb + 1)
+
+
+def _check(src, dst, valid, vb: int, kb: int) -> None:
+    dev = src.device
+    if dev.type != "cuda":
+        raise ValueError("the window counter kernel takes CUDA tensors, "
+                         "got %s" % dev)
+    for name, t, dtype in (("src", src, torch.int32),
+                           ("dst", dst, torch.int32),
+                           ("valid", valid, torch.bool)):
+        if t.device != dev or t.dtype != dtype or t.dim() != 2 \
+                or t.shape != src.shape or not t.is_contiguous():
+            raise ValueError(
+                "%s must be a contiguous [W, eb] %s tensor on %s like src "
+                "%s, got %s %s on %s" % (name, dtype, dev, tuple(src.shape),
+                                         tuple(t.shape), t.dtype,
+                                         t.device))
+    w, eb = src.shape
+    if not (0 < w <= 65535 and 0 < eb < 2 ** 30 and 0 < vb < 2 ** 30
+            and 0 < kb):
+        raise ValueError("unsupported shape: W=%d eb=%d vb=%d kb=%d"
+                         % (w, eb, vb, kb))
