@@ -3,11 +3,14 @@
 NVIDIA GPU.
 
 Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc, holds each
-against its plain PyTorch version on the card, then drives the port's
-main path: TriangleWindowKernel(32768, 65536).count_stream over the
-bench's north-star stream (make_stream(10_485_760, 65_536, seed=7): 320
-Zipf windows of 32768 edges), checks every window's count, and reports
-edges/s and each kernel's launches and times.
+against its plain PyTorch version on the card (phases intersect,
+counter, summary), then drives the port's two paths over the bench's
+north-star stream (make_stream(10_485_760, 65_536, seed=7): 320 Zipf
+windows of 32768 edges): TriangleWindowKernel(32768, 65536).count_stream
+(phase stream) and StreamSummaryEngine(32768, 65536).process (phase
+summary_stream), each with the launch counts set to 0 just before it
+and read just after. Every window of both is checked; each path reports
+edges/s, its launches and where its time goes.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -275,8 +278,9 @@ def phase_stream(dev) -> dict:
     num_w = STREAM_EDGES // EB
     require(len(counts) == num_w, "%d windows, want %d"
             % (len(counts), num_w))
-    for name, n in launches.items():
-        require(n > 0, "kernel %s was not launched on the main path" % name)
+    for name in ("intersect", "window_counter"):   # the triangle path's
+        require(launches[name] > 0,
+                "kernel %s was not launched on the main path" % name)
 
     # every window against the plain version on the card; a window the
     # plain version reports as overflowing is checked against numpy
@@ -333,13 +337,273 @@ def phase_stream(dev) -> dict:
         "triangles": int(sum(counts)), "plain_overflow_windows": recounted,
         "launches": launches,
         "device": torch.cuda.get_device_name(0)}}))
-    print(json.dumps({"profile": profile_stream(kern, src, dst)}))
+    print(json.dumps({"profile": profile_run(
+        lambda: kern.count_stream(src, dst))}))
     print("phase stream: ok  %d windows  %.1f edges/s" % (num_w, rate))
     return launches
 
 
-def profile_stream(kern, src, dst) -> dict:
-    """One count_stream under torch.profiler: device time by name (the
+def clustered_stack(rng, num_w: int, size: int, cross: int):
+    """A sparse uniform [num_w, EB] stack: edges inside clusters of
+    `size` vertices (VB/size clusters, about one edge per vertex per
+    window), plus `cross` random edges per window that merge clusters
+    slowly, so num_components stays in the thousands and moves."""
+    base = size * rng.integers(0, VB // size, (num_w, EB))
+    s = base + rng.integers(0, size, (num_w, EB))
+    d = base + rng.integers(0, size, (num_w, EB))
+    s[:, :cross] = rng.integers(0, VB, (num_w, cross))
+    return (s.astype(np.int32), d.astype(np.int32),
+            np.ones((num_w, EB), bool))
+
+
+def summary_fixtures():
+    """(name, prefix stack folded first, the chunk under test), all at
+    [64, EB] over VB vertices; each exercises what the Zipf stream does
+    not."""
+    from gelly_streaming_tpu_torch import make_stream
+    from gelly_streaming_tpu_torch.ops import segment as seg
+
+    rng = np.random.default_rng(13)
+    sparse = clustered_stack(rng, 2 * CHUNK, 16, 8)
+    yield ("sparse", tuple(x[:CHUNK] for x in sparse),
+           tuple(x[CHUNK:] for x in sparse))
+
+    # bipartite: src even, dst odd; the chunk's last window closes a
+    # triangle 0-2-4, so `odd` turns true there and only there
+    bs = 2 * rng.integers(0, VB // 2, (2 * CHUNK, EB)).astype(np.int32)
+    bd = 2 * rng.integers(0, VB // 2, (2 * CHUNK, EB)).astype(np.int32) + 1
+    bs[-1, -3:], bd[-1, -3:] = (0, 2, 4), (2, 4, 0)
+    bv = np.ones((2 * CHUNK, EB), bool)
+    yield ("bipartite", (bs[:CHUNK], bd[:CHUNK], bv[:CHUNK]),
+           (bs[CHUNK:], bd[CHUNK:], bv[CHUNK:]))
+
+    # ragged: 34 Zipf windows, one of self-loops only, the CLIQUE-200
+    # overflow window, one partial window (padded slots), padded to 64
+    # windows (padded windows): padding joins the cover's sentinels
+    src, dst = make_stream(2 * CHUNK * EB, VB, seed=11)
+    _w, s, d, v = seg.window_stack(src, dst, EB, sentinel=VB)
+    cs, cd = clique(CLIQUE, 1000)
+    s[CHUNK + 35, :len(cs)], d[CHUNK + 35, :len(cd)] = cs, cd
+    s[CHUNK + 34] = d[CHUNK + 34] = np.arange(EB) * 2
+    v[CHUNK + 36, EB // 3:] = False
+    sc, dc, vc, n = seg.pad_window_chunk(s, d, v, CHUNK, CHUNK + 37, CHUNK,
+                                         EB, VB)
+    require(n == 37 and sc.shape[0] == CHUNK, "ragged fixture shape")
+    yield ("ragged", (s[:CHUNK], d[:CHUNK], v[:CHUNK]), (sc, dc, vc))
+
+
+def compare_summary(name, chunk, summ, carry, plain_carry, dev):
+    """Kernel (`summ`, a WindowSummary on the card, folding into
+    `carry`) vs plain (folding into `plain_carry`) on one chunk: the five
+    outputs equal (triangles where overflow is 0: the kernel's truncated
+    rows differ by design), then the three carries bit-equal. Returns
+    the plain outputs as numpy and the max abs error."""
+    from gelly_streaming_tpu_torch.ops import window_summary as ws
+
+    st, dt, vt = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                  for x in chunk)
+    got = [x.cpu().numpy() for x in summ(carry, st, dt, vt)]
+    want = [x.cpu().numpy() for x in ws.summarize_windows_plain(
+        plain_carry, st, dt, vt, summ.vb, summ.kb)]
+    names = ("max_degree", "num_components", "odd", "triangles",
+             "k_overflow")
+    clean = want[4] == 0
+    err = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == 3:
+            g, w = g[clean], w[clean]
+        require(np.array_equal(g, w), "%s: %s kernel %s != plain %s"
+                % (name, names[i], g, w))
+        err = max(err, int(np.abs(g.astype(np.int64) - w).max(initial=0)))
+    for label, a, b in zip(("deg", "labels", "cover"), carry, plain_carry):
+        require(torch.equal(a, b), "%s: carry %s differs from plain"
+                % (name, label))
+    return want, err
+
+
+def phase_summary(dev) -> dict:
+    """The window-summary kernel (+ kernels 1-2 for triangles) vs its
+    plain version on 64-window chunks at eb=32768, vb=65536, kb=128,
+    each from a carry that is not fresh; the union-find entry vs the
+    plain fixpoint; then times at the Zipf chunk."""
+    from gelly_streaming_tpu_torch import make_stream
+    from gelly_streaming_tpu_torch.ops import segment as seg
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+    from gelly_streaming_tpu_torch.ops import window_summary as ws
+
+    summ = ws.WindowSummary(VB, KB, dev)
+    err = 0
+    for name, prefix, chunk in summary_fixtures():
+        carry, plain_carry = ws.fresh_carry(VB, dev), ws.fresh_carry(VB, dev)
+        pre, e1 = compare_summary(name + " prefix", prefix, summ, carry,
+                                  plain_carry, dev)
+        out, e2 = compare_summary(name, chunk, summ, carry, plain_carry,
+                                  dev)
+        err = max(err, e1, e2)
+        mdeg, ncomp, odd, tri, ovf = out
+        if name == "sparse":
+            require(ncomp.min() > 1000 and len(set(ncomp.tolist())) > 8,
+                    "sparse: num_components %s" % ncomp)
+            forest = carry[1]
+        if name == "bipartite":
+            require(not pre[2].any() and not odd[:-1].any() and odd[-1],
+                    "bipartite: odd %s %s" % (pre[2], odd))
+        if name == "ragged":
+            require(int(carry[2][2 * VB + 1]) == VB,
+                    "ragged: the cover's sentinels were not joined")
+            require(odd[34] and tri[34] == 0 and ovf[35] > 0
+                    and (ovf[37:] == 0).all()
+                    and (mdeg[37:] == mdeg[36]).all(),
+                    "ragged: loops/overflow/padding %s %s %s"
+                    % (odd, ovf, mdeg))
+        print("phase summary %s: ok  num_components %d..%d  odd windows "
+              "%d  overflow windows %d" % (name, ncomp.min(), ncomp.max(),
+                                           int(odd.sum()),
+                                           int((ovf > 0).sum())))
+
+    # the union-find entry (cc_fixpoint on CUDA tensors) vs the plain
+    # rounds: carried on the sparse fixture's forest, and fresh
+    rng = np.random.default_rng(17)
+    es = torch.from_numpy(rng.integers(0, VB + 1, EB).astype(np.int32))
+    ed = torch.from_numpy(rng.integers(0, VB + 1, EB).astype(np.int32))
+    es, ed = es.to(dev), ed.to(dev)
+    fresh = torch.arange(VB + 1, dtype=torch.int32, device=dev)
+    for lab0, carried in ((forest, True), (fresh, False)):
+        got = uf.cc_fixpoint(lab0, es, ed, carried)
+        want = uf.cc_fixpoint_plain(lab0, es, ed, carried)
+        require(torch.equal(got, want),
+                "cc_fixpoint carried=%s: kernel != plain" % carried)
+
+    # times at the main path's chunk: 64 Zipf windows, the carry after
+    # one chunk folded
+    src, dst = make_stream(2 * CHUNK * EB, VB, seed=11)
+    _w, s, d, v = seg.window_stack(src, dst, EB, sentinel=VB)
+    st, dt, vt = (torch.from_numpy(np.ascontiguousarray(x[CHUNK:])).to(dev)
+                  for x in (s, d, v))
+    carry = ws.fresh_carry(VB, dev)
+    pt, pd, pv = (torch.from_numpy(np.ascontiguousarray(x[:CHUNK])).to(dev)
+                  for x in (s, d, v))
+    summ(carry, pt, pd, pv)
+    sums = torch.empty(3, CHUNK, dtype=torch.int32, device=dev)
+    kern_ms = cuda_ms(lambda: ws.summarize(
+        tuple(c.clone() for c in carry), st, dt, vt, VB, sums), 20)
+    clone_ms = cuda_ms(lambda: tuple(c.clone() for c in carry), 20)
+    ms = cuda_ms(lambda: summ(tuple(c.clone() for c in carry), st, dt, vt),
+                 20)
+    plain_ms = cuda_ms(lambda: ws.summarize_windows_plain(
+        tuple(c.clone() for c in carry), st, dt, vt, VB, KB), 1)
+    slots = int(vt.sum())
+    edges, compares = row_work(st, dt, vt, VB, KB)
+    carry_bytes = 16 * (VB + 1)        # deg, labels: 4(vb+1); cover 8(vb+1)
+    nbytes = CHUNK * EB * 9 + 2 * carry_bytes + 20 * CHUNK
+    # per valid slot: 2 degree adds, 3 unions; per carry slot and
+    # window: 3 root walks; the triangle stage: one per slot + compares
+    ops = 5 * slots + 3 * CHUNK * (VB + 1) + CHUNK * EB + compares
+    b_ms, b_by = bound(nbytes, ops)
+    print("phase summary: ok  kernel %.3f ms/chunk (summary kernel alone "
+          "%.3f, carry clone %.3f)  plain %.1f ms/chunk  (%d windows, %d "
+          "valid slots, %d distinct edges, %d compares)"
+          % (ms - clone_ms, kern_ms - clone_ms, clone_ms, plain_ms, CHUNK,
+             slots, edges, compares))
+    return {"ms": ms - clone_ms, "plain_ms": plain_ms - clone_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "kernel_only_ms": kern_ms - clone_ms}
+
+
+def phase_summary_stream(dev) -> dict:
+    """The summary engine's main path: StreamSummaryEngine(32768,
+    65536).process over the 320-window stream, every window checked
+    against the plain version on the card (and the numpy oracle where
+    the plain count overflows K), the first four against the numpy
+    summary oracle, the final carry against the plain one, launches of
+    all three kernels counted."""
+    from gelly_streaming_tpu_torch import StreamSummaryEngine, kernels
+    from gelly_streaming_tpu_torch import make_stream
+    from gelly_streaming_tpu_torch.ops import host_summary, host_triangles
+    from gelly_streaming_tpu_torch.ops import scan_analytics as sa
+    from gelly_streaming_tpu_torch.ops import segment as seg
+    from gelly_streaming_tpu_torch.ops import window_summary as ws
+
+    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    eng = StreamSummaryEngine(EB, VB)          # device=None: the card
+    require(eng.device.type == "cuda", "engine not on the card")
+    require(eng.kb == KB, "kb %d, want %d" % (eng.kb, KB))
+    eng.warm_fallback()
+    eng.process(src[:CHUNK * EB], dst[:CHUNK * EB])      # warm-up
+    eng.reset()
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.process(src, dst)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    num_w = STREAM_EDGES // EB
+    require(len(out) == num_w, "%d windows, want %d" % (len(out), num_w))
+    for name, n in launches.items():
+        require(n > 0, "kernel %s was not launched on the summary path"
+                % name)
+    state = eng.state_dict()
+
+    _w, s, d, v = seg.window_stack(src, dst, EB, sentinel=VB)
+    plain_carry = ws.fresh_carry(VB, dev)
+    recounted = 0
+    for at in range(0, num_w, CHUNK):
+        st, dt, vt = (torch.from_numpy(np.ascontiguousarray(x[at:at + CHUNK]))
+                      .to(dev) for x in (s, d, v))
+        mdeg, ncomp, odd, tri, ovf = (
+            x.cpu().numpy() for x in ws.summarize_windows_plain(
+                plain_carry, st, dt, vt, VB, KB))
+        for i in range(len(mdeg)):
+            w = at + i
+            want_tri = int(tri[i])
+            if ovf[i]:
+                recounted += 1
+                want_tri = host_triangles.window_count(
+                    src[w * EB:(w + 1) * EB], dst[w * EB:(w + 1) * EB])
+            want = {"max_degree": int(mdeg[i]),
+                    "num_components": int(ncomp[i]),
+                    "odd_cycle": bool(odd[i]), "triangles": want_tri}
+            require(out[w] == want, "summary window %d: engine %s != plain "
+                    "%s" % (w, out[w], want))
+    for label, a, b in zip(("deg", "labels", "cover"), state["carry"],
+                           plain_carry):
+        require(np.array_equal(a, b.cpu().numpy()),
+                "summary stream: final carry %s differs from plain" % label)
+    oracle, _carry = host_summary.summarize_stream(src[:4 * EB],
+                                                   dst[:4 * EB], EB, VB)
+    require(out[:4] == oracle, "summary stream: first windows %s != numpy "
+            "%s" % (out[:4], oracle))
+
+    repeats = []
+    for _ in range(2):
+        eng.reset()
+        t0 = time.perf_counter()
+        eng.process(src, dst)
+        repeats.append(time.perf_counter() - t0)
+    eng.reset()
+    prof = profile_run(lambda: eng.process(src, dst))
+    # the engine's host work beyond the triangle stream's, timed alone
+    s32, d32 = np.asarray(src, np.int32), np.asarray(dst, np.int32)
+    t0 = time.perf_counter()
+    sa._validate_ids(s32, d32, VB)
+    id_check_ms = 1e3 * (time.perf_counter() - t0)
+    rate = STREAM_EDGES / wall
+    print(json.dumps({"summary_stream": {
+        "edges": STREAM_EDGES, "windows": num_w, "eb": EB, "vb": VB,
+        "kb": eng.kb, "seconds": wall, "edges_per_s": rate,
+        "repeat_seconds": repeats, "id_check_ms": id_check_ms,
+        "plain_overflow_windows": recounted, "last_window": out[-1],
+        "launches": launches,
+        "device": torch.cuda.get_device_name(0)}}))
+    print(json.dumps({"summary_profile": prof}))
+    print("phase summary_stream: ok  %d windows  %.1f edges/s"
+          % (num_w, rate))
+    return launches
+
+
+def profile_run(run) -> dict:
+    """One run() under torch.profiler: device time by name (the
     device-side rows only, so nothing is counted twice), their sum, and
     the device's idle share of the profiled wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -348,7 +612,7 @@ def profile_stream(kern, src, dst) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        kern.count_stream(src, dst)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name = {}
@@ -390,18 +654,24 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     inter = phase_intersect(dev, rng)
     counter = phase_counter(dev)
+    summary = phase_summary(dev)
     launches = phase_stream(dev)
+    summary_launches = phase_summary_stream(dev)
 
     rows = []
-    for name, replaces, res in (
+    for name, replaces, res, n in (
             ("intersect", "gelly_streaming_tpu/ops/pallas_intersect.py:116",
-             inter),
+             inter, launches["intersect"]),
             ("window_counter",
-             "gelly_streaming_tpu/ops/pallas_window.py:748", counter)):
+             "gelly_streaming_tpu/ops/pallas_window.py:748", counter,
+             launches["window_counter"]),
+            ("window_summary",
+             "gelly_streaming_tpu/ops/pallas_window.py:504", summary,
+             summary_launches["window_summary"])):
         rows.append({
             "name": name, "route": "cuda",
             "source": "gelly_streaming_tpu_torch/csrc/%s.cu" % name,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": n,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": None})

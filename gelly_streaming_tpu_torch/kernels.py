@@ -46,6 +46,11 @@ SIGNATURES = {
         "gs_window_tables": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                              _I, _P, _P, _P, _P, _I, _P],
     },
+    "window_summary": {
+        "gs_window_summary": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
+                              _P],
+        "gs_cc_fixpoint": [_P, _I, _P, _P, _LL, _I, _P, _I, _P],
+    },
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}

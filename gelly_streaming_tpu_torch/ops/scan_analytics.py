@@ -1,0 +1,335 @@
+"""The fused summary engine: every analytic of every window from one
+carried state, one device dispatch per chunk of windows.
+
+Port of the JAX package's `ops/scan_analytics.py` (`SummaryEngineBase`
+:173-845, `StreamSummaryEngine` :847-963, `SlidingSummaryEngine`
+:966-1086). The carry (deg[vb+1], labels[vb+1], cover[2(vb+1)]) lives
+on the device across chunks; each chunk of up to MAX_WINDOWS windows
+costs one h2d of its [W, eb] stack, one `WindowSummary` call
+(ops/window_summary.py: the CUDA kernels on a card, the plain PyTorch
+version on the CPU) and one d2h of its [5, W] outputs. Summaries per
+window are cumulative over the stream so far, as the reference's
+continuous aggregates are:
+
+  max_degree      running max degree (SimpleEdgeStream getDegrees)
+  num_components  touched roots (ConnectedComponents)
+  odd_cycle       any odd cycle seen (BipartitenessCheck)
+  triangles       exact count of this window (WindowTriangles)
+
+A window whose hubs outrun the K bucket is recounted exactly by a
+`TriangleWindowKernel` at 4·K.
+
+`state_dict()` has the JAX engine's keys and carry layout, so a
+checkpoint of either package loads into the other.
+
+Not ported yet (ROADMAP.md): the finalize hooks (checkpoint files, WAL,
+latency, provenance, metrics, sanitize, faults), the online autotuner,
+the compact wire and the threaded ingress pipeline; chunks run one after
+another on the caller's thread.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..core.platform import resolve_device
+from . import segment as seg_ops
+from .staging import ChunkStager
+from .triangles import TriangleWindowKernel, default_kb
+from .window_summary import WindowSummary, fresh_carry
+
+__all__ = ["SlidingSummaryEngine", "StreamSummaryEngine",
+           "SummaryEngineBase"]
+
+
+class SummaryEngineBase:
+    """The chunk loop, carried-state reset/snapshot, checkpoint state,
+    the partial-window-must-be-final guard and summary assembly.
+    Subclasses set eb, vb and device and provide `_dispatch` (fold one
+    staged chunk into the carry, returning its outputs as a [5, W] host
+    array: max_degree, num_components, odd, triangles, k_overflow) and
+    `_redo` (exact triangle count of one window)."""
+
+    MAX_WINDOWS = 64
+
+    def reset(self) -> None:
+        self._closed_partial = False
+        self.windows_done = 0   # resume cursor
+        self._carry = self._init_carry()
+
+    def _init_carry(self):
+        return fresh_carry(self.vb, self.device)
+
+    def _to_carry(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.array(a, np.int32)).to(self.device)
+
+    def state(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(degrees[vb], cc_labels[vb], odd[vb]) snapshots."""
+        deg, labels, cover = (x.cpu().numpy().copy() for x in self._carry)
+        odd = cover[:self.vb] == cover[self.vb + 1:2 * self.vb + 1]
+        return deg[:self.vb], labels[:self.vb], odd
+
+    def state_dict(self) -> dict:
+        """The resumable state: the carry as host int32 arrays plus the
+        windows_done cursor, under the JAX engine's keys."""
+        return {
+            "edge_bucket": self.eb,
+            "vertex_bucket": self.vb,
+            "windows_done": int(self.windows_done),
+            "closed_partial": bool(self._closed_partial),
+            "wal_offset": int(self.windows_done) * self.eb,
+            "carry": tuple(x.cpu().numpy().copy() for x in self._carry),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Adopt a state of this package's or the JAX package's engines
+        (an `autotune` entry is ignored). Raises ValueError on other
+        buckets, an inconsistent cursor, or a carry that is not the
+        engines' layout."""
+        if state["edge_bucket"] != self.eb \
+                or state["vertex_bucket"] != self.vb:
+            raise ValueError(
+                "bucket mismatch: checkpoint was taken at eb=%d vb=%d, "
+                "engine runs eb=%d vb=%d; count-based windows are cut "
+                "by eb, so resuming across buckets would shift every "
+                "window boundary" % (state["edge_bucket"],
+                                     state["vertex_bucket"],
+                                     self.eb, self.vb))
+        woff = state.get("wal_offset")
+        if woff is not None and int(woff) > int(state["windows_done"]) \
+                * self.eb:
+            raise ValueError(
+                "checkpoint wal_offset %d exceeds its own window "
+                "coverage (%d windows x eb=%d)" % (
+                    int(woff), int(state["windows_done"]), self.eb))
+        carry = tuple(np.asarray(a) for a in state["carry"])
+        _check_carry(carry, self.vb)
+        self.windows_done = int(state["windows_done"])
+        self._closed_partial = bool(state["closed_partial"])
+        self._carry = tuple(self._to_carry(a) for a in carry)
+
+    def resume_offset(self) -> int:
+        """Edges already folded into the carry: a resumed caller feeds
+        `src[offset:], dst[offset:]`."""
+        return self.windows_done * self.eb
+
+    def warm_fallback(self) -> None:
+        """Build the overflow recount's kernels before a stream needs
+        them."""
+        self._redo(np.array([0]), np.array([1]))
+
+    def _dispatch(self, s, d, valid) -> np.ndarray:
+        raise NotImplementedError
+
+    def _redo(self, src, dst) -> int:
+        raise NotImplementedError
+
+    def process(self, src: np.ndarray, dst: np.ndarray) -> list:
+        """Fold the stream's `edge_bucket`-sized windows; returns one
+        summary dict per window.
+
+        A call whose length is not a multiple of `edge_bucket` closes
+        its partial trailing window (count-based tumbling windows), so it
+        must be the stream's last call: feed mid-stream chunks in
+        edge_bucket multiples. Ids must lie in [0, vertex_bucket)."""
+        src = np.asarray(src, np.int32)
+        dst = np.asarray(dst, np.int32)
+        n = len(src)
+        if n == 0:
+            return []
+        if self._closed_partial:
+            raise ValueError(
+                "a previous process() call closed a partial window "
+                "(length not a multiple of edge_bucket); reset() before "
+                "feeding more of the stream")
+        _validate_ids(src, dst, self.vb)
+        self._closed_partial = n % self.eb != 0
+        num_w, s, d, valid = seg_ops.window_stack(src, dst, self.eb,
+                                                  sentinel=self.vb)
+        out: list = []
+        for at in range(0, num_w, self.MAX_WINDOWS):
+            hi = min(at + self.MAX_WINDOWS, num_w)
+            # a ragged chunk pads its window axis to a power of two with
+            # all-invalid windows, as the JAX engine does: they fold as
+            # no-ops, apart from the cover's sentinel join
+            sc, dc, vc, real = seg_ops.pad_window_chunk(
+                s, d, valid, at, hi, self.MAX_WINDOWS, self.eb, self.vb)
+            res = self._dispatch(sc, dc, vc)
+            self._finalize_summaries(at, res[:, :real], src, dst, out)
+        return out
+
+    def _finalize_summaries(self, at: int, res: np.ndarray, src, dst,
+                            out: list) -> None:
+        """One chunk's [5, real] outputs into summary dicts, each
+        overflowing window's triangles recounted exactly."""
+        mdeg, ncomp, odd, tri, k_ovf = res
+        tri = tri.copy()
+        for w in np.nonzero(k_ovf)[0]:
+            lo = (at + int(w)) * self.eb
+            tri[w] = self._redo(src[lo:lo + self.eb], dst[lo:lo + self.eb])
+        for w in range(res.shape[1]):
+            out.append({"max_degree": int(mdeg[w]),
+                        "num_components": int(ncomp[w]),
+                        "odd_cycle": bool(odd[w]),
+                        "triangles": int(tri[w])})
+        self.windows_done += res.shape[1]
+
+
+class StreamSummaryEngine(SummaryEngineBase):
+    """Carried-state analytics over chunks of windows at fixed buckets
+    (edge_bucket, vertex_bucket, k_bucket), one `WindowSummary` call per
+    MAX_WINDOWS windows. Exact: triangle windows whose hubs overflow K
+    are recounted by a `TriangleWindowKernel` at 4·K.
+
+    `device=None` means the CUDA card and raises when there is none;
+    `device="cpu"` runs the plain PyTorch path. `ingress` takes only
+    the standard wire (None or "standard")."""
+
+    def __init__(self, edge_bucket: int, vertex_bucket: int,
+                 k_bucket: int = 0, device=None, ingress: str = None):
+        if ingress not in (None, "standard"):
+            raise ValueError(
+                "ingress %r is not ported: the port runs the standard "
+                "wire only; the compact wire comes with ROADMAP.md step 5"
+                % (ingress,))
+        self.device = resolve_device(device)
+        self.eb = seg_ops.bucket_size(edge_bucket)
+        self.vb = seg_ops.bucket_size(vertex_bucket)
+        self.kb = seg_ops.bucket_size(
+            k_bucket if k_bucket else default_kb(self.eb))
+        self._summary = WindowSummary(self.vb, self.kb, self.device)
+        self._stage = ChunkStager(self.device)
+        self._tri_fallback = TriangleWindowKernel(
+            self.eb, self.vb, k_bucket=4 * self.kb, device=self.device)
+        self.reset()
+
+    def _dispatch(self, s, d, valid) -> np.ndarray:
+        outs = self._summary(self._carry, *self._stage(s, d, valid))
+        return torch.stack([x.to(torch.int32) for x in outs]).cpu().numpy()
+
+    def _redo(self, src, dst) -> int:
+        return self._tri_fallback.count(src, dst)
+
+
+class SlidingSummaryEngine:
+    """Sliding windows by pane composition (`slide=`): an inner
+    StreamSummaryEngine at edge_bucket=slide folds each edge into its
+    pane once. The cumulative analytics (max_degree, num_components,
+    odd_cycle) read the carry at every pane boundary; the per-window
+    analytic (triangles) recounts each emission over a ring of the last
+    panes_per_window − 1 pane slabs plus the fresh pane, through a
+    TriangleWindowKernel at the full window bucket.
+
+    One summary dict per emission: every `slide` edges, the window over
+    the trailing `edge_bucket` edges (growing at the head of the
+    stream, ragged on a final partial pane). The ring rides
+    state_dict()/load_state_dict()."""
+
+    def __init__(self, edge_bucket: int, vertex_bucket: int,
+                 slide: int, k_bucket: int = 0, device=None):
+        eb = seg_ops.bucket_size(edge_bucket)
+        slide = int(slide)
+        if slide <= 0 or slide > eb or eb % slide \
+                or slide & (slide - 1):
+            raise ValueError(
+                "slide must be a power of two dividing the window "
+                "size (%d), got %d" % (eb, slide))
+        self.eb = eb
+        self.vb = seg_ops.bucket_size(vertex_bucket)
+        self.slide = slide
+        self.panes_per_window = eb // slide
+        self.inner = StreamSummaryEngine(slide, self.vb, k_bucket=k_bucket,
+                                         device=device)
+        self._tri = TriangleWindowKernel(eb, self.vb, k_bucket=k_bucket,
+                                         device=device)
+        self._ring = []   # the last panes_per_window − 1 (src, dst) panes
+
+    @property
+    def windows_done(self) -> int:
+        """Emissions done (the inner engine's pane cursor)."""
+        return self.inner.windows_done
+
+    def reset(self) -> None:
+        self.inner.reset()
+        self._ring = []
+
+    def resume_offset(self) -> int:
+        return self.inner.windows_done * self.slide
+
+    def process(self, src, dst) -> list:
+        """Fold the stream's slide-sized panes; one summary per pane.
+        Mid-stream calls must be multiples of `slide`; a ragged call
+        closes the stream with a final partial emission."""
+        src = np.asarray(src, np.int32)
+        dst = np.asarray(dst, np.int32)
+        summaries = self.inner.process(src, dst)
+        wp, s = self.panes_per_window, self.slide
+        out = []
+        for i, pane_sum in enumerate(summaries):
+            lo, hi = i * s, min((i + 1) * s, len(src))
+            pane = (src[lo:hi], dst[lo:hi])
+            slab = self._ring + [pane]
+            tri = self._tri.count(np.concatenate([p[0] for p in slab]),
+                                  np.concatenate([p[1] for p in slab]))
+            row = dict(pane_sum)
+            row["triangles"] = int(tri)
+            out.append(row)
+            self._ring = slab[-(wp - 1):] if wp > 1 else []
+        return out
+
+    def state_dict(self) -> dict:
+        return {
+            "slide": self.slide,
+            "edge_bucket": self.eb,
+            "vertex_bucket": self.vb,
+            "ring_src": [np.asarray(s) for s, _d in self._ring],
+            "ring_dst": [np.asarray(d) for _s, d in self._ring],
+            "inner": self.inner.state_dict(),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        ck = (int(state["slide"]), int(state["edge_bucket"]),
+              int(state["vertex_bucket"]))
+        if ck != (self.slide, self.eb, self.vb):
+            raise ValueError(
+                "sliding checkpoint was taken at slide=%d eb=%d vb=%d; "
+                "engine runs slide=%d eb=%d vb=%d" % (
+                    ck + (self.slide, self.eb, self.vb)))
+        self._ring = [(np.asarray(s, np.int32), np.asarray(d, np.int32))
+                      for s, d in zip(state["ring_src"],
+                                      state["ring_dst"])]
+        self.inner.load_state_dict(state["inner"])
+
+
+def _validate_ids(src: np.ndarray, dst: np.ndarray, vb: int) -> None:
+    """Raise ValueError for an id outside [0, vb): it would fold into the
+    sentinel's or another vertex's carried state."""
+    bot = int(min(src.min(), dst.min()))
+    top = int(max(src.max(), dst.max()))
+    if bot < 0 or top >= vb:
+        raise ValueError("vertex id %d outside [0, %d) in summary engine "
+                         "input" % (bot if bot < 0 else top, vb))
+
+
+def _check_carry(carry, vb: int) -> None:
+    """A loadable carry: int32-valued deg[vb+1] ≥ 0, and labels[vb+1],
+    cover[2(vb+1)] each pointing every slot at an equal or smaller one
+    (the forest the union-find kernel relies on)."""
+    if len(carry) != 3:
+        raise ValueError("carry must be (deg, labels, cover)")
+    deg, labels, cover = carry
+    for name, a, n in (("deg", deg, vb + 1), ("labels", labels, vb + 1),
+                       ("cover", cover, 2 * (vb + 1))):
+        if a.shape != (n,) or not np.issubdtype(a.dtype, np.integer):
+            raise ValueError("carry %s must be an integer array of %d "
+                             "slots, got %s %s" % (name, n, a.dtype,
+                                                   a.shape))
+    if deg.min() < 0 or deg.max() >= 2 ** 31:
+        raise ValueError("carry deg out of int32 range")
+    for name, a in (("labels", labels), ("cover", cover)):
+        if a.min() < 0 or np.any(a > np.arange(len(a))):
+            raise ValueError("carry %s must point every slot at an equal "
+                             "or smaller slot" % name)

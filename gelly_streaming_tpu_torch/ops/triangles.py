@@ -25,6 +25,7 @@ import torch
 from ..core.platform import resolve_device
 from . import intersect as _intersect
 from . import segment as seg_ops
+from .staging import ChunkStager
 from .window_counter import (WindowCounter, dedupe_and_positions,
                              orient_by_degree)
 
@@ -93,12 +94,12 @@ class TriangleWindowKernel:
     buckets (edge_bucket, vertex_bucket, k_bucket).
 
     The host sends only the raw COO stack of a chunk (9 bytes per slot:
-    int32 src, int32 dst, bool valid) in one copy from a pinned buffer;
-    the device runs the window counter and returns (count, overflow) per
-    window in one copy back. `overflow` > 0 means some vertex's oriented
-    out-degree exceeded k_bucket; that window is recounted exactly up the
-    K ladder (`_escalation_ladder`, 4·K per rung up to kb_max) and, past
-    it, by `triangle_count_sparse`.
+    int32 src, int32 dst, bool valid) in one copy from a pinned buffer
+    (ops/staging.ChunkStager); the device runs the window counter and
+    returns (count, overflow) per window in one copy back. `overflow` > 0
+    means some vertex's oriented out-degree exceeded k_bucket; that
+    window is recounted exactly up the K ladder (`_escalation_ladder`,
+    4·K per rung up to kb_max) and, past it, by `triangle_count_sparse`.
 
     `device=None` means the CUDA card and raises when there is none;
     `device="cpu"` runs the plain PyTorch path.
@@ -115,7 +116,7 @@ class TriangleWindowKernel:
             k_bucket if k_bucket else default_kb(self.eb))
         self.kb_max = seg_ops.bucket_size(2 * math.isqrt(self.eb))
         self._counters = {}
-        self._staging = None   # pinned host buffer of one chunk (cuda)
+        self._stage = ChunkStager(self.device)
 
     def _counter(self, kb: int) -> WindowCounter:
         counter = self._counters.get(kb)
@@ -132,29 +133,6 @@ class TriangleWindowKernel:
             k *= 4
         ks.append(max(self.kb, self.kb_max))
         return ks
-
-    def _stage(self, s: np.ndarray, d: np.ndarray, valid: np.ndarray):
-        """A [W, eb] host stack on the kernel's device: zero-copy views on
-        the CPU; on a card, one non-blocking copy from a pinned buffer
-        that holds src, dst and valid back to back. The buffer is reused,
-        so a caller reads the results of one staged chunk (which
-        synchronises) before staging the next."""
-        if self.device.type == "cpu":
-            return tuple(torch.from_numpy(np.ascontiguousarray(x))
-                         for x in (s, d, valid))
-        w, eb = s.shape
-        n = w * eb
-        if self._staging is None or self._staging.numel() < 9 * n:
-            self._staging = torch.empty(9 * n, dtype=torch.uint8,
-                                        pin_memory=True)
-        host = self._staging[:9 * n].numpy()
-        host[:4 * n].view(np.int32)[:] = s.reshape(-1)
-        host[4 * n:8 * n].view(np.int32)[:] = d.reshape(-1)
-        host[8 * n:].view(np.bool_)[:] = valid.reshape(-1)
-        dev = self._staging[:9 * n].to(self.device, non_blocking=True)
-        return (dev[:4 * n].view(torch.int32).view(w, eb),
-                dev[4 * n:8 * n].view(torch.int32).view(w, eb),
-                dev[8 * n:].view(torch.bool).view(w, eb))
 
     def _count_stack(self, kb: int, s, d, valid) -> np.ndarray:
         """(count, overflow) of a staged [W, eb] stack at K=kb, as one
