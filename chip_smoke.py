@@ -4,13 +4,16 @@ NVIDIA GPU.
 
 Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc, holds each
 against its plain PyTorch version on the card (phases intersect,
-counter, summary), then drives the port's two paths over the bench's
+counter, summary, gnn), then drives the port's paths over the bench's
 north-star stream (make_stream(10_485_760, 65_536, seed=7): 320 Zipf
 windows of 32768 edges): TriangleWindowKernel(32768, 65536).count_stream
-(phase stream) and StreamSummaryEngine(32768, 65536).process (phase
-summary_stream), each with the launch counts set to 0 just before it
-and read just after. Every window of both is checked; each path reports
-edges/s, its launches and where its time goes.
+(phase stream), StreamSummaryEngine(32768, 65536).process (phase
+summary_stream) and GnnSummaryEngine(32768, 65536, feature_dim=64)
+.process (phase gnn_stream), and the one-window count triangle_count
+over dense windows of up to 4096 vertices (phase dense), each with the
+launch counts set to 0 just before it and read just after. Every window
+of every path is checked; each path reports its rate, its launches and
+where its time goes.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -40,9 +43,15 @@ CHUNK = 64                         # MAX_STREAM_WINDOWS
 CLIQUE = 200                       # a window that overflows kb=128
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at the 700 W
 # limit): HBM bytes/s, and the float32 rate outside the tensor cores,
-# taken as the rate of 32-bit scalar operations (compares, adds).
+# taken as the rate of 32-bit scalar operations (compares, adds); the
+# dense tensor-core rates at fp16 (exact for the GNN lattice's products)
+# and at int8 (exact for 0/1 adjacency products).
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+PEAK_FP16_TC_S = 989e12
+PEAK_INT8_TC_S = 1979e12
+GNN_F = 64                         # the GNN stream's feature width
+DENSE_V = 4096                     # the dense path's largest window
 
 
 class SmokeFailure(Exception):
@@ -77,10 +86,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_rate: float = PEAK_OPS_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the scalar rate."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    operations over `ops_rate` (default the scalar rate)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / ops_rate
     if t_bytes >= t_ops:
         return 1e3 * t_bytes, "bytes"
     return 1e3 * t_ops, "operations"
@@ -540,9 +549,9 @@ def phase_summary_stream(dev) -> dict:
     launches = dict(kernels.LAUNCHES)
     num_w = STREAM_EDGES // EB
     require(len(out) == num_w, "%d windows, want %d" % (len(out), num_w))
-    for name, n in launches.items():
-        require(n > 0, "kernel %s was not launched on the summary path"
-                % name)
+    for name in ("intersect", "window_counter", "window_summary"):
+        require(launches[name] > 0, "kernel %s was not launched on the "
+                "summary path" % name)
     state = eng.state_dict()
 
     _w, s, d, v = seg.window_stack(src, dst, EB, sentinel=VB)
@@ -602,6 +611,319 @@ def phase_summary_stream(dev) -> dict:
     return launches
 
 
+def gnn_weights(F: int, lo: int, hi: int, seed: int = 3):
+    """Random snapped weights that keep the slab between saturation and
+    death: each output feature is one input minus another (±1 unit each,
+    so a row whose features all saturate maps to its bias alone), plus a
+    bias of [lo, hi) units."""
+    from gelly_streaming_tpu_torch.ops import gnn_window as gw
+
+    rng = np.random.RandomState(seed)
+    W = np.zeros((F, F))
+    for j in range(F):
+        a, b = rng.choice(F, 2, replace=False)
+        W[a, j], W[b, j] = 1, -1
+    return gw.snap_weights(W / 32, rng.randint(lo, hi, F) / 32, F)
+
+
+def gnn_fixtures():
+    """(name, eb, F, act, (W, b) units, the slab loaded first, the
+    [64, eb] chunk under test), all over VB vertices."""
+    from gelly_streaming_tpu_torch import make_stream
+    from gelly_streaming_tpu_torch.ops import gnn_window as gw
+    from gelly_streaming_tpu_torch.ops import segment as seg
+
+    def zipf(eb, seed=11):
+        src, dst = make_stream(CHUNK * eb, VB, seed=seed)
+        return seg.window_stack(src, dst, eb, sentinel=VB)[1:]
+
+    yield ("zipf F=64 relu", EB, GNN_F, "relu", gnn_weights(GNN_F, -12, -3),
+           gw.default_features(VB, GNN_F, seed=0), zipf(EB))
+    # abs keeps every row with a nonzero feature alive: start from a slab
+    # whose rows are a quarter nonzero, so activity spreads
+    slab = gw.default_features(VB, 16, seed=1)
+    slab[:VB][np.random.default_rng(1).random(VB) > 0.25] = 0
+    yield ("F=16 abs", EB, 16, "abs", gnn_weights(16, 0, 1), slab, zipf(EB))
+    # weight_shift 1; the first window is empty, so it holds a slab whose
+    # sum is above 2^31: the checksum wraps
+    s, d, v = zipf(EB)
+    v[0] = False
+    slab = gw.default_features(VB, 128, seed=2)
+    slab[:VB] += 300
+    yield ("F=128 identity", EB, 128, "identity", gnn_weights(128, -6, 1),
+           slab, (s, d, v))
+    yield ("eb=65536", 2 * EB, 32, "relu", gnn_weights(32, -24, -7),
+           gw.default_features(VB, 32, seed=3), zipf(2 * EB, seed=12))
+    # ragged: an empty first window over a slab whose sentinel row is
+    # nonzero (the held checksum counts it), a self-loop window, a
+    # partial window, then padded windows
+    src, dst = make_stream(40 * EB, VB, seed=13)
+    _w, s, d, v = seg.window_stack(src, dst, EB, sentinel=VB)
+    v[0] = False
+    s[5] = d[5] = np.arange(EB) % VB
+    v[36, EB // 3:] = False
+    slab = gw.default_features(VB, GNN_F, seed=4)
+    slab[VB] = 5
+    sc, dc, vc, n = seg.pad_window_chunk(s, d, v, 0, 37, CHUNK, EB, VB)
+    require(n == 37 and sc.shape[0] == CHUNK, "gnn ragged fixture shape")
+    yield ("ragged", EB, GNN_F, "relu", gnn_weights(GNN_F, -12, -3), slab,
+           (sc, dc, vc))
+
+
+def phase_gnn(dev) -> dict:
+    """The GNN round kernel vs its plain version on 64-window chunks at
+    vb=65536 from a loaded slab: F=64 relu on Zipf windows, F=16 abs,
+    F=128 identity (weight_shift 1, a wrapping checksum), eb=65536
+    (agg_shift 1) and a ragged chunk; slab and all 4×W sums equal. Then
+    times of the whole call and the plain version at F=64."""
+    from gelly_streaming_tpu_torch.ops import gnn_round as gr
+
+    err = 0
+    timed = None
+    for name, eb, F, act, (W, b), slab, chunk in gnn_fixtures():
+        st, dt, vt = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                      for x in chunk)
+        Wt, bt = torch.from_numpy(W).to(dev), torch.from_numpy(b).to(dev)
+        h0 = torch.from_numpy(slab).to(dev)
+        h, ph = h0.clone(), h0.clone()
+        sums = torch.empty(4, CHUNK, dtype=torch.int32, device=dev)
+        psums = torch.empty_like(sums)
+        rnd = gr.GnnRound(VB, F, h.device)
+        rnd(h, Wt, bt, st, dt, vt, act, sums)
+        gr.gnn_rounds_plain(ph, Wt, bt, st, dt, vt, act, psums)
+        torch.cuda.synchronize()
+        require(torch.equal(h, ph), "gnn %s: slab kernel != plain (max "
+                "diff %g)" % (name, float((h - ph).abs().max())))
+        got, want = sums.cpu().numpy(), psums.cpu().numpy()
+        require(np.array_equal(got, want), "gnn %s: sums kernel %s != "
+                "plain %s" % (name, got, want))
+        err = max(err, int(np.abs(got.astype(np.int64) - want).max()))
+        maxf, active, csum, nmsg = want
+        require((maxf < 511).any() and len(set(active.tolist())) > 1,
+                "gnn %s: the fixture saturates or dies out: max_feat %s "
+                "active %s" % (name, maxf, active))
+        if name == "F=128 identity":
+            exact = int(slab.astype(np.int64).sum())
+            require(exact >= 2 ** 31 and csum[0] == exact - 2 ** 32
+                    and nmsg[0] == 0,
+                    "gnn %s: held checksum %d, exact %d" % (name, csum[0],
+                                                            exact))
+        if name == "ragged":
+            held = int(slab.astype(np.int64).sum())
+            require(csum[0] == held and nmsg[0] == 0 and nmsg[5] == EB
+                    and nmsg[36] == EB // 3 and (nmsg[37:] == 0).all()
+                    and (csum[37:] == csum[36]).all(),
+                    "gnn ragged: hold/loops/padding %s %s" % (csum, nmsg))
+        print("phase gnn %s: ok  max_feat %d..%d  active %d..%d  "
+              "checksum %d..%d" % (name, maxf.min(), maxf.max(),
+                                   active.min(), active.max(), csum.min(),
+                                   csum.max()))
+        if name == "zipf F=64 relu":
+            timed = (rnd, h, Wt, bt, st, dt, vt, act, sums)
+
+    rnd, h, Wt, bt, st, dt, vt, act, sums = timed
+    ms = cuda_ms(lambda: rnd(h, Wt, bt, st, dt, vt, act, sums), 10)
+    plain_ms = cuda_ms(lambda: gr.gnn_rounds_plain(
+        h, Wt, bt, st, dt, vt, act, sums), 2)
+    F = GNN_F
+    # each input read once, each output written once: the edge slab, the
+    # feature slab in and out (16.8 MB: it and the aggregate stay in L2
+    # across the chunk's windows), W and b, the [4, W] sums
+    nbytes = CHUNK * 9 * EB + 2 * 4 * (VB + 1) * F + 4 * F * (F + 1) \
+        + 16 * CHUNK
+    ops = CHUNK * 2 * (VB + 1) * F * F
+    b_ms, b_by = bound(nbytes, ops, PEAK_FP16_TC_S)
+    print("phase gnn: ok  kernel %.3f ms/chunk  plain %.3f ms/chunk  "
+          "(%d windows, eb=%d, vb=%d, F=%d)" % (ms, plain_ms, CHUNK, EB, VB,
+                                                F))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err}
+
+
+def phase_gnn_stream(dev) -> dict:
+    """The GNN engine's main path: GnnSummaryEngine(32768, 65536,
+    feature_dim=64).process over the 320-window stream from
+    default_features(vb, 64, seed=0) with fixed random snapped weights;
+    every window against the plain round on the card, the first four
+    against the numpy twin GnnHostEngine, the final slab against the
+    plain one, the kernel's launches counted."""
+    from gelly_streaming_tpu_torch import (GnnHostEngine, GnnSummaryEngine,
+                                           kernels, make_stream)
+    from gelly_streaming_tpu_torch.ops import gnn_round as gr
+    from gelly_streaming_tpu_torch.ops import gnn_window as gw
+
+    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    W, b = gnn_weights(GNN_F, -12, -3)
+    slab = gw.default_features(VB, GNN_F, seed=0)
+    eng = GnnSummaryEngine(EB, VB, feature_dim=GNN_F)   # device=None
+    require(eng.device.type == "cuda", "GNN engine not on the card")
+    eng.set_weights(W / 32, b / 32)
+    require(np.array_equal(eng.weights()[0], W), "weights not kept")
+
+    def start():
+        eng.reset()
+        eng.load_feature_units(slab)
+
+    start()
+    eng.process(src[:CHUNK * EB], dst[:CHUNK * EB])     # warm-up
+    start()
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.process(src, dst)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    num_w = STREAM_EDGES // EB
+    require(len(out) == num_w, "%d windows, want %d" % (len(out), num_w))
+    require(launches["gnn_round"] > 0,
+            "kernel gnn_round was not launched on the GNN path")
+    final = eng.state_dict()["carry"][0]
+
+    h = torch.from_numpy(slab).to(dev)
+    Wt, bt = torch.from_numpy(W).to(dev), torch.from_numpy(b).to(dev)
+    for w in range(num_w):
+        s, d = (torch.from_numpy(x[w * EB:(w + 1) * EB]).to(dev)
+                for x in (src, dst))
+        v = torch.ones(EB, dtype=torch.bool, device=dev)
+        h, outs = gr.gnn_round_plain(h, Wt, bt, s, d, v, EB, "relu")
+        want = dict(zip(("max_feat", "active_vertices", "feat_checksum",
+                         "msg_edges"), (int(x) for x in outs)))
+        require(out[w] == want, "gnn stream window %d: engine %s != plain "
+                "%s" % (w, out[w], want))
+    require(np.array_equal(final, h.cpu().numpy()),
+            "gnn stream: final slab differs from plain")
+    twin = GnnHostEngine(EB, VB, feature_dim=GNN_F)
+    twin.set_weights(W / 32, b / 32)
+    twin.load_feature_units(slab)
+    oracle = twin.process(src[:4 * EB], dst[:4 * EB])
+    require(out[:4] == oracle, "gnn stream: first windows %s != numpy %s"
+            % (out[:4], oracle))
+    maxf = [o["max_feat"] for o in out]
+    active = [o["active_vertices"] for o in out]
+    require(max(maxf) < 511 and len(set(active)) > 1 and active[-1] > 0,
+            "gnn stream saturates or dies out: max_feat %s, active %s"
+            % (maxf, active))
+
+    repeats = []
+    for _ in range(2):
+        start()
+        t0 = time.perf_counter()
+        eng.process(src, dst)
+        repeats.append(time.perf_counter() - t0)
+    start()
+    prof = profile_run(lambda: eng.process(src, dst))
+    rate = STREAM_EDGES / wall
+    print(json.dumps({"gnn_stream": {
+        "edges": STREAM_EDGES, "windows": num_w, "eb": EB, "vb": VB,
+        "feature_dim": GNN_F, "seconds": wall, "edges_per_s": rate,
+        "edge_features_per_s": rate * GNN_F, "repeat_seconds": repeats,
+        "max_feat": [min(maxf), max(maxf)],
+        "active_vertices": [min(active), max(active)],
+        "last_window": out[-1], "launches": launches,
+        "device": torch.cuda.get_device_name(0)}}))
+    print(json.dumps({"gnn_profile": prof}))
+    print("phase gnn_stream: ok  %d windows  %.1f edges/s  %.4g "
+          "edge-features/s" % (num_w, rate, rate * GNN_F))
+    return launches
+
+
+def dense_windows():
+    """(name, src, dst, V): the windows phase dense counts."""
+    from gelly_streaming_tpu_torch import make_stream
+
+    src, dst = make_stream(EB, DENSE_V, seed=21)
+    yield "zipf window", src, dst, DENSE_V
+    rng = np.random.default_rng(22)
+    for name, v, p in (("random p=0.05", DENSE_V, 0.05),
+                       ("V=1000", 1000, 0.05)):
+        iu, ju = np.triu_indices(v, k=1)
+        keep = rng.random(iu.size) < p
+        yield name, iu[keep], ju[keep], v
+    yield "empty", np.zeros(0, np.int64), np.zeros(0, np.int64), 256
+    yield "self-loops", np.arange(200), np.arange(200), 256
+    s, d = np.array([0, 1, 2, 1, 2, 0]), np.array([1, 2, 0, 0, 1, 2])
+    yield "duplicates", np.tile(s, 50), np.tile(d, 50), 256
+
+
+def phase_dense(dev):
+    """The dense path: triangle_count over dense windows (Zipf, random
+    p=0.05 at V=4096, V=1000, empty, self-loop-only, duplicates) with the
+    launch counts set to 0 just before and read just after, each count
+    equal to triangle_count_sparse on the card and to the numpy oracle;
+    the switch to the sparse route past 4096 vertices; then the kernel's
+    partials against the plain ones on every window, and times at V=1024
+    and V=4096 beside torch.mm alone."""
+    from gelly_streaming_tpu_torch import kernels, triangle_count
+    from gelly_streaming_tpu_torch.ops import dense_triangles as dt
+    from gelly_streaming_tpu_torch.ops import host_triangles
+    from gelly_streaming_tpu_torch.ops import triangles as tri
+
+    windows = list(dense_windows())
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    counts = [triangle_count(s, d, v) for _n, s, d, v in windows]
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    require(launches["dense_triangles"] == len(windows)
+            and launches["intersect"] == 0,
+            "dense path launches %s" % launches)
+    for (name, s, d, v), got in zip(windows, counts):
+        sparse = tri.triangle_count_sparse(s, d, v)
+        oracle = host_triangles.window_count(s, d)
+        require(got == sparse == oracle, "dense %s: kernel %d, sparse %d, "
+                "numpy %d" % (name, got, sparse, oracle))
+    require(counts[1] > 10 ** 6 and counts[3:] == [0, 0, 1],
+            "dense fixtures: counts %s" % counts)
+
+    # the dispatcher's switch: dense at 4096 vertices, sparse at 4097
+    _n, s, d, _v = windows[0]
+    for v, route, other in ((DENSE_V, "dense_triangles", "intersect"),
+                            (DENSE_V + 1, "intersect", "dense_triangles")):
+        before = dict(kernels.LAUNCHES)
+        require(triangle_count(s, d, v) == counts[0],
+                "triangle_count at V=%d" % v)
+        require(kernels.LAUNCHES[route] > before[route]
+                and kernels.LAUNCHES[other] == before[other],
+                "triangle_count at V=%d did not take the %s route"
+                % (v, route))
+
+    err = 0
+    for name, s, d, v in windows:
+        a = dt.adjacency(*(torch.from_numpy(np.asarray(x, np.int64))
+                           .to(dev) for x in (s, d)), v)
+        got, want = dt.six_t_partials(a), dt.six_t_partials_plain(a)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), "dense %s: partials kernel != "
+                "plain" % name)
+        err = max(err, float((got - want).abs().max()))
+
+    times = {}
+    for v in (1024, DENSE_V):
+        iu, ju = np.triu_indices(v, k=1)
+        keep = np.random.default_rng(v).random(iu.size) < 0.05
+        a = dt.adjacency(*(torch.from_numpy(x[keep]).to(dev)
+                           for x in (iu, ju)), v)
+        times[v] = {"ms": cuda_ms(lambda: dt.six_t_partials(a), 10),
+                    "plain_ms": cuda_ms(lambda: dt.six_t_partials_plain(a),
+                                        10),
+                    "mm_ms": cuda_ms(lambda: torch.mm(a, a), 10)}
+    vp = DENSE_V
+    b_ms, b_by = bound(vp * vp * 4 + vp * vp // 128 * 4, 2 * vp ** 3,
+                       PEAK_INT8_TC_S)
+    print(json.dumps({"dense": {
+        "windows": [(n, v, c) for (n, _s, _d, v), c in zip(windows, counts)],
+        "seconds": wall, "launches": launches, "times": times,
+        "device": torch.cuda.get_device_name(0)}}))
+    print("phase dense: ok  %d windows  kernel %.3f ms  plain %.3f ms  "
+          "torch.mm %.3f ms at V=%d" % (len(windows), times[vp]["ms"],
+                                         times[vp]["plain_ms"],
+                                         times[vp]["mm_ms"], vp))
+    return {"ms": times[vp]["ms"], "plain_ms": times[vp]["plain_ms"],
+            "mm_ms": times[vp]["mm_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err}, launches
+
+
 def profile_run(run) -> dict:
     """One run() under torch.profiler: device time by name (the
     device-side rows only, so nothing is counted twice), their sum, and
@@ -655,19 +977,27 @@ def main() -> int:
     inter = phase_intersect(dev, rng)
     counter = phase_counter(dev)
     summary = phase_summary(dev)
+    gnn = phase_gnn(dev)
     launches = phase_stream(dev)
     summary_launches = phase_summary_stream(dev)
+    gnn_launches = phase_gnn_stream(dev)
+    dense, dense_launches = phase_dense(dev)
 
     rows = []
     for name, replaces, res, n in (
-            ("intersect", "gelly_streaming_tpu/ops/pallas_intersect.py:116",
+            ("intersect", "gelly_streaming_tpu/ops/pallas_intersect.py:118",
              inter, launches["intersect"]),
             ("window_counter",
              "gelly_streaming_tpu/ops/pallas_window.py:748", counter,
              launches["window_counter"]),
             ("window_summary",
              "gelly_streaming_tpu/ops/pallas_window.py:504", summary,
-             summary_launches["window_summary"])):
+             summary_launches["window_summary"]),
+            ("gnn_round", "gelly_streaming_tpu/ops/pallas_window.py:1099",
+             gnn, gnn_launches["gnn_round"]),
+            ("dense_triangles",
+             "gelly_streaming_tpu/ops/pallas_triangles.py:58", dense,
+             dense_launches["dense_triangles"])):
         rows.append({
             "name": name, "route": "cuda",
             "source": "gelly_streaming_tpu_torch/csrc/%s.cu" % name,

@@ -2,25 +2,31 @@
 gelly_streaming_tpu for one NVIDIA H100.
 
 It runs the exact per-window triangle count over an edge stream
-(`TriangleWindowKernel.count_stream`) and the fused summary engine
+(`TriangleWindowKernel.count_stream`), the fused summary engine
 (`StreamSummaryEngine.process`: carried degrees, connected components,
-bipartiteness and triangles per window, and its sliding form) through
+bipartiteness and triangles per window, and its sliding form), the
+windowed GNN engine (`GnnSummaryEngine.process`: one exact GCN round per
+window, with `GnnHostEngine` its numpy twin) and the one-window count
+`triangle_count` (a dense contraction up to 4096 vertices) through
 hand-written CUDA kernels (`csrc/`, built by `kernels.py` at first
 use). It imports torch and numpy, never JAX and nothing of the JAX
 package. Entry points run on the card unless the caller passes
 `device="cpu"`, which runs each kernel's plain PyTorch version.
 
 Layers: core/ (device selection), ops/ (window layout and staging, the
-intersect, window-counter and window-summary kernels' wrappers, the
-union-find, the triangle stream, the summary engines, the numpy
-oracles), utils/ (synthetic streams), kernels.py + csrc/ (CUDA build and
-binding).
+intersect, window-counter, window-summary, GNN-round and dense-triangle
+kernels' wrappers, the union-find, the triangle stream and dispatcher,
+the summary and GNN engines, the numpy oracles), utils/ (synthetic
+streams), kernels.py + csrc/ (CUDA build and binding).
 """
 
 from .core.platform import resolve_device
+from .ops.gnn_window import GnnHostEngine, GnnSummaryEngine
 from .ops.scan_analytics import SlidingSummaryEngine, StreamSummaryEngine
-from .ops.triangles import TriangleWindowKernel
+from .ops.triangles import (TriangleWindowKernel, triangle_count,
+                            triangle_count_dense)
 from .utils.streams import make_stream
 
-__all__ = ["SlidingSummaryEngine", "StreamSummaryEngine",
-           "TriangleWindowKernel", "make_stream", "resolve_device"]
+__all__ = ["GnnHostEngine", "GnnSummaryEngine", "SlidingSummaryEngine",
+           "StreamSummaryEngine", "TriangleWindowKernel", "make_stream",
+           "resolve_device", "triangle_count", "triangle_count_dense"]

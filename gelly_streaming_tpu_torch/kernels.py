@@ -51,6 +51,13 @@ SIGNATURES = {
                               _P],
         "gs_cc_fixpoint": [_P, _I, _P, _P, _LL, _I, _P, _I, _P],
     },
+    "gnn_round": {
+        "gs_gnn_rounds": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P, _P, _I, _P],
+    },
+    "dense_triangles": {
+        "gs_six_t_partials": [_P, _I, _P, _I, _P],
+    },
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}

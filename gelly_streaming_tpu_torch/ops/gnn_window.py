@@ -1,0 +1,328 @@
+"""Windowed GNN message passing: one exact GCN round per tumbling window
+against a carried [vb+1, F] feature slab.
+
+Port of the JAX package's `ops/gnn_window.py` (DESIGN.md §23 there):
+the lattice helpers (:79-169), `GnnEngineBase` (:268-420),
+`GnnSummaryEngine` (:422-472) and the numpy twin `GnnHostEngine`
+(:528-608). Each chunk of up to MAX_WINDOWS windows costs one h2d of its
+[W, eb] stack, one `gnn_round.GnnRound` call (the CUDA kernel on a
+card, the plain PyTorch version on the CPU) and one d2h of its [4, W]
+summaries:
+
+  max_feat         largest feature of rows [:vb], in lattice units
+  active_vertices  rows of [:vb] with a feature > 0
+  feat_checksum    wrapping int32 sum of the whole slab (row vb too)
+  msg_edges        valid slots of the window (messages sent)
+
+Exactness: features live on the 2^-5 grid as integer units in
+[0, UNIT_CAP]; weights are snapped to the same grid with |W| ≤
+weight_cap(F), so |p·W| < 2^24 and every intermediate is an integer in
+float32; a window's aggregate stays below 2^24 by `agg_shift(eb)`.
+Summation order is then free, and the port is bit-equal to the JAX
+package and to `GnnHostEngine`. A window with no valid slot holds the
+slab (padded windows depend on it). Messages flow src → dst, one per
+valid slot: self-loops and duplicates each send one.
+
+`state_dict()` has the JAX engine's keys and layout (carry = (h,) plus a
+`gnn` section with feat_dim, act and the snapped weights), so a
+checkpoint of either package loads into the other.
+
+Not ported yet (ROADMAP.md): `GnnResidentEngine` (step 8),
+`build_gnn_cohort_scan` (step 11), the finalize hooks (cost model,
+metrics, latency, provenance; step 10) and the GS_GNN_* knobs: the
+engines take feature_dim and activation as arguments.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.platform import resolve_device
+from . import segment as seg_ops
+from .gnn_round import (ACTIVATIONS, AGG_EXACT_LOG2, UNIT_CAP, GnnRound,
+                        agg_shift, gnn_round_plain)
+from .scan_analytics import SummaryEngineBase, _to_host
+from .staging import ChunkStager
+
+__all__ = ["AGG_EXACT_LOG2", "GnnEngineBase", "GnnHostEngine",
+           "GnnSummaryEngine", "MATMUL_EXACT_F", "Q_BITS", "UNIT_CAP",
+           "agg_shift", "default_features", "default_weights",
+           "gnn_round_plain", "snap_features", "snap_weights",
+           "weight_cap", "weight_shift"]
+
+Q_BITS = 5                    # storage grid 2^-Q_BITS (units of 1/32)
+MATMUL_EXACT_F = 64           # F ≤ 64 dots exactly at full weight width
+
+_ACTS_NP = {
+    "relu": lambda z: np.maximum(z, 0.0),
+    "abs": np.abs,
+    "identity": lambda z: z,
+}
+
+
+def weight_shift(F: int) -> int:
+    """Weight-grid coarsening for wide feature dims: F ≤ 64 keeps the
+    full ±512-unit weight range; each doubling beyond halves the weight
+    cap so |P·W| stays under 2^24."""
+    return max(0, (int(F) - 1).bit_length() - 6)
+
+
+def weight_cap(F: int) -> int:
+    return max(1, (UNIT_CAP + 1) >> weight_shift(F))
+
+
+def snap_weights(W, b, F: int):
+    """Snap real-valued weights onto the lattice: round to the 2^-5
+    grid, clip to the F-derived cap. Returns (W_units, b_units) as
+    integer-valued float32 arrays."""
+    cap = float(weight_cap(F))
+    wu = np.clip(np.rint(np.asarray(W, np.float64) * (1 << Q_BITS)),
+                 -cap, cap).astype(np.float32)
+    bu = np.clip(np.rint(np.asarray(b, np.float64) * (1 << Q_BITS)),
+                 -cap, cap).astype(np.float32)
+    if wu.shape != (F, F) or bu.shape != (F,):
+        raise ValueError(
+            "GNN weights must be W [F, F] and b [F] at F=%d; got %s "
+            "and %s" % (F, wu.shape, bu.shape))
+    return wu, bu
+
+
+def snap_features(feats, vb: int, F: int) -> np.ndarray:
+    """Snap real-valued per-vertex features onto the storage lattice:
+    2^-5 grid, clipped to [0, UNIT_CAP] units. Accepts [n, F] for
+    n ≤ vb; missing rows stay zero."""
+    f = np.asarray(feats, np.float64)
+    if f.ndim != 2 or f.shape[1] != F or f.shape[0] > vb:
+        raise ValueError(
+            "features must be [n ≤ vb=%d, F=%d]; got %s"
+            % (vb, F, f.shape))
+    units = np.clip(np.rint(f * (1 << Q_BITS)), 0,
+                    UNIT_CAP).astype(np.float32)
+    slab = np.zeros((vb + 1, F), np.float32)
+    slab[:units.shape[0]] = units
+    return slab
+
+
+def default_features(vb: int, F: int, seed: int = 0) -> np.ndarray:
+    """Deterministic small-integer feature slab: units in [0, 8)."""
+    rng = np.random.RandomState(seed)
+    slab = np.zeros((vb + 1, F), np.float32)
+    slab[:vb] = rng.randint(0, 8, size=(vb, F)).astype(np.float32)
+    return slab
+
+
+def default_weights(F: int):
+    """Identity layer at value 1.0 (32 lattice units), zero bias."""
+    return np.eye(F, dtype=np.float32), np.zeros(F, np.float32)
+
+
+def _wrap_i32(total) -> np.ndarray:
+    """Two's-complement int32 wrap of an exact int64 sum."""
+    return np.asarray(total, np.int64).astype(np.int32)
+
+
+class GnnEngineBase(SummaryEngineBase):
+    """The GNN engines' shared part over SummaryEngineBase's chunk loop:
+    the [vb+1, F] float32 feature-slab carry, snapped weights, the GNN
+    summary dicts and the checkpoint layout (carry + `gnn` section).
+    Subclasses set device (or none) and provide `_dispatch`, returning a
+    chunk's [4, W] summaries."""
+
+    def _configure(self, edge_bucket: int, vertex_bucket: int,
+                   feature_dim: int, activation: str) -> None:
+        self.eb = seg_ops.bucket_size(edge_bucket)
+        self.vb = seg_ops.bucket_size(vertex_bucket)
+        self.F = int(feature_dim)
+        self.act = str(activation)
+        if self.act not in ACTIVATIONS:
+            raise ValueError(
+                "unknown GNN activation %r (exact-parity choices: %s)"
+                % (self.act, sorted(ACTIVATIONS)))
+        if not 1 <= self.F <= 256:
+            raise ValueError("feature_dim %d out of range [1, 256]"
+                             % self.F)
+        self._w_units, self._b_units = snap_weights(
+            *default_weights(self.F), self.F)
+
+    # -- weights / features -------------------------------------------
+    def set_weights(self, W, b=None) -> None:
+        """Adopt a dense-update layer, snapped onto the lattice."""
+        if b is None:
+            b = np.zeros(self.F, np.float32)
+        self._w_units, self._b_units = snap_weights(W, b, self.F)
+        self._weights_changed()
+
+    def _weights_changed(self) -> None:
+        """Device engines refresh their device copies of the weights."""
+
+    def weights(self):
+        """(W_units, b_units): the snapped lattice representation."""
+        return self._w_units.copy(), self._b_units.copy()
+
+    def load_features(self, feats) -> None:
+        """Seed the feature slab from real values (snapped), at a window
+        boundary."""
+        self._carry = (self._to_carry(snap_features(feats, self.vb,
+                                                    self.F)),)
+
+    def load_feature_units(self, slab) -> None:
+        """Adopt a [vb+1, F] slab of lattice units as it is."""
+        slab = np.asarray(slab, np.float32)
+        if slab.shape != (self.vb + 1, self.F):
+            raise ValueError("unit slab must be [vb+1=%d, F=%d]; got %s"
+                             % (self.vb + 1, self.F, slab.shape))
+        self._carry = (self._to_carry(slab),)
+
+    # -- carry / checkpoint -------------------------------------------
+    def _init_carry(self):
+        return (self._to_carry(np.zeros((self.vb + 1, self.F),
+                                        np.float32)),)
+
+    def _check_carry(self, carry) -> None:
+        if len(carry) != 1 or carry[0].shape != (self.vb + 1, self.F) \
+                or not np.issubdtype(carry[0].dtype, np.floating):
+            raise ValueError(
+                "carry must be (h,) with h a float [vb+1=%d, F=%d] slab, "
+                "got %s" % (self.vb + 1, self.F,
+                            [(a.dtype, a.shape) for a in carry]))
+
+    def state(self) -> np.ndarray:
+        """[vb, F] feature snapshot in lattice units."""
+        return _to_host(self._carry[0])[:self.vb]
+
+    def state_dict(self) -> dict:
+        state = super().state_dict()
+        state["gnn"] = {
+            "feat_dim": self.F,
+            "act": self.act,
+            "weights": self._w_units.copy(),
+            "bias": self._b_units.copy(),
+        }
+        return state
+
+    def load_state_dict(self, state: dict) -> None:
+        g = state.get("gnn") or {}
+        if int(g.get("feat_dim", self.F)) != self.F:
+            raise ValueError(
+                "feature-width mismatch: checkpoint carries F=%s, engine "
+                "runs F=%d" % (g.get("feat_dim"), self.F))
+        act = g.get("act")
+        if act is not None and act != self.act:
+            raise ValueError(
+                "activation mismatch: checkpoint was folded with act=%r, "
+                "engine runs act=%r" % (act, self.act))
+        super().load_state_dict(state)
+        if g.get("weights") is not None:
+            self._w_units, self._b_units = (
+                np.asarray(g["weights"], np.float32).copy(),
+                np.asarray(g["bias"], np.float32).copy())
+            self._weights_changed()
+
+    # -- summary assembly ---------------------------------------------
+    def _finalize_summaries(self, at: int, res: np.ndarray, src, dst,
+                            out: list) -> None:
+        for maxf, active, csum, nmsg in res.T:
+            out.append({"max_feat": int(maxf),
+                        "active_vertices": int(active),
+                        "feat_checksum": int(csum),
+                        "msg_edges": int(nmsg)})
+        self.windows_done += res.shape[1]
+
+    def warm_fallback(self) -> None:
+        """No recount path to warm."""
+
+
+class GnnSummaryEngine(GnnEngineBase):
+    """Windowed GNN rounds over chunks of windows at fixed buckets
+    (edge_bucket, vertex_bucket) and feature width, one `GnnRound` call
+    per MAX_WINDOWS windows against the device-resident slab (the round
+    owns the kernel's aggregate scratch).
+
+    `device=None` means the CUDA card and raises when there is none;
+    `device="cpu"` runs the plain PyTorch path."""
+
+    def __init__(self, edge_bucket: int, vertex_bucket: int,
+                 feature_dim: int = 16, activation: str = "relu",
+                 device=None):
+        self._configure(edge_bucket, vertex_bucket, feature_dim,
+                        activation)
+        self.device = resolve_device(device)
+        self._stage = ChunkStager(self.device)
+        self._round = GnnRound(self.vb, self.F, self.device)
+        self._weights_changed()
+        self.reset()
+
+    def _to_carry(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.array(a, np.float32)).to(self.device)
+
+    def _weights_changed(self) -> None:
+        self._wdev = torch.from_numpy(self._w_units).to(self.device)
+        self._bdev = torch.from_numpy(self._b_units).to(self.device)
+
+    def _dispatch(self, s, d, valid) -> np.ndarray:
+        src, dst, v = self._stage(s, d, valid)
+        sums = torch.empty(4, src.shape[0], dtype=torch.int32,
+                           device=self.device)
+        self._round(self._carry[0], self._wdev, self._bdev, src, dst, v,
+                    self.act, sums)
+        return sums.cpu().numpy()
+
+
+class GnnHostEngine(GnnEngineBase):
+    """Numpy twin of the GNN engine: the same chunk loop, window cuts,
+    checkpoint layout and summary dicts, each window's round replayed in
+    numpy (`np.add.at` aggregation, float32 product: exact by the
+    lattice argument), with no torch device. The card's oracle where the
+    JAX package is not installed. Loads a GnnSummaryEngine checkpoint of
+    equal buckets and feature width."""
+
+    def __init__(self, edge_bucket: int, vertex_bucket: int,
+                 feature_dim: int = 16, activation: str = "relu"):
+        self._configure(edge_bucket, vertex_bucket, feature_dim,
+                        activation)
+        self.reset()
+
+    @classmethod
+    def from_state(cls, state: dict) -> "GnnHostEngine":
+        """A twin built from a GNN engine checkpoint, and adopting it."""
+        g = state.get("gnn") or {}
+        twin = cls(int(state["edge_bucket"]), int(state["vertex_bucket"]),
+                   feature_dim=int(g.get("feat_dim") or 16),
+                   activation=g.get("act") or "relu")
+        twin.load_state_dict(state)
+        return twin
+
+    def _to_carry(self, a) -> np.ndarray:
+        return np.array(a, np.float32)
+
+    def _dispatch(self, s, d, valid) -> np.ndarray:
+        vb, F = self.vb, self.F
+        sh = agg_shift(self.eb)
+        sc = np.float32(2.0 ** -sh)
+        cap = np.float32(UNIT_CAP)
+        actf = _ACTS_NP[self.act]
+        (h,) = self._carry
+        h = h.copy()
+        sums = np.zeros((4, s.shape[0]), np.int32)
+        for i in range(s.shape[0]):
+            v = valid[i]
+            if v.any():
+                si = np.where(v, s[i], vb).astype(np.int64)
+                di = np.where(v, d[i], vb).astype(np.int64)
+                msgs = h[si]
+                if sh:
+                    msgs = np.floor(msgs * sc)
+                m = np.zeros((vb + 1, F), np.float32)
+                np.add.at(m, di, msgs)
+                p = np.minimum(h + np.minimum(m, cap), cap)
+                z = p @ self._w_units + self._b_units
+                h = np.clip(actf(z), 0.0, cap).astype(np.float32)
+                h[vb] = 0.0
+            # else: an empty window holds the slab
+            sums[0, i] = np.int32(h[:vb].max())
+            sums[1, i] = np.int32(np.sum(np.any(h[:vb] > 0, axis=1)))
+            sums[2, i] = _wrap_i32(h.astype(np.int64).sum())
+            sums[3, i] = np.int32(np.sum(v))
+        self._carry = (h,)
+        return sums

@@ -46,12 +46,15 @@ __all__ = ["SlidingSummaryEngine", "StreamSummaryEngine",
 
 
 class SummaryEngineBase:
-    """The chunk loop, carried-state reset/snapshot, checkpoint state,
-    the partial-window-must-be-final guard and summary assembly.
-    Subclasses set eb, vb and device and provide `_dispatch` (fold one
-    staged chunk into the carry, returning its outputs as a [5, W] host
-    array: max_degree, num_components, odd, triangles, k_overflow) and
-    `_redo` (exact triangle count of one window)."""
+    """The chunk loop, the resume cursor, the checkpoint keys and the
+    partial-window-must-be-final guard, for any carry. Subclasses set
+    eb and vb and provide the carry's hooks: `_init_carry` (the fresh
+    carry, a tuple), `_to_carry` (one host leaf onto the engine),
+    `_check_carry` (raise ValueError for a host carry the engine cannot
+    load), `_dispatch` (fold one staged chunk into the carry, returning
+    its outputs as an [R, W] host array, R chosen by the engine) and
+    `_finalize_summaries` (one chunk's outputs into summary dicts).
+    `StreamSummaryEngine` below and ops/gnn_window.py are the two."""
 
     MAX_WINDOWS = 64
 
@@ -60,20 +63,8 @@ class SummaryEngineBase:
         self.windows_done = 0   # resume cursor
         self._carry = self._init_carry()
 
-    def _init_carry(self):
-        return fresh_carry(self.vb, self.device)
-
-    def _to_carry(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.array(a, np.int32)).to(self.device)
-
-    def state(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """(degrees[vb], cc_labels[vb], odd[vb]) snapshots."""
-        deg, labels, cover = (x.cpu().numpy().copy() for x in self._carry)
-        odd = cover[:self.vb] == cover[self.vb + 1:2 * self.vb + 1]
-        return deg[:self.vb], labels[:self.vb], odd
-
     def state_dict(self) -> dict:
-        """The resumable state: the carry as host int32 arrays plus the
+        """The resumable state: the carry as host arrays plus the
         windows_done cursor, under the JAX engine's keys."""
         return {
             "edge_bucket": self.eb,
@@ -81,7 +72,7 @@ class SummaryEngineBase:
             "windows_done": int(self.windows_done),
             "closed_partial": bool(self._closed_partial),
             "wal_offset": int(self.windows_done) * self.eb,
-            "carry": tuple(x.cpu().numpy().copy() for x in self._carry),
+            "carry": tuple(_to_host(x) for x in self._carry),
         }
 
     def load_state_dict(self, state: dict) -> None:
@@ -106,7 +97,7 @@ class SummaryEngineBase:
                 "coverage (%d windows x eb=%d)" % (
                     int(woff), int(state["windows_done"]), self.eb))
         carry = tuple(np.asarray(a) for a in state["carry"])
-        _check_carry(carry, self.vb)
+        self._check_carry(carry)
         self.windows_done = int(state["windows_done"])
         self._closed_partial = bool(state["closed_partial"])
         self._carry = tuple(self._to_carry(a) for a in carry)
@@ -116,15 +107,20 @@ class SummaryEngineBase:
         `src[offset:], dst[offset:]`."""
         return self.windows_done * self.eb
 
-    def warm_fallback(self) -> None:
-        """Build the overflow recount's kernels before a stream needs
-        them."""
-        self._redo(np.array([0]), np.array([1]))
+    def _init_carry(self) -> tuple:
+        raise NotImplementedError
+
+    def _to_carry(self, a):
+        raise NotImplementedError
+
+    def _check_carry(self, carry) -> None:
+        raise NotImplementedError
 
     def _dispatch(self, s, d, valid) -> np.ndarray:
         raise NotImplementedError
 
-    def _redo(self, src, dst) -> int:
+    def _finalize_summaries(self, at: int, res: np.ndarray, src, dst,
+                            out: list) -> None:
         raise NotImplementedError
 
     def process(self, src: np.ndarray, dst: np.ndarray) -> list:
@@ -161,22 +157,6 @@ class SummaryEngineBase:
             self._finalize_summaries(at, res[:, :real], src, dst, out)
         return out
 
-    def _finalize_summaries(self, at: int, res: np.ndarray, src, dst,
-                            out: list) -> None:
-        """One chunk's [5, real] outputs into summary dicts, each
-        overflowing window's triangles recounted exactly."""
-        mdeg, ncomp, odd, tri, k_ovf = res
-        tri = tri.copy()
-        for w in np.nonzero(k_ovf)[0]:
-            lo = (at + int(w)) * self.eb
-            tri[w] = self._redo(src[lo:lo + self.eb], dst[lo:lo + self.eb])
-        for w in range(res.shape[1]):
-            out.append({"max_degree": int(mdeg[w]),
-                        "num_components": int(ncomp[w]),
-                        "odd_cycle": bool(odd[w]),
-                        "triangles": int(tri[w])})
-        self.windows_done += res.shape[1]
-
 
 class StreamSummaryEngine(SummaryEngineBase):
     """Carried-state analytics over chunks of windows at fixed buckets
@@ -206,12 +186,69 @@ class StreamSummaryEngine(SummaryEngineBase):
             self.eb, self.vb, k_bucket=4 * self.kb, device=self.device)
         self.reset()
 
+    def _init_carry(self):
+        return fresh_carry(self.vb, self.device)
+
+    def _to_carry(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.array(a, np.int32)).to(self.device)
+
+    def state(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(degrees[vb], cc_labels[vb], odd[vb]) snapshots."""
+        deg, labels, cover = (x.cpu().numpy().copy() for x in self._carry)
+        odd = cover[:self.vb] == cover[self.vb + 1:2 * self.vb + 1]
+        return deg[:self.vb], labels[:self.vb], odd
+
+    def _check_carry(self, carry) -> None:
+        """Raise ValueError for a carry this engine cannot load: here
+        int32-valued deg[vb+1] ≥ 0, and labels[vb+1], cover[2(vb+1)]
+        each pointing every slot at an equal or smaller one (the forest
+        the union-find kernel relies on)."""
+        vb = self.vb
+        if len(carry) != 3:
+            raise ValueError("carry must be (deg, labels, cover)")
+        deg, labels, cover = carry
+        for name, a, n in (("deg", deg, vb + 1), ("labels", labels, vb + 1),
+                           ("cover", cover, 2 * (vb + 1))):
+            if a.shape != (n,) or not np.issubdtype(a.dtype, np.integer):
+                raise ValueError("carry %s must be an integer array of %d "
+                                 "slots, got %s %s" % (name, n, a.dtype,
+                                                       a.shape))
+        if deg.min() < 0 or deg.max() >= 2 ** 31:
+            raise ValueError("carry deg out of int32 range")
+        for name, a in (("labels", labels), ("cover", cover)):
+            if a.min() < 0 or np.any(a > np.arange(len(a))):
+                raise ValueError("carry %s must point every slot at an "
+                                 "equal or smaller slot" % name)
+
+    def warm_fallback(self) -> None:
+        """Build the overflow recount's kernels before a stream needs
+        them."""
+        self._redo(np.array([0]), np.array([1]))
+
     def _dispatch(self, s, d, valid) -> np.ndarray:
         outs = self._summary(self._carry, *self._stage(s, d, valid))
         return torch.stack([x.to(torch.int32) for x in outs]).cpu().numpy()
 
     def _redo(self, src, dst) -> int:
+        """Exact triangle count of one window."""
         return self._tri_fallback.count(src, dst)
+
+    def _finalize_summaries(self, at: int, res: np.ndarray, src, dst,
+                            out: list) -> None:
+        """One chunk's [5, real] outputs (`res`, from `_dispatch`; the
+        chunk's first window is window `at` of this call) into summary
+        dicts, each overflowing window's triangles recounted exactly."""
+        mdeg, ncomp, odd, tri, k_ovf = res
+        tri = tri.copy()
+        for w in np.nonzero(k_ovf)[0]:
+            lo = (at + int(w)) * self.eb
+            tri[w] = self._redo(src[lo:lo + self.eb], dst[lo:lo + self.eb])
+        for w in range(res.shape[1]):
+            out.append({"max_degree": int(mdeg[w]),
+                        "num_components": int(ncomp[w]),
+                        "odd_cycle": bool(odd[w]),
+                        "triangles": int(tri[w])})
+        self.windows_done += res.shape[1]
 
 
 class SlidingSummaryEngine:
@@ -304,6 +341,12 @@ class SlidingSummaryEngine:
         self.inner.load_state_dict(state["inner"])
 
 
+def _to_host(x) -> np.ndarray:
+    """A copy of one carry leaf as a host array (a tensor on any device,
+    or a numpy array: the host twins' carry)."""
+    return np.array(x.cpu() if isinstance(x, torch.Tensor) else x)
+
+
 def _validate_ids(src: np.ndarray, dst: np.ndarray, vb: int) -> None:
     """Raise ValueError for an id outside [0, vb): it would fold into the
     sentinel's or another vertex's carried state."""
@@ -313,23 +356,3 @@ def _validate_ids(src: np.ndarray, dst: np.ndarray, vb: int) -> None:
         raise ValueError("vertex id %d outside [0, %d) in summary engine "
                          "input" % (bot if bot < 0 else top, vb))
 
-
-def _check_carry(carry, vb: int) -> None:
-    """A loadable carry: int32-valued deg[vb+1] ≥ 0, and labels[vb+1],
-    cover[2(vb+1)] each pointing every slot at an equal or smaller one
-    (the forest the union-find kernel relies on)."""
-    if len(carry) != 3:
-        raise ValueError("carry must be (deg, labels, cover)")
-    deg, labels, cover = carry
-    for name, a, n in (("deg", deg, vb + 1), ("labels", labels, vb + 1),
-                       ("cover", cover, 2 * (vb + 1))):
-        if a.shape != (n,) or not np.issubdtype(a.dtype, np.integer):
-            raise ValueError("carry %s must be an integer array of %d "
-                             "slots, got %s %s" % (name, n, a.dtype,
-                                                   a.shape))
-    if deg.min() < 0 or deg.max() >= 2 ** 31:
-        raise ValueError("carry deg out of int32 range")
-    for name, a in (("labels", labels), ("cover", cover)):
-        if a.min() < 0 or np.any(a > np.arange(len(a))):
-            raise ValueError("carry %s must point every slot at an equal "
-                             "or smaller slot" % name)

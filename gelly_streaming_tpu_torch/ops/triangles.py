@@ -9,6 +9,9 @@ counter (ops/window_counter.py: the CUDA kernels on a card, the plain
 PyTorch version on the CPU). A window whose hubs outrun the K bucket
 (overflow > 0) is recounted exactly: up the K ladder to `kb_max`, then
 by `triangle_count_sparse`, a host CSR build intersected on the device.
+`triangle_count` counts one window of any size: the dense contraction
+(ops/dense_triangles.py) up to 2·DENSE_LIMIT vertices, the sparse path
+past it.
 
 Not ported from the JAX package: the host/native tier routing, compact
 ingress, the online autotuner and the threaded ingress pipeline (see
@@ -25,13 +28,19 @@ import torch
 from ..core.platform import resolve_device
 from . import intersect as _intersect
 from . import segment as seg_ops
+from .dense_triangles import triangle_count_dense
 from .staging import ChunkStager
 from .window_counter import (WindowCounter, dedupe_and_positions,
                              orient_by_degree)
 
-__all__ = ["TriangleWindowKernel", "build_window_counter", "default_kb",
-           "dedupe_and_positions", "orient_by_degree",
+__all__ = ["DENSE_LIMIT", "TriangleWindowKernel", "build_window_counter",
+           "default_kb", "dedupe_and_positions", "orient_by_degree",
+           "triangle_count", "triangle_count_dense",
            "triangle_count_sparse"]
+
+# the JAX package's XLA dense limit; its fused contraction, which the
+# port's dense kernel replaces, is exact to twice it
+DENSE_LIMIT = 2048
 
 
 def default_kb(eb: int) -> int:
@@ -87,6 +96,16 @@ def triangle_count_sparse(src: np.ndarray, dst: np.ndarray,
     count = _intersect.intersect_local(
         *(torch.from_numpy(x).to(device) for x in args))
     return int(count)
+
+
+def triangle_count(src: np.ndarray, dst: np.ndarray, num_vertices: int,
+                   device=None) -> int:
+    """Exact triangle count of one window: the dense contraction for
+    num_vertices ≤ 2·DENSE_LIMIT (where its float32 partials stay
+    exact), `triangle_count_sparse` above."""
+    if num_vertices <= 2 * DENSE_LIMIT:
+        return triangle_count_dense(src, dst, num_vertices, device)
+    return triangle_count_sparse(src, dst, num_vertices, device)
 
 
 class TriangleWindowKernel:

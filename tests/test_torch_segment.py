@@ -124,9 +124,9 @@ def test_resolve_device(monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter (this one has JAX loaded by conftest):
-    importing every module of the port (the summary engine's among
-    them), and chip_smoke, loads neither `jax` nor
-    `gelly_streaming_tpu`."""
+    importing every module of the port (the summary, GNN and dense
+    triangle paths' among them), and chip_smoke, loads neither `jax`
+    nor `gelly_streaming_tpu`."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import gelly_streaming_tpu_torch as p\n"
@@ -139,7 +139,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             or n.startswith('gelly_streaming_tpu.'))\n"
         "assert not bad, bad\n"
         "for m in ('unionfind', 'host_summary', 'window_summary',\n"
-        "          'scan_analytics', 'staging'):\n"
+        "          'scan_analytics', 'staging', 'gnn_window', 'gnn_round',\n"
+        "          'dense_triangles'):\n"
         "    assert 'gelly_streaming_tpu_torch.ops.' + m in sys.modules, m\n"
         "print('clean', len([n for n in sys.modules\n"
         "                    if n.startswith('gelly_streaming_tpu_torch')]))\n")
@@ -147,4 +148,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
-    assert int(out.stdout.split()[1]) >= 17
+    assert int(out.stdout.split()[1]) >= 20
