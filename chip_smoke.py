@@ -2,18 +2,23 @@
 """Smoke run of the PyTorch/CUDA port (gelly_streaming_tpu_torch) on one
 NVIDIA GPU.
 
-Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc, holds each
-against its plain PyTorch version on the card (phases intersect,
-counter, summary, gnn), then drives the port's paths over the bench's
-north-star stream (make_stream(10_485_760, 65_536, seed=7): 320 Zipf
-windows of 32768 edges): TriangleWindowKernel(32768, 65536).count_stream
-(phase stream), StreamSummaryEngine(32768, 65536).process (phase
-summary_stream) and GnnSummaryEngine(32768, 65536, feature_dim=64)
-.process (phase gnn_stream), and the one-window count triangle_count
-over dense windows of up to 4096 vertices (phase dense), each with the
-launch counts set to 0 just before it and read just after. Every window
-of every path is checked; each path reports its rate, its launches and
-where its time goes.
+Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and runs
+eleven phases. Five hold a kernel against its plain PyTorch version on
+the card: intersect, counter, summary, gnn and cohort (the cohort
+summary kernel on three dispatches at eb=4096: 64 Zipf tenants at
+vb=8192, a ragged batch, 8 tenants at vb=65536). Six drive the port's
+paths, each with the launch counts set to 0 just before it and read just
+after, every window checked: over the bench's north-star stream
+(make_stream(10_485_760, 65_536, seed=7): 320 Zipf windows of 32768
+edges) TriangleWindowKernel(32768, 65536).count_stream (phase stream),
+StreamSummaryEngine(32768, 65536).process (phase summary_stream) and
+GnnSummaryEngine(32768, 65536, feature_dim=64).process (phase
+gnn_stream); the one-window count triangle_count over dense windows of
+up to 4096 vertices (phase dense); TenantCohort(4096, 8192) serving 64
+tenant streams, 8 of them at vb=65536, about 8.3M edges (phase
+cohort_stream); and GnnTenantCohort(4096, 8192, feature_dim=64) over 64
+tenants of 16 windows (phase gnn_cohort). Each path reports its rate,
+its launches and where its time goes.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -52,6 +57,13 @@ PEAK_FP16_TC_S = 989e12
 PEAK_INT8_TC_S = 1979e12
 GNN_F = 64                         # the GNN stream's feature width
 DENSE_V = 4096                     # the dense path's largest window
+# the cohorts: 64 tenants (the default admission cap) at eb=4096, most at
+# vb=8192, the rest at vb=65536; K is the analytic default at eb=4096
+CO_EB, CO_VB, CO_BIG_VB, CO_KB = 4096, 8192, 65536, 128
+CO_TENANTS, CO_BIG = 64, 8
+CO_EDGES, CO_RAGGED = 131072, 1000  # tenant i: CO_EDGES - (i % 5)·CO_RAGGED
+CO_FEED = 5000                     # edges per feed() call
+GNN_CO_WINDOWS = 16                # windows per tenant of the GNN cohort
 
 
 class SmokeFailure(Exception):
@@ -924,6 +936,358 @@ def phase_dense(dev):
             "bound_by": b_by, "max_abs_err": err}, launches
 
 
+def cohort_zipf_slab(nb: int, wb: int, vb: int, seed: int):
+    """An [nb, wb, CO_EB] slab of Zipf rows: row n is
+    make_stream(wb·CO_EB, vb, seed + n), all slots valid."""
+    from gelly_streaming_tpu_torch import make_stream
+
+    s = np.empty((nb, wb * CO_EB), np.int32)
+    d = np.empty_like(s)
+    for n in range(nb):
+        s[n], d[n] = make_stream(wb * CO_EB, vb, seed=seed + n)
+    return (s.reshape(nb, wb, CO_EB), d.reshape(nb, wb, CO_EB),
+            np.ones((nb, wb, CO_EB), bool))
+
+
+def cohort_fixtures():
+    """(name, vb, the slab folded first, the slab under test): the three
+    dispatches of phase cohort."""
+    yield ("zipf nb=64", CO_VB, cohort_zipf_slab(64, 8, CO_VB, 400),
+           cohort_zipf_slab(64, 8, CO_VB, 500))
+    # ragged: rows of 8, 1, 5, 2, 7, 3 and 6 windows, row 0's last one
+    # partial, row 2's second self-loops only; row 7 a pad row
+    s, d, v = cohort_zipf_slab(8, 8, CO_VB, 600)
+    for n, w in enumerate((8, 1, 5, 2, 7, 3, 6, 0)):
+        s[n, w:] = d[n, w:] = CO_VB
+        v[n, w:] = False
+    s[0, 7, CO_EB // 3:] = d[0, 7, CO_EB // 3:] = CO_VB
+    v[0, 7, CO_EB // 3:] = False
+    s[2, 1] = d[2, 1] = np.arange(CO_EB) % CO_VB
+    ps, pd, pv = cohort_zipf_slab(8, 8, CO_VB, 700)
+    ps[7] = pd[7] = CO_VB
+    pv[7] = False
+    yield "ragged", CO_VB, (ps, pd, pv), (s, d, v)
+    yield ("zipf nb=8 vb=65536", CO_BIG_VB,
+           cohort_zipf_slab(8, 8, CO_BIG_VB, 800),
+           cohort_zipf_slab(8, 8, CO_BIG_VB, 900))
+
+
+def compare_cohort(name, slab, summ, carries, plain_carries, dev):
+    """Kernel (`summ`, a CohortSummary on the card, folding into
+    `carries`) vs plain (folding into `plain_carries`) on one [nb, W, eb]
+    slab: the five [nb, W] outputs equal (triangles where overflow is 0),
+    then the stacked carries bit-equal. Returns the plain outputs as
+    numpy, the max abs error and the plain version's ms (CUDA events)."""
+    from gelly_streaming_tpu_torch.ops import cohort_summary as cs
+
+    st, dt, vt = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                  for x in slab)
+    got = [x.cpu().numpy() for x in summ(carries, st, dt, vt)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = cs.summarize_cohort_plain(plain_carries, st, dt, vt, summ.vb,
+                                     summ.kb)
+    end.record()
+    end.synchronize()
+    want = [x.cpu().numpy() for x in want]
+    names = ("max_degree", "num_components", "odd", "triangles",
+             "k_overflow")
+    clean = want[4] == 0
+    err = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == 3:
+            g, w = g[clean], w[clean]
+        require(np.array_equal(g, w), "cohort %s: %s kernel %s != plain %s"
+                % (name, names[i], g, w))
+        err = max(err, int(np.abs(g.astype(np.int64) - w).max(initial=0)))
+    for label, a, b in zip(("deg", "labels", "cover"), carries,
+                           plain_carries):
+        require(torch.equal(a, b), "cohort %s: carry %s differs from plain"
+                % (name, label))
+    return want, err, start.elapsed_time(end)
+
+
+def phase_cohort(dev) -> dict:
+    """The cohort summary kernel (+ kernels 1-2 for triangles) vs its
+    plain version at eb=4096, kb=128 on three dispatches, each from
+    carries that are not fresh: 64 Zipf tenants × 8 windows at vb=8192,
+    the ragged batch, 8 Zipf tenants × 8 windows at vb=65536. Carries
+    bit-equal; per dispatch the whole call, the kernel alone and the
+    plain version timed, and the bound by row 3's rule taken nb times."""
+    from gelly_streaming_tpu_torch.ops import cohort_summary as cs
+
+    err = 0
+    rows = []
+    for name, vb, prefix, slab in cohort_fixtures():
+        nb, wb, eb = slab[0].shape
+        summ = cs.CohortSummary(vb, CO_KB, dev)
+        carries = cs.fresh_cohort_carry(nb, vb, dev)
+        plain = cs.fresh_cohort_carry(nb, vb, dev)
+        _pre, e1, _ms = compare_cohort(name + " prefix", prefix, summ,
+                                       carries, plain, dev)
+        out, e2, plain_ms = compare_cohort(name, slab, summ, carries, plain,
+                                           dev)
+        err = max(err, e1, e2)
+        mdeg, ncomp, odd, tri, ovf = out
+        if name == "ragged":
+            require(int(carries[2][7, 2 * vb + 1]) == vb
+                    and int(carries[0][7].sum()) == 0
+                    and (mdeg[1, 1:] == mdeg[1, 0]).all()
+                    and odd[2, 1] and tri[2, 1] == 0,
+                    "cohort ragged: pad row/hold/self-loops %s %s %s"
+                    % (mdeg, odd, tri))
+
+        st, dt, vt = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                      for x in slab)
+        base = tuple(c.clone() for c in carries)
+        sums = torch.empty(nb, 3, wb, dtype=torch.int32, device=dev)
+        clone_ms = cuda_ms(lambda: tuple(c.clone() for c in base), 10)
+        kern_ms = cuda_ms(lambda: cs.summarize_cohort(
+            tuple(c.clone() for c in base), st, dt, vt, vb, sums), 10)
+        ms = cuda_ms(lambda: summ(tuple(c.clone() for c in base), st, dt,
+                                  vt), 10)
+        flat = [x.view(nb * wb, eb) for x in (st, dt, vt)]
+        slots = int(vt.sum())
+        edges, compares = row_work(*flat, vb, CO_KB)
+        # row 3's rule per tenant row, summed: the row's slab at 9 B per
+        # slot, one read and write of its carry, 20 B per window out
+        nbytes = nb * (wb * eb * 9 + 2 * 16 * (vb + 1) + 20 * wb)
+        ops = 5 * slots + 3 * nb * wb * (vb + 1) + nb * wb * eb + compares
+        b_ms, b_by = bound(nbytes, ops)
+        rows.append({"dispatch": name, "nb": nb, "wb": wb, "vb": vb,
+                     "ms": ms - clone_ms,
+                     "kernel_only_ms": kern_ms - clone_ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "valid_slots": slots,
+                     "distinct_edges": edges, "compares": compares,
+                     "overflow_windows": int((ovf > 0).sum())})
+        print("phase cohort %s: ok  num_components %d..%d  odd windows %d  "
+              "overflow windows %d  call %.3f ms (kernel alone %.3f)  plain "
+              "%.1f ms  bound %.4f ms (%s)"
+              % (name, ncomp.min(), ncomp.max(), int(odd.sum()),
+                 int((ovf > 0).sum()), ms - clone_ms, kern_ms - clone_ms,
+                 plain_ms, b_ms, b_by))
+    print(json.dumps({"cohort_dispatches": rows,
+                      "device": torch.cuda.get_device_name(0)}))
+    main = rows[0]
+    return {"ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "max_abs_err": err, "kernel_only_ms": main["kernel_only_ms"]}
+
+
+def cohort_streams() -> dict:
+    """{tenant: (src, dst, vb)}: tenant i streams make_stream(CO_EDGES −
+    (i mod 5)·CO_RAGGED, vb_i, seed=100+i), vb_i = CO_BIG_VB for the
+    last CO_BIG tenants and CO_VB for the others."""
+    from gelly_streaming_tpu_torch import make_stream
+
+    out = {}
+    for i in range(CO_TENANTS):
+        vb = CO_BIG_VB if i >= CO_TENANTS - CO_BIG else CO_VB
+        s, d = make_stream(CO_EDGES - (i % 5) * CO_RAGGED, vb,
+                           seed=100 + i)
+        out["t%02d" % i] = (s.astype(np.int32), d.astype(np.int32), vb)
+    return out
+
+
+def serve_cohort(streams: dict, demote: str = None):
+    """Drive a TenantCohort(CO_EB, CO_VB) on the card as a server would:
+    admit every tenant at its vertex bucket; then, until every stream is
+    in, feed each tenant CO_FEED edges at a time until its queue pushes
+    back (TenantBackpressure) and pump(); `demote` goes to its own engine
+    after the second pump; every tenant is closed at the end. Returns
+    (summaries per tenant, the cohort, host-clock seconds by stage)."""
+    from gelly_streaming_tpu_torch import TenantBackpressure, TenantCohort
+
+    co = TenantCohort(CO_EB, CO_VB)            # device=None: the card
+    for tid, (_s, _d, vb) in streams.items():
+        co.admit(tid, vertex_bucket=vb)
+    secs = {"feed": 0.0, "prep": 0.0, "pump": 0.0, "close": 0.0}
+    prep = co._prep_slab
+
+    def timed_prep(*args):                    # the slab's host prep alone
+        t0 = time.perf_counter()
+        got = prep(*args)
+        secs["prep"] += time.perf_counter() - t0
+        return got
+
+    co._prep_slab = timed_prep
+    out = {tid: [] for tid in streams}
+    cursor = dict.fromkeys(streams, 0)
+    pumps = 0
+    start = time.perf_counter()
+    while any(cursor[tid] < len(s) for tid, (s, _d, _v) in streams.items()):
+        t0 = time.perf_counter()
+        for tid, (s, d, _vb) in streams.items():
+            while cursor[tid] < len(s):
+                c = cursor[tid]
+                try:
+                    co.feed(tid, s[c:c + CO_FEED], d[c:c + CO_FEED])
+                except TenantBackpressure:
+                    break
+                cursor[tid] = min(len(s), c + CO_FEED)
+        t1 = time.perf_counter()
+        for tid, res in co.pump().items():
+            out[tid].extend(res)
+        pumps += 1
+        secs["feed"] += t1 - t0
+        secs["pump"] += time.perf_counter() - t1
+        if pumps == 2 and demote:
+            co.demote(demote)
+    t0 = time.perf_counter()
+    for tid in streams:
+        out[tid].extend(co.close(tid))
+    secs["close"] = time.perf_counter() - t0
+    secs["wall"] = time.perf_counter() - start
+    secs["pumps"] = pumps
+    return out, co, secs
+
+
+def phase_cohort_stream(dev) -> dict:
+    """The cohort's main path: 64 tenants (56 at vb=8192, 8 at
+    vb=65536, so each pump makes two group dispatches) served through
+    TenantCohort(4096, 8192) by `serve_cohort`, tenant 3 demoted after
+    the second pump. Every tenant's summaries equal the port's
+    StreamSummaryEngine on the card over its stream, its degrees and
+    labels equal that engine's; the first four windows of tenants 0 and
+    56 equal the numpy summary oracle; the cohort kernel was launched."""
+    from gelly_streaming_tpu_torch import StreamSummaryEngine, kernels
+    from gelly_streaming_tpu_torch.ops import host_summary
+
+    streams = cohort_streams()
+    total = sum(len(s) for s, _d, _v in streams.values())
+    serve_cohort({tid: (s[:4 * CO_EB], d[:4 * CO_EB], vb)      # warm-up
+                  for tid, (s, d, vb) in list(streams.items())[-2:]})
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    out, co, secs = serve_cohort(streams, demote="t03")
+    launches = dict(kernels.LAUNCHES)
+    require(launches["cohort_summary"] > 0,
+            "kernel cohort_summary was not launched on the cohort path")
+    require(co.tenant_tier("t03") == "single", "t03 was not demoted")
+
+    engines = {}
+    windows = 0
+    for tid, (s, d, vb) in streams.items():
+        if vb not in engines:
+            engines[vb] = StreamSummaryEngine(CO_EB, vb)
+        eng = engines[vb]
+        eng.reset()
+        want = eng.process(s, d)
+        windows += len(want)
+        require(out[tid] == want, "cohort tenant %s: %d windows differ from "
+                "the engine's" % (tid, sum(a != b for a, b in
+                                           zip(out[tid], want))))
+        mine = co.tenant_state_dict(tid)
+        theirs = eng.state_dict()
+        require(mine["windows_done"] == theirs["windows_done"]
+                and all(np.array_equal(a, b) for a, b in
+                        zip(mine["carry"][:2], theirs["carry"][:2])),
+                "cohort tenant %s: cursor, degrees or labels differ" % tid)
+    for tid in ("t00", "t%02d" % (CO_TENANTS - CO_BIG)):
+        s, d, vb = streams[tid]
+        oracle, _carry = host_summary.summarize_stream(
+            s[:4 * CO_EB], d[:4 * CO_EB], CO_EB, vb)
+        require(out[tid][:4] == oracle, "cohort tenant %s: first windows %s "
+                "!= numpy %s" % (tid, out[tid][:4], oracle))
+
+    repeats = [serve_cohort(streams)[2]["wall"] for _ in range(2)]
+    prof = profile_run(lambda: serve_cohort(streams))
+    rate = total / secs["wall"]
+    print(json.dumps({"cohort_stream": {
+        "tenants": len(streams), "edges": total, "windows": windows,
+        "eb": CO_EB, "vb": [CO_VB, CO_BIG_VB], "kb": CO_KB,
+        "seconds": secs["wall"], "edges_per_s": rate,
+        "host_seconds": secs, "repeat_seconds": repeats,
+        "launches": launches, "device": torch.cuda.get_device_name(0)}}))
+    print(json.dumps({"cohort_profile": prof}))
+    print("phase cohort_stream: ok  %d tenants  %d windows  %.1f tenant "
+          "edges/s  %d pumps" % (len(streams), windows, rate, secs["pumps"]))
+    return launches
+
+
+def phase_gnn_cohort(dev) -> dict:
+    """The GNN cohort: GnnTenantCohort(4096, 8192, feature_dim=64) over
+    64 tenants of 16 windows (two pumps of 8 windows each), each tenant
+    from default_features(8192, 64, seed=i), with the fixed snapped
+    weights of phase gnn_stream. Every tenant's summaries and final slab
+    equal a GnnSummaryEngine's on the card over the same stream; the GNN
+    kernel was launched."""
+    from gelly_streaming_tpu_torch import (GnnSummaryEngine, GnnTenantCohort,
+                                           kernels, make_stream)
+    from gelly_streaming_tpu_torch.ops import gnn_window as gw
+
+    W, b = gnn_weights(GNN_F, -12, -3)
+    streams = {"g%02d" % i: make_stream(GNN_CO_WINDOWS * CO_EB, CO_VB,
+                                        seed=300 + i)
+               for i in range(CO_TENANTS)}
+    slabs = [gw.default_features(CO_VB, GNN_F, seed=i)
+             for i in range(CO_TENANTS)]
+    total = GNN_CO_WINDOWS * CO_EB * CO_TENANTS
+
+    def serve():
+        """Admit the tenants with their slabs, then two rounds of feeds
+        of 8 windows and a pump; returns (summaries, the cohort, the
+        seconds of the feed and pump rounds)."""
+        co = GnnTenantCohort(CO_EB, CO_VB, feature_dim=GNN_F)  # the card
+        co.set_weights(W / 32, b / 32)
+        for tid, slab in zip(streams, slabs):
+            co.admit(tid, feature_units=slab)
+        torch.cuda.synchronize()
+        out = {tid: [] for tid in streams}
+        half = GNN_CO_WINDOWS // 2 * CO_EB
+        t0 = time.perf_counter()
+        for lo, hi in ((0, half), (half, None)):
+            for tid, (s, d) in streams.items():
+                co.feed(tid, s[lo:hi], d[lo:hi])
+            for tid, res in co.pump().items():
+                out[tid].extend(res)
+        return out, co, time.perf_counter() - t0
+
+    kernels.reset_launches()
+    out, co, wall = serve()
+    launches = dict(kernels.LAUNCHES)
+    require(launches["gnn_round"] > 0,
+            "kernel gnn_round was not launched on the GNN cohort path")
+
+    eng = GnnSummaryEngine(CO_EB, CO_VB, feature_dim=GNN_F)
+    eng.set_weights(W / 32, b / 32)
+    for tid, slab in zip(streams, slabs):
+        eng.reset()
+        eng.load_feature_units(slab)
+        want = eng.process(*streams[tid])
+        require(out[tid] == want, "gnn cohort tenant %s differs from the "
+                "engine" % tid)
+        require(np.array_equal(co.tenant_state_dict(tid)["carry"][0],
+                               eng.state_dict()["carry"][0]),
+                "gnn cohort tenant %s: final slab differs" % tid)
+        require(co.close(tid) == [], "gnn cohort tenant %s: a remainder"
+                % tid)
+    maxf = [r["max_feat"] for rows in out.values() for r in rows]
+    active = [r["active_vertices"] for rows in out.values() for r in rows]
+    require(max(maxf) < 511 and len(set(active)) > 1,
+            "gnn cohort saturates or dies out: max_feat %d..%d"
+            % (min(maxf), max(maxf)))
+
+    repeats = [serve()[2] for _ in range(2)]
+    prof = profile_run(serve)           # admission included
+    rate = total / wall
+    print(json.dumps({"gnn_cohort": {
+        "tenants": CO_TENANTS, "edges": total,
+        "windows": GNN_CO_WINDOWS * CO_TENANTS, "eb": CO_EB, "vb": CO_VB,
+        "feature_dim": GNN_F, "seconds": wall, "edges_per_s": rate,
+        "edge_features_per_s": rate * GNN_F, "repeat_seconds": repeats,
+        "max_feat": [min(maxf), max(maxf)],
+        "active_vertices": [min(active), max(active)],
+        "launches": launches, "device": torch.cuda.get_device_name(0)}}))
+    print(json.dumps({"gnn_cohort_profile": prof}))
+    print("phase gnn_cohort: ok  %d tenants  %.1f edges/s  %.4g "
+          "edge-features/s" % (CO_TENANTS, rate, rate * GNN_F))
+    return launches
+
+
 def profile_run(run) -> dict:
     """One run() under torch.profiler: device time by name (the
     device-side rows only, so nothing is counted twice), their sum, and
@@ -978,10 +1342,13 @@ def main() -> int:
     counter = phase_counter(dev)
     summary = phase_summary(dev)
     gnn = phase_gnn(dev)
+    cohort = phase_cohort(dev)
     launches = phase_stream(dev)
     summary_launches = phase_summary_stream(dev)
     gnn_launches = phase_gnn_stream(dev)
     dense, dense_launches = phase_dense(dev)
+    cohort_launches = phase_cohort_stream(dev)
+    phase_gnn_cohort(dev)
 
     rows = []
     for name, replaces, res, n in (
@@ -993,6 +1360,9 @@ def main() -> int:
             ("window_summary",
              "gelly_streaming_tpu/ops/pallas_window.py:504", summary,
              summary_launches["window_summary"]),
+            ("cohort_summary",
+             "gelly_streaming_tpu/ops/pallas_window.py:640", cohort,
+             cohort_launches["cohort_summary"]),
             ("gnn_round", "gelly_streaming_tpu/ops/pallas_window.py:1099",
              gnn, gnn_launches["gnn_round"]),
             ("dense_triangles",

@@ -6,27 +6,34 @@ It runs the exact per-window triangle count over an edge stream
 (`StreamSummaryEngine.process`: carried degrees, connected components,
 bipartiteness and triangles per window, and its sliding form), the
 windowed GNN engine (`GnnSummaryEngine.process`: one exact GCN round per
-window, with `GnnHostEngine` its numpy twin) and the one-window count
-`triangle_count` (a dense contraction up to 4096 vertices) through
+window, with `GnnHostEngine` its numpy twin), the one-window count
+`triangle_count` (a dense contraction up to 4096 vertices) and the
+multi-tenant cohorts (`TenantCohort`: N summary streams, one cohort
+dispatch per window round; `GnnTenantCohort`: N GNN streams) through
 hand-written CUDA kernels (`csrc/`, built by `kernels.py` at first
 use). It imports torch and numpy, never JAX and nothing of the JAX
 package. Entry points run on the card unless the caller passes
 `device="cpu"`, which runs each kernel's plain PyTorch version.
 
-Layers: core/ (device selection), ops/ (window layout and staging, the
-intersect, window-counter, window-summary, GNN-round and dense-triangle
-kernels' wrappers, the union-find, the triangle stream and dispatcher,
-the summary and GNN engines, the numpy oracles), utils/ (synthetic
-streams), kernels.py + csrc/ (CUDA build and binding).
+Layers: core/ (device selection, the tenant cohorts), ops/ (window
+layout and staging, the intersect, window-counter, window-summary,
+cohort-summary, GNN-round and dense-triangle kernels' wrappers, the
+union-find, the triangle stream and dispatcher, the summary and GNN
+engines, the numpy oracles), utils/ (synthetic streams), kernels.py +
+csrc/ (CUDA build and binding).
 """
 
 from .core.platform import resolve_device
+from .core.tenancy import (GnnTenantCohort, TenantBackpressure,
+                           TenantCohort, TenantError, TenantRejected)
 from .ops.gnn_window import GnnHostEngine, GnnSummaryEngine
 from .ops.scan_analytics import SlidingSummaryEngine, StreamSummaryEngine
 from .ops.triangles import (TriangleWindowKernel, triangle_count,
                             triangle_count_dense)
 from .utils.streams import make_stream
 
-__all__ = ["GnnHostEngine", "GnnSummaryEngine", "SlidingSummaryEngine",
-           "StreamSummaryEngine", "TriangleWindowKernel", "make_stream",
+__all__ = ["GnnHostEngine", "GnnSummaryEngine", "GnnTenantCohort",
+           "SlidingSummaryEngine", "StreamSummaryEngine",
+           "TenantBackpressure", "TenantCohort", "TenantError",
+           "TenantRejected", "TriangleWindowKernel", "make_stream",
            "resolve_device", "triangle_count", "triangle_count_dense"]

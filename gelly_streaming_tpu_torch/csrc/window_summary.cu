@@ -41,134 +41,27 @@
 // boundary being the barrier between the unions and the pass that reads
 // them, all on the caller's stream with no host synchronisation inside a
 // chunk. The 1 MB carry stays in the 50 MB L2 across the chunk.
-#include "common.cuh"
+#include "union_find.cuh"
 
 namespace {
 
-// Root of x in the parent forest p, where p[v] <= v and a root points at
-// itself. A link that points up (p[x] > x, which a valid carry never
-// holds) is taken as a root, so the walk always ends. With `halve` each
-// visited slot is pointed at its grandparent, an ancestor in the same
-// set, which keeps the forest valid under concurrent walks and hooks.
-template <bool halve>
-__device__ __forceinline__ int find_root(volatile int* p, int x) {
-    int parent = p[x];
-    while (parent < x) {
-        const int grand = p[parent];
-        if (grand >= parent) return parent;
-        if (halve) p[x] = grand;
-        x = grand;
-        parent = p[x];
-    }
-    return x;
-}
-
-// Joins the sets of a and b: the larger root is hooked under the smaller
-// with a compare-and-swap on its own slot, which fails only when another
-// thread changed that slot first; then both walks start again.
-__device__ __forceinline__ void unite(int* p, int a, int b) {
-    volatile int* vp = p;
-    while (true) {
-        a = find_root<true>(vp, a);
-        b = find_root<true>(vp, b);
-        if (a == b) return;
-        if (a > b) {
-            const int t = a;
-            a = b;
-            b = t;
-        }
-        const int pb = vp[b];
-        if (pb < b) continue;          // hooked meanwhile: walk again
-        if (atomicCAS(p + b, pb, a) == pb) return;
-    }
-}
-
-__device__ __forceinline__ bool in_range(int v, int n) {
-    return v >= 0 && v < n;
-}
-
-// One window: grid over its eb slots. A valid slot whose ids lie outside
-// [0, vb) (callers reject such input before it gets here) is taken as
-// padding, so nothing is written outside the carry.
+// One window: grid over its eb slots (union_find.cuh: fold_slot).
 __global__ void __launch_bounds__(kThreads) fold_kernel(
         const int* __restrict__ src, const int* __restrict__ dst,
         const bool* __restrict__ valid, int eb, int vb,
         int* __restrict__ deg, int* labels, int* cover) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= eb) return;
-    int s = vb, d = vb;
-    if (valid[i] && in_range(src[i], vb) && in_range(dst[i], vb)) {
-        s = src[i];
-        d = dst[i];
-        atomicAdd(deg + s, 1);
-        atomicAdd(deg + d, 1);
-        unite(labels, s, d);
-    }
-    // the cover folds padding too: (vb, 2vb+1) joins the two sentinels,
-    // as the JAX body's sentinel-mapped slots do
-    unite(cover, s, d + vb + 1);
-    unite(cover, s + vb + 1, d);
+    fold_slot(src, dst, valid, i, vb, deg, labels, cover);
 }
 
-__device__ __forceinline__ int warp_max(int x) {
-    for (int o = kWarp / 2; o > 0; o /= 2)
-        x = max(x, __shfl_xor_sync(kFullMask, x, o));
-    return x;
-}
-
-__device__ __forceinline__ int warp_sum(int x) {
-    for (int o = kWarp / 2; o > 0; o /= 2)
-        x += __shfl_xor_sync(kFullMask, x, o);
-    return x;
-}
-
-// After a window's unions: grid over v in [0, vb]. Points labels[v],
-// cover[v] and cover[v+vb+1] at their roots (each slot has one owner
-// thread, and the walks here do not write, so every slot ends at its
-// root), then adds the window's summaries into sums[0..2][w]
-// (sums is [3, windows], cleared by the entry point).
+// After a window's unions: grid over v in [0, vb] (union_find.cuh:
+// settle_slot), window w's summaries into sums [3, windows].
 __global__ void __launch_bounds__(kThreads) settle_kernel(
         int vb, const int* __restrict__ deg, int* labels, int* cover,
         int* __restrict__ sums, int w, int windows) {
-    const int v = blockIdx.x * blockDim.x + threadIdx.x;
-    int mdeg = 0, ncomp = 0, odd = 0;
-    if (v <= vb) {
-        const int rl = find_root<false>(labels, v);
-        const int rp = find_root<false>(cover, v);
-        const int rm = find_root<false>(cover, v + vb + 1);
-        labels[v] = rl;
-        cover[v] = rp;
-        cover[v + vb + 1] = rm;
-        if (v < vb) {
-            const int dg = deg[v];
-            mdeg = dg;
-            if (dg > 0) {
-                ncomp = rl == v;
-                odd = rp == rm;
-            }
-        }
-    }
-    mdeg = warp_max(mdeg);
-    ncomp = warp_sum(ncomp);
-    odd = __any_sync(kFullMask, odd);
-    __shared__ int part[3][kWarpsPerBlock];
-    const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-    if (lane == 0) {
-        part[0][warp] = mdeg;
-        part[1][warp] = ncomp;
-        part[2][warp] = odd;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        for (int i = 1; i < kWarpsPerBlock; ++i) {
-            mdeg = max(mdeg, part[0][i]);
-            ncomp += part[1][i];
-            odd |= part[2][i];
-        }
-        if (mdeg) atomicMax(sums + w, mdeg);
-        if (ncomp) atomicAdd(sums + windows + w, ncomp);
-        if (odd) atomicOr(sums + 2 * windows + w, 1);
-    }
+    settle_slot(blockIdx.x * blockDim.x + threadIdx.x, vb, deg, labels,
+                cover, sums, w, windows);
 }
 
 // cc_fixpoint's initial forest: with `carried` the identity, to which
@@ -206,10 +99,6 @@ __global__ void __launch_bounds__(kThreads) compress_kernel(int n, int* p) {
     const int v = blockIdx.x * blockDim.x + threadIdx.x;
     if (v >= n) return;
     p[v] = find_root<false>(p, v);
-}
-
-inline unsigned blocks(long long n) {
-    return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
 }  // namespace

@@ -51,6 +51,10 @@ SIGNATURES = {
                               _P],
         "gs_cc_fixpoint": [_P, _I, _P, _P, _LL, _I, _P, _I, _P],
     },
+    "cohort_summary": {
+        "gs_cohort_summary": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                              _I, _P],
+    },
     "gnn_round": {
         "gs_gnn_rounds": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P, _P, _I, _P],

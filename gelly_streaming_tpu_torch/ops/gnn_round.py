@@ -75,11 +75,17 @@ def gnn_round_plain(h, W, b, s, d, v, eb: int, act: str):
     h2 = torch.clamp(_ACTS[act](z), 0.0, cap)
     h2[vb] = 0.0
     h2 = torch.where(v.any(), h2, h)     # an empty window holds the slab
-    maxf = h2[:vb].max().to(torch.int32)
-    active = (h2[:vb] > 0).any(dim=1).sum().to(torch.int32)
-    checksum = _wrap_i32(h2.to(torch.int32).sum(dtype=torch.int64))
-    nmsg = v.sum().to(torch.int32)
-    return h2, (maxf, active, checksum, nmsg)
+    return h2, slab_summaries(h2) + (v.sum().to(torch.int32),)
+
+
+def slab_summaries(h):
+    """(max_feat, active, checksum) of a [vb+1, F] slab as 0-dim int32:
+    max_feat and active over rows [:vb], the checksum a wrapping int32
+    sum over all vb+1 rows."""
+    vb = h.shape[0] - 1
+    return (h[:vb].max().to(torch.int32),
+            (h[:vb] > 0).any(dim=1).sum().to(torch.int32),
+            _wrap_i32(h.to(torch.int32).sum(dtype=torch.int64)))
 
 
 def gnn_rounds_plain(h, W, b, src, dst, valid, act: str,

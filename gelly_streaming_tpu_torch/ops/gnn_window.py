@@ -27,10 +27,13 @@ valid slot: self-loops and duplicates each send one.
 `gnn` section with feat_dim, act and the snapped weights), so a
 checkpoint of either package loads into the other.
 
-Not ported yet (ROADMAP.md): `GnnResidentEngine` (step 8),
-`build_gnn_cohort_scan` (step 11), the finalize hooks (cost model,
-metrics, latency, provenance; step 10) and the GS_GNN_* knobs: the
-engines take feature_dim and activation as arguments.
+`build_gnn_cohort_scan` runs the same rounds for the rows of a tenant
+slab (core/tenancy.GnnTenantCohort).
+
+Not ported yet (ROADMAP.md): `GnnResidentEngine` (step 8), the finalize
+hooks (cost model, metrics, latency, provenance; step 10) and the
+GS_GNN_* knobs: the engines take feature_dim and activation as
+arguments.
 """
 
 from __future__ import annotations
@@ -41,13 +44,14 @@ import torch
 from ..core.platform import resolve_device
 from . import segment as seg_ops
 from .gnn_round import (ACTIVATIONS, AGG_EXACT_LOG2, UNIT_CAP, GnnRound,
-                        agg_shift, gnn_round_plain)
+                        agg_shift, gnn_round_plain, slab_summaries)
 from .scan_analytics import SummaryEngineBase, _to_host
 from .staging import ChunkStager
 
 __all__ = ["AGG_EXACT_LOG2", "GnnEngineBase", "GnnHostEngine",
            "GnnSummaryEngine", "MATMUL_EXACT_F", "Q_BITS", "UNIT_CAP",
-           "agg_shift", "default_features", "default_weights",
+           "agg_shift", "build_gnn_cohort_scan", "default_features",
+           "default_weights",
            "gnn_round_plain", "snap_features", "snap_weights",
            "weight_cap", "weight_shift"]
 
@@ -115,6 +119,60 @@ def default_features(vb: int, F: int, seed: int = 0) -> np.ndarray:
 def default_weights(F: int):
     """Identity layer at value 1.0 (32 lattice units), zero bias."""
     return np.eye(F, dtype=np.float32), np.zeros(F, np.float32)
+
+
+def build_gnn_cohort_scan(eb: int, vb: int, F: int, act: str,
+                          device=None):
+    """N tenants' GNN windows in one call, the counterpart of the JAX
+    package's `build_gnn_cohort_scan` (gnn_window.py:240-265):
+    run(carries[N, vb+1, F], W, b, src[N, Wn, eb], dst, valid, live) ->
+    (carries, (max_feat, active_vertices, feat_checksum, msg_edges)),
+    each output [N, Wn] int32 as the JAX form's. The float32 carries are
+    updated in place and returned; the (shared) weights and the slab are
+    tensors on `device`. `live` is a host sequence of N ints: row n's
+    windows up to and including its last one with a valid slot (0 for a
+    pad row), which the caller knows from the slab it built.
+
+    Both padding axes are inert by the round's empty-window hold, so
+    nothing is launched for them: row n's rounds run through one
+    `GnnRound` (the GNN kernel on a card, `gnn_rounds_plain` on the CPU;
+    one aggregate scratch shared in stream order) on its first live[n]
+    windows; the held windows after them repeat the last one's summaries
+    with no messages, and a pad row reports its held slab. Nothing is
+    copied back to the host."""
+    if act not in ACTIVATIONS:
+        raise ValueError("unknown GNN activation %r (choices: %s)"
+                         % (act, sorted(ACTIVATIONS)))
+    rnd = GnnRound(vb, F, resolve_device(device))
+
+    def run(carries, W, b, src, dst, valid, live):
+        if src.dim() != 3 or src.shape[2] != eb \
+                or tuple(carries.shape) != (src.shape[0], vb + 1, F):
+            raise ValueError("GNN cohort scan at eb=%d vb+1=%d F=%d given "
+                             "carries %s and a %s slab"
+                             % (eb, vb + 1, F, tuple(carries.shape),
+                                tuple(src.shape)))
+        rows, windows = src.shape[:2]
+        if len(live) != rows or not all(0 <= k <= windows for k in live):
+            raise ValueError("live must give each of the %d rows a window "
+                             "count in [0, %d], got %r"
+                             % (rows, windows, list(live)))
+        sums = torch.zeros(rows, 4, windows, dtype=torch.int32,
+                           device=src.device)
+        for n, k in enumerate(live):
+            k = int(k)
+            if k:
+                part = torch.empty(4, k, dtype=torch.int32,
+                                   device=src.device)
+                rnd(carries[n], W, b, src[n, :k], dst[n, :k],
+                    valid[n, :k], act, part)
+                sums[n, :, :k] = part
+                sums[n, :3, k:] = part[:3, k - 1:k]
+            else:
+                sums[n, :3] = torch.stack(slab_summaries(carries[n]))[:, None]
+        return carries, tuple(sums[:, i] for i in range(4))
+
+    return run
 
 
 def _wrap_i32(total) -> np.ndarray:

@@ -22,6 +22,9 @@ A window whose hubs outrun the K bucket is recounted exactly by a
 `state_dict()` has the JAX engine's keys and carry layout, so a
 checkpoint of either package loads into the other.
 
+ops/cohort_summary.py lifts the same body over a leading tenant axis
+for the multi-tenant cohort (core/tenancy.py).
+
 Not ported yet (ROADMAP.md): the finalize hooks (checkpoint files, WAL,
 latency, provenance, metrics, sanitize, faults), the online autotuner,
 the compact wire and the threaded ingress pipeline; chunks run one after
@@ -42,7 +45,7 @@ from .triangles import TriangleWindowKernel, default_kb
 from .window_summary import WindowSummary, fresh_carry
 
 __all__ = ["SlidingSummaryEngine", "StreamSummaryEngine",
-           "SummaryEngineBase"]
+           "SummaryEngineBase", "check_summary_carry"]
 
 
 class SummaryEngineBase:
@@ -199,26 +202,7 @@ class StreamSummaryEngine(SummaryEngineBase):
         return deg[:self.vb], labels[:self.vb], odd
 
     def _check_carry(self, carry) -> None:
-        """Raise ValueError for a carry this engine cannot load: here
-        int32-valued deg[vb+1] ≥ 0, and labels[vb+1], cover[2(vb+1)]
-        each pointing every slot at an equal or smaller one (the forest
-        the union-find kernel relies on)."""
-        vb = self.vb
-        if len(carry) != 3:
-            raise ValueError("carry must be (deg, labels, cover)")
-        deg, labels, cover = carry
-        for name, a, n in (("deg", deg, vb + 1), ("labels", labels, vb + 1),
-                           ("cover", cover, 2 * (vb + 1))):
-            if a.shape != (n,) or not np.issubdtype(a.dtype, np.integer):
-                raise ValueError("carry %s must be an integer array of %d "
-                                 "slots, got %s %s" % (name, n, a.dtype,
-                                                       a.shape))
-        if deg.min() < 0 or deg.max() >= 2 ** 31:
-            raise ValueError("carry deg out of int32 range")
-        for name, a in (("labels", labels), ("cover", cover)):
-            if a.min() < 0 or np.any(a > np.arange(len(a))):
-                raise ValueError("carry %s must point every slot at an "
-                                 "equal or smaller slot" % name)
+        check_summary_carry(carry, self.vb)
 
     def warm_fallback(self) -> None:
         """Build the overflow recount's kernels before a stream needs
@@ -339,6 +323,28 @@ class SlidingSummaryEngine:
                       for s, d in zip(state["ring_src"],
                                       state["ring_dst"])]
         self.inner.load_state_dict(state["inner"])
+
+
+def check_summary_carry(carry, vb: int) -> None:
+    """Raise ValueError for a host carry the summary kernels cannot load:
+    they take int32-valued deg[vb+1] ≥ 0, and labels[vb+1],
+    cover[2(vb+1)] each pointing every slot at an equal or smaller one
+    (the forest the union-find relies on)."""
+    if len(carry) != 3:
+        raise ValueError("carry must be (deg, labels, cover)")
+    deg, labels, cover = (np.asarray(a) for a in carry)
+    for name, a, n in (("deg", deg, vb + 1), ("labels", labels, vb + 1),
+                       ("cover", cover, 2 * (vb + 1))):
+        if a.shape != (n,) or not np.issubdtype(a.dtype, np.integer):
+            raise ValueError("carry %s must be an integer array of %d "
+                             "slots, got %s %s" % (name, n, a.dtype,
+                                                   a.shape))
+    if deg.min() < 0 or deg.max() >= 2 ** 31:
+        raise ValueError("carry deg out of int32 range")
+    for name, a in (("labels", labels), ("cover", cover)):
+        if a.min() < 0 or np.any(a > np.arange(len(a))):
+            raise ValueError("carry %s must point every slot at an "
+                             "equal or smaller slot" % name)
 
 
 def _to_host(x) -> np.ndarray:

@@ -124,9 +124,9 @@ def test_resolve_device(monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter (this one has JAX loaded by conftest):
-    importing every module of the port (the summary, GNN and dense
-    triangle paths' among them), and chip_smoke, loads neither `jax`
-    nor `gelly_streaming_tpu`."""
+    importing every module of the port (the summary, GNN, dense
+    triangle and tenant cohort paths' among them), and chip_smoke, loads
+    neither `jax` nor `gelly_streaming_tpu`."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import gelly_streaming_tpu_torch as p\n"
@@ -138,14 +138,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             or n == 'gelly_streaming_tpu'\n"
         "             or n.startswith('gelly_streaming_tpu.'))\n"
         "assert not bad, bad\n"
-        "for m in ('unionfind', 'host_summary', 'window_summary',\n"
-        "          'scan_analytics', 'staging', 'gnn_window', 'gnn_round',\n"
-        "          'dense_triangles'):\n"
-        "    assert 'gelly_streaming_tpu_torch.ops.' + m in sys.modules, m\n"
+        "for m in ('ops.unionfind', 'ops.host_summary',\n"
+        "          'ops.window_summary', 'ops.scan_analytics',\n"
+        "          'ops.staging', 'ops.gnn_window', 'ops.gnn_round',\n"
+        "          'ops.dense_triangles', 'ops.cohort_summary',\n"
+        "          'core.tenancy'):\n"
+        "    assert 'gelly_streaming_tpu_torch.' + m in sys.modules, m\n"
         "print('clean', len([n for n in sys.modules\n"
         "                    if n.startswith('gelly_streaming_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
-    assert int(out.stdout.split()[1]) >= 20
+    assert int(out.stdout.split()[1]) >= 22
