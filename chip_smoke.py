@@ -3,22 +3,27 @@
 NVIDIA GPU.
 
 Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and runs
-eleven phases. Five hold a kernel against its plain PyTorch version on
-the card: intersect, counter, summary, gnn and cohort (the cohort
-summary kernel on three dispatches at eb=4096: 64 Zipf tenants at
-vb=8192, a ragged batch, 8 tenants at vb=65536). Six drive the port's
-paths, each with the launch counts set to 0 just before it and read just
-after, every window checked: over the bench's north-star stream
-(make_stream(10_485_760, 65_536, seed=7): 320 Zipf windows of 32768
-edges) TriangleWindowKernel(32768, 65536).count_stream (phase stream),
-StreamSummaryEngine(32768, 65536).process (phase summary_stream) and
-GnnSummaryEngine(32768, 65536, feature_dim=64).process (phase
-gnn_stream); the one-window count triangle_count over dense windows of
-up to 4096 vertices (phase dense); TenantCohort(4096, 8192) serving 64
-tenant streams, 8 of them at vb=65536, about 8.3M edges (phase
-cohort_stream); and GnnTenantCohort(4096, 8192, feature_dim=64) over 64
-tenants of 16 windows (phase gnn_cohort). Each path reports its rate,
-its launches and where its time goes.
+fourteen phases. Six hold a kernel against its plain PyTorch version on
+the card: intersect, counter, summary, gnn, cohort (the cohort summary
+kernel on three dispatches at eb=4096: 64 Zipf tenants at vb=8192, a
+ragged batch, 8 tenants at vb=65536) and compact (the compact-wire forms
+of the counter and the summary kernel against plain and against the
+standard wire). Eight drive the port's paths, each with the launch
+counts set to 0 just before it and read just after, every window
+checked: over the bench's north-star stream (make_stream(10_485_760,
+65_536, seed=7): 320 Zipf windows of 32768 edges)
+TriangleWindowKernel(32768, 65536).count_stream on the standard wire
+(phase stream) and the compact one (phase stream_compact),
+StreamSummaryEngine(32768, 65536).process on both wires (phases
+summary_stream, summary_stream_compact) and GnnSummaryEngine(32768,
+65536, feature_dim=64).process (phase gnn_stream), all through the
+ingress pipeline and each also once under forced_sync; the
+one-window count triangle_count over dense windows of up to 4096
+vertices (phase dense); TenantCohort(4096, 8192) serving 64 tenant
+streams, 8 of them at vb=65536, about 8.3M edges (phase cohort_stream);
+and GnnTenantCohort(4096, 8192, feature_dim=64) over 64 tenants of 16
+windows (phase gnn_cohort). Each path reports its rate, its launches and
+where its time goes.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -275,11 +280,13 @@ def phase_counter(dev) -> dict:
             "tables_ms": tables_ms, "intersect_stage_ms": stage_ms}
 
 
-def phase_stream(dev) -> dict:
-    """The main path: count_stream over 320 windows, every window's
-    count checked, launches of both kernels counted."""
-    from gelly_streaming_tpu_torch import TriangleWindowKernel, kernels
-    from gelly_streaming_tpu_torch import make_stream
+def phase_stream(dev):
+    """The main path: count_stream over 320 windows (pipelined, standard
+    wire), every window's count checked, launches of both kernels
+    counted; one run under forced_sync, equal and timed. Returns the
+    launches and the counts."""
+    from gelly_streaming_tpu_torch import (TriangleWindowKernel, forced_sync,
+                                           kernels, make_stream)
     from gelly_streaming_tpu_torch.ops import host_triangles
     from gelly_streaming_tpu_torch.ops import segment as seg
     from gelly_streaming_tpu_torch.ops import window_counter as wc
@@ -288,14 +295,16 @@ def phase_stream(dev) -> dict:
     kern = TriangleWindowKernel(EB, VB)        # device=None: the card
     require(kern.device.type == "cuda", "kernel not on the card")
     require(kern.kb == KB, "kb %d, want %d" % (kern.kb, KB))
-    kern.count_stream(src[:CHUNK * EB], dst[:CHUNK * EB])   # warm-up
+    kern.count_stream(src, dst)   # warm-up: builds and fills every ring slot
     torch.cuda.synchronize()
 
+    kern.stage_timers.reset()
     kernels.reset_launches()
     t0 = time.perf_counter()
     counts = kern.count_stream(src, dst)
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    stages = kern.stage_timers.snapshot()
     num_w = STREAM_EDGES // EB
     require(len(counts) == num_w, "%d windows, want %d"
             % (len(counts), num_w))
@@ -338,6 +347,14 @@ def phase_stream(dev) -> dict:
     require(kernels.LAUNCHES["window_counter"] - before == 2,
             "overflow window was not recounted through the ladder")
 
+    # the pipeline's effect in this run: the same stream under forced_sync
+    # (prep and h2d inline on this thread)
+    with forced_sync():
+        t0 = time.perf_counter()
+        sync_counts = kern.count_stream(src, dst)
+        sync_wall = time.perf_counter() - t0
+    require(sync_counts == counts, "stream: forced_sync counts differ")
+
     # the spread: the same stream twice more, then once under the
     # profiler for where the time goes
     repeats = []
@@ -353,14 +370,70 @@ def phase_stream(dev) -> dict:
     rate = STREAM_EDGES / wall
     print(json.dumps({"stream": {
         "edges": STREAM_EDGES, "windows": num_w, "eb": EB, "vb": VB,
-        "kb": kern.kb, "seconds": wall, "edges_per_s": rate,
-        "repeat_seconds": repeats, "host_stack_ms": host_stack_ms,
+        "kb": kern.kb, "wire": kern.ingress, "seconds": wall,
+        "edges_per_s": rate, "repeat_seconds": repeats,
+        "forced_sync_seconds": sync_wall,
+        "forced_sync_edges_per_s": STREAM_EDGES / sync_wall,
+        "stage_ms_per_chunk": stages, "host_stack_ms": host_stack_ms,
         "triangles": int(sum(counts)), "plain_overflow_windows": recounted,
         "launches": launches,
         "device": torch.cuda.get_device_name(0)}}))
-    print(json.dumps({"profile": profile_run(
+    print(json.dumps({"profile": profile_both(
         lambda: kern.count_stream(src, dst))}))
-    print("phase stream: ok  %d windows  %.1f edges/s" % (num_w, rate))
+    print("phase stream: ok  %d windows  %.1f edges/s  (forced_sync %.1f)"
+          % (num_w, rate, STREAM_EDGES / sync_wall))
+    return launches, counts
+
+
+def phase_stream_compact(dev, want: list) -> dict:
+    """The triangle path on the compact wire:
+    TriangleWindowKernel(32768, 65536, ingress="compact").count_stream
+    over the same 320 windows, every window equal to phase stream's
+    count (checked there against plain), launches of the compact counter
+    and the intersect counted; one forced_sync run, equal and timed."""
+    from gelly_streaming_tpu_torch import (TriangleWindowKernel, forced_sync,
+                                           kernels, make_stream)
+
+    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    kern = TriangleWindowKernel(EB, VB, ingress="compact")   # the card
+    require(kern.device.type == "cuda" and kern.ingress == "compact",
+            "compact kernel not on the card")
+    kern.count_stream(src, dst)   # warm-up: builds and fills every ring slot
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    counts = kern.count_stream(src, dst)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for name in ("intersect", "window_counter_compact"):
+        require(launches[name] > 0,
+                "kernel %s was not launched on the compact path" % name)
+    bad = [w for w, (a, b) in enumerate(zip(counts, want)) if a != b]
+    require(len(counts) == len(want) and not bad,
+            "stream_compact: windows %s differ from the standard wire" % bad)
+    with forced_sync():
+        t0 = time.perf_counter()
+        sync_counts = kern.count_stream(src, dst)
+        sync_wall = time.perf_counter() - t0
+    require(sync_counts == counts, "stream_compact: forced_sync differs")
+    repeats = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        kern.count_stream(src, dst)
+        repeats.append(time.perf_counter() - t0)
+    prof = profile_both(lambda: kern.count_stream(src, dst))
+    rate = STREAM_EDGES / wall
+    print(json.dumps({"stream_compact": {
+        "edges": STREAM_EDGES, "windows": len(counts), "wire": "compact",
+        "seconds": wall, "edges_per_s": rate, "repeat_seconds": repeats,
+        "forced_sync_seconds": sync_wall,
+        "forced_sync_edges_per_s": STREAM_EDGES / sync_wall,
+        "h2d_bytes_per_chunk": CHUNK * EB * 4 + CHUNK * 4,
+        "launches": launches, "device": torch.cuda.get_device_name(0)}}))
+    print(json.dumps({"stream_compact_profile": prof}))
+    print("phase stream_compact: ok  %d windows  %.1f edges/s  (forced_sync "
+          "%.1f)" % (len(counts), rate, STREAM_EDGES / sync_wall))
     return launches
 
 
@@ -531,15 +604,17 @@ def phase_summary(dev) -> dict:
             "kernel_only_ms": kern_ms - clone_ms}
 
 
-def phase_summary_stream(dev) -> dict:
+def phase_summary_stream(dev):
     """The summary engine's main path: StreamSummaryEngine(32768,
-    65536).process over the 320-window stream, every window checked
-    against the plain version on the card (and the numpy oracle where
-    the plain count overflows K), the first four against the numpy
-    summary oracle, the final carry against the plain one, launches of
-    all three kernels counted."""
-    from gelly_streaming_tpu_torch import StreamSummaryEngine, kernels
-    from gelly_streaming_tpu_torch import make_stream
+    65536).process over the 320-window stream (pipelined, standard wire),
+    every window checked against the plain version on the card (and the
+    numpy oracle where the plain count overflows K), the first four
+    against the numpy summary oracle, the final carry against the plain
+    one, launches of all three kernels counted; one run under
+    forced_sync, equal and timed. Returns the launches, the summaries
+    and the final state_dict."""
+    from gelly_streaming_tpu_torch import (StreamSummaryEngine, forced_sync,
+                                           kernels, make_stream)
     from gelly_streaming_tpu_torch.ops import host_summary, host_triangles
     from gelly_streaming_tpu_torch.ops import scan_analytics as sa
     from gelly_streaming_tpu_torch.ops import segment as seg
@@ -550,15 +625,17 @@ def phase_summary_stream(dev) -> dict:
     require(eng.device.type == "cuda", "engine not on the card")
     require(eng.kb == KB, "kb %d, want %d" % (eng.kb, KB))
     eng.warm_fallback()
-    eng.process(src[:CHUNK * EB], dst[:CHUNK * EB])      # warm-up
+    eng.process(src, dst)         # warm-up: builds and fills every ring slot
     eng.reset()
     torch.cuda.synchronize()
 
+    eng.stage_timers.reset()
     kernels.reset_launches()
     t0 = time.perf_counter()
     out = eng.process(src, dst)
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    stages = eng.stage_timers.snapshot()
     num_w = STREAM_EDGES // EB
     require(len(out) == num_w, "%d windows, want %d" % (len(out), num_w))
     for name in ("intersect", "window_counter", "window_summary"):
@@ -596,14 +673,22 @@ def phase_summary_stream(dev) -> dict:
     require(out[:4] == oracle, "summary stream: first windows %s != numpy "
             "%s" % (out[:4], oracle))
 
+    eng.reset()
+    with forced_sync():
+        t0 = time.perf_counter()
+        sync_out = eng.process(src, dst)
+        sync_wall = time.perf_counter() - t0
+    require(sync_out == out and all(
+        np.array_equal(a, b) for a, b in zip(eng.state_dict()["carry"],
+                                             state["carry"])),
+        "summary stream: forced_sync summaries or carry differ")
     repeats = []
     for _ in range(2):
         eng.reset()
         t0 = time.perf_counter()
         eng.process(src, dst)
         repeats.append(time.perf_counter() - t0)
-    eng.reset()
-    prof = profile_run(lambda: eng.process(src, dst))
+    prof = profile_both(lambda: eng.process(src, dst), eng.reset)
     # the engine's host work beyond the triangle stream's, timed alone
     s32, d32 = np.asarray(src, np.int32), np.asarray(dst, np.int32)
     t0 = time.perf_counter()
@@ -612,15 +697,237 @@ def phase_summary_stream(dev) -> dict:
     rate = STREAM_EDGES / wall
     print(json.dumps({"summary_stream": {
         "edges": STREAM_EDGES, "windows": num_w, "eb": EB, "vb": VB,
-        "kb": eng.kb, "seconds": wall, "edges_per_s": rate,
-        "repeat_seconds": repeats, "id_check_ms": id_check_ms,
+        "kb": eng.kb, "wire": eng.ingress, "seconds": wall,
+        "edges_per_s": rate, "repeat_seconds": repeats,
+        "forced_sync_seconds": sync_wall,
+        "forced_sync_edges_per_s": STREAM_EDGES / sync_wall,
+        "stage_ms_per_chunk": stages, "id_check_ms": id_check_ms,
         "plain_overflow_windows": recounted, "last_window": out[-1],
         "launches": launches,
         "device": torch.cuda.get_device_name(0)}}))
     print(json.dumps({"summary_profile": prof}))
-    print("phase summary_stream: ok  %d windows  %.1f edges/s"
-          % (num_w, rate))
+    print("phase summary_stream: ok  %d windows  %.1f edges/s  (forced_sync "
+          "%.1f)" % (num_w, rate, STREAM_EDGES / sync_wall))
+    return launches, out, state
+
+
+def phase_summary_stream_compact(dev, want: list, want_state: dict) -> dict:
+    """The summary engine on the compact wire:
+    StreamSummaryEngine(32768, 65536, ingress="compact").process over the
+    same 320 windows, every window and the final carry equal to phase
+    summary_stream's (checked there against plain), launches of the
+    compact summary kernel, the compact counter and the intersect
+    counted; one forced_sync run, equal and timed."""
+    from gelly_streaming_tpu_torch import (StreamSummaryEngine, forced_sync,
+                                           kernels, make_stream)
+
+    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    eng = StreamSummaryEngine(EB, VB, ingress="compact")   # the card
+    require(eng.device.type == "cuda" and eng.ingress == "compact",
+            "compact engine not on the card")
+    eng.warm_fallback()
+    eng.process(src, dst)         # warm-up: builds and fills every ring slot
+    eng.reset()
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.process(src, dst)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for name in ("intersect", "window_counter_compact",
+                 "window_summary_compact"):
+        require(launches[name] > 0, "kernel %s was not launched on the "
+                "compact summary path" % name)
+    bad = [w for w, (a, b) in enumerate(zip(out, want)) if a != b]
+    require(len(out) == len(want) and not bad,
+            "summary_stream_compact: windows %s differ from the standard "
+            "wire" % bad)
+    state = eng.state_dict()
+    for label, a, b in zip(("deg", "labels", "cover"), state["carry"],
+                           want_state["carry"]):
+        require(np.array_equal(a, b), "summary_stream_compact: final carry "
+                "%s differs from the standard wire's" % label)
+    eng.reset()
+    with forced_sync():
+        t0 = time.perf_counter()
+        sync_out = eng.process(src, dst)
+        sync_wall = time.perf_counter() - t0
+    require(sync_out == out, "summary_stream_compact: forced_sync differs")
+    repeats = []
+    for _ in range(2):
+        eng.reset()
+        t0 = time.perf_counter()
+        eng.process(src, dst)
+        repeats.append(time.perf_counter() - t0)
+    prof = profile_both(lambda: eng.process(src, dst), eng.reset)
+    rate = STREAM_EDGES / wall
+    print(json.dumps({"summary_stream_compact": {
+        "edges": STREAM_EDGES, "windows": len(out), "wire": "compact",
+        "seconds": wall, "edges_per_s": rate, "repeat_seconds": repeats,
+        "forced_sync_seconds": sync_wall,
+        "forced_sync_edges_per_s": STREAM_EDGES / sync_wall,
+        "h2d_bytes_per_chunk": CHUNK * EB * 4 + CHUNK * 4,
+        "launches": launches, "device": torch.cuda.get_device_name(0)}}))
+    print(json.dumps({"summary_stream_compact_profile": prof}))
+    print("phase summary_stream_compact: ok  %d windows  %.1f edges/s  "
+          "(forced_sync %.1f)" % (len(out), rate, STREAM_EDGES / sync_wall))
     return launches
+
+
+def to_compact(s, d, v):
+    """A standard-wire [W, eb] stack on the compact wire (uint16 ids, one
+    valid count per window); its padding must be each window's suffix."""
+    nvalid = v.sum(axis=1).astype(np.int32)
+    require(np.array_equal(v, np.arange(v.shape[1])[None, :]
+                           < nvalid[:, None]),
+            "compact wire: padding is not a suffix")
+    return (np.where(v, s, 0).astype(np.uint16),
+            np.where(v, d, 0).astype(np.uint16), nvalid)
+
+
+def compact_fixtures():
+    """phase summary's three fixtures, and a Zipf chunk at vb=65536 whose
+    last window is half padding and closes a triangle on ids 65533-65535
+    in its last valid slots (the top uint16 id is real, padding only what
+    lies past a window's count)."""
+    from gelly_streaming_tpu_torch import make_stream
+    from gelly_streaming_tpu_torch.ops import segment as seg
+
+    yield from summary_fixtures()
+    src, dst = make_stream(2 * CHUNK * EB, VB, seed=19)
+    _w, s, d, v = seg.window_stack(src, dst, EB, sentinel=VB)
+    tri = slice(EB // 2 - 3, EB // 2)     # the last valid slots
+    s[-1, tri], d[-1, tri] = (65533, 65534, 65535), (65534, 65535, 65533)
+    v[-1, EB // 2:] = False
+    yield ("top ids", (s[:CHUNK], d[:CHUNK], v[:CHUNK]),
+           (s[CHUNK:], d[CHUNK:], v[CHUNK:]))
+
+
+def phase_compact(dev) -> dict:
+    """The compact forms of the counter and the summary kernel (the
+    decode fused into both) against their plain versions (widen_stack,
+    then plain) and against the standard-wire kernels on the same
+    windows: phase summary's sparse, bipartite and ragged fixtures and a
+    vb=65536 chunk with id 65535, each from a carry that is not fresh.
+    Outputs equal (triangles where overflow is 0) and carries bit-equal
+    across the wires and against plain. Then ms per 64-window chunk of
+    each wire at the Zipf chunk, and each wire's h2d bytes and copy
+    time per chunk."""
+    from gelly_streaming_tpu_torch import make_stream
+    from gelly_streaming_tpu_torch.ops import compact_ingress as ci
+    from gelly_streaming_tpu_torch.ops import segment as seg
+    from gelly_streaming_tpu_torch.ops import window_counter as wc
+    from gelly_streaming_tpu_torch.ops import window_summary as ws
+
+    def dev_stack(arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                     for x in arrays)
+
+    summ = ws.WindowSummary(VB, KB, dev)        # the compact wire's
+    std = ws.WindowSummary(VB, KB, dev)         # the standard wire's
+    err = 0
+    for name, prefix, chunk in compact_fixtures():
+        carries = [ws.fresh_carry(VB, dev) for _ in range(3)]
+        for part, stack in (("prefix", prefix), ("chunk", chunk)):
+            st = dev_stack(stack)
+            ct = dev_stack(to_compact(*stack))
+            got = [x.cpu().numpy() for x in summ(carries[0], *ct,
+                                                 wire="compact")]
+            other = [x.cpu().numpy() for x in std(carries[1], *st)]
+            plain = [x.cpu().numpy() for x in ws.summarize_windows_plain(
+                carries[2], *ci.widen_stack(*ct, EB, VB), VB, KB)]
+            clean = plain[4] == 0
+            for i, (g, o, p) in enumerate(zip(got, other, plain)):
+                if i == 3:
+                    g, o, p = g[clean], o[clean], p[clean]
+                require(np.array_equal(g, p) and np.array_equal(g, o),
+                        "compact %s %s: output %d compact %s, standard %s, "
+                        "plain %s" % (name, part, i, g, o, p))
+                err = max(err, int(np.abs(g.astype(np.int64) - p)
+                                   .max(initial=0)))
+            for label, a, b, c in zip(("deg", "labels", "cover"),
+                                      *carries):
+                require(torch.equal(a, b) and torch.equal(a, c),
+                        "compact %s %s: carry %s differs across wires or "
+                        "from plain" % (name, part, label))
+            # the counter alone on the same windows, both wires and plain
+            c, o = summ.counter(*ct, wire="compact")
+            pc, po = wc.count_windows_plain(*ci.widen_stack(*ct, EB, VB),
+                                            VB, KB)
+            c, o, pc, po = (x.cpu().numpy() for x in (c, o, pc, po))
+            require(np.array_equal(o, po) and np.array_equal(
+                c[po == 0], pc[po == 0]), "compact %s %s: counter %s %s "
+                "!= plain %s %s" % (name, part, c, o, pc, po))
+        if name == "ragged":
+            require(int(carries[0][2][2 * VB + 1]) == VB,
+                    "compact ragged: the cover's sentinels were not joined")
+        if name == "top ids":
+            require((plain[4][-1] > 0 or plain[3][-1] >= 1)
+                    and int(carries[0][0][65535]) > 0,
+                    "compact top ids: id 65535 lost: triangles %d, degree "
+                    "%d" % (plain[3][-1], int(carries[0][0][65535])))
+        print("phase compact %s: ok  both wires and plain bit-equal, "
+              "triangles %d..%d" % (name, plain[3].min(), plain[3].max()))
+
+    # times at the Zipf chunk of phase summary, both wires
+    src, dst = make_stream(2 * CHUNK * EB, VB, seed=11)
+    _w, s, d, v = seg.window_stack(src, dst, EB, sentinel=VB)
+    carry = ws.fresh_carry(VB, dev)
+    summ(carry, *dev_stack(to_compact(s[:CHUNK], d[:CHUNK], v[:CHUNK])),
+         wire="compact")
+    st = dev_stack((s[CHUNK:], d[CHUNK:], v[CHUNK:]))
+    ct = dev_stack(to_compact(s[CHUNK:], d[CHUNK:], v[CHUNK:]))
+    clone_ms = cuda_ms(lambda: tuple(c.clone() for c in carry), 20)
+    times = {}
+    for wire, stack in (("standard", st), ("compact", ct)):
+        times[wire] = {
+            "summary_ms": cuda_ms(lambda: summ(
+                tuple(c.clone() for c in carry), *stack, wire=wire), 20)
+            - clone_ms,
+            "counter_ms": cuda_ms(lambda: summ.counter(*stack, wire=wire),
+                                  20)}
+    counter_plain_ms = cuda_ms(lambda: wc.count_windows_plain(
+        *ci.widen_stack(*ct, EB, VB), VB, KB), 1)
+    summary_plain_ms = cuda_ms(lambda: ws.summarize_windows_plain(
+        tuple(c.clone() for c in carry), *ci.widen_stack(*ct, EB, VB), VB,
+        KB), 1) - clone_ms
+    # the h2d of one chunk of each wire from pinned memory
+    h2d = {}
+    for wire, nbytes in (("standard", CHUNK * EB * 9),
+                         ("compact", CHUNK * EB * 4 + CHUNK * 4)):
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        h2d[wire] = {"bytes": nbytes, "ms": cuda_ms(
+            lambda: buf.copy_(host, non_blocking=True), 20)}
+    slots = int(v[CHUNK:].sum())
+    edges, compares = row_work(*st, VB, KB)
+    slab = CHUNK * EB * 4 + CHUNK * 4     # JAX slab_bytes: eb·4 + 4 a window
+    counter_bound = bound(slab + CHUNK * 8, CHUNK * EB + compares)
+    summary_bound = bound(slab + 2 * 16 * (VB + 1) + 20 * CHUNK,
+                          5 * slots + 3 * CHUNK * (VB + 1) + CHUNK * EB
+                          + compares)
+    print(json.dumps({"compact": {
+        "times_ms": times, "h2d": h2d, "counter_plain_ms": counter_plain_ms,
+        "summary_plain_ms": summary_plain_ms,
+        "counter_bound": counter_bound, "summary_bound": summary_bound,
+        "device": torch.cuda.get_device_name(0)}}))
+    print("phase compact: ok  summary %.3f ms/chunk compact, %.3f standard;"
+          "  counter %.3f compact, %.3f standard;  h2d %d B (%.3f ms) "
+          "compact, %d B (%.3f ms) standard"
+          % (times["compact"]["summary_ms"], times["standard"]["summary_ms"],
+             times["compact"]["counter_ms"], times["standard"]["counter_ms"],
+             h2d["compact"]["bytes"], h2d["compact"]["ms"],
+             h2d["standard"]["bytes"], h2d["standard"]["ms"]))
+    return {
+        "counter": {"ms": times["compact"]["counter_ms"],
+                    "plain_ms": counter_plain_ms,
+                    "bound_ms": counter_bound[0],
+                    "bound_by": counter_bound[1], "max_abs_err": err},
+        "summary": {"ms": times["compact"]["summary_ms"],
+                    "plain_ms": summary_plain_ms,
+                    "bound_ms": summary_bound[0],
+                    "bound_by": summary_bound[1], "max_abs_err": err}}
 
 
 def gnn_weights(F: int, lo: int, hi: int, seed: int = 3):
@@ -758,9 +1065,10 @@ def phase_gnn_stream(dev) -> dict:
     default_features(vb, 64, seed=0) with fixed random snapped weights;
     every window against the plain round on the card, the first four
     against the numpy twin GnnHostEngine, the final slab against the
-    plain one, the kernel's launches counted."""
+    plain one, the kernel's launches counted; one run under forced_sync,
+    equal and timed."""
     from gelly_streaming_tpu_torch import (GnnHostEngine, GnnSummaryEngine,
-                                           kernels, make_stream)
+                                           forced_sync, kernels, make_stream)
     from gelly_streaming_tpu_torch.ops import gnn_round as gr
     from gelly_streaming_tpu_torch.ops import gnn_window as gw
 
@@ -777,7 +1085,7 @@ def phase_gnn_stream(dev) -> dict:
         eng.load_feature_units(slab)
 
     start()
-    eng.process(src[:CHUNK * EB], dst[:CHUNK * EB])     # warm-up
+    eng.process(src, dst)         # warm-up: builds and fills every ring slot
     start()
     torch.cuda.synchronize()
 
@@ -817,26 +1125,36 @@ def phase_gnn_stream(dev) -> dict:
             "gnn stream saturates or dies out: max_feat %s, active %s"
             % (maxf, active))
 
+    start()
+    with forced_sync():
+        t0 = time.perf_counter()
+        sync_out = eng.process(src, dst)
+        sync_wall = time.perf_counter() - t0
+    require(sync_out == out and np.array_equal(
+        eng.state_dict()["carry"][0], final),
+        "gnn stream: forced_sync summaries or slab differ")
     repeats = []
     for _ in range(2):
         start()
         t0 = time.perf_counter()
         eng.process(src, dst)
         repeats.append(time.perf_counter() - t0)
-    start()
-    prof = profile_run(lambda: eng.process(src, dst))
+    prof = profile_both(lambda: eng.process(src, dst), start)
     rate = STREAM_EDGES / wall
     print(json.dumps({"gnn_stream": {
         "edges": STREAM_EDGES, "windows": num_w, "eb": EB, "vb": VB,
         "feature_dim": GNN_F, "seconds": wall, "edges_per_s": rate,
         "edge_features_per_s": rate * GNN_F, "repeat_seconds": repeats,
+        "forced_sync_seconds": sync_wall,
+        "forced_sync_edges_per_s": STREAM_EDGES / sync_wall,
         "max_feat": [min(maxf), max(maxf)],
         "active_vertices": [min(active), max(active)],
         "last_window": out[-1], "launches": launches,
         "device": torch.cuda.get_device_name(0)}}))
     print(json.dumps({"gnn_profile": prof}))
     print("phase gnn_stream: ok  %d windows  %.1f edges/s  %.4g "
-          "edge-features/s" % (num_w, rate, rate * GNN_F))
+          "edge-features/s  (forced_sync %.1f edges/s)"
+          % (num_w, rate, rate * GNN_F, STREAM_EDGES / sync_wall))
     return launches
 
 
@@ -1288,6 +1606,21 @@ def phase_gnn_cohort(dev) -> dict:
     return launches
 
 
+def profile_both(run, setup=lambda: None) -> dict:
+    """profile_run of run(), pipelined and under forced_sync, each after
+    setup() outside the profiled region."""
+    from gelly_streaming_tpu_torch import forced_sync
+
+    def synced():
+        with forced_sync():
+            run()
+
+    setup()
+    pipelined = profile_run(run)
+    setup()
+    return {"pipelined": pipelined, "forced_sync": profile_run(synced)}
+
+
 def profile_run(run) -> dict:
     """One run() under torch.profiler: device time by name (the
     device-side rows only, so nothing is counted twice), their sum, and
@@ -1343,34 +1676,42 @@ def main() -> int:
     summary = phase_summary(dev)
     gnn = phase_gnn(dev)
     cohort = phase_cohort(dev)
-    launches = phase_stream(dev)
-    summary_launches = phase_summary_stream(dev)
+    compact = phase_compact(dev)
+    launches, counts = phase_stream(dev)
+    compact_launches = phase_stream_compact(dev, counts)
+    summary_launches, summaries, state = phase_summary_stream(dev)
+    summary_compact_launches = phase_summary_stream_compact(dev, summaries,
+                                                            state)
     gnn_launches = phase_gnn_stream(dev)
     dense, dense_launches = phase_dense(dev)
     cohort_launches = phase_cohort_stream(dev)
     phase_gnn_cohort(dev)
 
     rows = []
-    for name, replaces, res, n in (
-            ("intersect", "gelly_streaming_tpu/ops/pallas_intersect.py:118",
-             inter, launches["intersect"]),
-            ("window_counter",
-             "gelly_streaming_tpu/ops/pallas_window.py:748", counter,
+    pw = "gelly_streaming_tpu/ops/pallas_window.py:"
+    for name, source, replaces, res, n in (
+            ("intersect", "intersect",
+             "gelly_streaming_tpu/ops/pallas_intersect.py:118", inter,
+             launches["intersect"]),
+            ("window_counter", "window_counter", pw + "748", counter,
              launches["window_counter"]),
-            ("window_summary",
-             "gelly_streaming_tpu/ops/pallas_window.py:504", summary,
+            ("window_counter_compact", "window_counter", pw + "748",
+             compact["counter"], compact_launches["window_counter_compact"]),
+            ("window_summary", "window_summary", pw + "504", summary,
              summary_launches["window_summary"]),
-            ("cohort_summary",
-             "gelly_streaming_tpu/ops/pallas_window.py:640", cohort,
+            ("window_summary_compact", "window_summary", pw + "548",
+             compact["summary"],
+             summary_compact_launches["window_summary_compact"]),
+            ("cohort_summary", "cohort_summary", pw + "640", cohort,
              cohort_launches["cohort_summary"]),
-            ("gnn_round", "gelly_streaming_tpu/ops/pallas_window.py:1099",
-             gnn, gnn_launches["gnn_round"]),
-            ("dense_triangles",
+            ("gnn_round", "gnn_round", pw + "1099", gnn,
+             gnn_launches["gnn_round"]),
+            ("dense_triangles", "dense_triangles",
              "gelly_streaming_tpu/ops/pallas_triangles.py:58", dense,
              dense_launches["dense_triangles"])):
         rows.append({
             "name": name, "route": "cuda",
-            "source": "gelly_streaming_tpu_torch/csrc/%s.cu" % name,
+            "source": "gelly_streaming_tpu_torch/csrc/%s.cu" % source,
             "replaces": replaces, "launches": n,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],

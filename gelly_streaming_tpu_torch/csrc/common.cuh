@@ -1,4 +1,5 @@
-// Shared definitions of the port's CUDA kernels.
+// Shared definitions of the port's CUDA kernels, and the readers of the
+// two wires a window stack arrives on.
 //
 // Each csrc/*.cu file builds into its own shared library with a plain C
 // interface (gelly_streaming_tpu_torch/kernels.py), bound with ctypes.
@@ -23,3 +24,44 @@ constexpr int kWarpsPerBlock = kThreads / kWarp;
 GS_EXPORT const char* gs_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// The two wires a [windows, eb] stack of edge slots arrives on
+// (gelly_streaming_tpu_torch/ops/compact_ingress.py). read(w, i, s, d)
+// loads slot i of window w into (s, d) and returns whether it holds an
+// edge; a slot that does not is padding, whatever its ids.
+//
+// The standard wire: int32 src and dst, bool valid, 9 bytes a slot.
+struct StandardWire {
+    const int* src;
+    const int* dst;
+    const bool* valid;
+    int eb;
+
+    __device__ __forceinline__ bool read(int w, int i, int& s,
+                                         int& d) const {
+        const long long off = (long long)w * eb + i;
+        s = src[off];
+        d = dst[off];
+        return valid[off];
+    }
+};
+
+// The compact wire: uint16 src and dst, one int32 count of valid slots
+// per window, 4 bytes a slot. Padding is each window's suffix, so slot i
+// of window w is padding iff i >= nvalid[w]: the decode the TPU kernel
+// ran per tile (pallas_window.py:548-576) happens here, at the one load
+// of each slot, and no widened int32 stack exists.
+struct CompactWire {
+    const uint16_t* src;
+    const uint16_t* dst;
+    const int* nvalid;
+    int eb;
+
+    __device__ __forceinline__ bool read(int w, int i, int& s,
+                                         int& d) const {
+        const long long off = (long long)w * eb + i;
+        s = src[off];
+        d = dst[off];
+        return i < nvalid[w];
+    }
+};

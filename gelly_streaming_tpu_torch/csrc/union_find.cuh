@@ -66,27 +66,37 @@ __device__ __forceinline__ int warp_sum(int x) {
     return x;
 }
 
-// Slot i of one window (src, dst, valid point at the window's eb slots):
-// a valid slot adds its two degrees and joins (s, d) in labels; every
-// slot joins (s, d+vb+1) and (s+vb+1, d) in the cover. A valid slot
-// whose ids lie outside [0, vb) (callers reject such input before it
-// gets here) is taken as padding, so nothing is written outside the
-// carry; the cover folds padding too: (vb, 2vb+1) joins the two
-// sentinels, as the JAX body's sentinel-mapped slots do.
+// Slot i of window w, read through `wire` (common.cuh: the standard or
+// the compact wire): a valid slot adds its two degrees and joins (s, d)
+// in labels; every slot joins (s, d+vb+1) and (s+vb+1, d) in the cover.
+// A valid slot whose ids lie outside [0, vb) (callers reject such input
+// before it gets here) is taken as padding, so nothing is written
+// outside the carry; the cover folds padding too: (vb, 2vb+1) joins the
+// two sentinels, as the JAX body's sentinel-mapped slots do. A padded
+// slot folds the same on both wires, so the carries agree bit for bit.
+template <class Wire>
 __device__ __forceinline__ void fold_slot(
-        const int* __restrict__ src, const int* __restrict__ dst,
-        const bool* __restrict__ valid, int i, int vb,
-        int* __restrict__ deg, int* labels, int* cover) {
-    int s = vb, d = vb;
-    if (valid[i] && in_range(src[i], vb) && in_range(dst[i], vb)) {
-        s = src[i];
-        d = dst[i];
+        const Wire& wire, int w, int i, int vb, int* __restrict__ deg,
+        int* labels, int* cover) {
+    int s, d;
+    if (wire.read(w, i, s, d) && in_range(s, vb) && in_range(d, vb)) {
         atomicAdd(deg + s, 1);
         atomicAdd(deg + d, 1);
         unite(labels, s, d);
+    } else {
+        s = d = vb;
     }
     unite(cover, s, d + vb + 1);
     unite(cover, s + vb + 1, d);
+}
+
+// The standard wire, with src, dst and valid pointing at one window's
+// slots (csrc/cohort_summary.cu).
+__device__ __forceinline__ void fold_slot(
+        const int* src, const int* dst, const bool* valid, int i, int vb,
+        int* __restrict__ deg, int* labels, int* cover) {
+    fold_slot(StandardWire{src, dst, valid, 0}, 0, i, vb, deg, labels,
+              cover);
 }
 
 // Slot v of the carry after a window's unions, called by every thread

@@ -11,6 +11,14 @@
 // intersection, is the intersect kernel (csrc/intersect.cu), which the
 // Python wrapper launches on the tables built here.
 //
+// Both kernels read the stack through a wire reader (common.cuh): the
+// standard wire (int32 ids, bool valid) or the compact one (uint16 ids,
+// one valid count per window; gs_window_tables_compact). The JAX package
+// widened the compact wire to int32 before its counter
+// (compact_ingress.py:81-93); here each slot is decoded where it is
+// loaded, so the compact form reads 4 bytes a slot and makes no widened
+// stack.
+//
 // The TPU kernel deduplicated with one lexicographic sort in VMEM. One
 // window's 32768 (a, b) pairs as 8-byte keys are 256 KB, more than the
 // 227 KB of shared memory a block may hold, so this design is free of
@@ -25,7 +33,8 @@
 //
 // What bounds it: atomics, not bytes. Per edge: two degree increments,
 // one compare-and-swap (more on a collision), one out-degree increment;
-// the input slab is 9 bytes per slot and is read twice. Increments on a
+// the input slab is 9 bytes per slot (compact: 4, plus 4 per window) and
+// is read twice. Increments on a
 // hub vertex serialize in L2 (a Zipf window of 32768 edges gives its top
 // vertex ~8.4K). The design keeps the rest small: two launches over an
 // [eb/256, W] grid (orienting needs every degree of the window, so a
@@ -54,15 +63,14 @@ __device__ __forceinline__ bool edge_ok(bool v, int s, int d, int vb) {
 }
 
 // grid (x: edge blocks, y: windows)
+template <class Wire>
 __global__ void __launch_bounds__(kThreads) degree_kernel(
-        const int* __restrict__ src, const int* __restrict__ dst,
-        const bool* __restrict__ valid, int eb, int vb,
-        int* __restrict__ deg) {
+        const Wire wire, int vb, int* __restrict__ deg) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= eb) return;
-    const long long off = (long long)blockIdx.y * eb + i;
-    const int s = src[off], d = dst[off];
-    if (!edge_ok(valid[off], s, d, vb)) return;
+    if (i >= wire.eb) return;
+    int s, d;
+    const bool v = wire.read(blockIdx.y, i, s, d);
+    if (!edge_ok(v, s, d, vb)) return;
     int* dg = deg + (long long)blockIdx.y * (vb + 1);
     atomicAdd(dg + s, 1);
     atomicAdd(dg + d, 1);
@@ -71,9 +79,9 @@ __global__ void __launch_bounds__(kThreads) degree_kernel(
 // grid (x: edge blocks, y: windows). Orients each edge, keeps its first
 // occurrence, places it in its source row and appends it to the window's
 // distinct-edge list (edge_a, edge_b)[0:nedges[w]].
+template <class Wire>
 __global__ void __launch_bounds__(kThreads) insert_kernel(
-        const int* __restrict__ src, const int* __restrict__ dst,
-        const bool* __restrict__ valid, int eb, int vb, int kb,
+        const Wire wire, int vb, int kb,
         const int* __restrict__ deg, int* __restrict__ outdeg,
         int* __restrict__ table, unsigned long long* __restrict__ hash,
         int hash_slots, int* __restrict__ edge_a,
@@ -85,10 +93,11 @@ __global__ void __launch_bounds__(kThreads) insert_kernel(
     const long long vrow = (long long)w * (vb + 1);
     int a = 0, b = 0;
     bool fresh = false;
+    const int eb = wire.eb;
     if (i < eb) {
-        const long long off = (long long)w * eb + i;
-        const int s = src[off], d = dst[off];
-        if (edge_ok(valid[off], s, d, vb)) {
+        int s, d;
+        const bool v = wire.read(w, i, s, d);
+        if (edge_ok(v, s, d, vb)) {
             const int lo = min(s, d), hi = max(s, d);
             const int dlo = deg[vrow + lo], dhi = deg[vrow + hi];
             // the tie-break of triangles.orient_by_degree
@@ -136,20 +145,14 @@ __global__ void __launch_bounds__(kThreads) insert_kernel(
     if (over_mask && lane == 0) atomicAdd(overflow + w, __popc(over_mask));
 }
 
-}  // namespace
-
-// Builds, for each of `windows` windows of the [windows, eb] stack, its
-// out-degrees outdeg[w][vb+1], the rows table[w][vb+1][kb] (valid up to
-// min(outdeg, kb)), the distinct oriented edges edge_a/edge_b[w][0:
-// nedges[w]] and overflow[w]. deg and hash are scratch; hash_slots is a
-// power of two ≥ 2·eb.
-GS_EXPORT int gs_window_tables(const int* src, const int* dst,
-                               const bool* valid, int windows, int eb,
-                               int vb, int kb, int* deg, int* outdeg,
-                               int* table, unsigned long long* hash,
-                               int hash_slots, int* edge_a, int* edge_b,
-                               int* nedges, int* overflow, int device,
-                               void* stream) {
+// Clears the scratch of `windows` windows and launches the two kernels
+// on the stack `wire` carries.
+template <class Wire>
+cudaError_t window_tables(const Wire wire, int windows, int vb, int kb,
+                          int* deg, int* outdeg, int* table,
+                          unsigned long long* hash, int hash_slots,
+                          int* edge_a, int* edge_b, int* nedges,
+                          int* overflow, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -164,12 +167,49 @@ GS_EXPORT int gs_window_tables(const int* src, const int* dst,
         return err;
     if ((err = cudaMemsetAsync(overflow, 0, sizeof(int) * (size_t)windows, s)))
         return err;
-    if (windows > 0 && eb > 0) {
-        dim3 grid((eb + kThreads - 1) / kThreads, windows);
-        degree_kernel<<<grid, kThreads, 0, s>>>(src, dst, valid, eb, vb, deg);
+    if (windows > 0 && wire.eb > 0) {
+        dim3 grid((wire.eb + kThreads - 1) / kThreads, windows);
+        degree_kernel<<<grid, kThreads, 0, s>>>(wire, vb, deg);
         insert_kernel<<<grid, kThreads, 0, s>>>(
-            src, dst, valid, eb, vb, kb, deg, outdeg, table, hash,
-            hash_slots, edge_a, edge_b, nedges, overflow);
+            wire, vb, kb, deg, outdeg, table, hash, hash_slots, edge_a,
+            edge_b, nedges, overflow);
     }
     return cudaGetLastError();
+}
+
+}  // namespace
+
+// Builds, for each of `windows` windows of the [windows, eb] stack, its
+// out-degrees outdeg[w][vb+1], the rows table[w][vb+1][kb] (valid up to
+// min(outdeg, kb)), the distinct oriented edges edge_a/edge_b[w][0:
+// nedges[w]] and overflow[w]. deg and hash are scratch; hash_slots is a
+// power of two ≥ 2·eb. The stack is on the standard wire.
+GS_EXPORT int gs_window_tables(const int* src, const int* dst,
+                               const bool* valid, int windows, int eb,
+                               int vb, int kb, int* deg, int* outdeg,
+                               int* table, unsigned long long* hash,
+                               int hash_slots, int* edge_a, int* edge_b,
+                               int* nedges, int* overflow, int device,
+                               void* stream) {
+    return window_tables(StandardWire{src, dst, valid, eb}, windows, vb, kb,
+                         deg, outdeg, table, hash, hash_slots, edge_a,
+                         edge_b, nedges, overflow, device, stream);
+}
+
+// gs_window_tables on the compact wire: uint16 src16/dst16 [windows, eb]
+// and nvalid[windows], slot i of window w padding iff i >= nvalid[w]
+// (the decode the JAX package runs with XLA before its counter).
+GS_EXPORT int gs_window_tables_compact(const uint16_t* src16,
+                                       const uint16_t* dst16,
+                                       const int* nvalid, int windows,
+                                       int eb, int vb, int kb, int* deg,
+                                       int* outdeg, int* table,
+                                       unsigned long long* hash,
+                                       int hash_slots, int* edge_a,
+                                       int* edge_b, int* nedges,
+                                       int* overflow, int device,
+                                       void* stream) {
+    return window_tables(CompactWire{src16, dst16, nvalid, eb}, windows, vb,
+                         kb, deg, outdeg, table, hash, hash_slots, edge_a,
+                         edge_b, nedges, overflow, device, stream);
 }

@@ -3,9 +3,12 @@
 // a chunk, against a carry that lives in device memory.
 //
 // Replaces gelly_streaming_tpu/ops/pallas_window.py `_window_call`
-// (:504-637) with `_final_summaries` (:488-496), apart from its triangle
-// stage, which is the window counter (csrc/window_counter.cu +
-// csrc/intersect.cu) that the Python wrapper launches on the same chunk.
+// (:504-637) with `_final_summaries` (:488-496), in both its forms: the
+// standard wire and the compact one (:548-576: uint16 ids and one valid
+// count per window, decoded where each slot is loaded; common.cuh), apart
+// from its triangle stage, which is the window counter
+// (csrc/window_counter.cu + csrc/intersect.cu) that the Python wrapper
+// launches on the same chunk, on the same wire.
 // Per window w of a [W, eb] edge stack, in order: invalid slots map to
 // the sentinel vb; degrees fold into the carried deg[vb+1] (a valid
 // self-loop adds 2, an invalid slot 0); the carried CC labels[vb+1] fold
@@ -45,14 +48,15 @@
 
 namespace {
 
-// One window: grid over its eb slots (union_find.cuh: fold_slot).
+// One window: grid over its eb slots (union_find.cuh: fold_slot), read
+// through the stack's wire.
+template <class Wire>
 __global__ void __launch_bounds__(kThreads) fold_kernel(
-        const int* __restrict__ src, const int* __restrict__ dst,
-        const bool* __restrict__ valid, int eb, int vb,
-        int* __restrict__ deg, int* labels, int* cover) {
+        const Wire wire, int w, int vb, int* __restrict__ deg, int* labels,
+        int* cover) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= eb) return;
-    fold_slot(src, dst, valid, i, vb, deg, labels, cover);
+    if (i >= wire.eb) return;
+    fold_slot(wire, w, i, vb, deg, labels, cover);
 }
 
 // After a window's unions: grid over v in [0, vb] (union_find.cuh:
@@ -101,31 +105,54 @@ __global__ void __launch_bounds__(kThreads) compress_kernel(int n, int* p) {
     p[v] = find_root<false>(p, v);
 }
 
-}  // namespace
-
-// Folds `windows` windows of the [windows, eb] stack, in order, into the
-// carry deg[vb+1], labels[vb+1], cover[2(vb+1)] (updated in place; labels
-// and cover must hold p[v] <= v, as every carry the engines make does),
-// and writes sums[0][w] = max_degree, sums[1][w] = num_components,
-// sums[2][w] = odd (0/1) of each window: sums is int32 [3, windows].
-GS_EXPORT int gs_window_summary(const int* src, const int* dst,
-                                const bool* valid, int windows, int eb,
-                                int vb, int* deg, int* labels, int* cover,
-                                int* sums, int device, void* stream) {
+// Folds window after window of the stack `wire` carries, in order, into
+// the carry, two launches per window.
+template <class Wire>
+cudaError_t window_summary(const Wire wire, int windows, int vb, int* deg,
+                           int* labels, int* cover, int* sums, int device,
+                           void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     err = cudaMemsetAsync(sums, 0, sizeof(int) * 3 * (size_t)windows, s);
     if (err != cudaSuccess) return err;
     for (int w = 0; w < windows; ++w) {
-        const long long off = (long long)w * eb;
-        fold_kernel<<<blocks(eb), kThreads, 0, s>>>(
-            src + off, dst + off, valid + off, eb, vb, deg, labels, cover);
+        fold_kernel<<<blocks(wire.eb), kThreads, 0, s>>>(wire, w, vb, deg,
+                                                         labels, cover);
         settle_kernel<<<blocks(vb + 1), kThreads, 0, s>>>(
             vb, deg, labels, cover, sums, w, windows);
         if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
     return cudaSuccess;
+}
+
+}  // namespace
+
+// Folds `windows` windows of the [windows, eb] stack (standard wire), in
+// order, into the carry deg[vb+1], labels[vb+1], cover[2(vb+1)] (updated
+// in place; labels and cover must hold p[v] <= v, as every carry the
+// engines make does), and writes sums[0][w] = max_degree, sums[1][w] =
+// num_components, sums[2][w] = odd (0/1) of each window: sums is int32
+// [3, windows].
+GS_EXPORT int gs_window_summary(const int* src, const int* dst,
+                                const bool* valid, int windows, int eb,
+                                int vb, int* deg, int* labels, int* cover,
+                                int* sums, int device, void* stream) {
+    return window_summary(StandardWire{src, dst, valid, eb}, windows, vb,
+                          deg, labels, cover, sums, device, stream);
+}
+
+// gs_window_summary on the compact wire: uint16 src16/dst16 [windows, eb]
+// and nvalid[windows], slot i of window w padding iff i >= nvalid[w]
+// (the TPU kernel's compact form, pallas_window.py:548-576).
+GS_EXPORT int gs_window_summary_compact(const uint16_t* src16,
+                                        const uint16_t* dst16,
+                                        const int* nvalid, int windows,
+                                        int eb, int vb, int* deg,
+                                        int* labels, int* cover, int* sums,
+                                        int device, void* stream) {
+    return window_summary(CompactWire{src16, dst16, nvalid, eb}, windows,
+                          vb, deg, labels, cover, sums, device, stream);
 }
 
 // unionfind.cc_fixpoint on the card: out[n] = the canonical labels of

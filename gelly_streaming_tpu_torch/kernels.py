@@ -13,8 +13,10 @@ found again. The build happens at first use, under
 starts one nvcc per source, all at once. The libraries are loaded with
 ctypes and called with tensor pointers and PyTorch's current stream.
 
-`LAUNCHES` counts, per kernel, the launches its wrapper made: each
-wrapper adds one where it launches its kernel and nowhere else.
+`LAUNCHES` counts, per kernel (`KERNELS`: each library's, and the
+compact-wire forms of the counter and the summary kernel apart), the
+launches its wrapper made: each wrapper adds one where it launches its
+kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -45,10 +47,14 @@ SIGNATURES = {
     "window_counter": {
         "gs_window_tables": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                              _I, _P, _P, _P, _P, _I, _P],
+        "gs_window_tables_compact": [_P, _P, _P, _I, _I, _I, _I, _P, _P,
+                                     _P, _P, _I, _P, _P, _P, _P, _I, _P],
     },
     "window_summary": {
         "gs_window_summary": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                               _P],
+        "gs_window_summary_compact": [_P, _P, _P, _I, _I, _I, _P, _P, _P,
+                                      _P, _I, _P],
         "gs_cc_fixpoint": [_P, _I, _P, _P, _LL, _I, _P, _I, _P],
     },
     "cohort_summary": {
@@ -64,7 +70,12 @@ SIGNATURES = {
     },
 }
 
-LAUNCHES = {name: 0 for name in SIGNATURES}
+# the kernels whose launches are counted: one per library, and the
+# compact-wire forms of the counter and the summary kernel apart
+KERNELS = ("intersect", "window_counter", "window_counter_compact",
+           "window_summary", "window_summary_compact", "cohort_summary",
+           "gnn_round", "dense_triangles")
+LAUNCHES = {name: 0 for name in KERNELS}
 
 _LIBS: dict = {}
 

@@ -7,7 +7,10 @@ the lattice helpers (:79-169), `GnnEngineBase` (:268-420),
 (:528-608). Each chunk of up to MAX_WINDOWS windows costs one h2d of its
 [W, eb] stack, one `gnn_round.GnnRound` call (the CUDA kernel on a
 card, the plain PyTorch version on the CPU) and one d2h of its [4, W]
-summaries:
+summaries, through SummaryEngineBase's ingress pipeline (prep and h2d on
+a worker pool, rounds dispatched in chunk order, summaries read one
+chunk behind). The engines run the standard wire only, as the JAX
+`GnnEngineBase` does:
 
   max_feat         largest feature of rows [:vb], in lattice units
   active_vertices  rows of [:vb] with a feature > 0
@@ -45,8 +48,9 @@ from ..core.platform import resolve_device
 from . import segment as seg_ops
 from .gnn_round import (ACTIVATIONS, AGG_EXACT_LOG2, UNIT_CAP, GnnRound,
                         agg_shift, gnn_round_plain, slab_summaries)
+from . import ingress_pipeline
 from .scan_analytics import SummaryEngineBase, _to_host
-from .staging import ChunkStager
+from .staging import ChunkStager, HostCopy
 
 __all__ = ["AGG_EXACT_LOG2", "GnnEngineBase", "GnnHostEngine",
            "GnnSummaryEngine", "MATMUL_EXACT_F", "Q_BITS", "UNIT_CAP",
@@ -184,8 +188,8 @@ class GnnEngineBase(SummaryEngineBase):
     """The GNN engines' shared part over SummaryEngineBase's chunk loop:
     the [vb+1, F] float32 feature-slab carry, snapped weights, the GNN
     summary dicts and the checkpoint layout (carry + `gnn` section).
-    Subclasses set device (or none) and provide `_dispatch`, returning a
-    chunk's [4, W] summaries."""
+    Subclasses set device (or none) and provide `_dispatch_async`, whose
+    outputs are a chunk's [4, W] summaries."""
 
     def _configure(self, edge_bucket: int, vertex_bucket: int,
                    feature_dim: int, activation: str) -> None:
@@ -202,6 +206,7 @@ class GnnEngineBase(SummaryEngineBase):
                              % self.F)
         self._w_units, self._b_units = snap_weights(
             *default_weights(self.F), self.F)
+        self.stage_timers = ingress_pipeline.StageTimers()
 
     # -- weights / features -------------------------------------------
     def set_weights(self, W, b=None) -> None:
@@ -306,7 +311,7 @@ class GnnSummaryEngine(GnnEngineBase):
         self._configure(edge_bucket, vertex_bucket, feature_dim,
                         activation)
         self.device = resolve_device(device)
-        self._stage = ChunkStager(self.device)
+        self._ring = ChunkStager(self.device, slots=self.INFLIGHT + 1)
         self._round = GnnRound(self.vb, self.F, self.device)
         self._weights_changed()
         self.reset()
@@ -318,13 +323,14 @@ class GnnSummaryEngine(GnnEngineBase):
         self._wdev = torch.from_numpy(self._w_units).to(self.device)
         self._bdev = torch.from_numpy(self._b_units).to(self.device)
 
-    def _dispatch(self, s, d, valid) -> np.ndarray:
-        src, dst, v = self._stage(s, d, valid)
+    def _dispatch_async(self, staged):
+        src, dst, v = self._ring.take(staged)
         sums = torch.empty(4, src.shape[0], dtype=torch.int32,
                            device=self.device)
         self._round(self._carry[0], self._wdev, self._bdev, src, dst, v,
                     self.act, sums)
-        return sums.cpu().numpy()
+        self._ring.done(staged)
+        return HostCopy(sums)
 
 
 class GnnHostEngine(GnnEngineBase):
@@ -354,7 +360,14 @@ class GnnHostEngine(GnnEngineBase):
     def _to_carry(self, a) -> np.ndarray:
         return np.array(a, np.float32)
 
-    def _dispatch(self, s, d, valid) -> np.ndarray:
+    def _h2d(self, args, ordinal: int):
+        return args                    # no device: the host stacks as they are
+
+    def _materialize(self, raw) -> np.ndarray:
+        return raw
+
+    def _dispatch_async(self, args) -> np.ndarray:
+        s, d, valid = args
         vb, F = self.vb, self.F
         sh = agg_shift(self.eb)
         sc = np.float32(2.0 ** -sh)

@@ -5,11 +5,15 @@ Port of the JAX package's `ops/scan_analytics.py` (`SummaryEngineBase`
 :173-845, `StreamSummaryEngine` :847-963, `SlidingSummaryEngine`
 :966-1086). The carry (deg[vb+1], labels[vb+1], cover[2(vb+1)]) lives
 on the device across chunks; each chunk of up to MAX_WINDOWS windows
-costs one h2d of its [W, eb] stack, one `WindowSummary` call
-(ops/window_summary.py: the CUDA kernels on a card, the plain PyTorch
-version on the CPU) and one d2h of its [5, W] outputs. Summaries per
-window are cumulative over the stream so far, as the reference's
-continuous aggregates are:
+costs one h2d of its [W, eb] stack (the standard wire, or with
+`ingress="compact"` the compact one of ops/compact_ingress.py), one
+`WindowSummary` call (ops/window_summary.py: the CUDA kernels on a card,
+the plain PyTorch version on the CPU) and one d2h of its [5, W] outputs.
+The chunks go through the ingress pipeline (ops/ingress_pipeline.py):
+prep and h2d on a worker pool, dispatches in chunk order on the caller's
+thread (the carry is sequential), each chunk's outputs read, and the
+cursor advanced, one chunk behind. Summaries per window are cumulative
+over the stream so far, as the reference's continuous aggregates are:
 
   max_degree      running max degree (SimpleEdgeStream getDegrees)
   num_components  touched roots (ConnectedComponents)
@@ -26,9 +30,8 @@ ops/cohort_summary.py lifts the same body over a leading tenant axis
 for the multi-tenant cohort (core/tenancy.py).
 
 Not ported yet (ROADMAP.md): the finalize hooks (checkpoint files, WAL,
-latency, provenance, metrics, sanitize, faults), the online autotuner,
-the compact wire and the threaded ingress pipeline; chunks run one after
-another on the caller's thread.
+latency, provenance, metrics, sanitize, faults; step 10) and the online
+autotuner (step 8).
 """
 
 from __future__ import annotations
@@ -39,9 +42,11 @@ import numpy as np
 import torch
 
 from ..core.platform import resolve_device
+from . import compact_ingress
+from . import ingress_pipeline
 from . import segment as seg_ops
-from .staging import ChunkStager
-from .triangles import TriangleWindowKernel, default_kb
+from .staging import ChunkStager, HostCopy
+from .triangles import TriangleWindowKernel, default_kb, resolve_ingress
 from .window_summary import WindowSummary, fresh_carry
 
 __all__ = ["SlidingSummaryEngine", "StreamSummaryEngine",
@@ -49,17 +54,24 @@ __all__ = ["SlidingSummaryEngine", "StreamSummaryEngine",
 
 
 class SummaryEngineBase:
-    """The chunk loop, the resume cursor, the checkpoint keys and the
-    partial-window-must-be-final guard, for any carry. Subclasses set
-    eb and vb and provide the carry's hooks: `_init_carry` (the fresh
-    carry, a tuple), `_to_carry` (one host leaf onto the engine),
-    `_check_carry` (raise ValueError for a host carry the engine cannot
-    load), `_dispatch` (fold one staged chunk into the carry, returning
-    its outputs as an [R, W] host array, R chosen by the engine) and
-    `_finalize_summaries` (one chunk's outputs into summary dicts).
-    `StreamSummaryEngine` below and ops/gnn_window.py are the two."""
+    """The pipelined chunk loop, the resume cursor, the checkpoint keys
+    and the partial-window-must-be-final guard, for any carry.
+    Subclasses set eb, vb and `ingress` ("standard" or "compact") and
+    provide the carry's hooks: `_init_carry` (the fresh carry, a tuple),
+    `_to_carry` (one host leaf onto the engine), `_check_carry` (raise
+    ValueError for a host carry the engine cannot load),
+    `_dispatch_async` (fold one staged chunk into the carry on the
+    caller's thread, returning its outputs as a `HostCopy` not waited
+    for) and `_finalize_summaries` (one chunk's [R, W] outputs, R chosen
+    by the engine, into summary dicts). The h2d stages each chunk into
+    the engine's ring `_ring` from a pool worker; an engine with no torch
+    device overrides `_h2d` and `_materialize`. `StreamSummaryEngine`
+    below and ops/gnn_window.py are the two."""
 
     MAX_WINDOWS = 64
+    INFLIGHT = ingress_pipeline.DEFAULT_INFLIGHT   # pipeline look-ahead
+    ingress = "standard"
+    _ring = None        # the staging ring of an engine on a torch device
 
     def reset(self) -> None:
         self._closed_partial = False
@@ -119,12 +131,23 @@ class SummaryEngineBase:
     def _check_carry(self, carry) -> None:
         raise NotImplementedError
 
-    def _dispatch(self, s, d, valid) -> np.ndarray:
+    def _h2d(self, args, ordinal: int):
+        return self._ring.put(args, ordinal)
+
+    def _dispatch_async(self, staged):
         raise NotImplementedError
+
+    def _materialize(self, raw) -> np.ndarray:
+        return raw.numpy()
 
     def _finalize_summaries(self, at: int, res: np.ndarray, src, dst,
                             out: list) -> None:
         raise NotImplementedError
+
+    def _validate(self, src: np.ndarray, dst: np.ndarray) -> None:
+        """Raise ValueError for ids the engine cannot fold (main thread,
+        before the pipeline)."""
+        _validate_ids(src, dst, self.vb)
 
     def process(self, src: np.ndarray, dst: np.ndarray) -> list:
         """Fold the stream's `edge_bucket`-sized windows; returns one
@@ -144,21 +167,66 @@ class SummaryEngineBase:
                 "a previous process() call closed a partial window "
                 "(length not a multiple of edge_bucket); reset() before "
                 "feeding more of the stream")
-        _validate_ids(src, dst, self.vb)
+        self._validate(src, dst)
         self._closed_partial = n % self.eb != 0
-        num_w, s, d, valid = seg_ops.window_stack(src, dst, self.eb,
-                                                  sentinel=self.vb)
         out: list = []
-        for at in range(0, num_w, self.MAX_WINDOWS):
-            hi = min(at + self.MAX_WINDOWS, num_w)
-            # a ragged chunk pads its window axis to a power of two with
-            # all-invalid windows, as the JAX engine does: they fold as
-            # no-ops, apart from the cover's sentinel join
-            sc, dc, vc, real = seg_ops.pad_window_chunk(
-                s, d, valid, at, hi, self.MAX_WINDOWS, self.eb, self.vb)
-            res = self._dispatch(sc, dc, vc)
-            self._finalize_summaries(at, res[:, :real], src, dst, out)
+        self._process_static(src, dst, -(-n // self.eb), out)
         return out
+
+    def _build_stack(self, src, dst):
+        """The whole call's window stack on the engine's wire: (s16, d16,
+        nvalid) compact, (s, d, valid) standard."""
+        if self.ingress == "compact":
+            return compact_ingress.window_stack(src, dst, self.eb)[1:]
+        return seg_ops.window_stack(src, dst, self.eb, sentinel=self.vb)[1:]
+
+    def _process_static(self, src, dst, num_w: int, out: list) -> None:
+        """One pipeline over the whole call at (MAX_WINDOWS, ingress)."""
+        self._run_window_rounds(src, dst, num_w, self._build_stack(src, dst),
+                                out)
+
+    def _run_window_rounds(self, src, dst, num_w: int, data,
+                           out: list) -> None:
+        """Windows [0, num_w) of `data` (the whole call's stack on the
+        engine's wire) through the ingress pipeline: chunk prep (a ragged tail
+        pads its window axis to a power of two with empty windows, which
+        fold as no-ops apart from the cover's sentinel join, as in the
+        JAX engine) and h2d on the pool, dispatches in chunk order on
+        this thread, each chunk's outputs read and its windows counted
+        into `windows_done` one chunk behind."""
+        wb = self.MAX_WINDOWS
+
+        def prep(at):
+            hi = min(at + wb, num_w)
+            if self.ingress == "compact":
+                sc, dc, vc, real = compact_ingress.pad_chunk(
+                    *data, at, hi, wb, self.eb)
+            else:
+                sc, dc, vc, real = seg_ops.pad_window_chunk(
+                    *data, at, hi, wb, self.eb, self.vb)
+            return at, real, (sc, dc, vc)
+
+        def h2d(payload):
+            at, real, args = payload
+            return at, real, self._h2d(args, at // wb)
+
+        def dispatch(dev_payload):
+            at, real, dev = dev_payload
+            return at, real, self._dispatch_async(dev)
+
+        def finalize(item):
+            at, real, raw = item
+            self._finalize_summaries(at, self._materialize(raw)[:, :real],
+                                     src, dst, out)
+
+        try:
+            ingress_pipeline.run_pipeline(
+                range(0, num_w, wb), prep, h2d, dispatch, finalize,
+                timers=self.stage_timers, inflight=self.INFLIGHT)
+        except BaseException:
+            if self._ring is not None:
+                self._ring.release_all()
+            raise
 
 
 class StreamSummaryEngine(SummaryEngineBase):
@@ -168,23 +236,21 @@ class StreamSummaryEngine(SummaryEngineBase):
     are recounted by a `TriangleWindowKernel` at 4·K.
 
     `device=None` means the CUDA card and raises when there is none;
-    `device="cpu"` runs the plain PyTorch path. `ingress` takes only
-    the standard wire (None or "standard")."""
+    `device="cpu"` runs the plain PyTorch path. `ingress` None or
+    "standard" is the standard wire; "compact" the compact one, which
+    raises ValueError for vertex_bucket > 65536."""
 
     def __init__(self, edge_bucket: int, vertex_bucket: int,
                  k_bucket: int = 0, device=None, ingress: str = None):
-        if ingress not in (None, "standard"):
-            raise ValueError(
-                "ingress %r is not ported: the port runs the standard "
-                "wire only; the compact wire comes with ROADMAP.md step 5"
-                % (ingress,))
         self.device = resolve_device(device)
         self.eb = seg_ops.bucket_size(edge_bucket)
         self.vb = seg_ops.bucket_size(vertex_bucket)
         self.kb = seg_ops.bucket_size(
             k_bucket if k_bucket else default_kb(self.eb))
+        self.ingress = resolve_ingress(ingress, self.vb)
+        self.stage_timers = ingress_pipeline.StageTimers()
         self._summary = WindowSummary(self.vb, self.kb, self.device)
-        self._stage = ChunkStager(self.device)
+        self._ring = ChunkStager(self.device, slots=self.INFLIGHT + 1)
         self._tri_fallback = TriangleWindowKernel(
             self.eb, self.vb, k_bucket=4 * self.kb, device=self.device)
         self.reset()
@@ -209,9 +275,20 @@ class StreamSummaryEngine(SummaryEngineBase):
         them."""
         self._redo(np.array([0]), np.array([1]))
 
-    def _dispatch(self, s, d, valid) -> np.ndarray:
-        outs = self._summary(self._carry, *self._stage(s, d, valid))
-        return torch.stack([x.to(torch.int32) for x in outs]).cpu().numpy()
+    def _validate(self, src, dst) -> None:
+        """On the compact wire through compact_ingress.validate_ids: an
+        id the uint16 cast would wrap is refused on the main thread, with
+        the standard wire's message (vb ≤ 65536 there)."""
+        if self.ingress == "compact":
+            compact_ingress.validate_ids(src, dst, self.vb, "summary engine")
+        else:
+            _validate_ids(src, dst, self.vb)
+
+    def _dispatch_async(self, staged):
+        outs = self._summary(self._carry, *self._ring.take(staged),
+                             self.ingress)
+        self._ring.done(staged)
+        return HostCopy(torch.stack([x.to(torch.int32) for x in outs]))
 
     def _redo(self, src, dst) -> int:
         """Exact triangle count of one window."""
@@ -219,7 +296,7 @@ class StreamSummaryEngine(SummaryEngineBase):
 
     def _finalize_summaries(self, at: int, res: np.ndarray, src, dst,
                             out: list) -> None:
-        """One chunk's [5, real] outputs (`res`, from `_dispatch`; the
+        """One chunk's [5, real] outputs (`res`, from `_materialize`; the
         chunk's first window is window `at` of this call) into summary
         dicts, each overflowing window's triangles recounted exactly."""
         mdeg, ncomp, odd, tri, k_ovf = res
@@ -242,7 +319,8 @@ class SlidingSummaryEngine:
     odd_cycle) read the carry at every pane boundary; the per-window
     analytic (triangles) recounts each emission over a ring of the last
     panes_per_window − 1 pane slabs plus the fresh pane, through a
-    TriangleWindowKernel at the full window bucket.
+    TriangleWindowKernel at the full window bucket. Both run the standard
+    wire.
 
     One summary dict per emission: every `slide` edges, the window over
     the trailing `edge_bucket` edges (growing at the head of the

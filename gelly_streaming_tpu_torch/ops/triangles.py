@@ -3,19 +3,23 @@ main path.
 
 Port of the JAX package's `ops/triangles.py` (:287-438, :783-1305):
 `TriangleWindowKernel.count_stream` cuts the stream into tumbling
-windows of `edge_bucket` edges, stacks them [W, eb] in chunks of up to
-MAX_STREAM_WINDOWS, and counts each chunk on the device with the window
-counter (ops/window_counter.py: the CUDA kernels on a card, the plain
-PyTorch version on the CPU). A window whose hubs outrun the K bucket
-(overflow > 0) is recounted exactly: up the K ladder to `kb_max`, then
-by `triangle_count_sparse`, a host CSR build intersected on the device.
-`triangle_count` counts one window of any size: the dense contraction
-(ops/dense_triangles.py) up to 2·DENSE_LIMIT vertices, the sparse path
-past it.
+windows of `edge_bucket` edges, stacks them [W, eb] on the standard or
+the compact wire (`ingress`, ops/compact_ingress.py) and counts them in
+chunks of up to MAX_STREAM_WINDOWS through the ingress pipeline
+(ops/ingress_pipeline.py: chunk prep and h2d on a worker pool, the
+window counter dispatched in chunk order, each chunk's outputs read one
+chunk behind). The counter is ops/window_counter.py: the CUDA kernels on
+a card, the plain PyTorch version on the CPU. A window whose hubs
+outrun the K bucket (overflow > 0) is recounted exactly: up the K
+ladder to `kb_max`, then by `triangle_count_sparse`, a host CSR build
+intersected on the device. `triangle_count` counts one window of any
+size: the dense contraction (ops/dense_triangles.py) up to
+2·DENSE_LIMIT vertices, the sparse path past it.
 
-Not ported from the JAX package: the host/native tier routing, compact
-ingress, the online autotuner and the threaded ingress pipeline (see
-ROADMAP.md); K comes from the analytic rule, not from evidence files.
+Not ported from the JAX package: the host/native tier routing
+(`_resolve_stream_impl`) and the online autotuner (see ROADMAP.md); K
+comes from the analytic rule and the wire from the constructor, not from
+evidence files.
 """
 
 from __future__ import annotations
@@ -26,16 +30,18 @@ import numpy as np
 import torch
 
 from ..core.platform import resolve_device
+from . import compact_ingress
+from . import ingress_pipeline
 from . import intersect as _intersect
 from . import segment as seg_ops
 from .dense_triangles import triangle_count_dense
-from .staging import ChunkStager
+from .staging import ChunkStager, HostCopy
 from .window_counter import (WindowCounter, dedupe_and_positions,
                              orient_by_degree)
 
 __all__ = ["DENSE_LIMIT", "TriangleWindowKernel", "build_window_counter",
            "default_kb", "dedupe_and_positions", "orient_by_degree",
-           "triangle_count", "triangle_count_dense",
+           "resolve_ingress", "triangle_count", "triangle_count_dense",
            "triangle_count_sparse"]
 
 # the JAX package's XLA dense limit; its fused contraction, which the
@@ -47,6 +53,22 @@ def default_kb(eb: int) -> int:
     """The analytic starting K of an edge bucket: min(128, 2·⌊√eb⌋)
     (the JAX package's fallback when no tuning evidence exists)."""
     return min(128, 2 * math.isqrt(eb))
+
+
+def resolve_ingress(ingress, vb: int) -> str:
+    """The wire of a stream engine at vertex bucket vb: None or
+    "standard" is the standard wire, "compact" the compact one, which
+    raises ValueError where ids may not fit uint16 (the JAX engines'
+    message)."""
+    if ingress in (None, "standard"):
+        return "standard"
+    if ingress != "compact":
+        raise ValueError("unknown ingress %r (choices: 'standard', "
+                         "'compact')" % (ingress,))
+    if not compact_ingress.supports(vb):
+        raise ValueError("compact ingress is lossy for vertex_bucket %d "
+                         "(ids must fit uint16)" % vb)
+    return "compact"
 
 
 def build_window_counter(vb: int, kb: int, device=None) -> WindowCounter:
@@ -112,30 +134,41 @@ class TriangleWindowKernel:
     """Exact triangle counts of an unbounded stream of windows over fixed
     buckets (edge_bucket, vertex_bucket, k_bucket).
 
-    The host sends only the raw COO stack of a chunk (9 bytes per slot:
-    int32 src, int32 dst, bool valid) in one copy from a pinned buffer
-    (ops/staging.ChunkStager); the device runs the window counter and
-    returns (count, overflow) per window in one copy back. `overflow` > 0
-    means some vertex's oriented out-degree exceeded k_bucket; that
-    window is recounted exactly up the K ladder (`_escalation_ladder`,
-    4·K per rung up to kb_max) and, past it, by `triangle_count_sparse`.
+    The host sends only the raw COO stack of a chunk, on the standard
+    wire (9 bytes per slot: int32 src, int32 dst, bool valid) or, with
+    `ingress="compact"`, the compact one (4 bytes per slot: uint16 ids,
+    plus one int32 valid count per window; vertex_bucket ≤ 65536). Stream
+    chunks go through the ingress pipeline: prep and one pinned copy per
+    chunk on the pool's workers (a ring of `INFLIGHT + 1` staging slots,
+    ops/staging.ChunkStager), the counter dispatched in chunk order, the
+    (count, overflow) of each window copied back and read one chunk
+    behind. `overflow` > 0 means some vertex's oriented out-degree
+    exceeded k_bucket; that window is recounted exactly up the K ladder
+    (`_escalation_ladder`, 4·K per rung up to kb_max, on the standard
+    wire) and, past it, by `triangle_count_sparse`.
 
     `device=None` means the CUDA card and raises when there is none;
-    `device="cpu"` runs the plain PyTorch path.
+    `device="cpu"` runs the plain PyTorch path. `ingress=None` is the
+    standard wire.
     """
 
     MAX_STREAM_WINDOWS = 64  # windows per device call in count_stream
+    INFLIGHT = ingress_pipeline.DEFAULT_INFLIGHT   # pipeline look-ahead
 
     def __init__(self, edge_bucket: int, vertex_bucket: int,
-                 k_bucket: int = 0, device=None):
+                 k_bucket: int = 0, device=None, ingress: str = None):
         self.device = resolve_device(device)
         self.eb = seg_ops.bucket_size(edge_bucket)
         self.vb = seg_ops.bucket_size(vertex_bucket)
         self.kb = seg_ops.bucket_size(
             k_bucket if k_bucket else default_kb(self.eb))
         self.kb_max = seg_ops.bucket_size(2 * math.isqrt(self.eb))
+        self.ingress = resolve_ingress(ingress, self.vb)
+        # per-stage wall time of every pipelined stream run through here
+        self.stage_timers = ingress_pipeline.StageTimers()
         self._counters = {}
-        self._stage = ChunkStager(self.device)
+        self._stage = ChunkStager(self.device)         # count(): one slot
+        self._ring = ChunkStager(self.device, slots=self.INFLIGHT + 1)
 
     def _counter(self, kb: int) -> WindowCounter:
         counter = self._counters.get(kb)
@@ -183,25 +216,77 @@ class TriangleWindowKernel:
                 return int(count)
         return triangle_count_sparse(src, dst, self.vb, self.device)
 
-    def _run_stack(self, s, d, valid, get_window) -> list:
-        """The chunk loop: per chunk of ≤ MAX_STREAM_WINDOWS windows (a
-        ragged last chunk pads its window axis to a power of two), one
-        copy in, one counter call, one copy back, then an exact recount
-        of each window whose overflow is > 0."""
+    def _run_stack_loop(self, num_w: int, make_chunk, get_window,
+                        wire: str) -> list:
+        """The one pipelined chunk loop of both wires
+        (ingress_pipeline.run_pipeline): prep `make_chunk(at, hi)` ->
+        (host stacks of windows [at:hi] on `wire`, n real windows; a
+        ragged last chunk pads its window axis to a power of two) and its
+        h2d into ring slot at / MAX_STREAM_WINDOWS run on a worker; the
+        dispatch launches the counter at kb and enqueues the copy back of
+        (count, overflow); the finalize, one chunk behind, reads it and
+        recounts exactly each window w whose overflow is > 0, from its
+        edges `get_window(w)`. ingress_pipeline.forced_sync gives the
+        same counts."""
         counts: list = []
-        num_w = s.shape[0]
-        for at in range(0, num_w, self.MAX_STREAM_WINDOWS):
-            hi = min(at + self.MAX_STREAM_WINDOWS, num_w)
+        wmax = self.MAX_STREAM_WINDOWS
+
+        def prep(at):
+            args, n = make_chunk(at, min(at + wmax, num_w))
+            return at, n, args
+
+        def h2d(payload):
+            at, n, args = payload
+            return at, n, self._ring.put(args, at // wmax)
+
+        def dispatch(dev_payload):
+            at, n, staged = dev_payload
+            c, o = self._counter(self.kb)(*self._ring.take(staged),
+                                          wire=wire)
+            self._ring.done(staged)
+            return at, n, HostCopy(torch.stack((c, o)))
+
+        def finalize(raw):
+            at, n, res = raw
+            res = res.numpy()
+            c, o = res[0, :n].copy(), res[1, :n]
+            for w in np.nonzero(o)[0]:  # rare hub overflow: exact redo
+                c[w] = self.count(*get_window(at + int(w)), min_k=self.kb)
+            counts.extend(int(x) for x in c)
+
+        try:
+            ingress_pipeline.run_pipeline(
+                range(0, num_w, wmax), prep, h2d, dispatch, finalize,
+                timers=self.stage_timers, inflight=self.INFLIGHT)
+        except BaseException:
+            self._ring.release_all()
+            raise
+        return counts
+
+    def _run_stack(self, s, d, valid, get_window) -> list:
+        """Standard-wire window stack through _run_stack_loop."""
+
+        def make_chunk(at, hi):
             sc, dc, vc, n = seg_ops.pad_window_chunk(
                 s, d, valid, at, hi, self.MAX_STREAM_WINDOWS, self.eb,
                 self.vb)
-            res = self._count_stack(self.kb, sc, dc, vc)
-            c, o = res[0, :n].copy(), res[1, :n]
-            for w in np.nonzero(o)[0]:  # rare hub overflow: exact redo
-                ws, wd = get_window(at + int(w))
-                c[w] = self.count(ws, wd, min_k=self.kb)
-            counts.extend(int(x) for x in c)
-        return counts
+            return (sc, dc, vc), n
+
+        return self._run_stack_loop(s.shape[0], make_chunk, get_window,
+                                    "standard")
+
+    def _run_stack_compact(self, num_w, s16, d16, nvalid,
+                           get_window) -> list:
+        """Compact-wire stacks (ops/compact_ingress) through the same
+        _run_stack_loop."""
+
+        def make_chunk(at, hi):
+            sc, dc, nv, n = compact_ingress.pad_chunk(
+                s16, d16, nvalid, at, hi, self.MAX_STREAM_WINDOWS, self.eb)
+            return (sc, dc, nv), n
+
+        return self._run_stack_loop(num_w, make_chunk, get_window,
+                                    "compact")
 
     def count_stream(self, src: np.ndarray, dst: np.ndarray) -> list:
         """Exact counts of every tumbling `edge_bucket`-sized window of
@@ -211,16 +296,26 @@ class TriangleWindowKernel:
         if len(src) == 0:
             return []
         eb = self.eb
+
+        def get_window(w):
+            return src[w * eb:(w + 1) * eb], dst[w * eb:(w + 1) * eb]
+
+        if self.ingress == "compact":
+            num_w, s16, d16, nv = compact_ingress.window_stack(src, dst, eb)
+            return self._run_stack_compact(num_w, s16, d16, nv, get_window)
         _num_w, s, d, valid = seg_ops.window_stack(src, dst, eb,
                                                    sentinel=self.vb)
-        return self._run_stack(
-            s, d, valid,
-            lambda w: (src[w * eb:(w + 1) * eb], dst[w * eb:(w + 1) * eb]))
+        return self._run_stack(s, d, valid, get_window)
 
     def count_windows(self, windows) -> list:
         """Exact counts of a list of (src, dst) window batches of varying
         lengths (each ≤ edge_bucket), stacked and counted in chunks."""
         if not windows:
             return []
+        if self.ingress == "compact":
+            s16, d16, nv = compact_ingress.stack_window_list(windows,
+                                                             self.eb)
+            return self._run_stack_compact(len(windows), s16, d16, nv,
+                                           lambda w: windows[w])
         s, d, valid = seg_ops.stack_window_list(windows, self.eb, self.vb)
         return self._run_stack(s, d, valid, lambda w: windows[w])

@@ -14,7 +14,11 @@ is exact whenever overflow is 0, and callers recount otherwise.
 the CUDA kernels (csrc/window_counter.cu builds the tables,
 csrc/intersect.cu intersects their rows) on CUDA tensors and runs
 `count_windows_plain`, the plain PyTorch version, on CPU ones; it never
-falls back from one to the other. With overflow > 0
+falls back from one to the other. It reads either wire
+(ops/compact_ingress.py): the standard (src, dst, valid), or with
+`wire="compact"` the compact (s16, d16, nvalid), which the kernel decodes
+slot by slot as it loads it and the plain version widens first
+(`widen_stack`). With overflow > 0
 the two may differ in `count` (the kernel's truncated rows keep the
 first kb edges to arrive, the plain version the kb smallest ids), never
 in `overflow`.
@@ -26,7 +30,10 @@ import torch
 
 from .. import kernels
 from . import intersect
+from .compact_ingress import widen_stack
 from .segment import bucket_size
+
+WIRES = ("standard", "compact")
 
 
 def orient_by_degree(s: torch.Tensor, d: torch.Tensor,
@@ -138,27 +145,35 @@ class CounterScratch:
 
 class WindowCounter:
     """The window counter at fixed (vb, kb) on one device:
-    counter(src[W, eb], dst, valid) -> (count[W], overflow[W]) int32.
+    counter(src[W, eb], dst, valid) -> (count[W], overflow[W]) int32, or
+    counter(s16[W, eb], d16, nvalid[W], wire="compact").
 
     On a card it is the only owner of its `CounterScratch`: it allocates
     one when a call brings more windows or another eb than the last, and
     reuses it otherwise. Each call launches the table builder
-    (csrc/window_counter.cu, two kernels behind one entry) and the
-    intersect kernel on the current stream, with no synchronisation. On
-    the CPU it runs `count_windows_plain`."""
+    (csrc/window_counter.cu, two kernels behind one entry per wire) and
+    the intersect kernel on the current stream, with no synchronisation.
+    On the CPU it runs `count_windows_plain` (after `widen_stack` on the
+    compact wire)."""
 
     def __init__(self, vb: int, kb: int, device: torch.device):
         self.vb, self.kb = vb, kb
         self.device = torch.device(device)
         self.scratch = None
 
-    def __call__(self, src, dst, valid):
+    def __call__(self, src, dst, valid, wire: str = "standard"):
         if src.device != self.device:
             raise ValueError("window counter on %s given tensors on %s"
                              % (self.device, src.device))
+        if wire not in WIRES:
+            raise ValueError("unknown wire %r (choices: %s)"
+                             % (wire, WIRES))
         if src.device.type == "cpu":
+            if wire == "compact":
+                src, dst, valid = widen_stack(src, dst, valid, src.shape[1],
+                                              self.vb)
             return count_windows_plain(src, dst, valid, self.vb, self.kb)
-        _check(src, dst, valid, self.vb, self.kb)
+        _check(src, dst, valid, self.vb, self.kb, wire)
         w, eb = src.shape
         sc = self.scratch
         if sc is None or w > sc.windows or eb != sc.eb:
@@ -167,7 +182,7 @@ class WindowCounter:
                                           src.device)
         count = torch.empty(w, dtype=torch.int32, device=src.device)
         overflow = torch.empty(w, dtype=torch.int32, device=src.device)
-        build_tables(src, dst, valid, self.scratch, overflow)
+        build_tables(src, dst, valid, self.scratch, overflow, wire)
         intersect_tables(self.scratch, count)
         return count, overflow
 
@@ -183,21 +198,25 @@ def count_windows_device(src: torch.Tensor, dst: torch.Tensor,
 
 
 def build_tables(src, dst, valid, scratch: CounterScratch,
-                 overflow: torch.Tensor) -> None:
+                 overflow: torch.Tensor, wire: str = "standard") -> None:
     """First stage of a `WindowCounter` call (csrc/window_counter.cu),
-    on checked CUDA stacks: fills the scratch's out-degrees, rows and
-    distinct-edge lists of the first W windows, and overflow[W]."""
+    on checked CUDA stacks of either wire: fills the scratch's
+    out-degrees, rows and distinct-edge lists of the first W windows, and
+    overflow[W]."""
     w, eb = src.shape
     sc = scratch
     lib = kernels.library("window_counter")
-    code = lib.gs_window_tables(
+    entry = (lib.gs_window_tables_compact if wire == "compact"
+             else lib.gs_window_tables)
+    code = entry(
         src.data_ptr(), dst.data_ptr(), valid.data_ptr(), w, eb, sc.vb,
         sc.kb, sc.deg.data_ptr(), sc.outdeg.data_ptr(),
         sc.table.data_ptr(), sc.hash.data_ptr(), sc.hash.shape[1],
         sc.edge_a.data_ptr(), sc.edge_b.data_ptr(), sc.nedges.data_ptr(),
         overflow.data_ptr(), src.device.index, kernels.stream_of(src))
     kernels.check("window_counter", code)
-    kernels.LAUNCHES["window_counter"] += 1
+    kernels.LAUNCHES["window_counter_compact" if wire == "compact"
+                     else "window_counter"] += 1
 
 
 def intersect_tables(scratch: CounterScratch, count: torch.Tensor) -> None:
@@ -213,21 +232,36 @@ def intersect_tables(scratch: CounterScratch, count: torch.Tensor) -> None:
                      lens_stride=sc.vb + 1)
 
 
-def _check(src, dst, valid, vb: int, kb: int) -> None:
+def wire_specs(src, wire: str) -> list:
+    """(name, dtype, shape) of the three tensors of a [W, eb] stack on
+    `wire`, W and eb read off src."""
+    w, eb = tuple(src.shape) if src.dim() == 2 else (0, 0)
+    if wire == "compact":
+        return [("s16", torch.uint16, (w, eb)), ("d16", torch.uint16, (w, eb)),
+                ("nvalid", torch.int32, (w,))]
+    return [("src", torch.int32, (w, eb)), ("dst", torch.int32, (w, eb)),
+            ("valid", torch.bool, (w, eb))]
+
+
+def check_wire(src, dst, valid, wire: str, what: str) -> None:
+    """Raise ValueError unless (src, dst, valid) is a contiguous [W, eb]
+    stack of `wire` on one CUDA device."""
     dev = src.device
     if dev.type != "cuda":
-        raise ValueError("the window counter kernel takes CUDA tensors, "
-                         "got %s" % dev)
-    for name, t, dtype in (("src", src, torch.int32),
-                           ("dst", dst, torch.int32),
-                           ("valid", valid, torch.bool)):
-        if t.device != dev or t.dtype != dtype or t.dim() != 2 \
-                or t.shape != src.shape or not t.is_contiguous():
+        raise ValueError("the %s kernel takes CUDA tensors, got %s"
+                         % (what, dev))
+    for (name, dtype, shape), t in zip(wire_specs(src, wire),
+                                       (src, dst, valid)):
+        if t.device != dev or t.dtype != dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(
-                "%s must be a contiguous [W, eb] %s tensor on %s like src "
-                "%s, got %s %s on %s" % (name, dtype, dev, tuple(src.shape),
-                                         tuple(t.shape), t.dtype,
-                                         t.device))
+                "%s must be a contiguous %s %s tensor on %s (the %s wire), "
+                "got %s %s on %s" % (name, shape, dtype, dev, wire,
+                                     tuple(t.shape), t.dtype, t.device))
+
+
+def _check(src, dst, valid, vb: int, kb: int, wire: str) -> None:
+    check_wire(src, dst, valid, wire, "window counter")
     w, eb = src.shape
     if not (0 < w <= 65535 and 0 < eb < 2 ** 30 and 0 < vb < 2 ** 30
             and 0 < kb):

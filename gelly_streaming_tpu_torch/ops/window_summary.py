@@ -18,7 +18,11 @@ cover[2vb+1] becomes vb: callers pad exactly as the JAX engine does.
 and runs `summarize_windows_plain`, the plain PyTorch version, on CPU
 ones; it never falls back from one to the other. The two agree bit for
 bit, `count` apart where a window overflows K (see
-ops/window_counter.py).
+ops/window_counter.py). Both read either wire (ops/compact_ingress.py):
+on the compact one (`wire="compact"`: uint16 ids, one valid count per
+window) the two kernels decode each slot where they load it, and the
+plain version widens the stack first (`widen_stack`). A padded slot folds
+the same on both wires, so the carries agree bit for bit across them.
 """
 
 from __future__ import annotations
@@ -27,7 +31,9 @@ import torch
 
 from .. import kernels
 from . import unionfind
-from .window_counter import WindowCounter, count_windows_plain
+from .compact_ingress import widen_stack
+from .window_counter import (WIRES, WindowCounter, check_wire,
+                             count_windows_plain)
 
 
 def fresh_carry(vb: int, device) -> tuple:
@@ -69,7 +75,8 @@ def summarize_windows_plain(carry, src, dst, valid, vb: int, kb: int):
 class WindowSummary:
     """summary(carry, src[W, eb], dst, valid) -> (max_degree[W],
     num_components[W], odd[W], triangles[W], k_overflow[W]) at fixed
-    (vb, kb) on one device. The carry (deg, labels, cover) is updated in
+    (vb, kb) on one device, or summary(carry, s16[W, eb], d16, nvalid[W],
+    wire="compact"). The carry (deg, labels, cover) is updated in
     place: after the call it holds the state after the chunk's last
     window. Its labels and cover must point every slot at an equal or
     smaller one, as every carry this package makes does.
@@ -77,57 +84,63 @@ class WindowSummary:
     On a card it launches the summary kernel (csrc/window_summary.cu:
     two launches per window, in order, on the current stream) and its
     `WindowCounter` (kernels 1-2, all W windows in one call) on the same
-    device-resident chunk, with no synchronisation; the counter is the
-    only owner of its device scratch. On the CPU it runs
-    `summarize_windows_plain`."""
+    device-resident chunk and wire, with no synchronisation and no
+    widened intermediate; the counter is the only owner of its device
+    scratch. On the CPU it runs `summarize_windows_plain` (after
+    `widen_stack` on the compact wire)."""
 
     def __init__(self, vb: int, kb: int, device: torch.device):
         self.vb, self.kb = vb, kb
         self.device = torch.device(device)
         self.counter = WindowCounter(vb, kb, self.device)
 
-    def __call__(self, carry, src, dst, valid):
+    def __call__(self, carry, src, dst, valid, wire: str = "standard"):
         if src.device != self.device:
             raise ValueError("window summary on %s given tensors on %s"
                              % (self.device, src.device))
+        if wire not in WIRES:
+            raise ValueError("unknown wire %r (choices: %s)"
+                             % (wire, WIRES))
         if src.device.type == "cpu":
+            if wire == "compact":
+                src, dst, valid = widen_stack(src, dst, valid, src.shape[1],
+                                              self.vb)
             return summarize_windows_plain(carry, src, dst, valid,
                                            self.vb, self.kb)
         sums = torch.empty(3, src.shape[0], dtype=torch.int32,
                            device=src.device)
-        summarize(carry, src, dst, valid, self.vb, sums)
-        tri, overflow = self.counter(src, dst, valid)
+        summarize(carry, src, dst, valid, self.vb, sums, wire)
+        tri, overflow = self.counter(src, dst, valid, wire)
         return sums[0], sums[1], sums[2] != 0, tri, overflow
 
 
-def summarize(carry, src, dst, valid, vb: int, sums: torch.Tensor) -> None:
-    """The summary kernel alone, on CUDA tensors: folds the [W, eb]
-    chunk into `carry` in place and writes sums [3, W] int32 (rows
-    max_degree, num_components, odd as 0/1)."""
-    _check(carry, src, dst, valid, vb, sums)
+def summarize(carry, src, dst, valid, vb: int, sums: torch.Tensor,
+              wire: str = "standard") -> None:
+    """The summary kernel alone, on CUDA tensors of either wire: folds
+    the [W, eb] chunk into `carry` in place and writes sums [3, W] int32
+    (rows max_degree, num_components, odd as 0/1)."""
+    _check(carry, src, dst, valid, vb, sums, wire)
     deg, labels, cover = carry
     lib = kernels.library("window_summary")
-    code = lib.gs_window_summary(
+    entry = (lib.gs_window_summary_compact if wire == "compact"
+             else lib.gs_window_summary)
+    code = entry(
         src.data_ptr(), dst.data_ptr(), valid.data_ptr(), src.shape[0],
         src.shape[1], vb, deg.data_ptr(), labels.data_ptr(),
         cover.data_ptr(), sums.data_ptr(), src.device.index,
         kernels.stream_of(src))
     kernels.check("window_summary", code)
-    kernels.LAUNCHES["window_summary"] += 1
+    kernels.LAUNCHES["window_summary_compact" if wire == "compact"
+                     else "window_summary"] += 1
 
 
-def _check(carry, src, dst, valid, vb: int, sums) -> None:
+def _check(carry, src, dst, valid, vb: int, sums, wire: str) -> None:
+    check_wire(src, dst, valid, wire, "window summary")
     dev = src.device
-    if dev.type != "cuda":
-        raise ValueError("the window summary kernel takes CUDA tensors, "
-                         "got %s" % dev)
     if len(carry) != 3:
         raise ValueError("carry must be (deg, labels, cover)")
-    w, eb = src.shape if src.dim() == 2 else (0, 0)
-    want = [("src", src, torch.int32, (w, eb)),
-            ("dst", dst, torch.int32, (w, eb)),
-            ("valid", valid, torch.bool, (w, eb)),
-            ("deg", carry[0], torch.int32, (vb + 1,)),
+    w, eb = src.shape
+    want = [("deg", carry[0], torch.int32, (vb + 1,)),
             ("labels", carry[1], torch.int32, (vb + 1,)),
             ("cover", carry[2], torch.int32, (2 * (vb + 1),)),
             ("sums", sums, torch.int32, (3, w))]

@@ -126,7 +126,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter (this one has JAX loaded by conftest):
     importing every module of the port (the summary, GNN, dense
     triangle and tenant cohort paths' among them), and chip_smoke, loads
-    neither `jax` nor `gelly_streaming_tpu`."""
+    neither `jax` nor `gelly_streaming_tpu`. The compact wire and the
+    ingress pipeline, numpy-only modules in the JAX package too, are the
+    port's own copies."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import gelly_streaming_tpu_torch as p\n"
@@ -142,7 +144,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'ops.window_summary', 'ops.scan_analytics',\n"
         "          'ops.staging', 'ops.gnn_window', 'ops.gnn_round',\n"
         "          'ops.dense_triangles', 'ops.cohort_summary',\n"
-        "          'core.tenancy'):\n"
+        "          'core.tenancy', 'ops.compact_ingress',\n"
+        "          'ops.ingress_pipeline'):\n"
         "    assert 'gelly_streaming_tpu_torch.' + m in sys.modules, m\n"
         "print('clean', len([n for n in sys.modules\n"
         "                    if n.startswith('gelly_streaming_tpu_torch')]))\n")
@@ -150,4 +153,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
-    assert int(out.stdout.split()[1]) >= 22
+    assert int(out.stdout.split()[1]) >= 24

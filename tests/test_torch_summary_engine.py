@@ -198,8 +198,11 @@ def test_engine_refusals(monkeypatch):
         port.process(np.array([0, 64]), np.array([1, 2]))
     with pytest.raises(ValueError, match="outside"):
         port.process(np.array([-1, 3]), np.array([1, 2]))
-    with pytest.raises(ValueError, match="step 5"):
-        StreamSummaryEngine(64, 64, device="cpu", ingress="compact")
+    # the JAX rule: a compact pin where ids may not fit uint16 raises
+    with pytest.raises(ValueError, match="compact ingress is lossy"):
+        StreamSummaryEngine(64, 1 << 17, device="cpu", ingress="compact")
+    with pytest.raises(ValueError, match="unknown ingress"):
+        StreamSummaryEngine(64, 64, device="cpu", ingress="narrow")
     state = port.state_dict()
     with pytest.raises(ValueError, match="bucket mismatch"):
         _port(128, 64).load_state_dict(state)
