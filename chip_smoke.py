@@ -23,7 +23,10 @@ vertices (phase dense); TenantCohort(4096, 8192) serving 64 tenant
 streams, 8 of them at vb=65536, about 8.3M edges (phase cohort_stream);
 and GnnTenantCohort(4096, 8192, feature_dim=64) over 64 tenants of 16
 windows (phase gnn_cohort). Each path reports its rate, its launches and
-where its time goes.
+where its time goes. Beside the dense and GNN kernels it times one
+PyTorch call for the same product as a yardstick (torch.mm, torch._int_mm;
+torch.addmm), and it counts the tensor-core instructions in those two
+libraries' SASS where the toolkit has cuobjdump (a diagnostic only).
 
     python3 chip_smoke.py          # from the repository root
 
@@ -39,6 +42,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -987,14 +992,26 @@ def gnn_fixtures():
     require(n == 37 and sc.shape[0] == CHUNK, "gnn ragged fixture shape")
     yield ("ragged", EB, GNN_F, "relu", gnn_weights(GNN_F, -12, -3), slab,
            (sc, dc, vc))
+    # widths the tensor-core tiles pad: F=72 (neither k nor n a multiple
+    # of 16; weight_shift 1), F=256, the widest (weight cap 128),
+    # and F=3 and F=99, not multiples of 4: the 4-byte loads and stores
+    # in place of the 16-byte ones, a last 32-column pass of 3 columns
+    # (at F=3 the weights of seed 3 kill every row by the eighth window)
+    for F, seed, w_seed in ((72, 5, 3), (256, 6, 3), (3, 7, 8), (99, 8, 3)):
+        yield ("F=%d relu" % F, EB, F, "relu",
+               gnn_weights(F, -12, -3, w_seed),
+               gw.default_features(VB, F, seed=seed), zipf(EB, seed=9 + F))
 
 
 def phase_gnn(dev) -> dict:
     """The GNN round kernel vs its plain version on 64-window chunks at
     vb=65536 from a loaded slab: F=64 relu on Zipf windows, F=16 abs,
     F=128 identity (weight_shift 1, a wrapping checksum), eb=65536
-    (agg_shift 1) and a ragged chunk; slab and all 4×W sums equal. Then
-    times of the whole call and the plain version at F=64."""
+    (agg_shift 1), a ragged chunk, F=72, F=256, F=3 and F=99; slab and
+    all 4×W sums equal. Then, at F=64, times of the whole call and the
+    plain version, each kernel's µs a window from torch.profiler, and
+    torch.addmm(b, p, W) on one window's [vb+1, F] as the product's
+    yardstick."""
     from gelly_streaming_tpu_torch.ops import gnn_round as gr
 
     err = 0
@@ -1052,11 +1069,31 @@ def phase_gnn(dev) -> dict:
         + 16 * CHUNK
     ops = CHUNK * 2 * (VB + 1) * F * F
     b_ms, b_by = bound(nbytes, ops, PEAK_FP16_TC_S)
+    prof = profile_run(lambda: rnd(h, Wt, bt, st, dt, vt, act, sums))
+    per_window = {k: {"launches": n, "us_per_launch":
+                      1e3 * prof["device_ms_by_name"][k] / n}
+                  for k, n in prof["launches_by_name"].items()}
+    p = torch.rand(VB + 1, F, device=dev).mul_(511).floor_()
+    yard = {"addmm_f32_us": 1e3 * cuda_ms(lambda: torch.addmm(bt, p, Wt),
+                                          20)}
+    ph, Wh, bh = p.half(), Wt.half(), bt.half()
+    yard["addmm_f16_us"] = 1e3 * cuda_ms(lambda: torch.addmm(bh, ph, Wh), 20)
+    # one window's update alone: the slab read and written, the aggregate
+    # read in the rows the window's messages reach (this chunk's mean);
+    # the product's 2(vb+1)F² operations take 0.5 µs at the fp16 rate
+    reached = np.mean([int(torch.unique(dt[w][vt[w]]).numel())
+                       for w in range(CHUNK)])
+    yard["update_bound_us"] = 1e3 * bound(
+        4 * F * (2 * (VB + 1) + reached), 2 * (VB + 1) * F * F,
+        PEAK_FP16_TC_S)[0]
+    print(json.dumps({"gnn_kernels_us_per_window": per_window,
+                      "gnn_yardsticks": yard}))
     print("phase gnn: ok  kernel %.3f ms/chunk  plain %.3f ms/chunk  "
           "(%d windows, eb=%d, vb=%d, F=%d)" % (ms, plain_ms, CHUNK, EB, VB,
                                                 F))
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": err}
+            "bound_by": b_by, "max_abs_err": err,
+            "us_per_window": per_window, **yard}
 
 
 def phase_gnn_stream(dev) -> dict:
@@ -1174,16 +1211,25 @@ def dense_windows():
     yield "self-loops", np.arange(200), np.arange(200), 256
     s, d = np.array([0, 1, 2, 1, 2, 0]), np.array([1, 2, 0, 0, 1, 2])
     yield "duplicates", np.tile(s, 50), np.tile(d, 50), 256
+    # the smallest buckets: vp=128 (one tile, no k split) and vp=512
+    # (bucket of 300; k split in four)
+    for name, v, p in (("V=100", 100, 0.3), ("V=300", 300, 0.1)):
+        iu, ju = np.triu_indices(v, k=1)
+        keep = rng.random(iu.size) < p
+        yield name, iu[keep], ju[keep], v
 
 
 def phase_dense(dev):
     """The dense path: triangle_count over dense windows (Zipf, random
-    p=0.05 at V=4096, V=1000, empty, self-loop-only, duplicates) with the
-    launch counts set to 0 just before and read just after, each count
-    equal to triangle_count_sparse on the card and to the numpy oracle;
-    the switch to the sparse route past 4096 vertices; then the kernel's
-    partials against the plain ones on every window, and times at V=1024
-    and V=4096 beside torch.mm alone."""
+    p=0.05 at V=4096, V=1000, empty, self-loop-only, duplicates, V=100,
+    V=300) with the launch counts set to 0 just before and read just
+    after, each count equal to triangle_count_sparse on the card and to
+    the numpy oracle; the switch to the sparse route past 4096 vertices;
+    then the kernel's partials against the plain ones on every window's
+    int8 adjacency, an asymmetric matrix refused, and times at V=1024
+    and V=4096 (the kernel alone and through the wrapper's symmetry
+    check) beside torch.mm on float32 and torch._int_mm on int8, the
+    product alone."""
     from gelly_streaming_tpu_torch import kernels, triangle_count
     from gelly_streaming_tpu_torch.ops import dense_triangles as dt
     from gelly_streaming_tpu_torch.ops import host_triangles
@@ -1203,8 +1249,8 @@ def phase_dense(dev):
         oracle = host_triangles.window_count(s, d)
         require(got == sparse == oracle, "dense %s: kernel %d, sparse %d, "
                 "numpy %d" % (name, got, sparse, oracle))
-    require(counts[1] > 10 ** 6 and counts[3:] == [0, 0, 1],
-            "dense fixtures: counts %s" % counts)
+    require(counts[1] > 10 ** 6 and counts[3:6] == [0, 0, 1]
+            and min(counts[6:]) > 0, "dense fixtures: counts %s" % counts)
 
     # the dispatcher's switch: dense at 4096 vertices, sparse at 4097
     _n, s, d, _v = windows[0]
@@ -1221,37 +1267,58 @@ def phase_dense(dev):
     err = 0
     for name, s, d, v in windows:
         a = dt.adjacency(*(torch.from_numpy(np.asarray(x, np.int64))
-                           .to(dev) for x in (s, d)), v)
+                           .to(dev) for x in (s, d)), v, torch.int8)
         got, want = dt.six_t_partials(a), dt.six_t_partials_plain(a)
         torch.cuda.synchronize()
         require(torch.equal(got, want), "dense %s: partials kernel != "
                 "plain" % name)
         err = max(err, float((got - want).abs().max()))
+    a = torch.zeros(256, 256, dtype=torch.int8, device=dev)
+    a[0, 200] = 1
+    try:
+        dt.six_t_partials(a)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, "dense: six_t_partials took an asymmetric matrix")
 
     times = {}
     for v in (1024, DENSE_V):
         iu, ju = np.triu_indices(v, k=1)
         keep = np.random.default_rng(v).random(iu.size) < 0.05
-        a = dt.adjacency(*(torch.from_numpy(x[keep]).to(dev)
-                           for x in (iu, ju)), v)
-        times[v] = {"ms": cuda_ms(lambda: dt.six_t_partials(a), 10),
-                    "plain_ms": cuda_ms(lambda: dt.six_t_partials_plain(a),
-                                        10),
-                    "mm_ms": cuda_ms(lambda: torch.mm(a, a), 10)}
+        a8 = dt.adjacency(*(torch.from_numpy(x[keep]).to(dev)
+                            for x in (iu, ju)), v, torch.int8)
+        a32 = a8.to(torch.float32)
+        # A at 1 byte an entry read once, the float32 partials written;
+        # the product on the g(g+1)/2 tiles i <= j that a symmetric A
+        # needs, 2·128²·v operations each: v³(1 + 1/g)
+        g = v // dt.TILE
+        b_ms, b_by = bound(v * v + v * v // 128 * 4,
+                           2 * dt.TILE ** 2 * v * g * (g + 1) // 2,
+                           PEAK_INT8_TC_S)
+        # the kernel alone, as triangle_count_dense calls it, and through
+        # the wrapper with its symmetry check (A against A.T, a sync)
+        times[v] = {"ms": cuda_ms(lambda: dt._symmetric_partials(a8), 20),
+                    "checked_ms": cuda_ms(lambda: dt.six_t_partials(a8),
+                                          20),
+                    "plain_ms": cuda_ms(
+                        lambda: dt.six_t_partials_plain(a8), 10),
+                    "mm_ms": cuda_ms(lambda: torch.mm(a32, a32), 10),
+                    "int_mm_ms": cuda_ms(lambda: torch._int_mm(a8, a8), 20),
+                    "bound_ms": b_ms, "bound_by": b_by}
     vp = DENSE_V
-    b_ms, b_by = bound(vp * vp * 4 + vp * vp // 128 * 4, 2 * vp ** 3,
-                       PEAK_INT8_TC_S)
     print(json.dumps({"dense": {
         "windows": [(n, v, c) for (n, _s, _d, v), c in zip(windows, counts)],
         "seconds": wall, "launches": launches, "times": times,
         "device": torch.cuda.get_device_name(0)}}))
-    print("phase dense: ok  %d windows  kernel %.3f ms  plain %.3f ms  "
-          "torch.mm %.3f ms at V=%d" % (len(windows), times[vp]["ms"],
-                                         times[vp]["plain_ms"],
-                                         times[vp]["mm_ms"], vp))
-    return {"ms": times[vp]["ms"], "plain_ms": times[vp]["plain_ms"],
-            "mm_ms": times[vp]["mm_ms"], "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": err}, launches
+    for v, t in sorted(times.items()):
+        print("phase dense: V=%d  kernel %.4f ms  checked %.4f ms  plain "
+              "%.4f ms  torch.mm (float32) %.4f ms  torch._int_mm %.4f ms  "
+              "bound %.4f ms (%s)"
+              % (v, t["ms"], t["checked_ms"], t["plain_ms"], t["mm_ms"],
+                 t["int_mm_ms"], t["bound_ms"], t["bound_by"]))
+    print("phase dense: ok  %d windows" % len(windows))
+    return {**times[vp], "max_abs_err": err}, launches
 
 
 def cohort_zipf_slab(nb: int, wb: int, vb: int, seed: int):
@@ -1621,35 +1688,37 @@ def profile_both(run, setup=lambda: None) -> dict:
     return {"pipelined": pipelined, "forced_sync": profile_run(synced)}
 
 
+def tensor_core_ops(lib) -> dict:
+    """Counts of tensor-core instructions (HMMA, IMMA, HGMMA, IGMMA) in
+    the SASS of a built library, from cuobjdump where the toolkit has
+    it: a diagnostic, not a gate."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {"cuobjdump": "not found"}
+    proc = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120)
+    if proc.returncode:
+        return {"cuobjdump": "exit %d" % proc.returncode}
+    ops = re.findall(r"\b(HMMA|IMMA|HGMMA|IGMMA)\.", proc.stdout)
+    return {op: ops.count(op) for op in ("HMMA", "IMMA", "HGMMA", "IGMMA")}
+
+
 def profile_run(run) -> dict:
     """One run() under torch.profiler: device time by name (the
-    device-side rows only, so nothing is counted twice), their sum, and
-    the device's idle share of the profiled wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    device-side rows only, so nothing is counted twice) and launches of
+    the eight largest, their sum, and the device's idle share of the
+    profiled wall time."""
+    from gelly_streaming_tpu_torch.utils.profiling import device_times
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name = {}
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us > 0:
-            key = ev.key[:70]
-            by_name[key] = by_name.get(key, 0.0) + us / 1e3
-    busy = sum(by_name.values())
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    wall_ms, by_name = device_times(run)
+    busy = sum(ms for ms, _n in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"wall_ms": wall_ms,
             "device_busy_ms": busy if busy else "not measured",
             "idle_share": 1 - busy / wall_ms if busy else "not measured",
-            "device_ms_by_name": top}
+            "device_ms_by_name": {k: ms for k, (ms, _n) in top},
+            "launches_by_name": {k: n for k, (_ms, n) in top}}
 
 
 def main() -> int:
@@ -1669,6 +1738,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas %s: %s" % (name, line.strip()))
+    for name in ("gnn_round", "dense_triangles"):
+        print("sass %s: %s" % (name, json.dumps(tensor_core_ops(
+            kernels.library_path(name)))))
 
     rng = np.random.default_rng(SEED)
     inter = phase_intersect(dev, rng)

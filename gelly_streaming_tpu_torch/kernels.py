@@ -63,7 +63,7 @@ SIGNATURES = {
     },
     "gnn_round": {
         "gs_gnn_rounds": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _P, _P, _I, _P],
+                          _P, _P, _P, _I, _P],
     },
     "dense_triangles": {
         "gs_six_t_partials": [_P, _I, _P, _I, _P],

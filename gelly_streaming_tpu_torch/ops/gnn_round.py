@@ -57,10 +57,7 @@ def gnn_round_plain(h, W, b, s, d, v, eb: int, act: str):
     """One window's round in PyTorch on the tensors' device: h [vb+1, F]
     float32, W [F, F], b [F], s/d [eb] int32, v [eb] bool. Returns
     (h', (max_feat, active, checksum, msg_edges)), the four 0-dim int32.
-
-    The product runs in float64 (exact, and independent of PyTorch's
-    TF32 setting); every value it produces is an integer below 2^24, so
-    the float32 result equals the JAX package's Precision.HIGHEST dot."""
+    The product is `lattice_product`."""
     vb = h.shape[0] - 1
     cap = float(UNIT_CAP)
     sh = agg_shift(eb)
@@ -71,11 +68,21 @@ def gnn_round_plain(h, W, b, s, d, v, eb: int, act: str):
         msgs = torch.floor(msgs * 2.0 ** -sh)
     m = torch.zeros_like(h).index_add_(0, d, msgs)
     p = torch.clamp_max(h + torch.clamp_max(m, cap), cap)
-    z = (p.double() @ W.double()).float() + b
+    z = lattice_product(p, W) + b
     h2 = torch.clamp(_ACTS[act](z), 0.0, cap)
     h2[vb] = 0.0
     h2 = torch.where(v.any(), h2, h)     # an empty window holds the slab
     return h2, slab_summaries(h2) + (v.sum().to(torch.int32),)
+
+
+def lattice_product(p, W):
+    """p @ W in float32 for lattice operands (p integers in [0, 511], W
+    integers with |W| ≤ weight_cap(F)). It runs in float64 (exact, and
+    independent of PyTorch's TF32 setting); every value it produces is
+    an integer below 2^24, so the float32 result equals the JAX
+    package's Precision.HIGHEST dot and the kernel's fp16 tensor-core
+    product with fp32 sums."""
+    return (p.double() @ W.double()).float()
 
 
 def slab_summaries(h):
@@ -139,17 +146,22 @@ def gnn_rounds(h, W, b, src, dst, valid, act: str, sums: torch.Tensor,
                scratch: torch.Tensor) -> None:
     """The kernel alone, on CUDA tensors: `GnnRound`'s fold, with
     `scratch` a float32 tensor shaped like h that the call zeroes and
-    leaves zero."""
+    leaves zero (the kernel reads and clears it only in the rows that
+    a window's messages reach, which it marks in a uint8 [vb+1] tensor
+    allocated here)."""
     act_id = _act_code(act)
     _check(h, W, b, src, dst, valid, sums, scratch)
     vb, feat = h.shape[0] - 1, h.shape[1]
     windows, eb = src.shape
+    # the rows each window's messages reach, one byte a row (the call
+    # zeroes it first); from PyTorch's caching allocator, on the stream
+    touched = torch.empty(vb + 1, dtype=torch.uint8, device=h.device)
     lib = kernels.library("gnn_round")
     code = lib.gs_gnn_rounds(
         h.data_ptr(), W.data_ptr(), b.data_ptr(), src.data_ptr(),
         dst.data_ptr(), valid.data_ptr(), windows, eb, vb, feat, act_id,
-        agg_shift(eb), scratch.data_ptr(), sums.data_ptr(),
-        h.device.index, kernels.stream_of(h))
+        agg_shift(eb), scratch.data_ptr(), touched.data_ptr(),
+        sums.data_ptr(), h.device.index, kernels.stream_of(h))
     kernels.check("gnn_round", code)
     kernels.LAUNCHES["gnn_round"] += 1
 

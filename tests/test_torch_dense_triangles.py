@@ -135,3 +135,71 @@ def test_wrapper_checks(monkeypatch):
         triangle_count(np.array([0]), np.array([1]), 8)
     with pytest.raises(RuntimeError):
         triangle_count_dense(np.array([0]), np.array([1]), 8)
+
+
+@pytest.mark.parametrize("v,seed", [(100, 0), (300, 1), (1000, 2)])
+def test_adjacency_int8_is_float32_cast(v, seed):
+    """adjacency(..., dtype=torch.int8), the matrix the kernel reads, is
+    the float32 one cast: duplicates, self-loops and ids at and past v
+    included."""
+    src, dst = _edges(seed, v + 10, 5 * v)
+    src[::7] = dst[::7]
+    args = (torch.from_numpy(src), torch.from_numpy(dst), v)
+    a8 = dt.adjacency(*args, dtype=torch.int8)
+    a32 = dt.adjacency(*args)
+    assert a8.dtype == torch.int8 and a32.dtype == torch.float32
+    assert torch.equal(a8, a32.to(torch.int8))
+    assert torch.equal(a8.to(torch.float32), a32)
+    assert int(a8.sum()) > v
+
+
+@pytest.mark.parametrize("vp,seed", [(128, 3), (256, 4), (384, 5)])
+def test_partials_int8_equal_float32_and_interpret(vp, seed):
+    """six_t_partials_plain on the int8 adjacency equals it on the
+    float32 one and the interpret `_six_t_partials`, partial for
+    partial; six_t_partials on a CPU int8 matrix is the plain version."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, vp, 6 * vp)
+    dst = (src + rng.integers(-40, 41, 6 * vp)) % vp
+    args = (torch.from_numpy(src), torch.from_numpy(dst), vp)
+    a8 = dt.adjacency(*args, dtype=torch.int8)
+    a32 = dt.adjacency(*args)
+    got8 = dt.six_t_partials_plain(a8)
+    assert got8.dtype == torch.float32 and got8.shape == (vp // 128, vp)
+    assert torch.equal(got8, dt.six_t_partials_plain(a32))
+    assert torch.equal(dt.six_t_partials(a8), got8)
+    want = np.asarray(jax_pt._six_t_partials(jnp.asarray(a32.numpy()),
+                                             interpret=True))
+    np.testing.assert_array_equal(got8.numpy(), want)
+    assert (want > 0).sum() > vp // 2
+
+
+def test_kernel_wrapper_takes_int8_only():
+    """The kernel's wrapper refuses what is not a CUDA tensor, int8 as
+    well as float32, and the plain version refuses other types."""
+    for dtype in (torch.int8, torch.float32):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            dt.six_t_partials(torch.zeros(128, 128, dtype=dtype,
+                                          device="meta"))
+    with pytest.raises(ValueError, match="int8 or float32"):
+        dt.six_t_partials_plain(torch.zeros(128, 128, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+def test_wrapper_refuses_asymmetric_matrix(dtype):
+    """six_t_partials requires a symmetric 0/1 matrix (the kernel reads
+    A's rows as the right operand's columns) and refuses any other;
+    six_t_partials_plain, like the TPU kernel, takes it and equals the
+    interpret `_six_t_partials`."""
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy((rng.random((256, 256)) < 0.1).astype(np.int8))
+    a = a.to(dtype)
+    assert not torch.equal(a, a.T)
+    with pytest.raises(ValueError, match="symmetric"):
+        dt.six_t_partials(a)
+    want = np.asarray(jax_pt._six_t_partials(
+        jnp.asarray(a.to(torch.float32).numpy()), interpret=True))
+    np.testing.assert_array_equal(dt.six_t_partials_plain(a).numpy(), want)
+    sym = ((a + a.T) > 0).to(dtype)
+    np.testing.assert_array_equal(dt.six_t_partials(sym).numpy(),
+                                  dt.six_t_partials_plain(sym).numpy())
