@@ -4,15 +4,20 @@ NVIDIA GPU.
 
 Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and runs
 fourteen phases. Six hold a kernel against its plain PyTorch version on
-the card: intersect, counter, summary, gnn, cohort (the cohort summary
-kernel on three dispatches at eb=4096: 64 Zipf tenants at vb=8192, a
-ragged batch, 8 tenants at vb=65536) and compact (the compact-wire forms
-of the counter and the summary kernel against plain and against the
-standard wire). Eight drive the port's paths, each with the launch
-counts set to 0 just before it and read just after, every window
-checked: over the bench's north-star stream (make_stream(10_485_760,
-65_536, seed=7): 320 Zipf windows of 32768 edges)
-TriangleWindowKernel(32768, 65536).count_stream on the standard wire
+the card: intersect, counter, summary (the summary body of
+csrc/summary_body.cuh at vb=65536, its L2 tier, on sparse, bipartite,
+ragged, star (hub) and late-odd chunks), gnn, cohort (the same body
+through the cohort kernel on five dispatches at eb=4096: 64 Zipf
+tenants at vb=8192 and a ragged batch in the shared-memory tier, 8
+tenants at vb=65536 in the L2 tier, one tenant at vb=8192, and 4
+tenants at vb=65536 whose last row not odd turns odd mid-chunk) and compact
+(the compact-wire forms of the counter and the summary kernel against
+plain and against the standard wire). Eight drive the port's paths, each
+with the launch counts set to 0 just before it and read just after,
+every window checked, and each profile holding one summary-body launch
+per summary wrapper call: over the bench's north-star stream
+(make_stream(10_485_760, 65_536, seed=7): 320 Zipf windows of 32768
+edges) TriangleWindowKernel(32768, 65536).count_stream on the standard wire
 (phase stream) and the compact one (phase stream_compact),
 StreamSummaryEngine(32768, 65536).process on both wires (phases
 summary_stream, summary_stream_compact) and GnnSummaryEngine(32768,
@@ -56,6 +61,9 @@ STREAM_EDGES = 10_485_760          # 320 windows: the north-star scale
 SEED = 7
 CHUNK = 64                         # MAX_STREAM_WINDOWS
 CLIQUE = 200                       # a window that overflows kb=128
+STAR_HUBS = 4                      # hubs of the star fixture's windows
+LATE_ODD = 40                      # the late-odd fixture's first odd window
+CO_LATE_ODD = 5                    # the cohort's late-odd row's first odd window
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at the 700 W
 # limit): HBM bytes/s, and the float32 rate outside the tensor cores,
 # taken as the rate of 32-bit scalar operations (compares, adds); the
@@ -490,6 +498,26 @@ def summary_fixtures():
     require(n == 37 and sc.shape[0] == CHUNK, "ragged fixture shape")
     yield ("ragged", (s[:CHUNK], d[:CHUNK], v[:CHUNK]), (sc, dc, vc))
 
+    # star: every window gives one of four hubs all but 64 of its slots
+    # (the warp-aggregated degree adds), the rest random
+    sp = clustered_stack(rng, CHUNK, 16, 8)
+    ss = rng.integers(0, VB, (CHUNK, EB)).astype(np.int32)
+    sd = rng.integers(0, VB, (CHUNK, EB)).astype(np.int32)
+    ss[:, :EB - 64] = (7 * (np.arange(CHUNK) % STAR_HUBS) + 3)[:, None]
+    yield "star", sp, (ss, sd, np.ones((CHUNK, EB), bool))
+
+    # late odd: bipartite (src even, dst odd); the prefix joins 10 and 20
+    # through 31, and the chunk's window LATE_ODD closes an odd cycle
+    # with its one edge (10, 20), between two vertices touched long
+    # before: odd turns true there and only there
+    ls = 2 * rng.integers(0, VB // 2, (2 * CHUNK, EB)).astype(np.int32)
+    ld = 2 * rng.integers(0, VB // 2, (2 * CHUNK, EB)).astype(np.int32) + 1
+    ls[0, :2], ld[0, :2] = (10, 20), (31, 31)
+    ls[CHUNK + LATE_ODD, -1], ld[CHUNK + LATE_ODD, -1] = 10, 20
+    lv = np.ones((2 * CHUNK, EB), bool)
+    yield ("late odd", (ls[:CHUNK], ld[:CHUNK], lv[:CHUNK]),
+           (ls[CHUNK:], ld[CHUNK:], lv[CHUNK:]))
+
 
 def compare_summary(name, chunk, summ, carry, plain_carry, dev):
     """Kernel (`summ`, a WindowSummary on the card, folding into
@@ -555,6 +583,14 @@ def phase_summary(dev) -> dict:
                     and (mdeg[37:] == mdeg[36]).all(),
                     "ragged: loops/overflow/padding %s %s %s"
                     % (odd, ovf, mdeg))
+        if name == "star":
+            require(mdeg.min() >= EB - 64 and mdeg[-1] >= (
+                CHUNK // STAR_HUBS) * (EB - 64), "star: max_degree %s"
+                % mdeg)
+        if name == "late odd":
+            require(not pre[2].any() and not odd[:LATE_ODD].any()
+                    and odd[LATE_ODD:].all(), "late odd: odd %s %s"
+                    % (pre[2], odd))
         print("phase summary %s: ok  num_components %d..%d  odd windows "
               "%d  overflow windows %d" % (name, ncomp.min(), ncomp.max(),
                                            int(odd.sum()),
@@ -589,24 +625,44 @@ def phase_summary(dev) -> dict:
     clone_ms = cuda_ms(lambda: tuple(c.clone() for c in carry), 20)
     ms = cuda_ms(lambda: summ(tuple(c.clone() for c in carry), st, dt, vt),
                  20)
+    counter_ms = cuda_ms(lambda: summ.counter(st, dt, vt), 20)
     plain_ms = cuda_ms(lambda: ws.summarize_windows_plain(
         tuple(c.clone() for c in carry), st, dt, vt, VB, KB), 1)
     slots = int(vt.sum())
     edges, compares = row_work(st, dt, vt, VB, KB)
-    carry_bytes = 16 * (VB + 1)        # deg, labels: 4(vb+1); cover 8(vb+1)
-    nbytes = CHUNK * EB * 9 + 2 * carry_bytes + 20 * CHUNK
-    # per valid slot: 2 degree adds, 3 unions; per carry slot and
-    # window: 3 root walks; the triangle stage: one per slot + compares
-    ops = 5 * slots + 3 * CHUNK * (VB + 1) + CHUNK * EB + compares
-    b_ms, b_by = bound(nbytes, ops)
+    b_ms, b_by = bound(*summary_work(CHUNK * EB * 9, CHUNK * EB, slots, 1,
+                                     CHUNK, VB, compares))
     print("phase summary: ok  kernel %.3f ms/chunk (summary kernel alone "
-          "%.3f, carry clone %.3f)  plain %.1f ms/chunk  (%d windows, %d "
-          "valid slots, %d distinct edges, %d compares)"
-          % (ms - clone_ms, kern_ms - clone_ms, clone_ms, plain_ms, CHUNK,
-             slots, edges, compares))
+          "%.3f, %s tier; counter alone %.3f; carry clone %.3f)  plain "
+          "%.1f ms/chunk  (%d windows, %d valid slots, %d distinct edges, "
+          "%d compares)"
+          % (ms - clone_ms, kern_ms - clone_ms, summary_tier(VB, dev),
+             counter_ms, clone_ms, plain_ms, CHUNK, slots, edges, compares))
     return {"ms": ms - clone_ms, "plain_ms": plain_ms - clone_ms,
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-            "kernel_only_ms": kern_ms - clone_ms}
+            "kernel_only_ms": kern_ms - clone_ms, "counter_ms": counter_ms}
+
+
+def summary_tier(vb: int, dev) -> str:
+    """Which tier of csrc/summary_body.cuh folds a carry row at vb:
+    "shared" where its 16(vb+1) bytes fit a block's opt-in shared memory,
+    "L2" elsewhere (a label for the output; the kernel decides)."""
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    return "shared" if 16 * (vb + 1) <= optin else "L2"
+
+
+def summary_work(slab_bytes: int, total_slots: int, slots: int,
+                 rows: int, windows: int, vb: int, compares: int) -> tuple:
+    """(bytes, operations) a summary call needs, its triangle stage
+    included, over `rows` carry rows of `windows` windows each: the slab
+    read once, each carry row (16(vb+1) bytes) read and written once, 20
+    bytes out per window; per valid slot 2 degree adds and 3 unions; per
+    carry slot one pass of 3 root walks in the whole call (the
+    summaries are read incrementally, so no pass per window); the
+    triangle stage's one operation per slot and its row compares."""
+    nbytes = slab_bytes + rows * (2 * 16 * (vb + 1) + 20 * windows)
+    ops = 5 * slots + 3 * rows * (vb + 1) + total_slots + compares
+    return nbytes, ops
 
 
 def phase_summary_stream(dev):
@@ -792,20 +848,28 @@ def to_compact(s, d, v):
 
 
 def compact_fixtures():
-    """phase summary's three fixtures, and a Zipf chunk at vb=65536 whose
-    last window is half padding and closes a triangle on ids 65533-65535
-    in its last valid slots (the top uint16 id is real, padding only what
-    lies past a window's count)."""
+    """(name, vb, prefix, chunk): phase summary's fixtures; a Zipf chunk
+    at vb=65536 whose last window is half padding and closes a triangle
+    on ids 65533-65535 in its last valid slots (the top uint16 id is
+    real, padding only what lies past a window's count); and a Zipf
+    chunk at vb=8192, the summary body's shared-memory tier, its last
+    window half padding."""
     from gelly_streaming_tpu_torch import make_stream
     from gelly_streaming_tpu_torch.ops import segment as seg
 
-    yield from summary_fixtures()
+    for name, prefix, chunk in summary_fixtures():
+        yield name, VB, prefix, chunk
     src, dst = make_stream(2 * CHUNK * EB, VB, seed=19)
     _w, s, d, v = seg.window_stack(src, dst, EB, sentinel=VB)
     tri = slice(EB // 2 - 3, EB // 2)     # the last valid slots
     s[-1, tri], d[-1, tri] = (65533, 65534, 65535), (65534, 65535, 65533)
     v[-1, EB // 2:] = False
-    yield ("top ids", (s[:CHUNK], d[:CHUNK], v[:CHUNK]),
+    yield ("top ids", VB, (s[:CHUNK], d[:CHUNK], v[:CHUNK]),
+           (s[CHUNK:], d[CHUNK:], v[CHUNK:]))
+    src, dst = make_stream(2 * CHUNK * EB, CO_VB, seed=29)
+    _w, s, d, v = seg.window_stack(src, dst, EB, sentinel=CO_VB)
+    v[-1, EB // 2:] = False
+    yield ("vb=8192", CO_VB, (s[:CHUNK], d[:CHUNK], v[:CHUNK]),
            (s[CHUNK:], d[CHUNK:], v[CHUNK:]))
 
 
@@ -813,8 +877,9 @@ def phase_compact(dev) -> dict:
     """The compact forms of the counter and the summary kernel (the
     decode fused into both) against their plain versions (widen_stack,
     then plain) and against the standard-wire kernels on the same
-    windows: phase summary's sparse, bipartite and ragged fixtures and a
-    vb=65536 chunk with id 65535, each from a carry that is not fresh.
+    windows: phase summary's fixtures, a vb=65536 chunk with id 65535
+    and a vb=8192 chunk (the summary body's shared-memory tier), each
+    from a carry that is not fresh.
     Outputs equal (triangles where overflow is 0) and carries bit-equal
     across the wires and against plain. Then ms per 64-window chunk of
     each wire at the Zipf chunk, and each wire's h2d bytes and copy
@@ -829,11 +894,13 @@ def phase_compact(dev) -> dict:
         return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                      for x in arrays)
 
-    summ = ws.WindowSummary(VB, KB, dev)        # the compact wire's
-    std = ws.WindowSummary(VB, KB, dev)         # the standard wire's
+    # (the compact wire's, the standard wire's) summaries per vb
+    pairs = {vb: tuple(ws.WindowSummary(vb, KB, dev) for _ in range(2))
+             for vb in (VB, CO_VB)}
     err = 0
-    for name, prefix, chunk in compact_fixtures():
-        carries = [ws.fresh_carry(VB, dev) for _ in range(3)]
+    for name, vb, prefix, chunk in compact_fixtures():
+        summ, std = pairs[vb]
+        carries = [ws.fresh_carry(vb, dev) for _ in range(3)]
         for part, stack in (("prefix", prefix), ("chunk", chunk)):
             st = dev_stack(stack)
             ct = dev_stack(to_compact(*stack))
@@ -841,7 +908,7 @@ def phase_compact(dev) -> dict:
                                                  wire="compact")]
             other = [x.cpu().numpy() for x in std(carries[1], *st)]
             plain = [x.cpu().numpy() for x in ws.summarize_windows_plain(
-                carries[2], *ci.widen_stack(*ct, EB, VB), VB, KB)]
+                carries[2], *ci.widen_stack(*ct, EB, vb), vb, KB)]
             clean = plain[4] == 0
             for i, (g, o, p) in enumerate(zip(got, other, plain)):
                 if i == 3:
@@ -858,15 +925,16 @@ def phase_compact(dev) -> dict:
                         "from plain" % (name, part, label))
             # the counter alone on the same windows, both wires and plain
             c, o = summ.counter(*ct, wire="compact")
-            pc, po = wc.count_windows_plain(*ci.widen_stack(*ct, EB, VB),
-                                            VB, KB)
+            pc, po = wc.count_windows_plain(*ci.widen_stack(*ct, EB, vb),
+                                            vb, KB)
             c, o, pc, po = (x.cpu().numpy() for x in (c, o, pc, po))
             require(np.array_equal(o, po) and np.array_equal(
                 c[po == 0], pc[po == 0]), "compact %s %s: counter %s %s "
                 "!= plain %s %s" % (name, part, c, o, pc, po))
-        if name == "ragged":
-            require(int(carries[0][2][2 * VB + 1]) == VB,
-                    "compact ragged: the cover's sentinels were not joined")
+        if name in ("ragged", "vb=8192"):
+            require(int(carries[0][2][2 * vb + 1]) == vb,
+                    "compact %s: the cover's sentinels were not joined"
+                    % name)
         if name == "top ids":
             require((plain[4][-1] > 0 or plain[3][-1] >= 1)
                     and int(carries[0][0][65535]) > 0,
@@ -876,6 +944,7 @@ def phase_compact(dev) -> dict:
               "triangles %d..%d" % (name, plain[3].min(), plain[3].max()))
 
     # times at the Zipf chunk of phase summary, both wires
+    summ = pairs[VB][0]
     src, dst = make_stream(2 * CHUNK * EB, VB, seed=11)
     _w, s, d, v = seg.window_stack(src, dst, EB, sentinel=VB)
     carry = ws.fresh_carry(VB, dev)
@@ -884,12 +953,16 @@ def phase_compact(dev) -> dict:
     st = dev_stack((s[CHUNK:], d[CHUNK:], v[CHUNK:]))
     ct = dev_stack(to_compact(s[CHUNK:], d[CHUNK:], v[CHUNK:]))
     clone_ms = cuda_ms(lambda: tuple(c.clone() for c in carry), 20)
+    sums = torch.empty(3, CHUNK, dtype=torch.int32, device=dev)
     times = {}
     for wire, stack in (("standard", st), ("compact", ct)):
         times[wire] = {
             "summary_ms": cuda_ms(lambda: summ(
                 tuple(c.clone() for c in carry), *stack, wire=wire), 20)
             - clone_ms,
+            "kernel_only_ms": cuda_ms(lambda: ws.summarize(
+                tuple(c.clone() for c in carry), *stack, VB, sums, wire),
+                20) - clone_ms,
             "counter_ms": cuda_ms(lambda: summ.counter(*stack, wire=wire),
                                   20)}
     counter_plain_ms = cuda_ms(lambda: wc.count_windows_plain(
@@ -909,18 +982,19 @@ def phase_compact(dev) -> dict:
     edges, compares = row_work(*st, VB, KB)
     slab = CHUNK * EB * 4 + CHUNK * 4     # JAX slab_bytes: eb·4 + 4 a window
     counter_bound = bound(slab + CHUNK * 8, CHUNK * EB + compares)
-    summary_bound = bound(slab + 2 * 16 * (VB + 1) + 20 * CHUNK,
-                          5 * slots + 3 * CHUNK * (VB + 1) + CHUNK * EB
-                          + compares)
+    summary_bound = bound(*summary_work(slab, CHUNK * EB, slots, 1, CHUNK,
+                                        VB, compares))
     print(json.dumps({"compact": {
         "times_ms": times, "h2d": h2d, "counter_plain_ms": counter_plain_ms,
         "summary_plain_ms": summary_plain_ms,
         "counter_bound": counter_bound, "summary_bound": summary_bound,
         "device": torch.cuda.get_device_name(0)}}))
-    print("phase compact: ok  summary %.3f ms/chunk compact, %.3f standard;"
-          "  counter %.3f compact, %.3f standard;  h2d %d B (%.3f ms) "
-          "compact, %d B (%.3f ms) standard"
+    print("phase compact: ok  summary %.3f ms/chunk compact, %.3f standard"
+          " (kernel alone %.3f, %.3f);  counter %.3f compact, %.3f standard;"
+          "  h2d %d B (%.3f ms) compact, %d B (%.3f ms) standard"
           % (times["compact"]["summary_ms"], times["standard"]["summary_ms"],
+             times["compact"]["kernel_only_ms"],
+             times["standard"]["kernel_only_ms"],
              times["compact"]["counter_ms"], times["standard"]["counter_ms"],
              h2d["compact"]["bytes"], h2d["compact"]["ms"],
              h2d["standard"]["bytes"], h2d["standard"]["ms"]))
@@ -1355,6 +1429,23 @@ def cohort_fixtures():
     yield ("zipf nb=8 vb=65536", CO_BIG_VB,
            cohort_zipf_slab(8, 8, CO_BIG_VB, 800),
            cohort_zipf_slab(8, 8, CO_BIG_VB, 900))
+    yield ("zipf nb=1", CO_VB, cohort_zipf_slab(1, 8, CO_VB, 1000),
+           cohort_zipf_slab(1, 8, CO_VB, 1100))
+    # late odd at vb=65536 (the L2 tier, many blocks): rows 0-2 Zipf, odd
+    # from the carry on; row 3 bipartite (src even, dst odd), the prefix
+    # joining 10 and 20 through 31, until window CO_LATE_ODD, whose one
+    # edge (10, 20) closes an odd cycle. The last row not odd turns odd
+    # mid-chunk: from the next window every block drops the odd check
+    # and its grid barrier, all of them at once or the grid hangs
+    ps, pd, pv = cohort_zipf_slab(4, 8, CO_BIG_VB, 1200)
+    s, d, v = cohort_zipf_slab(4, 8, CO_BIG_VB, 1300)
+    rng = np.random.default_rng(1400)
+    for x, y in ((ps, pd), (s, d)):
+        x[3] = 2 * rng.integers(0, CO_BIG_VB // 2, x[3].shape)
+        y[3] = 2 * rng.integers(0, CO_BIG_VB // 2, y[3].shape) + 1
+    ps[3, 0, :2], pd[3, 0, :2] = (10, 20), (31, 31)
+    s[3, CO_LATE_ODD, -1], d[3, CO_LATE_ODD, -1] = 10, 20
+    yield "late odd nb=4 vb=65536", CO_BIG_VB, (ps, pd, pv), (s, d, v)
 
 
 def compare_cohort(name, slab, summ, carries, plain_carries, dev):
@@ -1395,11 +1486,14 @@ def compare_cohort(name, slab, summ, carries, plain_carries, dev):
 
 def phase_cohort(dev) -> dict:
     """The cohort summary kernel (+ kernels 1-2 for triangles) vs its
-    plain version at eb=4096, kb=128 on three dispatches, each from
+    plain version at eb=4096, kb=128 on five dispatches, each from
     carries that are not fresh: 64 Zipf tenants × 8 windows at vb=8192,
-    the ragged batch, 8 Zipf tenants × 8 windows at vb=65536. Carries
-    bit-equal; per dispatch the whole call, the kernel alone and the
-    plain version timed, and the bound by row 3's rule taken nb times."""
+    the ragged batch (both in the shared-memory tier), 8 Zipf tenants ×
+    8 windows at vb=65536 (the L2 tier), one tenant × 8 windows at
+    vb=8192, 4 tenants × 8 windows at vb=65536 with a late-odd row (the
+    L2 tier). Carries bit-equal; per dispatch the whole call, the kernel
+    alone, the triangle stage alone and the plain version timed, and
+    the bound of the work the call needs (`summary_work`)."""
     from gelly_streaming_tpu_torch.ops import cohort_summary as cs
 
     err = 0
@@ -1422,6 +1516,10 @@ def phase_cohort(dev) -> dict:
                     and odd[2, 1] and tri[2, 1] == 0,
                     "cohort ragged: pad row/hold/self-loops %s %s %s"
                     % (mdeg, odd, tri))
+        if name.startswith("late odd"):
+            require(odd[:3].all() and not odd[3, :CO_LATE_ODD].any()
+                    and odd[3, CO_LATE_ODD:].all(),
+                    "cohort late odd: odd %s" % odd)
 
         st, dt, vt = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                       for x in slab)
@@ -1432,27 +1530,29 @@ def phase_cohort(dev) -> dict:
             tuple(c.clone() for c in base), st, dt, vt, vb, sums), 10)
         ms = cuda_ms(lambda: summ(tuple(c.clone() for c in base), st, dt,
                                   vt), 10)
+        counter_ms = cuda_ms(lambda: summ.count(st, dt, vt), 10)
         flat = [x.view(nb * wb, eb) for x in (st, dt, vt)]
         slots = int(vt.sum())
         edges, compares = row_work(*flat, vb, CO_KB)
-        # row 3's rule per tenant row, summed: the row's slab at 9 B per
-        # slot, one read and write of its carry, 20 B per window out
-        nbytes = nb * (wb * eb * 9 + 2 * 16 * (vb + 1) + 20 * wb)
-        ops = 5 * slots + 3 * nb * wb * (vb + 1) + nb * wb * eb + compares
-        b_ms, b_by = bound(nbytes, ops)
+        b_ms, b_by = bound(*summary_work(nb * wb * eb * 9, nb * wb * eb,
+                                         slots, nb, wb, vb, compares))
+        tier = summary_tier(vb, dev)
         rows.append({"dispatch": name, "nb": nb, "wb": wb, "vb": vb,
-                     "ms": ms - clone_ms,
+                     "tier": tier, "ms": ms - clone_ms,
                      "kernel_only_ms": kern_ms - clone_ms,
+                     "counter_ms": counter_ms,
+                     "counter_calls": -(-nb * wb // cs.counter_windows(
+                         vb, CO_KB)),
                      "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "valid_slots": slots,
                      "distinct_edges": edges, "compares": compares,
                      "overflow_windows": int((ovf > 0).sum())})
         print("phase cohort %s: ok  num_components %d..%d  odd windows %d  "
-              "overflow windows %d  call %.3f ms (kernel alone %.3f)  plain "
-              "%.1f ms  bound %.4f ms (%s)"
+              "overflow windows %d  call %.3f ms (kernel alone %.3f, %s "
+              "tier; counter alone %.3f)  plain %.1f ms  bound %.4f ms (%s)"
               % (name, ncomp.min(), ncomp.max(), int(odd.sum()),
                  int((ovf > 0).sum()), ms - clone_ms, kern_ms - clone_ms,
-                 plain_ms, b_ms, b_by))
+                 tier, counter_ms, plain_ms, b_ms, b_by))
     print(json.dumps({"cohort_dispatches": rows,
                       "device": torch.cuda.get_device_name(0)}))
     main = rows[0]
@@ -1704,21 +1804,47 @@ def tensor_core_ops(lib) -> dict:
     return {op: ops.count(op) for op in ("HMMA", "IMMA", "HGMMA", "IGMMA")}
 
 
+# the summary body's device kernels (csrc/summary_body.cuh), one per tier
+SUMMARY_BODY = ("summary_block_kernel", "summary_grid_kernel")
+SUMMARY_CALLS = ("window_summary", "window_summary_compact",
+                 "cohort_summary")
+
+
 def profile_run(run) -> dict:
     """One run() under torch.profiler: device time by name (the
     device-side rows only, so nothing is counted twice) and launches of
     the eight largest, their sum, and the device's idle share of the
-    profiled wall time."""
+    profiled wall time; the summary body's device rows by name, whose
+    launches must match the summary wrappers' calls in the run (one
+    launch per chunk or cohort dispatch). The profiler can miss one
+    launch of these ctypes-loaded libraries in a profiled run (seen on
+    the H100: the first of a run, at times), so one fewer passes, and
+    the launches missed are printed; a run with summary calls whose
+    profile has no device rows at all fails."""
+    from gelly_streaming_tpu_torch import kernels
     from gelly_streaming_tpu_torch.utils.profiling import device_times
 
+    before = dict(kernels.LAUNCHES)
     wall_ms, by_name = device_times(run)
+    calls = sum(kernels.LAUNCHES[k] - before[k] for k in SUMMARY_CALLS)
+    body = {k: v for k, v in by_name.items()
+            if any(b in k for b in SUMMARY_BODY)}
+    seen = sum(n for _ms, n in body.values())
+    require(by_name or not calls,
+            "%d summary calls, but the profile has no device rows" % calls)
+    require(calls - 1 <= seen <= calls,
+            "summary body launches %s, wrapper calls %d" % (body, calls))
     busy = sum(ms for ms, _n in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"wall_ms": wall_ms,
             "device_busy_ms": busy if busy else "not measured",
             "idle_share": 1 - busy / wall_ms if busy else "not measured",
             "device_ms_by_name": {k: ms for k, (ms, _n) in top},
-            "launches_by_name": {k: n for k, (_ms, n) in top}}
+            "launches_by_name": {k: n for k, (_ms, n) in top},
+            "summary_calls": calls,
+            "summary_body_missed": calls - seen,
+            "summary_body": {k: {"ms": ms, "launches": n}
+                             for k, (ms, n) in body.items()}}
 
 
 def main() -> int:

@@ -8,9 +8,9 @@ right-pads each ready tenant's next windows (at most
 `windows_per_dispatch`, default 8) into one cohort slab [nb, wb, eb]
 per vertex bucket group, which one call of the group's
 `ops/cohort_summary.CohortSummary` folds: the cohort kernel of
-csrc/cohort_summary.cu (two launches per window round for the whole
-slab) and the window counter on a card, the plain PyTorch version on the
-CPU. K is the cohort's for every tenant. nb and wb are the power-of-two
+csrc/cohort_summary.cu (one launch for the whole slab) and the window
+counter on a card, the plain PyTorch version on the CPU. K is the
+cohort's for every tenant. nb and wb are the power-of-two
 buckets of the batch's tenants and windows, as in the JAX cohort; pad
 rows carry a fresh state and are thrown away. Per tenant the summaries,
 degrees and labels equal a `StreamSummaryEngine` fed the same stream,

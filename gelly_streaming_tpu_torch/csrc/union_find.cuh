@@ -1,12 +1,10 @@
-// The lock-free union-find, the warp reductions and the per-window fold
-// and settle of the two summary kernels (csrc/window_summary.cu,
-// csrc/cohort_summary.cu): one copy of the device code that folds a
-// window's edges into a carry (deg[vb+1], labels[vb+1], cover[2(vb+1)])
-// and reads the window's summaries off it.
+// The lock-free union-find and the warp reductions shared by the
+// summary body (csrc/summary_body.cuh) and the union-find entry of
+// csrc/window_summary.cu.
 //
 // A forest here is an int array p with p[v] <= v, each tree's root its
 // smallest member pointing at itself: the carried CC labels and double
-// cover of the summary engines are such forests (window_summary.cu says
+// cover of the summary engines are such forests (summary_body.cuh says
 // why the union-find gives the fixpoint's canonical labels).
 #pragma once
 
@@ -32,13 +30,15 @@ __device__ __forceinline__ int find_root(volatile int* p, int x) {
 
 // Joins the sets of a and b: the larger root is hooked under the smaller
 // with a compare-and-swap on its own slot, which fails only when another
-// thread changed that slot first; then both walks start again.
-__device__ __forceinline__ void unite(int* p, int a, int b) {
+// thread changed that slot first; then both walks start again. Returns
+// whether this call hooked: each hook joins two sets that were apart, so
+// the hooks of a window count the merges it made.
+__device__ __forceinline__ bool unite(int* p, int a, int b) {
     volatile int* vp = p;
     while (true) {
         a = find_root<true>(vp, a);
         b = find_root<true>(vp, b);
-        if (a == b) return;
+        if (a == b) return false;
         if (a > b) {
             const int t = a;
             a = b;
@@ -46,8 +46,97 @@ __device__ __forceinline__ void unite(int* p, int a, int b) {
         }
         const int pb = vp[b];
         if (pb < b) continue;          // hooked meanwhile: walk again
-        if (atomicCAS(p + b, pb, a) == pb) return;
+        if (atomicCAS(p + b, pb, a) == pb) return true;
     }
+}
+
+// The root of each chain m of `live`: x[m] walks the forest p[m] as
+// find_root<halve> does, every chain a step at a time, so the dependent
+// loads of up to M walks are in flight together.
+template <bool halve, int M>
+__device__ __forceinline__ void find_roots(volatile int* const (&p)[M],
+                                           int (&x)[M], unsigned live) {
+    int par[M], grand[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+        if (live >> m & 1) par[m] = p[m][x[m]];
+    unsigned walk = 0;
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+        if ((live >> m & 1) && par[m] < x[m]) walk |= 1u << m;
+    while (walk) {
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+            if (walk >> m & 1) grand[m] = p[m][par[m]];
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+            if (!(walk >> m & 1)) continue;
+            if (grand[m] >= par[m]) {
+                x[m] = par[m];
+                walk &= ~(1u << m);
+            } else {
+                if (halve) p[m][x[m]] = grand[m];
+                x[m] = grand[m];
+            }
+        }
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+            if (walk >> m & 1) par[m] = p[m][x[m]];
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+            if ((walk >> m & 1) && par[m] >= x[m]) walk &= ~(1u << m);
+    }
+}
+
+// unite for K pairs at once: joins a[k] with b[k] in the forest p[k],
+// every union a step at a time (its two walks among them), so their
+// dependent loads and compare-and-swaps overlap; the same hooks as K
+// calls of unite from K threads. Returns the bits of the unions that
+// hooked.
+template <int K>
+__device__ __forceinline__ unsigned unite_all(int* const (&p)[K],
+                                              int (&a)[K], int (&b)[K]) {
+    volatile int* vp[2 * K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) vp[2 * k] = vp[2 * k + 1] = p[k];
+    unsigned live = (1u << K) - 1, hooked = 0;
+    while (live) {
+        int x[2 * K], pb[K], seen[K];
+        unsigned chains = 0;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            x[2 * k] = a[k];
+            x[2 * k + 1] = b[k];
+            if (live >> k & 1) chains |= 3u << (2 * k);
+        }
+        find_roots<true>(vp, x, chains);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            if (!(live >> k & 1)) continue;
+            a[k] = min(x[2 * k], x[2 * k + 1]);
+            b[k] = max(x[2 * k], x[2 * k + 1]);
+            if (a[k] == b[k]) live &= ~(1u << k);
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+            if (live >> k & 1) pb[k] = vp[2 * k][b[k]];
+        unsigned tried = 0;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            // a slot hooked meanwhile is walked again
+            if (!(live >> k & 1) || pb[k] < b[k]) continue;
+            seen[k] = atomicCAS(p[k] + b[k], pb[k], a[k]);
+            tried |= 1u << k;
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            if ((tried >> k & 1) && seen[k] == pb[k]) {
+                hooked |= 1u << k;
+                live &= ~(1u << k);
+            }
+        }
+    }
+    return hooked;
 }
 
 __device__ __forceinline__ bool in_range(int v, int n) {
@@ -64,91 +153,6 @@ __device__ __forceinline__ int warp_sum(int x) {
     for (int o = kWarp / 2; o > 0; o /= 2)
         x += __shfl_xor_sync(kFullMask, x, o);
     return x;
-}
-
-// Slot i of window w, read through `wire` (common.cuh: the standard or
-// the compact wire): a valid slot adds its two degrees and joins (s, d)
-// in labels; every slot joins (s, d+vb+1) and (s+vb+1, d) in the cover.
-// A valid slot whose ids lie outside [0, vb) (callers reject such input
-// before it gets here) is taken as padding, so nothing is written
-// outside the carry; the cover folds padding too: (vb, 2vb+1) joins the
-// two sentinels, as the JAX body's sentinel-mapped slots do. A padded
-// slot folds the same on both wires, so the carries agree bit for bit.
-template <class Wire>
-__device__ __forceinline__ void fold_slot(
-        const Wire& wire, int w, int i, int vb, int* __restrict__ deg,
-        int* labels, int* cover) {
-    int s, d;
-    if (wire.read(w, i, s, d) && in_range(s, vb) && in_range(d, vb)) {
-        atomicAdd(deg + s, 1);
-        atomicAdd(deg + d, 1);
-        unite(labels, s, d);
-    } else {
-        s = d = vb;
-    }
-    unite(cover, s, d + vb + 1);
-    unite(cover, s + vb + 1, d);
-}
-
-// The standard wire, with src, dst and valid pointing at one window's
-// slots (csrc/cohort_summary.cu).
-__device__ __forceinline__ void fold_slot(
-        const int* src, const int* dst, const bool* valid, int i, int vb,
-        int* __restrict__ deg, int* labels, int* cover) {
-    fold_slot(StandardWire{src, dst, valid, 0}, 0, i, vb, deg, labels,
-              cover);
-}
-
-// Slot v of the carry after a window's unions, called by every thread
-// of the block (v past vb takes part in the reductions only). Points
-// labels[v], cover[v] and cover[v+vb+1] at their roots (each slot has
-// one owner thread, and the walks here do not write, so every slot ends
-// at its root), then adds the block's share of window w's summaries
-// into sums[0..2][w] (sums is [3, windows], cleared by the entry
-// point): max_degree = max(deg[:vb]), num_components = #{v < vb :
-// deg[v] > 0 and labels[v] == v}, odd = any v < vb with deg[v] > 0 and
-// cover[v] == cover[v+vb+1].
-__device__ __forceinline__ void settle_slot(
-        int v, int vb, const int* __restrict__ deg, int* labels,
-        int* cover, int* __restrict__ sums, int w, int windows) {
-    int mdeg = 0, ncomp = 0, odd = 0;
-    if (v <= vb) {
-        const int rl = find_root<false>(labels, v);
-        const int rp = find_root<false>(cover, v);
-        const int rm = find_root<false>(cover, v + vb + 1);
-        labels[v] = rl;
-        cover[v] = rp;
-        cover[v + vb + 1] = rm;
-        if (v < vb) {
-            const int dg = deg[v];
-            mdeg = dg;
-            if (dg > 0) {
-                ncomp = rl == v;
-                odd = rp == rm;
-            }
-        }
-    }
-    mdeg = warp_max(mdeg);
-    ncomp = warp_sum(ncomp);
-    odd = __any_sync(kFullMask, odd);
-    __shared__ int part[3][kWarpsPerBlock];
-    const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-    if (lane == 0) {
-        part[0][warp] = mdeg;
-        part[1][warp] = ncomp;
-        part[2][warp] = odd;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        for (int i = 1; i < kWarpsPerBlock; ++i) {
-            mdeg = max(mdeg, part[0][i]);
-            ncomp += part[1][i];
-            odd |= part[2][i];
-        }
-        if (mdeg) atomicMax(sums + w, mdeg);
-        if (ncomp) atomicAdd(sums + windows + w, ncomp);
-        if (odd) atomicOr(sums + 2 * windows + w, 1);
-    }
 }
 
 inline unsigned blocks(long long n) {

@@ -15,12 +15,14 @@ windows the same way, so callers batch as the JAX cohort does.
 `CohortSummary` is the cohort's one entry, the counterpart of the JAX
 `build_cohort_scan` (its outputs are [nb, W] as that function's; the
 carries are updated in place rather than returned). It launches the CUDA
-kernel of csrc/cohort_summary.cu (degrees, union-find, summaries: two
-launches per window round, whatever nb is) and a `WindowCounter`
-(ops/window_counter.py) for triangles and K-overflow on CUDA tensors,
-and runs `summarize_cohort_plain`, the plain PyTorch version, on CPU
-ones; it never falls back from one to the other. The two agree bit for
-bit, `triangles` apart where a window overflows K.
+kernel of csrc/cohort_summary.cu (degrees, union-find, summaries: one
+launch per dispatch, whatever nb and W are; csrc/summary_body.cuh) and a
+`WindowCounter` (ops/window_counter.py) for triangles and K-overflow on
+CUDA tensors, and runs `summarize_cohort_plain`, the plain PyTorch
+version, on CPU ones; it never falls back from one to the other. The
+two agree bit for bit, `triangles` apart where a window overflows K.
+Each carry row must be one the engines make
+(ops/scan_analytics.check_summary_carry says which).
 """
 
 from __future__ import annotations
@@ -31,9 +33,17 @@ from .. import kernels
 from .window_counter import WindowCounter
 from .window_summary import summarize_windows_plain
 
-# windows per triangle-stage call: the counter's scratch holds
-# windows × (vb+1) × kb int32 (2.15 GB for 64 windows at vb=65536, kb=128)
-COUNTER_WINDOWS = 64
+# bytes of the counter's neighbor tables per triangle-stage call, which
+# hold windows × (vb+1) × kb int32: 2.15 GB, what 64 windows take at
+# vb=65536, kb=128 (2,147,516,416 B)
+COUNTER_BYTES = 2_150_000_000
+
+
+def counter_windows(vb: int, kb: int) -> int:
+    """Windows per triangle-stage call at (vb, kb): as many as
+    COUNTER_BYTES of neighbor tables hold, at least one (512 at vb=8192,
+    kb=128, so a 64 × 8 dispatch is one call)."""
+    return max(1, COUNTER_BYTES // ((vb + 1) * kb * 4))
 
 
 def fresh_cohort_carry(nb: int, vb: int, device) -> tuple:
@@ -65,12 +75,10 @@ class CohortSummary:
     from the cover's sentinel join. Device, dtypes, shapes and
     contiguity are checked on both paths and raise ValueError.
 
-    On a card it launches the cohort kernel (csrc/cohort_summary.cu: two
-    launches per window round on the current stream) and its
-    `WindowCounter` (kernels 1-2) over the slab seen as [nb·W, eb], in
-    pieces of at most COUNTER_WINDOWS windows that reuse one scratch,
-    with no synchronisation. On the CPU it runs
-    `summarize_cohort_plain`."""
+    On a card it launches the cohort kernel (csrc/cohort_summary.cu: one
+    launch per call on the current stream) and its `WindowCounter`
+    (kernels 1-2) over the slab seen as [nb·W, eb] (`count`), with no
+    synchronisation. On the CPU it runs `summarize_cohort_plain`."""
 
     def __init__(self, vb: int, kb: int, device: torch.device):
         self.vb, self.kb = vb, kb
@@ -89,15 +97,28 @@ class CohortSummary:
         sums = torch.empty(nb, 3, windows, dtype=torch.int32,
                            device=src.device)
         summarize_cohort(carries, src, dst, valid, self.vb, sums)
-        flat = [x.view(nb * windows, eb) for x in (src, dst, valid)]
-        tri, overflow = (torch.empty(nb * windows, dtype=torch.int32,
-                                     device=src.device) for _ in range(2))
-        for at in range(0, nb * windows, COUNTER_WINDOWS):
-            hi = min(at + COUNTER_WINDOWS, nb * windows)
-            tri[at:hi], overflow[at:hi] = self.counter(
-                *(x[at:hi] for x in flat))
+        tri, overflow = self.count(src, dst, valid)
         return (sums[:, 0], sums[:, 1], sums[:, 2] != 0,
                 tri.view(nb, windows), overflow.view(nb, windows))
+
+    def count(self, src, dst, valid):
+        """The triangle stage alone, on a checked CUDA slab: (count,
+        overflow), each [nb·W] int32, from the counter over the slab seen
+        as [nb·W, eb], in pieces of at most `counter_windows` windows that
+        reuse one scratch and write straight into the outputs."""
+        nb, windows, eb = src.shape
+        flat = [x.view(nb * windows, eb) for x in (src, dst, valid)]
+        total = nb * windows
+        step = counter_windows(self.vb, self.kb)
+        if total <= step:
+            return self.counter(*flat)
+        tri, overflow = (torch.empty(total, dtype=torch.int32,
+                                     device=src.device) for _ in range(2))
+        for at in range(0, total, step):
+            hi = min(at + step, total)
+            self.counter(*(x[at:hi] for x in flat),
+                         out=(tri[at:hi], overflow[at:hi]))
+        return tri, overflow
 
 
 def summarize_cohort(carries, src, dst, valid, vb: int,
@@ -143,7 +164,9 @@ def _check(carries, src, dst, valid, vb: int, more=()) -> None:
                              "got %s %s on %s" % (name, shape, dtype, dev,
                                                   tuple(t.shape), t.dtype,
                                                   t.device))
+    # the kernel indexes a call's slots, carry slots and sums in 32 bits
     if not (0 < nb <= 65535 and 0 < w and 0 < eb < 2 ** 30
-            and 0 < vb < 2 ** 29):
+            and 0 < vb < 2 ** 29 and nb * max(eb, 3 * (vb + 1)) < 2 ** 31
+            and 3 * nb * w < 2 ** 31):
         raise ValueError("unsupported shape: nb=%d W=%d eb=%d vb=%d"
                          % (nb, w, eb, vb))

@@ -407,7 +407,13 @@ def check_summary_carry(carry, vb: int) -> None:
     """Raise ValueError for a host carry the summary kernels cannot load:
     they take int32-valued deg[vb+1] ≥ 0, and labels[vb+1],
     cover[2(vb+1)] each pointing every slot at an equal or smaller one
-    (the forest the union-find relies on)."""
+    (the forest the union-find relies on). They read the summaries
+    incrementally (csrc/summary_body.cuh), which rests on two more
+    invariants of every carry the engines of either package make: a
+    vertex of degree 0 is a singleton root in labels (no u with
+    labels[u] != u where deg[u] == 0 or deg[labels[u]] == 0), and the
+    cover's sets are closed under the mirror v <-> v+vb+1 (the mirrors
+    of one set's members lie in one set)."""
     if len(carry) != 3:
         raise ValueError("carry must be (deg, labels, cover)")
     deg, labels, cover = (np.asarray(a) for a in carry)
@@ -423,6 +429,20 @@ def check_summary_carry(carry, vb: int) -> None:
         if a.min() < 0 or np.any(a > np.arange(len(a))):
             raise ValueError("carry %s must point every slot at an "
                              "equal or smaller slot" % name)
+    moved = labels != np.arange(vb + 1)
+    if np.any(moved & ((deg == 0) | (deg[labels] == 0))):
+        raise ValueError("carry labels must keep every vertex of degree 0 "
+                         "a singleton root")
+    root = cover.astype(np.int64)
+    while True:                      # pointer jumping to the roots
+        up = root[root]
+        if np.array_equal(up, root):
+            break
+        root = up
+    mirror = (np.arange(2 * (vb + 1)) + vb + 1) % (2 * (vb + 1))
+    if np.any(root[mirror] != root[mirror[root]]):
+        raise ValueError("carry cover's sets must be closed under the "
+                         "mirror v <-> v+vb+1")
 
 
 def _to_host(x) -> np.ndarray:

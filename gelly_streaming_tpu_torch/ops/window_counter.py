@@ -161,27 +161,40 @@ class WindowCounter:
         self.device = torch.device(device)
         self.scratch = None
 
-    def __call__(self, src, dst, valid, wire: str = "standard"):
+    def __call__(self, src, dst, valid, wire: str = "standard",
+                 out=None):
+        """`out`, if given, is (count, overflow): contiguous int32 [W]
+        tensors on the stack's device, written in place of new ones."""
         if src.device != self.device:
             raise ValueError("window counter on %s given tensors on %s"
                              % (self.device, src.device))
         if wire not in WIRES:
             raise ValueError("unknown wire %r (choices: %s)"
                              % (wire, WIRES))
+        w, eb = src.shape
+        for t in out or ():
+            if t.device != src.device or t.dtype != torch.int32 \
+                    or tuple(t.shape) != (w,) or not t.is_contiguous():
+                raise ValueError("out must be two contiguous int32 [%d] "
+                                 "tensors on %s" % (w, src.device))
         if src.device.type == "cpu":
             if wire == "compact":
-                src, dst, valid = widen_stack(src, dst, valid, src.shape[1],
-                                              self.vb)
-            return count_windows_plain(src, dst, valid, self.vb, self.kb)
+                src, dst, valid = widen_stack(src, dst, valid, eb, self.vb)
+            got = count_windows_plain(src, dst, valid, self.vb, self.kb)
+            if out is None:
+                return got
+            for t, g in zip(out, got):
+                t.copy_(g)
+            return out
         _check(src, dst, valid, self.vb, self.kb, wire)
-        w, eb = src.shape
         sc = self.scratch
         if sc is None or w > sc.windows or eb != sc.eb:
             self.scratch = None               # free before allocating
             self.scratch = CounterScratch(w, eb, self.vb, self.kb,
                                           src.device)
-        count = torch.empty(w, dtype=torch.int32, device=src.device)
-        overflow = torch.empty(w, dtype=torch.int32, device=src.device)
+        count, overflow = out or (
+            torch.empty(w, dtype=torch.int32, device=src.device)
+            for _ in range(2))
         build_tables(src, dst, valid, self.scratch, overflow, wire)
         intersect_tables(self.scratch, count)
         return count, overflow

@@ -13,7 +13,8 @@ Every window with a padded slot joins those two sentinels, so
 cover[2vb+1] becomes vb: callers pad exactly as the JAX engine does.
 
 `WindowSummary` launches the CUDA kernel of csrc/window_summary.cu
-(degrees, union-find, summaries) and the window counter
+(degrees, union-find, summaries: one launch per chunk, the body of
+csrc/summary_body.cuh) and the window counter
 (ops/window_counter.py, for triangles and K-overflow) on CUDA tensors,
 and runs `summarize_windows_plain`, the plain PyTorch version, on CPU
 ones; it never falls back from one to the other. The two agree bit for
@@ -78,11 +79,15 @@ class WindowSummary:
     (vb, kb) on one device, or summary(carry, s16[W, eb], d16, nvalid[W],
     wire="compact"). The carry (deg, labels, cover) is updated in
     place: after the call it holds the state after the chunk's last
-    window. Its labels and cover must point every slot at an equal or
-    smaller one, as every carry this package makes does.
+    window. It must be a carry the engines make, as
+    ops/scan_analytics.check_summary_carry says: labels and cover point
+    every slot at an equal or smaller one, a vertex of degree 0 is a
+    singleton root in labels, and the cover's sets are closed under the
+    mirror v <-> v+vb+1 (the kernel reads the summaries incrementally on
+    these invariants).
 
     On a card it launches the summary kernel (csrc/window_summary.cu:
-    two launches per window, in order, on the current stream) and its
+    one launch per call on the current stream) and its
     `WindowCounter` (kernels 1-2, all W windows in one call) on the same
     device-resident chunk and wire, with no synchronisation and no
     widened intermediate; the counter is the only owner of its device

@@ -25,6 +25,8 @@ from gelly_streaming_tpu_torch import (GnnTenantCohort, StreamSummaryEngine,
                                        TenantError, TenantRejected)
 from gelly_streaming_tpu_torch.ops import cohort_summary as cs
 from gelly_streaming_tpu_torch.ops import host_triangles
+from gelly_streaming_tpu_torch.ops.scan_analytics import check_summary_carry
+from gelly_streaming_tpu_torch.ops.window_counter import count_windows_plain
 from gelly_streaming_tpu_torch.utils.streams import make_stream
 
 EB, VB, KB = 128, 256, 16
@@ -222,6 +224,127 @@ def test_cohort_scan_refusals():
     with pytest.raises(ValueError, match="CUDA tensors"):
         cs.summarize_cohort(carries, s, d, v, VB,
                             torch.empty(8, 3, 8, dtype=torch.int32))
+
+
+def test_cohort_scan_refuses_calls_past_32_bit_indices():
+    """A slab whose rows hold 2^31 carry slots or more in all is refused
+    before any launch: the summary body indexes a call in 32 bits
+    (shapes only, on the meta device)."""
+    nb, w, eb, vb = 3, 2, 64, 1 << 28
+    summ = cs.CohortSummary(vb, KB, torch.device("meta"))
+    carries = tuple(torch.empty(nb, k * (vb + 1), dtype=torch.int32,
+                                device="meta") for k in (1, 1, 2))
+    s, d = (torch.empty(nb, w, eb, dtype=torch.int32, device="meta")
+            for _ in range(2))
+    v = torch.empty(nb, w, eb, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="unsupported shape"):
+        summ(carries, s, d, v)
+
+
+def test_counter_pieces_sized_by_bytes(monkeypatch):
+    """The triangle stage's pieces hold COUNTER_BYTES of neighbor tables
+    (64 windows at vb=65536, kb=128: a 64 × 8 dispatch at vb=8192 is one
+    counter call); in pieces it writes into one output, equal to one
+    call; the counter refuses an output it cannot write."""
+    assert cs.counter_windows(65536, 128) == 64
+    assert cs.counter_windows(8192, 128) == 512
+    assert cs.counter_windows(1 << 22, 128) == 1
+    s, d, v = (torch.from_numpy(x) for x in _slab(3, 4, [4, 3, 2], seed=91,
+                                                  clique=True))
+    summ = cs.CohortSummary(VB, 8, torch.device("cpu"))
+    whole = summ.count(s, d, v)
+    want = count_windows_plain(s.view(12, EB), d.view(12, EB),
+                               v.view(12, EB), VB, 8)
+    monkeypatch.setattr(cs, "COUNTER_BYTES", 5 * (VB + 1) * 8 * 4)
+    assert cs.counter_windows(VB, 8) == 5
+    pieces = summ.count(s, d, v)
+    for a, b, c in zip(pieces, whole, want):
+        assert a.shape == (12,) and torch.equal(a, b) and torch.equal(a, c)
+    assert int(pieces[1][4]) > 0                   # the clique overflowed
+    with pytest.raises(ValueError, match="out must be"):
+        summ.counter(s[0], d[0], v[0],
+                     out=(torch.empty(4, dtype=torch.int64),
+                          torch.empty(4, dtype=torch.int32)))
+
+
+def _root(p, x):
+    while p[x] != x:
+        x = p[x]
+    return x
+
+
+def assert_summary_invariants(carry, vb):
+    """The invariants the CUDA summary body reads its summaries on,
+    checked slot by slot: a vertex of degree 0 is a singleton root in
+    labels, and the mirror v <-> v+vb+1 maps each set of the cover onto
+    one set."""
+    deg, labels, cover = (np.asarray(a) for a in carry)
+    for u in range(vb + 1):
+        if labels[u] != u:
+            assert deg[u] > 0 and deg[labels[u]] > 0, u
+    n = vb + 1
+    mirror_of = {}
+    for x in range(2 * n):
+        r, rm = _root(cover, x), _root(cover, (x + n) % (2 * n))
+        assert mirror_of.setdefault(r, rm) == rm, x
+
+
+def test_cohort_carries_keep_the_summary_invariants():
+    """Every carry the cohorts and engines make satisfies the invariants
+    (`check_summary_carry` accepts it, and the slot-by-slot check holds):
+    tenants in the port's and the JAX cohort, a demoted tenant on its
+    engine, the sequential port engines, and the rows of a slab with a
+    pad row and ragged rows."""
+    streams = streams_for(3)
+    co = port_cohort()
+    run_cohort(co, streams, demote_after=(1, "t1"))
+    assert co.tenant_tier("t1") == "single"
+    _jout, jstates = jax_run("demote", streams, demote_after=(1, "t1"))
+    carries = [co.tenant_state_dict(t)["carry"] for t in streams]
+    carries += [jstates[t]["carry"] for t in streams]
+    carries += [state["carry"] for _out, state in
+                sequential(streams).values()]
+    slab = (torch.from_numpy(x) for x in _slab(4, 4, [4, 1, 0, 2], seed=92))
+    rows = cs.fresh_cohort_carry(4, VB, "cpu")
+    cs.CohortSummary(VB, KB, torch.device("cpu"))(rows, *slab)
+    assert int(rows[2][2, 2 * VB + 1]) == VB       # the pad row's join
+    carries += [tuple(c[n].numpy() for c in rows) for n in range(4)]
+    for carry in carries:
+        check_summary_carry(carry, VB)
+        assert_summary_invariants(carry, VB)
+
+
+def test_tenant_load_refuses_carries_breaking_the_invariants():
+    """load_tenant_state_dict loads a JAX cohort's tenant state, and
+    refuses (ValueError, the tenant unchanged) one whose labels point an
+    untouched vertex elsewhere or a vertex at an untouched one, or whose
+    cover is not closed under the mirror."""
+    s, d = streams_for(1)["t0"]
+    jco = jax_cohort()
+    jco.admit("a")
+    jco.feed("a", s[:2 * EB], d[:2 * EB])
+    jco.pump()
+    state = jco.tenant_state_dict("a")
+    co = port_cohort()
+    co.admit("a")
+    co.load_tenant_state_dict("a", state)
+    deg, labels, cover = (np.array(a) for a in state["carry"])
+    cold = np.flatnonzero(deg[:VB] == 0)
+    hot = np.flatnonzero(deg[:VB] > 0)
+    lo, hi = int(cold[0]), int(cold[1])
+    up = int(hot[hot > lo][0])
+    broken = []
+    for slot, to in ((hi, lo), (up, lo)):
+        bad = labels.copy()
+        bad[slot] = to
+        broken.append(((deg, bad, cover), "degree 0"))
+    bad = cover.copy()
+    bad[hi] = lo
+    broken.append(((deg, labels, bad), "mirror"))
+    for carry, match in broken:
+        with pytest.raises(ValueError, match=match):
+            co.load_tenant_state_dict("a", dict(state, carry=carry))
+        assert_state_equal(co.tenant_state_dict("a"), state)
 
 
 # ----------------------------------------------------------------------

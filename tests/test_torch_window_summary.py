@@ -20,7 +20,9 @@ import torch
 
 from gelly_streaming_tpu.ops import pallas_window as pw
 from gelly_streaming_tpu.ops import scan_analytics as jax_scan
+from gelly_streaming_tpu_torch import StreamSummaryEngine
 from gelly_streaming_tpu_torch.ops import host_summary
+from gelly_streaming_tpu_torch.ops import scan_analytics as sa
 from gelly_streaming_tpu_torch.ops import segment as seg
 from gelly_streaming_tpu_torch.ops import window_summary as ws
 from gelly_streaming_tpu_torch.utils.streams import make_stream
@@ -183,3 +185,197 @@ def test_summary_wrapper_checks():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ws.summarize(carry, s, s, v, vb,
                      torch.empty(3, 2, dtype=torch.int32))
+
+
+# ----------------------------------------------------------------------
+# the CUDA summary body's incremental bookkeeping (csrc/summary_body.cuh)
+# ----------------------------------------------------------------------
+def _find(p, x):
+    """find_root<true> of union_find.cuh: the root of x, halving."""
+    parent = p[x]
+    while parent < x:
+        grand = p[parent]
+        if grand >= parent:
+            return parent
+        p[x] = grand
+        x = grand
+        parent = p[x]
+    return x
+
+
+def _unite(p, a, b):
+    """unite of union_find.cuh, one thread: hooks the larger root under
+    the smaller; returns whether it hooked."""
+    a, b = _find(p, a), _find(p, b)
+    if a == b:
+        return False
+    a, b = min(a, b), max(a, b)
+    p[b] = a
+    return True
+
+
+def incremental_model(carry, src, dst, valid, vb):
+    """The summary body's bookkeeping, one slot at a time in numpy: a
+    pass over the carry for its own max degree, touched roots and odd;
+    then per window the degree adds (max of old + 1, newly touched
+    counted), the unions (hooks in labels counted), padding's sentinel
+    join, num_components += touched − hooks, and odd (monotone) from the
+    window's valid slots s with find(s) == find(s+vb+1); every slot of
+    labels and cover compressed to its root at the end. Returns (carry,
+    max_degree, num_components, odd), the outputs as [W] arrays."""
+    deg, labels, cover = (np.array(a, np.int64) for a in carry)
+    n = vb + 1
+    touched = deg[:vb] > 0
+    mdeg = int(deg[:vb].max())
+    ncomp = int(np.sum(touched & (labels[:vb] == np.arange(vb))))
+    odd = any(_find(cover, v) == _find(cover, v + n)
+              for v in np.flatnonzero(touched))
+    outs = []
+    for w in range(src.shape[0]):
+        fresh = hooks = 0
+        ends = []
+        for s, d, ok in zip(src[w].tolist(), dst[w].tolist(),
+                            valid[w].tolist()):
+            if ok and 0 <= s < vb and 0 <= d < vb:
+                for x in (s, d):
+                    fresh += deg[x] == 0
+                    deg[x] += 1
+                    mdeg = max(mdeg, int(deg[x]))
+                hooks += _unite(labels, s, d)
+                _unite(cover, s, d + n)
+                _unite(cover, s + n, d)
+                ends.append(s)
+            else:
+                _unite(cover, vb, 2 * vb + 1)
+        ncomp += fresh - hooks
+        odd = odd or any(_find(cover, s) == _find(cover, s + n)
+                         for s in ends)
+        outs.append((mdeg, ncomp, odd))
+    labels = np.array([_find(labels, v) for v in range(n)])
+    cover = np.array([_find(cover, v) for v in range(2 * n)])
+    mdeg, ncomp, odd = (np.array(x) for x in zip(*outs))
+    return ((deg.astype(np.int32), labels.astype(np.int32),
+             cover.astype(np.int32)), mdeg, ncomp, odd)
+
+
+def _model_fixture(name, eb, vb):
+    """(prefix stack, the chunk under test) for the model's fixtures:
+    the four of `_fixture` where they exist, plus a late odd cycle
+    between vertices touched long before, self-loops only, and hubs."""
+    rng = np.random.default_rng(sum(map(ord, name)) + 7)
+    if name in ("sparse", "bipartite", "ragged"):
+        return _fixture(name, eb, vb)
+    if name == "late_odd":          # bipartite; window 2 closes 10-31-20
+        s = 2 * rng.integers(0, vb // 2, (6, eb))
+        d = 2 * rng.integers(0, vb // 2, (6, eb)) + 1
+        s[0, :2], d[0, :2] = (10, 20), (31, 31)
+        s[4, -1], d[4, -1] = 10, 20
+        st = (s.astype(np.int32), d.astype(np.int32),
+              np.ones((6, eb), bool))
+        return tuple(x[:2] for x in st), tuple(x[2:] for x in st)
+    if name == "loops":             # self-loops only
+        x = rng.integers(0, vb, (4, eb)).astype(np.int32)
+        pre = _clustered(rng, 2, eb, vb, 4, 2)
+        return pre, (x, x.copy(), np.ones((4, eb), bool))
+    # star: one of two hubs in all but 8 slots of each window
+    s = rng.integers(0, vb, (4, eb)).astype(np.int32)
+    d = rng.integers(0, vb, (4, eb)).astype(np.int32)
+    s[:, :eb - 8] = np.array([[5], [77], [5], [77]])
+    return _clustered(rng, 2, eb, vb, 4, 2), (s, d, np.ones((4, eb), bool))
+
+
+def _carry_from(source, prefix, eb, vb, kb):
+    """The carry the chunk starts from: the prefix folded by the numpy
+    oracle, or a JAX StreamSummaryEngine's state_dict() carry after
+    three Zipf windows."""
+    if source == "fold":
+        return host_summary.fold_windows(host_summary.fresh_carry(vb),
+                                         *prefix)[0]
+    eng = jax_scan.StreamSummaryEngine(eb, vb, k_bucket=kb,
+                                       ingress="standard")
+    src, dst = make_stream(3 * eb, vb, seed=23)
+    eng.process(src, dst)
+    return tuple(np.array(a) for a in eng.state_dict()["carry"])
+
+
+@pytest.mark.parametrize("source", ["fold", "jax_engine"])
+@pytest.mark.parametrize("name,eb,vb,kb", [("sparse", 128, 256, 8),
+                                           ("bipartite", 64, 64, 8),
+                                           ("late_odd", 64, 128, 8),
+                                           ("loops", 64, 128, 8),
+                                           ("ragged", 64, 128, 8),
+                                           ("star", 128, 256, 8)])
+def test_incremental_model_matches_plain_and_jax(jax_scan_fn, name, eb, vb,
+                                                 kb, source):
+    """The CUDA body's incremental summaries, modelled slot by slot, equal
+    the plain version's and the JAX body's per window, and its carry
+    after the call theirs bit for bit, from a carry that is not fresh
+    (which the hosts' check accepts)."""
+    prefix, chunk = _model_fixture(name, eb, vb)
+    carry0 = _carry_from(source, prefix, eb, vb, kb)
+    sa.check_summary_carry(carry0, vb)
+    mcarry, mdeg, ncomp, odd = incremental_model(carry0, *chunk, vb)
+    carry, outs = _port(carry0, chunk, vb, kb)
+    jcarry, jouts = jax_scan_fn(eb, vb, kb)(
+        tuple(jnp.asarray(np.array(a)) for a in carry0),
+        *(jnp.asarray(x) for x in chunk))
+    for got, plain, jax_leaf in zip(mcarry, carry, jcarry):
+        np.testing.assert_array_equal(got, plain)
+        np.testing.assert_array_equal(got, np.asarray(jax_leaf))
+    for got, i in ((mdeg, 0), (ncomp, 1), (odd, 2)):
+        np.testing.assert_array_equal(got, outs[i])
+        np.testing.assert_array_equal(got, np.asarray(jouts[i]))
+    if source == "fold" and name in ("bipartite", "late_odd"):
+        last = len(odd) - 1 if name == "bipartite" else 2
+        assert not odd[:last].any() and odd[last:].all()
+    if name == "loops":
+        assert odd.all()
+    if name == "star":
+        assert mdeg[-1] >= 2 * (eb - 8)
+
+
+def _broken_carries(carry, vb):
+    """{what: carry} from a valid carry with untouched vertices: labels
+    pointing an untouched vertex at another, a touched vertex at an
+    untouched one, and a cover whose set is not closed under the
+    mirror v <-> v+vb+1."""
+    deg, labels, cover = (np.array(a) for a in carry)
+    cold = np.flatnonzero(deg[:vb] == 0)
+    hot = np.flatnonzero(deg[:vb] > 0)
+    lo, hi = int(cold[0]), int(cold[1])
+    up = int(hot[hot > lo][0])
+    out = {}
+    bad = labels.copy()
+    bad[hi] = lo
+    out["untouched moved"] = (deg, bad, cover)
+    bad = labels.copy()
+    bad[up] = lo
+    out["points at untouched"] = (deg, bad, cover)
+    bad = cover.copy()
+    bad[hi] = lo                      # joins hi+ with lo+, not hi- with lo-
+    out["cover not mirrored"] = (deg, labels, bad)
+    return out
+
+
+def test_carry_invariants_refused_on_load():
+    """check_summary_carry refuses a carry that breaks the body's
+    invariants (a vertex of degree 0 must be a singleton root in labels;
+    the cover's sets closed under the mirror), directly and through
+    StreamSummaryEngine.load_state_dict, and loads a JAX-made one."""
+    eb, vb = 64, 256
+    src, dst = make_stream(3 * eb, vb, seed=31)
+    jeng = jax_scan.StreamSummaryEngine(eb, vb, k_bucket=8,
+                                        ingress="standard")
+    jeng.process(src, dst)
+    state = jeng.state_dict()
+    port = StreamSummaryEngine(eb, vb, k_bucket=8, device="cpu")
+    port.load_state_dict(state)
+    for what, carry in _broken_carries(state["carry"], vb).items():
+        match = "mirror" if what == "cover not mirrored" else "degree 0"
+        with pytest.raises(ValueError, match=match):
+            sa.check_summary_carry(carry, vb)
+        with pytest.raises(ValueError, match=match):
+            port.load_state_dict(dict(state, carry=carry))
+    # the refused loads left the engine as the JAX state made it
+    for a, b in zip(port.state_dict()["carry"], state["carry"]):
+        np.testing.assert_array_equal(a, np.asarray(b))
