@@ -4,8 +4,12 @@ NVIDIA GPU.
 
 Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and runs
 fourteen phases. Six hold a kernel against its plain PyTorch version on
-the card: intersect, counter, summary (the summary body of
-csrc/summary_body.cuh at vb=65536, its L2 tier, on sparse, bipartite,
+the card: intersect (ascending and shuffled rows), counter (count and
+overflow on every window, overflowing ones included, both wires: a
+Zipf chunk, a repeated edge across a whole window, a star, a row past
+kb, ids 0 and vb-1, the L2 tier; its device scratch and launches a
+call), summary (the summary body of csrc/summary_body.cuh at
+vb=65536, its L2 tier, on sparse, bipartite,
 ragged, star (hub) and late-odd chunks), gnn, cohort (the same body
 through the cohort kernel on five dispatches at eb=4096: 64 Zipf
 tenants at vb=8192 and a ragged batch in the shared-memory tier, 8
@@ -24,9 +28,10 @@ summary_stream, summary_stream_compact) and GnnSummaryEngine(32768,
 65536, feature_dim=64).process (phase gnn_stream), all through the
 ingress pipeline and each also once under forced_sync; the
 one-window count triangle_count over dense windows of up to 4096
-vertices (phase dense); TenantCohort(4096, 8192) serving 64 tenant
-streams, 8 of them at vb=65536, about 8.3M edges (phase cohort_stream);
-and GnnTenantCohort(4096, 8192, feature_dim=64) over 64 tenants of 16
+vertices, and its sparse route past 4096 (phase dense);
+TenantCohort(4096, 8192) serving 64 tenant streams, 8 of them at
+vb=65536, about 8.3M edges (phase cohort_stream); and
+GnnTenantCohort(4096, 8192, feature_dim=64) over 64 tenants of 16
 windows (phase gnn_cohort). Each path reports its rate, its launches and
 where its time goes. Beside the dense and GNN kernels it times one
 PyTorch call for the same product as a yardstick (torch.mm, torch._int_mm;
@@ -126,9 +131,10 @@ def bound(nbytes: float, ops: float, ops_rate: float = PEAK_OPS_S):
 
 
 def row_work(src, dst, valid, vb: int, kb: int) -> tuple:
-    """(Σ over windows of distinct oriented edges, Σ of la·lb): the
-    compares the row intersection of each window's distinct oriented
-    edges needs, rows capped at kb, from the plain pipeline."""
+    """(Σ over windows of distinct oriented edges, Σ of la + lb): the
+    merge steps the row intersection of each window's distinct oriented
+    edges needs over sorted rows capped at kb, from the plain
+    pipeline."""
     from gelly_streaming_tpu_torch.ops import window_counter as wc
 
     edges = compares = 0
@@ -144,7 +150,7 @@ def row_work(src, dst, valid, vb: int, kb: int) -> tuple:
         a, b = a[ev].long(), b[ev].long()
         out = torch.bincount(a, minlength=vb + 1).clamp(max=kb)
         edges += int(a.numel())
-        compares += int((out[a] * out[b]).sum())
+        compares += int((out[a] + out[b]).sum())
     return edges, compares
 
 
@@ -155,55 +161,73 @@ def clique(m: int, base: int):
 
 # ----------------------------------------------------------------------
 def phase_intersect(dev, rng) -> dict:
-    """Kernel vs plain on random deduplicated unsorted rows at the main
-    path's per-window shape: vb=65536, K=128, a ragged Ep."""
+    """Kernel vs plain on random deduplicated rows at the main path's
+    per-window shape (vb=65536, K=128, a ragged Ep), in both of the
+    kernel's forms: rows strictly ascending with the fill at the end
+    (`ascending=True`, the merge form triangle_count_sparse takes), and
+    the same rows shuffled (the compare form). The sorted form's numbers
+    are the row's in the kernels line."""
     from gelly_streaming_tpu_torch.ops import intersect
 
     vb, k, ep = VB, KB, EB - 37
     # ids from a narrow range so rows share entries; each row sorted,
-    # deduplicated to the sentinel, a share blanked, then shuffled
+    # deduplicated to the sentinel, a share blanked, sorted again (the
+    # fill to the end), and a shuffled copy
     vals = np.sort(rng.integers(0, 1024, (vb + 1, k)), axis=1)
     dup = np.zeros_like(vals, bool)
     dup[:, 1:] = vals[:, 1:] == vals[:, :-1]
     keep = ~dup & (rng.random((vb + 1, k)) < 0.7)
-    rows = np.where(keep, vals, vb)
-    rows = np.take_along_axis(rows, rng.random((vb + 1, k)).argsort(1), 1)
+    rows = np.sort(np.where(keep, vals, vb), axis=1)
     rows[vb] = vb
+    shuffled = np.take_along_axis(rows, rng.random((vb + 1, k)).argsort(1),
+                                  1)
     ea = rng.integers(0, vb + 1, ep)
     eb = rng.integers(0, vb + 1, ep)
     emask = rng.random(ep) < 0.9
-    nbr = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    nbr, nbr_any = (torch.from_numpy(x.astype(np.int32)).to(dev)
+                    for x in (rows, shuffled))
     ta = torch.from_numpy(ea.astype(np.int32)).to(dev)
     tb = torch.from_numpy(eb.astype(np.int32)).to(dev)
     tm = torch.from_numpy(emask).to(dev)
 
-    got = int(intersect.intersect_local(nbr, ta, tb, tm))
+    got = int(intersect.intersect_local(nbr, ta, tb, tm, ascending=True))
+    got_any = int(intersect.intersect_local(nbr_any, ta, tb, tm))
     want = int(intersect.intersect_local_plain(nbr, ta, tb, tm))
+    want_any = int(intersect.intersect_local_plain(nbr_any, ta, tb, tm))
     torch.cuda.synchronize()
-    require(got == want, "intersect: kernel %d != plain %d" % (got, want))
+    require(got == want == want_any == got_any,
+            "intersect: kernel %d (shuffled rows %d) != plain %d (%d)"
+            % (got, got_any, want, want_any))
     require(want > 0, "intersect: fixture has no common entries")
-    ms = cuda_ms(lambda: intersect.intersect_local(nbr, ta, tb, tm), 50)
+    ms = cuda_ms(lambda: intersect.intersect_local(nbr, ta, tb, tm,
+                                                   ascending=True), 50)
+    any_ms = cuda_ms(lambda: intersect.intersect_local(nbr_any, ta, tb, tm),
+                     50)
     plain_ms = cuda_ms(
         lambda: intersect.intersect_local_plain(nbr, ta, tb, tm), 5)
     # bytes: each touched row once, the edge arrays, the total; ops: the
-    # compares these rows need, Σ over valid edges of (valid entries of
-    # row a) × (valid entries of row b): a sentinel entry never matches
+    # merge steps these rows need, Σ over valid edges of (valid entries
+    # of row a) + (valid entries of row b)
     touched = np.unique(np.concatenate([ea[emask], eb[emask]])).size
     nbytes = touched * k * 4 + ep * 9 + 4
     row_len = (rows < vb).sum(axis=1).astype(np.int64)
-    compares = int((row_len[ea[emask]] * row_len[eb[emask]]).sum())
-    b_ms, b_by = bound(nbytes, compares)
-    print("phase intersect: ok  count=%d  kernel %.4f ms  plain %.4f ms  "
-          "(Ep=%d K=%d vb=%d)" % (got, ms, plain_ms, ep, k, vb))
+    steps = int((row_len[ea[emask]] + row_len[eb[emask]]).sum())
+    b_ms, b_by = bound(nbytes, steps)
+    print("phase intersect: ok  count=%d  kernel %.4f ms ascending rows, "
+          "%.4f ms shuffled  plain %.4f ms  (Ep=%d K=%d vb=%d)"
+          % (got, ms, any_ms, plain_ms, ep, k, vb))
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": abs(got - want)}
+            "bound_by": b_by, "max_abs_err": abs(got - want),
+            "shuffled_ms": any_ms}
 
 
 def compare_counter(name, src, dst, valid, counter, dev):
     """Kernel (`counter`, a WindowCounter on the card) vs plain (count,
-    overflow) of every window of a stack: overflow equal everywhere,
-    count equal where overflow is 0 (with overflow > 0 the truncated rows
-    differ by design and callers recount). Returns (count, overflow,
+    overflow) of every window of a stack, on the standard wire and, where
+    the ids fit uint16 and padding is each window's suffix, on the
+    compact wire too: both outputs equal on every window, overflowing
+    windows included (the kernel keeps each row's kb smallest ids, as
+    the plain version and the JAX package do). Returns (count, overflow,
     max_abs_err) as numpy."""
     from gelly_streaming_tpu_torch.ops import window_counter as wc
 
@@ -216,17 +240,55 @@ def compare_counter(name, src, dst, valid, counter, dev):
     c, o, pc, po = (x.cpu().numpy() for x in (c, o, pc, po))
     require(np.array_equal(o, po),
             "%s: overflow kernel %s != plain %s" % (name, o, po))
-    clean = po == 0
-    require(np.array_equal(c[clean], pc[clean]),
-            "%s: count kernel %s != plain %s" % (name, c[clean], pc[clean]))
-    err = int(np.abs(c[clean].astype(np.int64) - pc[clean]).max(initial=0))
+    require(np.array_equal(c, pc),
+            "%s: count kernel %s != plain %s" % (name, c, pc))
+    suffix = np.array_equal(valid, np.arange(valid.shape[1])[None, :]
+                            < valid.sum(axis=1)[:, None])
+    if vb <= 65536 and suffix:
+        c16, o16 = counter(*(torch.from_numpy(x).to(dev) for x in
+                             to_compact(src, dst, valid)), wire="compact")
+        c16, o16 = c16.cpu().numpy(), o16.cpu().numpy()
+        require(np.array_equal(c16, pc) and np.array_equal(o16, po),
+                "%s: compact wire count %s overflow %s != plain %s %s"
+                % (name, c16, o16, pc, po))
+    err = int(np.abs(c.astype(np.int64) - pc).max(initial=0))
     return c, o, err
 
 
+def special_windows(eb: int, vb: int):
+    """Special windows of eb slots at vb: one edge repeated across the
+    whole window (one row of eb entries, one distinct: the block form
+    of a row's sort); eb distinct edges from vertex 0, a star (a hub of
+    degree eb); vertex 0 joined to a clique on 1..m (rows of up to m
+    distinct entries, past kb=128 at eb=32768); a triangle on ids 0 and
+    vb-1; one edge repeated both ways; a dense multigraph on 40
+    vertices. Valid slots are each window's prefix."""
+    s = np.full((6, eb), vb, np.int32)
+    d = np.full((6, eb), vb, np.int32)
+    v = np.zeros((6, eb), bool)
+    s[0], d[0], v[0] = 5, 9, True
+    s[1], d[1], v[1] = 0, np.arange(1, eb + 1) % vb, True
+    m = int((math.isqrt(8 * eb + 1) - 1) // 2)        # m + m(m-1)/2 <= eb
+    u, w = np.triu_indices(m, 1)
+    s[2, :m], d[2, :m] = 0, np.arange(1, m + 1)
+    s[2, m:m + len(u)], d[2, m:m + len(u)] = u + 1, w + 1
+    v[2, :m + len(u)] = True
+    s[3, :3], d[3, :3], v[3, :3] = (0, vb - 1, 7), (vb - 1, 7, 0), True
+    s[4, ::2], d[4, ::2], s[4, 1::2], d[4, 1::2] = 3, 9, 9, 3
+    v[4] = True
+    r = np.random.default_rng(3)
+    s[5], d[5], v[5] = r.integers(0, 40, eb), r.integers(0, 40, eb), True
+    return s, d, v
+
+
 def phase_counter(dev) -> dict:
-    """Kernel vs plain on a 64-window chunk at eb=32768, vb=65536,
-    kb=128 whose last window holds a CLIQUE-clique (overflows kb), the K14
-    clique window at kb=8, and edge cases at a small shape."""
+    """Kernel vs plain, count and overflow on every window, both wires:
+    a 64-window chunk at eb=32768, vb=65536, kb=128 whose last window
+    holds a CLIQUE-clique (overflows kb); special_windows at that shape
+    and at kb=8; the K14 clique window at kb=8; edge cases at a small
+    shape; the L2 tier (vb=131072, and eb=65536). Then the 64-window
+    counter's device scratch (the allocator's peak around its first
+    call), its launches a call in a profile, and its time."""
     from gelly_streaming_tpu_torch import make_stream
     from gelly_streaming_tpu_torch.ops import segment as seg
     from gelly_streaming_tpu_torch.ops import window_counter as wc
@@ -235,10 +297,33 @@ def phase_counter(dev) -> dict:
     _w, s, d, v = seg.window_stack(src, dst, EB, sentinel=VB)
     cs, cd = clique(CLIQUE, 1000)
     s[-1, :len(cs)], d[-1, :len(cd)] = cs, cd
+    # the device memory of a 64-window counter: the allocator's peak
+    # around its first call (its scratch and its two outputs)
+    st, dt, vt = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                  for x in (s, d, v))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     counter = wc.WindowCounter(VB, KB, dev)
+    counter(st, dt, vt)
+    torch.cuda.synchronize()
+    scratch_bytes = torch.cuda.max_memory_allocated() - base
     c, o, err = compare_counter("counter chunk", s, d, v, counter, dev)
     require(o[-1] > 0 and (o[:-1] == 0).all(),
             "counter chunk: overflow where not built: %s" % o)
+    require(counter.scratch.shared_tier and scratch_bytes < 128 << 20,
+            "counter chunk: %d bytes of device scratch (shared tier %s)"
+            % (scratch_bytes, counter.scratch.shared_tier))
+
+    errs = [err]
+    sp = special_windows(EB, VB)
+    csp, osp, e1 = compare_counter("counter windows", *sp, counter, dev)
+    require(list(csp[[0, 1, 4]]) == [0, 0, 0] and csp[3] == 1
+            and osp[2] > 0, "counter windows: counts %s overflow %s"
+            % (csp, osp))
+    _c, _o, e2 = compare_counter("counter windows kb=8", *sp,
+                                 wc.WindowCounter(VB, 8, dev), dev)
+    errs += [e1, e2]
 
     # the K14 clique of tests/operations/test_pallas_window.py at kb=8
     ks, kd = clique(14, 0)
@@ -268,29 +353,51 @@ def phase_counter(dev) -> dict:
                                     wc.WindowCounter(256, 8, dev), dev)
     require(ce[0] == 0 and ce[1] == 0 and ce[2] == 0,
             "edge cases: empty/loop/duplicate windows counted %s" % ce[:3])
+    errs += [err14, erre]
 
-    # times at the main path's chunk shape
-    st, dt, vt = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-                  for x in (s, d, v))
-    count = torch.empty(CHUNK, dtype=torch.int32, device=dev)
-    overflow = torch.empty_like(count)
+    # the L2 tier: ids past 16 bits, and windows of 65536 slots
+    big = 2 * VB
+    src2, dst2 = make_stream(8 * EB, big, seed=4)
+    _w, s2, d2, v2 = seg.window_stack(src2, dst2, EB, sentinel=big)
+    c2 = wc.WindowCounter(big, KB, dev)
+    errs.append(compare_counter("L2 tier vb=131072", s2, d2, v2, c2, dev)[2])
+    require(not c2.scratch.shared_tier, "vb=131072 did not take the L2 tier")
+    sp2 = tuple(np.where(sp[2], x, big) for x in sp[:2]) + (sp[2],)
+    errs.append(compare_counter("L2 tier windows kb=8", *sp2,
+                                wc.WindowCounter(big, 8, dev), dev)[2])
+    src3, dst3 = make_stream(2 * 2 * EB, VB, seed=5)
+    _w, s3, d3, v3 = seg.window_stack(src3, dst3, 2 * EB, sentinel=VB)
+    s3[1], d3[1] = 5, 9
+    c3 = wc.WindowCounter(VB, KB, dev)
+    errs.append(compare_counter("L2 tier eb=65536", s3, d3, v3, c3, dev)[2])
+    require(not c3.scratch.shared_tier, "eb=65536 did not take the L2 tier")
+
+    # launches a call, time, plain time and bound at the chunk's shape
+    calls = 5
+    prof = profile_run(lambda: [counter(st, dt, vt) for _ in range(calls)])
+    per_call = {k: n / calls for k, n in prof["launches_by_name"].items()}
+    kern = sum(n for k, n in prof["launches_by_name"].items()
+               if "counter_kernel" in k)
+    require(calls - 1 <= kern <= calls and not any(
+        "emset" in k for k in per_call),
+        "counter: device launches %s for %d calls" % (per_call, calls))
     ms = cuda_ms(lambda: counter(st, dt, vt), 20)
-    tables_ms = cuda_ms(lambda: wc.build_tables(
-        st, dt, vt, counter.scratch, overflow), 20)
-    stage_ms = cuda_ms(lambda: wc.intersect_tables(counter.scratch, count),
-                       20)
     plain_ms = cuda_ms(lambda: wc.count_windows_plain(st, dt, vt, VB, KB), 2)
-    edges, compares = row_work(st, dt, vt, VB, KB)
+    edges, steps = row_work(st, dt, vt, VB, KB)
     nbytes = CHUNK * EB * 9 + CHUNK * 8     # the slab in, two ints out
-    b_ms, b_by = bound(nbytes, CHUNK * EB + compares)
-    print("phase counter: ok  overflow window %d  kernel %.3f ms/chunk "
-          "(tables %.3f + intersect %.3f)  plain %.3f ms/chunk  "
-          "(%d windows, %d distinct edges, %d compares)"
-          % (o[-1], ms, tables_ms, stage_ms, plain_ms, CHUNK, edges,
-             compares))
+    b_ms, b_by = bound(nbytes, CHUNK * EB + steps)
+    print(json.dumps({"counter": {
+        "scratch_bytes": scratch_bytes, "blocks": counter.scratch.blocks,
+        "device_launches_per_call": per_call,
+        "device": torch.cuda.get_device_name(0)}}))
+    print("phase counter: ok  overflow window %d  kernel %.3f ms/chunk  "
+          "plain %.3f ms/chunk  scratch %d B  launches a call %s  (%d "
+          "windows, %d distinct edges, %d merge steps)"
+          % (o[-1], ms, plain_ms, scratch_bytes, per_call, CHUNK, edges,
+             steps))
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": max(err, err14, erre),
-            "tables_ms": tables_ms, "intersect_stage_ms": stage_ms}
+            "bound_by": b_by, "max_abs_err": max(errs),
+            "scratch_bytes": scratch_bytes}
 
 
 def phase_stream(dev):
@@ -321,7 +428,8 @@ def phase_stream(dev):
     num_w = STREAM_EDGES // EB
     require(len(counts) == num_w, "%d windows, want %d"
             % (len(counts), num_w))
-    for name in ("intersect", "window_counter"):   # the triangle path's
+    # the triangle path's kernel (its row intersection runs inside it)
+    for name in ("window_counter",):
         require(launches[name] > 0,
                 "kernel %s was not launched on the main path" % name)
 
@@ -403,7 +511,7 @@ def phase_stream_compact(dev, want: list) -> dict:
     TriangleWindowKernel(32768, 65536, ingress="compact").count_stream
     over the same 320 windows, every window equal to phase stream's
     count (checked there against plain), launches of the compact counter
-    and the intersect counted; one forced_sync run, equal and timed."""
+    counted; one forced_sync run, equal and timed."""
     from gelly_streaming_tpu_torch import (TriangleWindowKernel, forced_sync,
                                            kernels, make_stream)
 
@@ -419,7 +527,7 @@ def phase_stream_compact(dev, want: list) -> dict:
     counts = kern.count_stream(src, dst)
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    for name in ("intersect", "window_counter_compact"):
+    for name in ("window_counter_compact",):
         require(launches[name] > 0,
                 "kernel %s was not launched on the compact path" % name)
     bad = [w for w, (a, b) in enumerate(zip(counts, want)) if a != b]
@@ -522,9 +630,9 @@ def summary_fixtures():
 def compare_summary(name, chunk, summ, carry, plain_carry, dev):
     """Kernel (`summ`, a WindowSummary on the card, folding into
     `carry`) vs plain (folding into `plain_carry`) on one chunk: the five
-    outputs equal (triangles where overflow is 0: the kernel's truncated
-    rows differ by design), then the three carries bit-equal. Returns
-    the plain outputs as numpy and the max abs error."""
+    outputs equal on every window (triangles in overflowing windows
+    too), then the three carries bit-equal. Returns the plain outputs as
+    numpy and the max abs error."""
     from gelly_streaming_tpu_torch.ops import window_summary as ws
 
     st, dt, vt = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -534,11 +642,8 @@ def compare_summary(name, chunk, summ, carry, plain_carry, dev):
         plain_carry, st, dt, vt, summ.vb, summ.kb)]
     names = ("max_degree", "num_components", "odd", "triangles",
              "k_overflow")
-    clean = want[4] == 0
     err = 0
     for i, (g, w) in enumerate(zip(got, want)):
-        if i == 3:
-            g, w = g[clean], w[clean]
         require(np.array_equal(g, w), "%s: %s kernel %s != plain %s"
                 % (name, names[i], g, w))
         err = max(err, int(np.abs(g.astype(np.int64) - w).max(initial=0)))
@@ -549,7 +654,7 @@ def compare_summary(name, chunk, summ, carry, plain_carry, dev):
 
 
 def phase_summary(dev) -> dict:
-    """The window-summary kernel (+ kernels 1-2 for triangles) vs its
+    """The window-summary kernel (+ the counter for triangles) vs its
     plain version on 64-window chunks at eb=32768, vb=65536, kb=128,
     each from a carry that is not fresh; the union-find entry vs the
     plain fixpoint; then times at the Zipf chunk."""
@@ -699,7 +804,7 @@ def phase_summary_stream(dev):
     stages = eng.stage_timers.snapshot()
     num_w = STREAM_EDGES // EB
     require(len(out) == num_w, "%d windows, want %d" % (len(out), num_w))
-    for name in ("intersect", "window_counter", "window_summary"):
+    for name in ("window_counter", "window_summary"):
         require(launches[name] > 0, "kernel %s was not launched on the "
                 "summary path" % name)
     state = eng.state_dict()
@@ -777,8 +882,8 @@ def phase_summary_stream_compact(dev, want: list, want_state: dict) -> dict:
     StreamSummaryEngine(32768, 65536, ingress="compact").process over the
     same 320 windows, every window and the final carry equal to phase
     summary_stream's (checked there against plain), launches of the
-    compact summary kernel, the compact counter and the intersect
-    counted; one forced_sync run, equal and timed."""
+    compact summary kernel and the compact counter counted; one
+    forced_sync run, equal and timed."""
     from gelly_streaming_tpu_torch import (StreamSummaryEngine, forced_sync,
                                            kernels, make_stream)
 
@@ -796,8 +901,7 @@ def phase_summary_stream_compact(dev, want: list, want_state: dict) -> dict:
     out = eng.process(src, dst)
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    for name in ("intersect", "window_counter_compact",
-                 "window_summary_compact"):
+    for name in ("window_counter_compact", "window_summary_compact"):
         require(launches[name] > 0, "kernel %s was not launched on the "
                 "compact summary path" % name)
     bad = [w for w, (a, b) in enumerate(zip(out, want)) if a != b]
@@ -909,10 +1013,7 @@ def phase_compact(dev) -> dict:
             other = [x.cpu().numpy() for x in std(carries[1], *st)]
             plain = [x.cpu().numpy() for x in ws.summarize_windows_plain(
                 carries[2], *ci.widen_stack(*ct, EB, vb), vb, KB)]
-            clean = plain[4] == 0
             for i, (g, o, p) in enumerate(zip(got, other, plain)):
-                if i == 3:
-                    g, o, p = g[clean], o[clean], p[clean]
                 require(np.array_equal(g, p) and np.array_equal(g, o),
                         "compact %s %s: output %d compact %s, standard %s, "
                         "plain %s" % (name, part, i, g, o, p))
@@ -928,9 +1029,9 @@ def phase_compact(dev) -> dict:
             pc, po = wc.count_windows_plain(*ci.widen_stack(*ct, EB, vb),
                                             vb, KB)
             c, o, pc, po = (x.cpu().numpy() for x in (c, o, pc, po))
-            require(np.array_equal(o, po) and np.array_equal(
-                c[po == 0], pc[po == 0]), "compact %s %s: counter %s %s "
-                "!= plain %s %s" % (name, part, c, o, pc, po))
+            require(np.array_equal(o, po) and np.array_equal(c, pc),
+                    "compact %s %s: counter %s %s != plain %s %s"
+                    % (name, part, c, o, pc, po))
         if name in ("ragged", "vb=8192"):
             require(int(carries[0][2][2 * vb + 1]) == vb,
                     "compact %s: the cover's sentinels were not joined"
@@ -1304,7 +1405,8 @@ def phase_dense(dev):
     and V=4096 (the kernel alone and through the wrapper's symmetry
     check) beside torch.mm on float32 and torch._int_mm on int8, the
     product alone."""
-    from gelly_streaming_tpu_torch import kernels, triangle_count
+    from gelly_streaming_tpu_torch import (kernels, make_stream,
+                                           triangle_count)
     from gelly_streaming_tpu_torch.ops import dense_triangles as dt
     from gelly_streaming_tpu_torch.ops import host_triangles
     from gelly_streaming_tpu_torch.ops import triangles as tri
@@ -1337,6 +1439,24 @@ def phase_dense(dev):
                 and kernels.LAUNCHES[other] == before[other],
                 "triangle_count at V=%d did not take the %s route"
                 % (v, route))
+
+    # the sparse route's own run, the intersect kernel's main path: the
+    # Zipf window at 4097 vertices and the first two windows of the
+    # bench's stream at 65536, with the launch counts set to 0 just
+    # before and read just after, each count equal to numpy
+    bs, bd = make_stream(2 * EB, VB, seed=SEED)
+    sparse = [(s, d, DENSE_V + 1), (bs[:EB], bd[:EB], VB),
+              (bs[EB:], bd[EB:], VB)]
+    kernels.reset_launches()
+    sparse_counts = [triangle_count(a, b, v) for a, b, v in sparse]
+    sparse_launches = dict(kernels.LAUNCHES)
+    require(sparse_launches["intersect"] == len(sparse)
+            and sparse_launches["dense_triangles"] == 0,
+            "sparse route launches %s" % sparse_launches)
+    for (a, b, v), got in zip(sparse, sparse_counts):
+        want = host_triangles.window_count(a, b)
+        require(got == want, "sparse route at V=%d: %d != numpy %d"
+                % (v, got, want))
 
     err = 0
     for name, s, d, v in windows:
@@ -1391,8 +1511,9 @@ def phase_dense(dev):
               "bound %.4f ms (%s)"
               % (v, t["ms"], t["checked_ms"], t["plain_ms"], t["mm_ms"],
                  t["int_mm_ms"], t["bound_ms"], t["bound_by"]))
-    print("phase dense: ok  %d windows" % len(windows))
-    return {**times[vp], "max_abs_err": err}, launches
+    print("phase dense: ok  %d windows; sparse route %s, launches %s"
+          % (len(windows), sparse_counts, sparse_launches))
+    return {**times[vp], "max_abs_err": err}, launches, sparse_launches
 
 
 def cohort_zipf_slab(nb: int, wb: int, vb: int, seed: int):
@@ -1451,8 +1572,8 @@ def cohort_fixtures():
 def compare_cohort(name, slab, summ, carries, plain_carries, dev):
     """Kernel (`summ`, a CohortSummary on the card, folding into
     `carries`) vs plain (folding into `plain_carries`) on one [nb, W, eb]
-    slab: the five [nb, W] outputs equal (triangles where overflow is 0),
-    then the stacked carries bit-equal. Returns the plain outputs as
+    slab: the five [nb, W] outputs equal on every window, then the
+    stacked carries bit-equal. Returns the plain outputs as
     numpy, the max abs error and the plain version's ms (CUDA events)."""
     from gelly_streaming_tpu_torch.ops import cohort_summary as cs
 
@@ -1469,11 +1590,8 @@ def compare_cohort(name, slab, summ, carries, plain_carries, dev):
     want = [x.cpu().numpy() for x in want]
     names = ("max_degree", "num_components", "odd", "triangles",
              "k_overflow")
-    clean = want[4] == 0
     err = 0
     for i, (g, w) in enumerate(zip(got, want)):
-        if i == 3:
-            g, w = g[clean], w[clean]
         require(np.array_equal(g, w), "cohort %s: %s kernel %s != plain %s"
                 % (name, names[i], g, w))
         err = max(err, int(np.abs(g.astype(np.int64) - w).max(initial=0)))
@@ -1485,7 +1603,7 @@ def compare_cohort(name, slab, summ, carries, plain_carries, dev):
 
 
 def phase_cohort(dev) -> dict:
-    """The cohort summary kernel (+ kernels 1-2 for triangles) vs its
+    """The cohort summary kernel (+ the counter for triangles) vs its
     plain version at eb=4096, kb=128 on five dispatches, each from
     carries that are not fresh: 64 Zipf tenants × 8 windows at vb=8192,
     the ragged batch (both in the shared-memory tier), 8 Zipf tenants ×
@@ -1541,8 +1659,6 @@ def phase_cohort(dev) -> dict:
                      "tier": tier, "ms": ms - clone_ms,
                      "kernel_only_ms": kern_ms - clone_ms,
                      "counter_ms": counter_ms,
-                     "counter_calls": -(-nb * wb // cs.counter_windows(
-                         vb, CO_KB)),
                      "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "valid_slots": slots,
                      "distinct_edges": edges, "compares": compares,
@@ -1881,7 +1997,7 @@ def main() -> int:
     summary_compact_launches = phase_summary_stream_compact(dev, summaries,
                                                             state)
     gnn_launches = phase_gnn_stream(dev)
-    dense, dense_launches = phase_dense(dev)
+    dense, dense_launches, sparse_launches = phase_dense(dev)
     cohort_launches = phase_cohort_stream(dev)
     phase_gnn_cohort(dev)
 
@@ -1890,7 +2006,7 @@ def main() -> int:
     for name, source, replaces, res, n in (
             ("intersect", "intersect",
              "gelly_streaming_tpu/ops/pallas_intersect.py:118", inter,
-             launches["intersect"]),
+             sparse_launches["intersect"]),
             ("window_counter", "window_counter", pw + "748", counter,
              launches["window_counter"]),
             ("window_counter_compact", "window_counter", pw + "748",

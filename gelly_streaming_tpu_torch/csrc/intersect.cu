@@ -1,124 +1,135 @@
-// Per-edge neighbor-row intersection, written by hand for Hopper (sm_90a).
+// Per-edge neighbor-row intersection over a padded table, written by
+// hand for Hopper (sm_90a): the contract of `intersect_local`.
 //
 // Replaces gelly_streaming_tpu/ops/pallas_intersect.py `_intersect_tiles`
-// (the pallas_call at :116-145; compare loop `tile_intersect_count` :78):
-// for every valid oriented edge (a, b), |N_out(a) ∩ N_out(b)|, summed.
-// The rows come from a [V+1, K] int32 table whose fill is the sentinel V;
-// an entry of row a counts when it is < sentinel and occurs in row b.
+// (the pallas_call at :116-145; compare loop `tile_intersect_count` :78)
+// where a caller holds a [V+1, K] int32 table whose fill is the sentinel
+// V: for every valid edge (a, b), the entries of row a below the
+// sentinel that occur in row b, summed. (The window counter runs the
+// same intersection as its own last stage, on the rows it builds:
+// csrc/window_counter.cu.)
 //
-// What bounds it: the compares, O(E·K²) at worst and O(E·len_a·len_b) in
-// practice, plus the gather of two rows per edge from the table. On the
-// main path (eb=32768 Zipf windows) rows hold a few entries and at most
-// ~30, so it is the dependent loads of the gather (edge -> row length ->
-// row), not the compares, that take the time.
-//
-// Design. The TPU kernel gathered rows outside the kernel (in XLA) and
-// compared [T, Ck, K] tiles in VMEM. Here one warp owns one edge and
-// gathers both rows straight from the table, so no [E, K] intermediate
-// ever exists in device memory. Each lane holds one entry of row a (32 at
-// a time) in a register; row b is loaded 32 entries at a time, one per
-// lane, and broadcast lane by lane with __shfl_sync: no shared memory and
-// no sort, so rows need not be sorted. Rows are deduplicated, so an entry
-// of row a matches at most once; its hit is a flag, counted with one
-// ballot, like the TPU kernel's `any` over the compare axis. Where the
-// caller gives row lengths (the window counter's out-degrees) the loops
-// stop there instead of at K. A block sums its warps and adds once,
-// atomically, into its window's int32 total.
+// Two forms, chosen by the caller:
+// - ascending rows (`sorted` = 1: each row strictly ascending, its fill
+//   at the end, as triangle_count_sparse builds them): one thread an
+//   edge merges the two rows (row_intersect.cuh, the counter's device
+//   code), la + lb steps that stop at the first sentinel;
+// - rows in any order (`sorted` = 0, the TPU kernel's contract): a group
+//   of g lanes an edge, g sized by K (K/4 entries of row a, up to 32
+//   lanes); each lane holds up to four entries of row a in registers and
+//   reads row b once through L1, comparing each of its entries with all
+//   of row b: K²/g compares a lane.
+// What bounds it: the dependent loads of the two rows an edge (sorted),
+// and the K² compares (any order). A block sums its threads and adds
+// once, atomically, into the int32 total.
 #include "common.cuh"
+#include "row_intersect.cuh"
 
 namespace {
 
-// |row a ∩ row b| counted over entries of row a below the sentinel. All
-// 32 lanes call it with the same rows and lengths; every lane returns the
-// same count.
-__device__ __forceinline__ int warp_row_intersect(
-        const int* __restrict__ ra, int la, const int* __restrict__ rb,
-        int lb, int sentinel, int lane) {
-    int hits = 0;
-    for (int ta = 0; ta < la; ta += kWarp) {
-        const int ia = ta + lane;
-        const int av = ia < la ? ra[ia] : sentinel;
-        bool hit = false;
-        for (int tb = 0; tb < lb; tb += kWarp) {
-            const int ib = tb + lane;
-            const int bv = ib < lb ? rb[ib] : sentinel;
-            const int nb = min(kWarp, lb - tb);
-            for (int j = 0; j < nb; ++j)
-                hit |= av == __shfl_sync(kFullMask, bv, j);
-        }
-        hits += __popc(__ballot_sync(kFullMask, hit && av < sentinel));
-    }
-    return hits;
-}
+constexpr int kHeld = 4;   // entries of row a a lane holds (any order)
 
-// grid (x: edge blocks, y: windows). Window w reads its table at
-// nbr + w*table_stride and its edges at ea/eb + w*edge_stride; it has
-// nedges[w] edges (ep when nedges is null), each masked by emask (all
-// valid when null). lens (optional, stride lens_stride per window) caps
-// each row's length below k.
-__global__ void __launch_bounds__(kThreads) intersect_kernel(
-        const int* __restrict__ nbr, long long table_stride, int rows,
-        int k, int sentinel, const int* __restrict__ ea,
-        const int* __restrict__ eb, long long edge_stride,
-        const bool* __restrict__ emask, const int* __restrict__ nedges,
-        int ep, const int* __restrict__ lens, long long lens_stride,
-        int* __restrict__ out) {
-    const int w = blockIdx.y;
-    const int lane = threadIdx.x % kWarp;
-    const int warp = threadIdx.x / kWarp;
-    const int* table = nbr + w * table_stride;
-    const int* wa = ea + w * edge_stride;
-    const int* wb = eb + w * edge_stride;
-    const bool* wm = emask ? emask + w * edge_stride : nullptr;
-    const int* wl = lens ? lens + w * lens_stride : nullptr;
-    const int n = nedges ? nedges[w] : ep;
-
-    int acc = 0;  // the same in every lane of the warp
-    for (int e = blockIdx.x * kWarpsPerBlock + warp; e < n;
-         e += gridDim.x * kWarpsPerBlock) {
-        if (wm && !wm[e]) continue;
-        const int a = wa[e], b = wb[e];
-        if (a < 0 || a >= rows || b < 0 || b >= rows) continue;
-        const int la = wl ? min(wl[a], k) : k;
-        const int lb = wl ? min(wl[b], k) : k;
-        if (la == 0 || lb == 0) continue;
-        acc += warp_row_intersect(table + (long long)a * k, la,
-                                  table + (long long)b * k, lb, sentinel,
-                                  lane);
-    }
+__device__ __forceinline__ void block_add(int acc, int* out) {
+    for (int o = kWarp / 2; o; o >>= 1)
+        acc += __shfl_xor_sync(kFullMask, acc, o);
     __shared__ int partial[kWarpsPerBlock];
-    if (lane == 0) partial[warp] = acc;
+    const int warp = threadIdx.x / kWarp;
+    if (threadIdx.x % kWarp == 0) partial[warp] = acc;
     __syncthreads();
     if (threadIdx.x == 0) {
         int sum = 0;
         for (int i = 0; i < kWarpsPerBlock; ++i) sum += partial[i];
-        if (sum) atomicAdd(out + w, sum);
+        if (sum) atomicAdd(out, sum);
     }
+}
+
+__device__ __forceinline__ bool edge_rows(const int* __restrict__ ea,
+                                          const int* __restrict__ eb,
+                                          const bool* __restrict__ emask,
+                                          int e, int rows, int& a, int& b) {
+    if (!emask[e]) return false;
+    a = ea[e];
+    b = eb[e];
+    return a >= 0 && a < rows && b >= 0 && b < rows;
+}
+
+// ascending rows: one thread an edge
+__global__ void __launch_bounds__(kThreads) merge_kernel(
+        const int* __restrict__ nbr, int rows, int k, int sentinel,
+        const int* __restrict__ ea, const int* __restrict__ eb,
+        const bool* __restrict__ emask, int ep, int* __restrict__ out) {
+    int acc = 0;
+    for (int e = blockIdx.x * kThreads + threadIdx.x; e < ep;
+         e += gridDim.x * kThreads) {
+        int a, b;
+        if (edge_rows(ea, eb, emask, e, rows, a, b))
+            acc += merge_count(nbr + (long long)a * k, k,
+                               nbr + (long long)b * k, k, sentinel);
+    }
+    block_add(acc, out);
+}
+
+// rows in any order: g lanes an edge
+__global__ void __launch_bounds__(kThreads) probe_kernel(
+        const int* __restrict__ nbr, int rows, int k, int sentinel,
+        const int* __restrict__ ea, const int* __restrict__ eb,
+        const bool* __restrict__ emask, int ep, int g,
+        int* __restrict__ out) {
+    const int t = blockIdx.x * kThreads + threadIdx.x;
+    const int gl = t % g, groups = gridDim.x * (kThreads / g);
+    int acc = 0;
+    for (int e = t / g; e < ep; e += groups) {
+        int a, b;
+        if (!edge_rows(ea, eb, emask, e, rows, a, b)) continue;
+        const int* ra = nbr + (long long)a * k;
+        const int* rb = nbr + (long long)b * k;
+        for (int ta = 0; ta < k; ta += kHeld * g) {
+            int x[kHeld];
+            bool hit[kHeld];
+#pragma unroll
+            for (int q = 0; q < kHeld; ++q) {
+                const int i = ta + q * g + gl;
+                x[q] = i < k ? ra[i] : sentinel;
+                hit[q] = false;
+            }
+#pragma unroll 4
+            for (int m = 0; m < k; ++m) {
+                const int y = rb[m];
+#pragma unroll
+                for (int q = 0; q < kHeld; ++q) hit[q] |= x[q] == y;
+            }
+#pragma unroll
+            for (int q = 0; q < kHeld; ++q) acc += hit[q] && x[q] < sentinel;
+        }
+    }
+    block_add(acc, out);
 }
 
 }  // namespace
 
-// out[w] = Σ over window w's valid edges of |row a ∩ row b|, for
-// `windows` windows; out is cleared here first.
-GS_EXPORT int gs_intersect(const int* nbr, long long table_stride,
-                           int rows, int k, int sentinel, const int* ea,
-                           const int* eb, long long edge_stride,
-                           const bool* emask, const int* nedges, int ep,
-                           const int* lens, long long lens_stride,
-                           int* out, int windows, int device,
+// out[0] = Σ over edges e with emask[e] of |row ea[e] ∩ row eb[e]| in
+// the [rows, k] table nbr, counted over entries of row a below the
+// sentinel; rows strictly ascending where `sorted` is 1. out is cleared
+// here first: one memset and one launch on `stream`.
+GS_EXPORT int gs_intersect(const int* nbr, int rows, int k, int sentinel,
+                           const int* ea, const int* eb, const bool* emask,
+                           int ep, int sorted, int* out, int device,
                            void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)windows, s);
+    err = cudaMemsetAsync(out, 0, sizeof(int), s);
     if (err != cudaSuccess) return err;
-    if (ep > 0 && k > 0 && windows > 0) {
-        // about four edges per warp when every slot holds an edge
-        const int per_block = 4 * kWarpsPerBlock;
-        dim3 grid((ep + per_block - 1) / per_block, windows);
-        intersect_kernel<<<grid, kThreads, 0, s>>>(
-            nbr, table_stride, rows, k, sentinel, ea, eb, edge_stride,
-            emask, nedges, ep, lens, lens_stride, out);
+    if (ep <= 0 || k <= 0) return cudaSuccess;
+    if (sorted) {
+        merge_kernel<<<(ep + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+            nbr, rows, k, sentinel, ea, eb, emask, ep, out);
+    } else {
+        int g = 1;
+        while (g < kWarp && kHeld * g < k) g *= 2;
+        const int per_block = kThreads / g;
+        probe_kernel<<<(ep + per_block - 1) / per_block, kThreads, 0, s>>>(
+            nbr, rows, k, sentinel, ea, eb, emask, ep, g, out);
     }
     return cudaGetLastError();
 }

@@ -41,14 +41,14 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # cudaError_t of the call)
 SIGNATURES = {
     "intersect": {
-        "gs_intersect": [_P, _LL, _I, _I, _I, _P, _P, _LL, _P, _P, _I,
-                         _P, _LL, _P, _I, _I, _P],
+        "gs_intersect": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P],
     },
     "window_counter": {
-        "gs_window_tables": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                             _I, _P, _P, _P, _P, _I, _P],
-        "gs_window_tables_compact": [_P, _P, _P, _I, _I, _I, _I, _P, _P,
-                                     _P, _P, _I, _P, _P, _P, _P, _I, _P],
+        "gs_counter_plan": [_I, _I, _I, _I, _P],
+        "gs_window_counter": [_P, _P, _P, _I, _I, _I, _I, _P, _LL, _P, _P,
+                              _I, _P],
+        "gs_window_counter_compact": [_P, _P, _P, _I, _I, _I, _I, _P, _LL,
+                                      _P, _P, _I, _P],
     },
     "window_summary": {
         "gs_window_summary": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,

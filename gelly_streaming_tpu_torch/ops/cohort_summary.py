@@ -20,7 +20,7 @@ launch per dispatch, whatever nb and W are; csrc/summary_body.cuh) and a
 `WindowCounter` (ops/window_counter.py) for triangles and K-overflow on
 CUDA tensors, and runs `summarize_cohort_plain`, the plain PyTorch
 version, on CPU ones; it never falls back from one to the other. The
-two agree bit for bit, `triangles` apart where a window overflows K.
+two agree bit for bit, overflowing windows included.
 Each carry row must be one the engines make
 (ops/scan_analytics.check_summary_carry says which).
 """
@@ -32,19 +32,6 @@ import torch
 from .. import kernels
 from .window_counter import WindowCounter
 from .window_summary import summarize_windows_plain
-
-# bytes of the counter's neighbor tables per triangle-stage call, which
-# hold windows × (vb+1) × kb int32: 2.15 GB, what 64 windows take at
-# vb=65536, kb=128 (2,147,516,416 B)
-COUNTER_BYTES = 2_150_000_000
-
-
-def counter_windows(vb: int, kb: int) -> int:
-    """Windows per triangle-stage call at (vb, kb): as many as
-    COUNTER_BYTES of neighbor tables hold, at least one (512 at vb=8192,
-    kb=128, so a 64 × 8 dispatch is one call)."""
-    return max(1, COUNTER_BYTES // ((vb + 1) * kb * 4))
-
 
 def fresh_cohort_carry(nb: int, vb: int, device) -> tuple:
     """The stacked carries of nb streams that have folded nothing yet."""
@@ -77,8 +64,9 @@ class CohortSummary:
 
     On a card it launches the cohort kernel (csrc/cohort_summary.cu: one
     launch per call on the current stream) and its `WindowCounter`
-    (kernels 1-2) over the slab seen as [nb·W, eb] (`count`), with no
-    synchronisation. On the CPU it runs `summarize_cohort_plain`."""
+    (kernel 2, one launch) over the slab seen as [nb·W, eb] (`count`),
+    with no synchronisation. On the CPU it runs
+    `summarize_cohort_plain`."""
 
     def __init__(self, vb: int, kb: int, device: torch.device):
         self.vb, self.kb = vb, kb
@@ -103,22 +91,11 @@ class CohortSummary:
 
     def count(self, src, dst, valid):
         """The triangle stage alone, on a checked CUDA slab: (count,
-        overflow), each [nb·W] int32, from the counter over the slab seen
-        as [nb·W, eb], in pieces of at most `counter_windows` windows that
-        reuse one scratch and write straight into the outputs."""
+        overflow), each [nb·W] int32, from one counter call over the slab
+        seen as [nb·W, eb]."""
         nb, windows, eb = src.shape
-        flat = [x.view(nb * windows, eb) for x in (src, dst, valid)]
-        total = nb * windows
-        step = counter_windows(self.vb, self.kb)
-        if total <= step:
-            return self.counter(*flat)
-        tri, overflow = (torch.empty(total, dtype=torch.int32,
-                                     device=src.device) for _ in range(2))
-        for at in range(0, total, step):
-            hi = min(at + step, total)
-            self.counter(*(x[at:hi] for x in flat),
-                         out=(tri[at:hi], overflow[at:hi]))
-        return tri, overflow
+        return self.counter(*(x.view(nb * windows, eb)
+                              for x in (src, dst, valid)))
 
 
 def summarize_cohort(carries, src, dst, valid, vb: int,

@@ -5,7 +5,11 @@ Port of the JAX package's `triangles.intersect_local` (triangles.py:82-
 109) and of its Pallas kernel `pallas_intersect.intersect_local_pallas`.
 `intersect_local` launches the CUDA kernel of `csrc/intersect.cu` on a
 CUDA table and runs `intersect_local_plain`, the plain PyTorch version,
-on a CPU one; it never falls back from one to the other.
+on a CPU one; it never falls back from one to the other. A caller whose
+rows are strictly ascending says so (`ascending=True`, as
+`triangles.triangle_count_sparse` does) and the kernel merges each pair
+of rows, the device code of the window counter's last stage; rows in any
+order take the compare form. Both give the plain version's count.
 """
 
 from __future__ import annotations
@@ -45,42 +49,25 @@ def intersect_local_plain(nbr: torch.Tensor, ea: torch.Tensor,
 
 
 def intersect_local(nbr: torch.Tensor, ea: torch.Tensor,
-                    eb: torch.Tensor, emask: torch.Tensor) -> torch.Tensor:
+                    eb: torch.Tensor, emask: torch.Tensor,
+                    ascending: bool = False) -> torch.Tensor:
     """Same contract as `intersect_local_plain`: the CUDA kernel for CUDA
-    tensors, the plain version for CPU ones."""
+    tensors, the plain version for CPU ones. `ascending=True` promises
+    that every row is strictly ascending with its fill at the end, which
+    lets the kernel merge rows instead of comparing every pair."""
     if nbr.device.type == "cpu":
         return intersect_local_plain(nbr, ea, eb, emask)
     _check(nbr, ea, eb, emask)
     out = torch.empty(1, dtype=torch.int32, device=nbr.device)
-    launch(nbr, ea, eb, out, rows=nbr.shape[0], k=nbr.shape[1],
-           sentinel=nbr.shape[0] - 1, ep=ea.shape[0], emask=emask)
-    return out[0]
-
-
-def launch(table: torch.Tensor, ea: torch.Tensor, eb: torch.Tensor,
-           out: torch.Tensor, *, rows: int, k: int, sentinel: int,
-           ep: int, windows: int = 1, table_stride: int = 0,
-           edge_stride: int = 0, emask: torch.Tensor = None,
-           nedges: torch.Tensor = None, lens: torch.Tensor = None,
-           lens_stride: int = 0) -> None:
-    """Launch the intersect kernel over `windows` windows: window w reads
-    its [rows, k] table at table + w·table_stride and its edges at
-    ea/eb + w·edge_stride (nedges[w] of them, else ep), masked by emask
-    when given; `lens` (stride lens_stride) caps each row's length.
-    out[w] receives window w's int32 total. The window counter calls it
-    on the tables it builds; callers check the tensors."""
     lib = kernels.library("intersect")
     code = lib.gs_intersect(
-        table.data_ptr(), table_stride, rows, k, sentinel, ea.data_ptr(),
-        eb.data_ptr(), edge_stride, _ptr(emask), _ptr(nedges), ep,
-        _ptr(lens), lens_stride, out.data_ptr(), windows,
-        out.device.index, kernels.stream_of(out))
+        nbr.data_ptr(), nbr.shape[0], nbr.shape[1], nbr.shape[0] - 1,
+        ea.data_ptr(), eb.data_ptr(), emask.data_ptr(), ea.shape[0],
+        int(ascending), out.data_ptr(), nbr.device.index,
+        kernels.stream_of(out))
     kernels.check("intersect", code)
     kernels.LAUNCHES["intersect"] += 1
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+    return out[0]
 
 
 def _check(nbr, ea, eb, emask) -> None:

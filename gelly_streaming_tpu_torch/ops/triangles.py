@@ -116,7 +116,7 @@ def triangle_count_sparse(src: np.ndarray, dst: np.ndarray,
             seg_ops.pad_to(b, ep, fill=vb),
             seg_ops.pad_to(np.ones(e, bool), ep, fill=False))
     count = _intersect.intersect_local(
-        *(torch.from_numpy(x).to(device) for x in args))
+        *(torch.from_numpy(x).to(device) for x in args), ascending=True)
     return int(count)
 
 

@@ -5,33 +5,35 @@ Port of the JAX package's `triangles.build_window_counter` body
 (triangles.py:397-430) and of its Pallas kernel
 `pallas_window._counter_call` (pallas_window.py:748-792, with
 `_tri_stage` :448-485). Each window runs clean -> multigraph degree ->
-orient low(deg, id) -> high(deg, id) -> dedupe + CSR positions ->
-scatter into a [vb+1, kb] neighbor table -> row intersection. `overflow`
-= Σ_v max(0, outdeg_v - kb) over distinct oriented out-degrees; `count`
-is exact whenever overflow is 0, and callers recount otherwise.
+orient low(deg, id) -> high(deg, id) -> dedupe -> R(v), v's distinct
+out-neighbors truncated to the kb smallest ids -> count = Σ over distinct
+oriented edges (a, b) of |R(a) ∩ R(b)|, overflow = Σ_v max(0, distinct
+outdeg_v - kb). `count` is exact whenever overflow is 0, and callers
+recount otherwise; where overflow > 0 it is still the JAX package's
+value.
 
 `WindowCounter` (and `count_windows_device`, one call of it) launches
-the CUDA kernels (csrc/window_counter.cu builds the tables,
-csrc/intersect.cu intersects their rows) on CUDA tensors and runs
-`count_windows_plain`, the plain PyTorch version, on CPU ones; it never
-falls back from one to the other. It reads either wire
+the CUDA kernel of csrc/window_counter.cu on CUDA tensors: one launch a
+call, one block a window at a time, which builds the window's short
+sorted CSR rows and intersects them (its tiers and stages are described
+there). On CPU tensors it runs `count_windows_plain`, the plain PyTorch
+version; it never falls back from one to the other. It reads either wire
 (ops/compact_ingress.py): the standard (src, dst, valid), or with
 `wire="compact"` the compact (s16, d16, nvalid), which the kernel decodes
 slot by slot as it loads it and the plain version widens first
-(`widen_stack`). With overflow > 0
-the two may differ in `count` (the kernel's truncated rows keep the
-first kb edges to arrive, the plain version the kb smallest ids), never
-in `overflow`.
+(`widen_stack`). Kernel and plain version agree on both outputs of every
+window.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .. import kernels
 from . import intersect
 from .compact_ingress import widen_stack
-from .segment import bucket_size
 
 WIRES = ("standard", "compact")
 
@@ -114,33 +116,37 @@ def count_windows_plain(src: torch.Tensor, dst: torch.Tensor,
             torch.stack([o for _, o in pairs]))
 
 
-def hash_slots(eb: int) -> int:
-    """Slots of a window's edge hash set: a power of two ≥ 2·eb, so the
-    set is at most half full."""
-    return bucket_size(2 * eb)
-
-
 class CounterScratch:
-    """Device scratch of a `WindowCounter` for up to `windows` windows of
-    `eb` edges at (vb, kb), allocated once with torch.empty. At eb=32768,
-    vb=65536, kb=128 a 64-window scratch holds 2.15 GB of neighbor
-    tables, which the kernel never clears (rows are read only up to their
-    out-degree)."""
+    """Device scratch of a `WindowCounter`: what the kernel's plan
+    (`plan`) asks for a call of up to `windows` windows of `eb` slots at
+    vb, allocated once with torch.empty and never cleared. The kernel
+    keeps each window's vertex table and rows in a block's shared memory
+    where they fit (the shared-memory tier), so the scratch is per block,
+    not per window: a 4-byte key a slot (16.8 MB for 64 windows at
+    eb=32768, vb=65536, two blocks a window). The L2 tier keeps the
+    tables here too: about 4·vb + 14·eb bytes a block."""
 
-    def __init__(self, windows: int, eb: int, vb: int, kb: int,
+    def __init__(self, windows: int, eb: int, vb: int,
                  device: torch.device):
-        self.windows, self.eb, self.vb, self.kb = windows, eb, vb, kb
+        self.windows, self.eb = windows, eb
+        self.shared_tier, self.blocks, nbytes, _cluster = plan(
+            windows, eb, vb, device)
+        self.buffer = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                                  device=device)
 
-        def empty(*shape, dtype=torch.int32):
-            return torch.empty(shape, dtype=dtype, device=device)
 
-        self.deg = empty(windows, vb + 1)
-        self.outdeg = empty(windows, vb + 1)
-        self.table = empty(windows, vb + 1, kb)
-        self.hash = empty(windows, hash_slots(eb), dtype=torch.int64)
-        self.edge_a = empty(windows, eb)
-        self.edge_b = empty(windows, eb)
-        self.nedges = empty(windows)
+def plan(windows: int, eb: int, vb: int, device: torch.device) -> tuple:
+    """(shared_tier, blocks, scratch bytes, cluster) of a counter call of
+    `windows` windows of eb slots at vb on a CUDA device: the tier its
+    shape picks, the blocks of its grid, the device scratch they need and
+    the blocks a window (csrc/window_counter.cu `gs_counter_plan`)."""
+    out = (ctypes.c_longlong * 4)()
+    device = torch.device(device)
+    code = kernels.library("window_counter").gs_counter_plan(
+        windows, eb, vb, device.index if device.index is not None
+        else torch.cuda.current_device(), out)
+    kernels.check("window_counter", code)
+    return bool(out[0]), int(out[1]), int(out[2]), int(out[3])
 
 
 class WindowCounter:
@@ -150,11 +156,10 @@ class WindowCounter:
 
     On a card it is the only owner of its `CounterScratch`: it allocates
     one when a call brings more windows or another eb than the last, and
-    reuses it otherwise. Each call launches the table builder
-    (csrc/window_counter.cu, two kernels behind one entry per wire) and
-    the intersect kernel on the current stream, with no synchronisation.
-    On the CPU it runs `count_windows_plain` (after `widen_stack` on the
-    compact wire)."""
+    reuses it otherwise. Each call is one launch of the counter kernel
+    (csrc/window_counter.cu, one entry per wire) on the current stream,
+    with no synchronisation. On the CPU it runs `count_windows_plain`
+    (after `widen_stack` on the compact wire)."""
 
     def __init__(self, vb: int, kb: int, device: torch.device):
         self.vb, self.kb = vb, kb
@@ -190,13 +195,12 @@ class WindowCounter:
         sc = self.scratch
         if sc is None or w > sc.windows or eb != sc.eb:
             self.scratch = None               # free before allocating
-            self.scratch = CounterScratch(w, eb, self.vb, self.kb,
-                                          src.device)
+            self.scratch = CounterScratch(w, eb, self.vb, src.device)
         count, overflow = out or (
             torch.empty(w, dtype=torch.int32, device=src.device)
             for _ in range(2))
-        build_tables(src, dst, valid, self.scratch, overflow, wire)
-        intersect_tables(self.scratch, count)
+        launch(src, dst, valid, self.vb, self.kb, self.scratch, count,
+               overflow, wire)
         return count, overflow
 
 
@@ -210,39 +214,24 @@ def count_windows_device(src: torch.Tensor, dst: torch.Tensor,
     return WindowCounter(vb, kb, src.device)(src, dst, valid)
 
 
-def build_tables(src, dst, valid, scratch: CounterScratch,
-                 overflow: torch.Tensor, wire: str = "standard") -> None:
-    """First stage of a `WindowCounter` call (csrc/window_counter.cu),
-    on checked CUDA stacks of either wire: fills the scratch's
-    out-degrees, rows and distinct-edge lists of the first W windows, and
-    overflow[W]."""
+def launch(src, dst, valid, vb: int, kb: int, scratch: CounterScratch,
+           count: torch.Tensor, overflow: torch.Tensor,
+           wire: str = "standard") -> None:
+    """One launch of the counter kernel (csrc/window_counter.cu) on a
+    checked CUDA stack of either wire: count[W] and overflow[W] of its W
+    windows, written in full (nothing needs clearing)."""
     w, eb = src.shape
-    sc = scratch
     lib = kernels.library("window_counter")
-    entry = (lib.gs_window_tables_compact if wire == "compact"
-             else lib.gs_window_tables)
+    entry = (lib.gs_window_counter_compact if wire == "compact"
+             else lib.gs_window_counter)
+    buf = scratch.buffer
     code = entry(
-        src.data_ptr(), dst.data_ptr(), valid.data_ptr(), w, eb, sc.vb,
-        sc.kb, sc.deg.data_ptr(), sc.outdeg.data_ptr(),
-        sc.table.data_ptr(), sc.hash.data_ptr(), sc.hash.shape[1],
-        sc.edge_a.data_ptr(), sc.edge_b.data_ptr(), sc.nedges.data_ptr(),
-        overflow.data_ptr(), src.device.index, kernels.stream_of(src))
+        src.data_ptr(), dst.data_ptr(), valid.data_ptr(), w, eb, vb, kb,
+        buf.data_ptr(), buf.numel(), count.data_ptr(), overflow.data_ptr(),
+        src.device.index, kernels.stream_of(src))
     kernels.check("window_counter", code)
     kernels.LAUNCHES["window_counter_compact" if wire == "compact"
                      else "window_counter"] += 1
-
-
-def intersect_tables(scratch: CounterScratch, count: torch.Tensor) -> None:
-    """Second stage of a `WindowCounter` call: the intersect kernel over
-    the distinct edges of each of the first len(count) windows, rows
-    capped at their out-degrees."""
-    sc = scratch
-    intersect.launch(sc.table, sc.edge_a, sc.edge_b, count,
-                     rows=sc.vb + 1, k=sc.kb, sentinel=sc.vb, ep=sc.eb,
-                     windows=count.shape[0],
-                     table_stride=(sc.vb + 1) * sc.kb, edge_stride=sc.eb,
-                     nedges=sc.nedges, lens=sc.outdeg,
-                     lens_stride=sc.vb + 1)
 
 
 def wire_specs(src, wire: str) -> list:
@@ -276,7 +265,7 @@ def check_wire(src, dst, valid, wire: str, what: str) -> None:
 def _check(src, dst, valid, vb: int, kb: int, wire: str) -> None:
     check_wire(src, dst, valid, wire, "window counter")
     w, eb = src.shape
-    if not (0 < w <= 65535 and 0 < eb < 2 ** 30 and 0 < vb < 2 ** 30
+    if not (0 < w < 2 ** 31 and 0 < eb < 2 ** 30 and 0 < vb < 2 ** 30
             and 0 < kb):
         raise ValueError("unsupported shape: W=%d eb=%d vb=%d kb=%d"
                          % (w, eb, vb, kb))

@@ -18,8 +18,7 @@ csrc/summary_body.cuh) and the window counter
 (ops/window_counter.py, for triangles and K-overflow) on CUDA tensors,
 and runs `summarize_windows_plain`, the plain PyTorch version, on CPU
 ones; it never falls back from one to the other. The two agree bit for
-bit, `count` apart where a window overflows K (see
-ops/window_counter.py). Both read either wire (ops/compact_ingress.py):
+bit, overflowing windows included. Both read either wire (ops/compact_ingress.py):
 on the compact one (`wire="compact"`: uint16 ids, one valid count per
 window) the two kernels decode each slot where they load it, and the
 plain version widens the stack first (`widen_stack`). A padded slot folds
@@ -88,7 +87,7 @@ class WindowSummary:
 
     On a card it launches the summary kernel (csrc/window_summary.cu:
     one launch per call on the current stream) and its
-    `WindowCounter` (kernels 1-2, all W windows in one call) on the same
+    `WindowCounter` (kernel 2, all W windows in one launch) on the same
     device-resident chunk and wire, with no synchronisation and no
     widened intermediate; the counter is the only owner of its device
     scratch. On the CPU it runs `summarize_windows_plain` (after

@@ -43,9 +43,10 @@ def _case(seed, vb, k, ep, shuffle):
     return nbr, ea, eb, emask
 
 
-def _port(nbr, ea, eb, emask):
+def _port(nbr, ea, eb, emask, ascending=False):
     out = port.intersect_local(*(torch.from_numpy(x)
-                                 for x in (nbr, ea, eb, emask)))
+                                 for x in (nbr, ea, eb, emask)),
+                               ascending=ascending)
     assert out.dtype == torch.int32 and out.dim() == 0
     return int(out)
 
@@ -67,6 +68,21 @@ def test_plain_matches_jax_compare_and_pallas(seed, vb, k, ep, shuffle):
     want = int(jax_tri.intersect_local(*args))
     assert int(pallas_intersect.intersect_local_pallas(*args)) == want
     assert _port(nbr, ea, eb, emask) == want
+
+
+@pytest.mark.parametrize("seed,vb,k,ep", [(21, 64, 160, 600),
+                                          (22, 200, 48, 333)])
+def test_ascending_rows_match_jax(seed, vb, k, ep):
+    """Rows strictly ascending with the fill at the end, the form
+    `ascending=True` promises (triangle_count_sparse's rows): the same
+    count as the JAX compare and Pallas kernel."""
+    nbr, ea, eb, emask = _case(seed, vb, k, ep, False)
+    nbr = np.sort(nbr, axis=1)                # the fill (vb) to the end
+    assert (np.diff(nbr, axis=1)[nbr[:, 1:] < vb] > 0).all()
+    args = tuple(jnp.asarray(x) for x in (nbr, ea, eb, emask))
+    want = int(jax_tri.intersect_local(*args))
+    assert int(pallas_intersect.intersect_local_pallas(*args)) == want
+    assert _port(nbr, ea, eb, emask, ascending=True) == want > 0
 
 
 def test_plain_matches_pallas_multi_slab(monkeypatch):

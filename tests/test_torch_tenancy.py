@@ -241,30 +241,33 @@ def test_cohort_scan_refuses_calls_past_32_bit_indices():
         summ(carries, s, d, v)
 
 
-def test_counter_pieces_sized_by_bytes(monkeypatch):
-    """The triangle stage's pieces hold COUNTER_BYTES of neighbor tables
-    (64 windows at vb=65536, kb=128: a 64 × 8 dispatch at vb=8192 is one
-    counter call); in pieces it writes into one output, equal to one
-    call; the counter refuses an output it cannot write."""
-    assert cs.counter_windows(65536, 128) == 64
-    assert cs.counter_windows(8192, 128) == 512
-    assert cs.counter_windows(1 << 22, 128) == 1
-    s, d, v = (torch.from_numpy(x) for x in _slab(3, 4, [4, 3, 2], seed=91,
-                                                  clique=True))
+def test_counter_one_call_over_dispatch():
+    """The triangle stage of a dispatch is one counter call over the
+    whole [nb·W, eb] slab (the kernel's scratch is per block, so nothing
+    is cut into pieces): its (count, overflow) equal `count_windows_plain`
+    over the flat slab and the JAX cohort scan's triangles and overflow
+    row by row, the K14 clique window at kb=8 included; the counter
+    refuses an output it cannot write."""
+    nb, wb = 3, 4
+    s, d, v = _slab(nb, wb, [4, 3, 2], seed=91, clique=True)
     summ = cs.CohortSummary(VB, 8, torch.device("cpu"))
-    whole = summ.count(s, d, v)
-    want = count_windows_plain(s.view(12, EB), d.view(12, EB),
-                               v.view(12, EB), VB, 8)
-    monkeypatch.setattr(cs, "COUNTER_BYTES", 5 * (VB + 1) * 8 * 4)
-    assert cs.counter_windows(VB, 8) == 5
-    pieces = summ.count(s, d, v)
-    for a, b, c in zip(pieces, whole, want):
-        assert a.shape == (12,) and torch.equal(a, b) and torch.equal(a, c)
-    assert int(pieces[1][4]) > 0                   # the clique overflowed
+    got = summ.count(*(torch.from_numpy(x) for x in (s, d, v)))
+    want = count_windows_plain(*(torch.from_numpy(x.reshape(nb * wb, EB))
+                                 for x in (s, d, v)), VB, 8)
+    jrun = jax_scan.build_cohort_scan(EB, VB, 8)
+    carries = tuple(jnp.asarray(c.numpy())
+                    for c in cs.fresh_cohort_carry(nb, VB, "cpu"))
+    _jc, jouts = jrun(carries, jnp.asarray(s), jnp.asarray(d),
+                      jnp.asarray(v))
+    for g, w, j in zip(got, want, (jouts[3], jouts[4])):
+        assert g.shape == (nb * wb,) and torch.equal(g, w)
+        np.testing.assert_array_equal(g.numpy().reshape(nb, wb),
+                                      np.asarray(j))
+    assert int(got[1][wb]) > 0                     # the clique overflowed
     with pytest.raises(ValueError, match="out must be"):
-        summ.counter(s[0], d[0], v[0],
-                     out=(torch.empty(4, dtype=torch.int64),
-                          torch.empty(4, dtype=torch.int32)))
+        summ.counter(*(torch.from_numpy(x[0]) for x in (s, d, v)),
+                     out=(torch.empty(wb, dtype=torch.int64),
+                          torch.empty(wb, dtype=torch.int32)))
 
 
 def _root(p, x):
