@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (gelly_streaming_tpu_torch) on one
 NVIDIA GPU.
 
-Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and runs
-fourteen phases. Six hold a kernel against its plain PyTorch version on
+Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and the
+native host runtime (gelly_streaming_tpu_torch/native, g++) and runs
+seventeen phases. Seven hold a kernel against its plain PyTorch version on
 the card: intersect (ascending and shuffled rows), counter (count and
 overflow on every window, overflowing ones included, both wires: a
 Zipf chunk, a repeated edge across a whole window, a star, a row past
@@ -14,9 +15,12 @@ ragged, star (hub) and late-odd chunks), gnn, cohort (the same body
 through the cohort kernel on five dispatches at eb=4096: 64 Zipf
 tenants at vb=8192 and a ragged batch in the shared-memory tier, 8
 tenants at vb=65536 in the L2 tier, one tenant at vb=8192, and 4
-tenants at vb=65536 whose last row not odd turns odd mid-chunk) and compact
+tenants at vb=65536 whose last row not odd turns odd mid-chunk), compact
 (the compact-wire forms of the counter and the summary kernel against
-plain and against the standard wire). Eight drive the port's paths, each
+plain and against the standard wire) and snapshot (the driver's snapshot
+kernel in both tiers, each analytics subset, full rows with and without
+masks and the delta wire, a window of one edge, empty windows,
+self-loops). Ten drive the port's paths, each
 with the launch counts set to 0 just before it and read just after,
 every window checked, and each profile holding one summary-body launch
 per summary wrapper call: over the bench's north-star stream
@@ -32,7 +36,13 @@ vertices, and its sparse route past 4096 (phase dense);
 TenantCohort(4096, 8192) serving 64 tenant streams, 8 of them at
 vb=65536, about 8.3M edges (phase cohort_stream); and
 GnnTenantCohort(4096, 8192, feature_dim=64) over 64 tenants of 16
-windows (phase gnn_cohort). Each path reports its rate, its launches and
+windows (phase gnn_cohort); StreamingAnalyticsDriver(window_ms=1,
+edge_bucket=32768).run_arrays over the north-star stream, count-based,
+fed in calls that grow its vertex bucket from 4096 to 65536, every
+window equal to one-call runs on both egress forms and on the native
+tier, its triangles to count_stream's, a checkpoint resumed (phase
+driver); and stream_file over a timestamped text file (phase
+driver_file). Each path reports its rate, its launches and
 where its time goes. Beside the dense and GNN kernels it times one
 PyTorch call for the same product as a yardstick (torch.mm, torch._int_mm;
 torch.addmm), and it counts the tensor-core instructions in those two
@@ -1889,6 +1899,427 @@ def phase_gnn_cohort(dev) -> dict:
     return launches
 
 
+SNAP_SMALL_VB = 8192               # the snapshot's shared-memory tier
+SNAP_WINDOWS = 16                  # windows of the snapshot phase's fixtures
+FILE_EDGES = 1_048_576             # phase driver_file's timestamped file
+FILE_WINDOW = 8192                 # its mean window, in edges
+FILE_CHUNK_BYTES = 128 << 10       # stream_file's piece: about a window
+# the driver phase's count-based feed: calls of 1, 1, 2, ..., 64 windows
+DRIVER_FEED = (1, 1, 2, 4, 8, 16, 32, 64, 64, 64, 64)
+# a delta cap below the changed slots of the stream's windows: its chunks
+# overflow and are run again on full rows
+DRIVER_SMALL_CAP = 1024
+
+
+def snapshot_fixtures():
+    """(name, vb, analytics, [W, eb] chunk, prefix chunk) of the snapshot
+    phase: Zipf windows at vb=65536 (the L2 tier) and at vb=8192 (the
+    shared-memory tier), each analytics subset; edge cases at vb=8192: a
+    window of one edge, empty (all-padding) windows, self-loops (odd
+    cycles of one edge), a ragged chunk."""
+    from gelly_streaming_tpu_torch import make_stream
+    from gelly_streaming_tpu_torch.ops import segment as seg
+
+    out = []
+    for vb, seed in ((VB, 21), (SNAP_SMALL_VB, 22)):
+        src, dst = make_stream(2 * SNAP_WINDOWS * EB, vb, seed=seed)
+        _w, s, d, v = seg.window_stack(src, dst, EB, sentinel=vb)
+        prefix = (s[:SNAP_WINDOWS], d[:SNAP_WINDOWS], v[:SNAP_WINDOWS])
+        chunk = (s[SNAP_WINDOWS:], d[SNAP_WINDOWS:], v[SNAP_WINDOWS:])
+        subsets = ([("degrees", "cc", "bipartite"), ("degrees",), ("cc",),
+                    ("bipartite",), ("degrees", "cc"),
+                    ("degrees", "bipartite"), ("cc", "bipartite")]
+                   if vb == VB else
+                   [("degrees", "cc", "bipartite"), ("cc",),
+                    ("bipartite",)])
+        for analytics in subsets:
+            out.append(("zipf vb=%d %s" % (vb, "+".join(analytics)), vb,
+                        analytics, chunk, prefix))
+    rng = np.random.default_rng(23)
+    vb = SNAP_SMALL_VB
+    wins = [(np.array([5], np.int32), np.array([9], np.int32)), ((), ()),
+            (np.arange(40, dtype=np.int32),) * 2,
+            (rng.integers(0, vb, EB).astype(np.int32),
+             rng.integers(0, vb, EB).astype(np.int32)), ((), ()),
+            (rng.integers(0, 50, EB // 2).astype(np.int32),
+             rng.integers(0, 50, EB // 2).astype(np.int32))]
+    wins = [(np.asarray(a, np.int32), np.asarray(b, np.int32))
+            for a, b in wins]
+    chunk = seg.stack_window_list(wins, EB, vb)
+    prefix = seg.stack_window_list(wins[3:4], EB, vb)
+    out.append(("edge cases vb=%d" % vb, vb, ("degrees", "cc", "bipartite"),
+                chunk, prefix))
+    return out
+
+
+def abs_err(a, b) -> int:
+    """max |a - b| of two integer or bool arrays (0 when empty)."""
+    a, b = np.asarray(a).astype(np.int64), np.asarray(b).astype(np.int64)
+    return int(np.abs(a - b).max()) if a.size else 0
+
+
+def compare_snapshot(name, snap, plain, chunk, carry, plain_carry, dev):
+    """Kernel (WindowSnapshot `snap` on the card) vs plain (`plain`, the
+    same on plain_carry) on one chunk: every output equal (a delta row up
+    to its window's count and the cap), then the carries bit-equal.
+    Returns the plain outs and the largest |kernel - plain| over every
+    output and carry entry compared."""
+    st, dt, vt = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                  for x in chunk)
+    got = {k: v.cpu().numpy() for k, v in snap(carry, st, dt, vt).items()}
+    want = {k: v.cpu().numpy() for k, v in
+            plain(plain_carry, st, dt, vt).items()}
+    require(sorted(got) == sorted(want), "%s: outs %s, plain %s"
+            % (name, sorted(got), sorted(want)))
+    err = 0
+    for k in want:
+        if k.endswith(("_idx", "_val")):
+            cnt = want[k.rsplit("_", 1)[0] + "_cnt"]
+            for w in range(len(cnt)):
+                n = min(int(cnt[w]), snap.cap)
+                err = max(err, abs_err(got[k][w][:n], want[k][w][:n]))
+                require(np.array_equal(got[k][w][:n], want[k][w][:n]),
+                        "%s: %s window %d differs from plain" % (name, k, w))
+        else:
+            err = max(err, abs_err(got[k], want[k]))
+            require(np.array_equal(got[k], want[k]),
+                    "%s: %s differs from plain" % (name, k))
+    for label, a, b in zip(("deg", "labels", "cover"), carry, plain_carry):
+        require((a is None) == (b is None), "%s: carry %s on one side only"
+                % (name, label))
+        if a is not None:
+            err = max(err, abs_err(a.cpu().numpy(), b.cpu().numpy()))
+            require(torch.equal(a, b),
+                    "%s: carry %s differs from plain" % (name, label))
+    return want, err
+
+
+def snapshot_carry(vb, analytics, dev):
+    """A fresh engine-layout carry of the analytics on."""
+    from gelly_streaming_tpu_torch.ops import window_snapshot as ws
+
+    return ws.engine_carry(
+        vb, np.zeros(vb, np.int32) if "degrees" in analytics else None,
+        np.arange(vb, dtype=np.int32) if "cc" in analytics else None,
+        np.arange(2 * vb, dtype=np.int32) if "bipartite" in analytics
+        else None, dev)
+
+
+def phase_snapshot(dev) -> dict:
+    """The snapshot kernel (csrc/window_snapshot.cu) vs its plain version
+    on every fixture of snapshot_fixtures(), each from a carry that is
+    not fresh (a prefix chunk folded first), in both tiers, on the full
+    rows with masks and without, and on the delta wire at the default
+    cap and at a cap of 64 that windows overflow; then times at the main
+    path's chunk (64 Zipf windows at eb=32768, vb=65536, all three
+    analytics, full rows: the driver's default), the delta wire, and one
+    window beside the counter at one window."""
+    from gelly_streaming_tpu_torch import make_stream
+    from gelly_streaming_tpu_torch.ops import delta_egress
+    from gelly_streaming_tpu_torch.ops import segment as seg
+    from gelly_streaming_tpu_torch.ops import window_counter as wc
+    from gelly_streaming_tpu_torch.ops import window_snapshot as ws
+
+    tiers = set()
+    err = 0
+    for name, vb, analytics, chunk, prefix in snapshot_fixtures():
+        cap = delta_egress.egress_cap(EB, vb)
+        forms = [(False, "full", 0), (True, "full", 0), (False, "delta", cap)]
+        if analytics == ("degrees", "cc", "bipartite"):
+            forms += [(True, "delta", 64)]
+        for deltas, egress, c in forms:
+            snap = ws.WindowSnapshot(vb, analytics, dev, deltas=deltas,
+                                     egress=egress, cap=c)
+            carry = snapshot_carry(vb, analytics, dev)
+            plain_carry = snapshot_carry(vb, analytics, dev)
+
+            def plain_on_card(pc, s, d, v, vb=vb, deltas=deltas,
+                              egress=egress, c=c):
+                return ws.snapshot_windows_plain(pc, s, d, v, vb, deltas,
+                                                 egress, c)
+
+            label = "%s %s%s" % (name, egress, "+masks" if deltas else "")
+            _want, e1 = compare_snapshot(label + " prefix", snap,
+                                         plain_on_card, prefix, carry,
+                                         plain_carry, dev)
+            want, e2 = compare_snapshot(label, snap, plain_on_card, chunk,
+                                        carry, plain_carry, dev)
+            err = max(err, e1, e2)
+            if egress == "delta" and c == 64:
+                require(max(int(want[k].max()) for k in want
+                            if k.endswith("_cnt")) > 64,
+                        "%s: no window passed the cap" % label)
+        tiers.add(summary_tier(vb, dev))
+        print("phase snapshot %s: ok" % name)
+    require(tiers == {"shared", "L2"}, "snapshot tiers %s" % tiers)
+
+    # times at the main path's chunk, the carry after one chunk folded
+    src, dst = make_stream(2 * CHUNK * EB, VB, seed=24)
+    _w, s, d, v = seg.window_stack(src, dst, EB, sentinel=VB)
+    first = [torch.from_numpy(np.ascontiguousarray(x[:CHUNK])).to(dev)
+             for x in (s, d, v)]
+    st, dt, vt = (torch.from_numpy(np.ascontiguousarray(x[CHUNK:])).to(dev)
+                  for x in (s, d, v))
+    analytics = ("degrees", "cc", "bipartite")
+    snap = ws.WindowSnapshot(VB, analytics, dev)
+    carry = snapshot_carry(VB, analytics, dev)
+    snap(carry, *first)
+
+    def cloned():
+        return tuple(c.clone() for c in carry)
+
+    # the timed chunk itself, kernel vs plain, from the same carry
+    _want, e = compare_snapshot(
+        "main chunk", snap,
+        lambda pc, s, d, v: ws.snapshot_windows_plain(pc, s, d, v, VB),
+        tuple(x.cpu().numpy() for x in (st, dt, vt)), cloned(), cloned(),
+        dev)
+    err = max(err, e)
+    clone_ms = cuda_ms(cloned, 20)
+    ms = cuda_ms(lambda: snap(cloned(), st, dt, vt), 20) - clone_ms
+    cap = delta_egress.egress_cap(EB, VB)
+    dsnap = ws.WindowSnapshot(VB, analytics, dev, egress="delta", cap=cap)
+    delta_ms = cuda_ms(lambda: dsnap(cloned(), st, dt, vt), 20) - clone_ms
+    one = (st[:1], dt[:1], vt[:1])
+    w1_ms = cuda_ms(lambda: snap(cloned(), *one), 20) - clone_ms
+    counter = wc.WindowCounter(VB, KB, dev)
+    counter_w1_ms = cuda_ms(lambda: counter(*one), 20)
+    plain_ms = cuda_ms(lambda: ws.snapshot_windows_plain(
+        cloned(), st, dt, vt, VB), 1) - clone_ms
+    slots = int(vt.sum())
+    # bytes: the slab read once, the carry read and written once, the rows
+    # written once (int32 degree, int32 label, bool odd a slot a window);
+    # operations: per valid slot 2 degree adds and 3 unions, per slot and
+    # window 3 root walks
+    nbytes = CHUNK * EB * 9 + 2 * 16 * (VB + 1) + CHUNK * VB * 9
+    b_ms, b_by = bound(nbytes, 5 * slots + 3 * VB * CHUNK)
+    print("phase snapshot: ok  kernel %.3f ms/chunk (%s tier; delta wire "
+          "%.3f; one window %.4f, the counter at one window %.4f; carry "
+          "clone %.3f)  plain %.1f ms/chunk  bound %.4f (%s)  (%d windows, "
+          "%d valid slots)  max |kernel - plain| %d"
+          % (ms, summary_tier(VB, dev), delta_ms, w1_ms, counter_w1_ms,
+             clone_ms, plain_ms, b_ms, b_by, CHUNK, slots, err))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err, "delta_ms": delta_ms,
+            "w1_ms": w1_ms, "counter_w1_ms": counter_w1_ms}
+
+
+FIELDS = ("window_start", "num_edges", "triangles")
+ARRAYS = ("vertex_ids", "degrees", "cc_labels", "bipartite_odd")
+
+
+def same_results(name, want, got, offset=0) -> None:
+    """Every WindowResult field of `got` equal to `want`'s."""
+    require(len(want) == len(got), "%s: %d windows, want %d"
+            % (name, len(got), len(want)))
+    for i, (w, g) in enumerate(zip(want, got)):
+        for f in FIELDS:
+            require(getattr(w, f) == getattr(g, f), "%s window %d: %s %s, "
+                    "want %s" % (name, i + offset, f, getattr(g, f),
+                                 getattr(w, f)))
+        for f in ARRAYS:
+            a, b = getattr(w, f), getattr(g, f)
+            require(a.dtype == b.dtype and np.array_equal(a, b),
+                    "%s window %d: %s differs" % (name, i + offset, f))
+
+
+DRIVER_STEPS = ("parallel_intern_arrays", "_scan_device",
+                "_flush_triangle_windows", "_finalize_chunk",
+                "_fetch_wire", "run_pipeline", "stack_window_rows",
+                "stack_window_list", "_vertex_ids", "numpy")
+
+
+def host_profile(run) -> dict:
+    """Cumulative host seconds of the driver's steps (DRIVER_STEPS) in
+    one run() under cProfile (which slows the run itself), and the run's
+    total there."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.runcall(run)
+    torch.cuda.synchronize()
+    out = {}
+    for (_file, _line, name), row in pstats.Stats(prof).stats.items():
+        if name in DRIVER_STEPS:
+            out[name] = out.get(name, 0.0) + row[3]
+        if name == "run_arrays":
+            out["run_arrays (total)"] = row[3]
+    return out
+
+
+def phase_driver(dev, counts: list) -> dict:
+    """The driver's main path: StreamingAnalyticsDriver(window_ms=1,
+    edge_bucket=32768) over the 320-window stream, count-based, fed in
+    calls of DRIVER_FEED windows so the vertex bucket grows from the
+    default 4096 to 65536 (launch counts set to 0 just before, read just
+    after); every window equal to one-call runs on the scan tier (full
+    rows, the delta wire, and the delta wire at DRIVER_SMALL_CAP, whose
+    chunks overflow and are run again on full rows on the card) and on
+    the "native" tier, and its triangles to
+    TriangleWindowKernel.count_stream's (`counts`); the checkpoint taken
+    inside a call at window 64 resumed by a fresh driver, the rest and
+    the final state equal; then a profiled one-call pass. Returns the
+    launches."""
+    import tempfile
+
+    from gelly_streaming_tpu_torch import (StreamingAnalyticsDriver,
+                                           kernels, make_stream)
+
+    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    num_w = STREAM_EDGES // EB
+    require(sum(DRIVER_FEED) == num_w, "feed %s" % (DRIVER_FEED,))
+
+    def driver(**kw):
+        return StreamingAnalyticsDriver(window_ms=1, edge_bucket=EB, **kw)
+
+    warm = driver()                  # device=None: the card
+    require(warm.device.type == "cuda", "driver not on the card")
+    warm.run_arrays(src[:2 * EB], dst[:2 * EB])
+    torch.cuda.synchronize()
+
+    drv = driver()
+    vbs = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got, at = [], 0
+    for n in DRIVER_FEED:
+        got += drv.run_arrays(src[at * EB:(at + n) * EB],
+                              dst[at * EB:(at + n) * EB])
+        vbs.append(drv.vb)
+        at += n
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for name in ("window_snapshot", "window_counter"):
+        require(launches[name] > 0, "kernel %s was not launched on the "
+                "driver path" % name)
+    require(vbs[0] < VB and vbs[-1] == VB and len(set(vbs)) >= 3,
+            "vertex buckets %s" % vbs)
+    require(len(got) == num_w, "%d windows, want %d" % (len(got), num_w))
+    require([r.triangles for r in got] == counts,
+            "driver triangles differ from count_stream's")
+    require(got[-1].degrees.sum() == 2 * STREAM_EDGES
+            and len(got[-1].vertex_ids) == VB, "driver: last window")
+
+    runs, refolds = {}, {}
+    chunks = -(-num_w // StreamingAnalyticsDriver._SCAN_CHUNK)
+    for label, kw in (("scan", {}), ("scan_delta", {"egress": "delta"}),
+                      ("scan_delta_overflow",
+                       {"egress": "delta", "egress_cap": DRIVER_SMALL_CAP}),
+                      ("native", {"snapshot_tier": "native"})):
+        d2 = driver(**kw)
+        d2.run_arrays(src[:2 * EB], dst[:2 * EB])       # warm-up
+        d2.reset()
+        before = kernels.LAUNCHES["window_snapshot"]
+        t0 = time.perf_counter()
+        out = d2.run_arrays(src, dst)
+        torch.cuda.synchronize()
+        runs[label] = time.perf_counter() - t0
+        if label.startswith("scan"):
+            refolds[label] = (kernels.LAUNCHES["window_snapshot"] - before
+                              - chunks)
+        same_results("driver " + label, out, got)
+        del out
+    require(refolds["scan_delta_overflow"] > 0,
+            "driver: no chunk overflowed the delta cap %d" % DRIVER_SMALL_CAP)
+
+    # a checkpoint every 64 windows over a call of the first 100: the
+    # one at window 64 is taken inside the call, whose interner holds
+    # the vertices of all 100 by then; a fresh driver resumes from it
+    # and runs the rest
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "driver.npz")
+        first = driver()
+        first.enable_auto_checkpoint(path, every_n_windows=64)
+        first.run_arrays(src[:100 * EB], dst[:100 * EB])
+        second = driver()
+        require(second.try_resume(path), "no checkpoint to resume")
+        done = second.windows_done
+        require(done == 64, "resumed at window %d, want 64" % done)
+        require(len(second.interner) < len(first.interner),
+                "the checkpoint at window 64 holds the call's later "
+                "vertices")
+        rest = second.run_arrays(src[done * EB:], dst[done * EB:])
+    same_results("driver resumed", got[done:], rest, offset=done)
+    require(all(np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
+                for a, b in zip(second.state_dict().values(),
+                                drv.state_dict().values())),
+            "driver resumed: final state differs")
+
+    prof_drv = driver()
+    prof_drv.run_arrays(src[:2 * EB], dst[:2 * EB])
+    prof = profile_run(lambda: prof_drv.run_arrays(src[2 * EB:],
+                                                   dst[2 * EB:]))
+    host = host_profile(lambda: driver().run_arrays(src, dst))
+    print(json.dumps({"driver": {
+        "edges": STREAM_EDGES, "windows": num_w, "eb": EB,
+        "vertex_buckets": vbs, "feed_windows": list(DRIVER_FEED),
+        "seconds": wall, "edges_per_s": STREAM_EDGES / wall,
+        "one_call_seconds": runs,
+        "one_call_edges_per_s": {k: STREAM_EDGES / v
+                                 for k, v in runs.items()},
+        "delta_refolds": refolds, "small_cap": DRIVER_SMALL_CAP,
+        "resumed_at": done, "launches": launches,
+        "device": torch.cuda.get_device_name(0)}}))
+    print(json.dumps({"driver_profile": prof}))
+    print(json.dumps({"driver_host_profile": host}))
+    print("phase driver: ok  %d windows  %.1f edges/s fed in %d calls  "
+          "(one call: scan %.1f, delta wire %.1f, delta wire at cap %d "
+          "%.1f with %d of %d chunks refolded, native %.1f)"
+          % (num_w, STREAM_EDGES / wall, len(DRIVER_FEED),
+             STREAM_EDGES / runs["scan"], STREAM_EDGES / runs["scan_delta"],
+             DRIVER_SMALL_CAP, STREAM_EDGES / runs["scan_delta_overflow"],
+             refolds["scan_delta_overflow"], chunks,
+             STREAM_EDGES / runs["native"]))
+    return launches
+
+
+def phase_driver_file(dev) -> None:
+    """stream_file over a timestamped 'src dst ts' text file written to a
+    temporary directory (FILE_EDGES Zipf edges, event-time windows of
+    about FILE_WINDOW edges, pieces of FILE_CHUNK_BYTES), the vertex
+    bucket growing past the snapshot's shared-memory tier on the way;
+    every window equal to run_file of the native tier."""
+    import tempfile
+
+    from gelly_streaming_tpu_torch import StreamingAnalyticsDriver
+    from gelly_streaming_tpu_torch import make_stream
+
+    src, dst = make_stream(FILE_EDGES, VB, seed=25)
+    rng = np.random.default_rng(26)
+    n_win = FILE_EDGES // FILE_WINDOW
+    ts = np.sort(rng.integers(0, n_win * 1000, FILE_EDGES))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "edges.txt")
+        t0 = time.perf_counter()
+        np.savetxt(path, np.stack([src, dst, ts], 1), fmt="%d")
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        drv = StreamingAnalyticsDriver(window_ms=1000)
+        vbs = []
+        t0 = time.perf_counter()
+        got = []
+        for res in drv.stream_file(path, chunk_bytes=FILE_CHUNK_BYTES):
+            got.append(res)
+            vbs.append(drv.vb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = StreamingAnalyticsDriver(
+            window_ms=1000, snapshot_tier="native").run_file(path)
+    same_results("driver_file", want, got)
+    require(min(vbs) <= SNAP_SMALL_VB and max(vbs) > SNAP_SMALL_VB,
+            "driver_file: vertex buckets %s..%s" % (min(vbs), max(vbs)))
+    print(json.dumps({"driver_file": {
+        "edges": FILE_EDGES, "windows": len(got), "bytes": size,
+        "chunk_bytes": FILE_CHUNK_BYTES, "seconds": wall,
+        "edges_per_s": FILE_EDGES / wall, "write_seconds": write_s,
+        "vertex_buckets": sorted(set(vbs)), "edge_bucket": drv.eb,
+        "device": torch.cuda.get_device_name(0)}}))
+    print("phase driver_file: ok  %d windows  %.1f edges/s  (%d bytes)"
+          % (len(got), FILE_EDGES / wall, size))
+
+
 def profile_both(run, setup=lambda: None) -> dict:
     """profile_run of run(), pipelined and under forced_sync, each after
     setup() outside the profiled region."""
@@ -1980,6 +2411,12 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas %s: %s" % (name, line.strip()))
+    from gelly_streaming_tpu_torch import native
+
+    t0 = time.perf_counter()
+    require(native.available(), "native library: %s" % native.build_error())
+    print("native build: %.1f s  (%s)" % (time.perf_counter() - t0,
+                                         native.library_path().name))
     for name in ("gnn_round", "dense_triangles"):
         print("sass %s: %s" % (name, json.dumps(tensor_core_ops(
             kernels.library_path(name)))))
@@ -1991,6 +2428,7 @@ def main() -> int:
     gnn = phase_gnn(dev)
     cohort = phase_cohort(dev)
     compact = phase_compact(dev)
+    snapshot = phase_snapshot(dev)
     launches, counts = phase_stream(dev)
     compact_launches = phase_stream_compact(dev, counts)
     summary_launches, summaries, state = phase_summary_stream(dev)
@@ -2000,6 +2438,8 @@ def main() -> int:
     dense, dense_launches, sparse_launches = phase_dense(dev)
     cohort_launches = phase_cohort_stream(dev)
     phase_gnn_cohort(dev)
+    driver_launches = phase_driver(dev, counts)
+    phase_driver_file(dev)
 
     rows = []
     pw = "gelly_streaming_tpu/ops/pallas_window.py:"
@@ -2022,7 +2462,11 @@ def main() -> int:
              gnn_launches["gnn_round"]),
             ("dense_triangles", "dense_triangles",
              "gelly_streaming_tpu/ops/pallas_triangles.py:58", dense,
-             dense_launches["dense_triangles"])):
+             dense_launches["dense_triangles"]),
+            # no Pallas counterpart: the JAX driver's XLA lax.scan
+            ("window_snapshot", "window_snapshot",
+             "gelly_streaming_tpu/core/driver.py:91", snapshot,
+             driver_launches["window_snapshot"])):
         rows.append({
             "name": name, "route": "cuda",
             "source": "gelly_streaming_tpu_torch/csrc/%s.cu" % source,

@@ -28,6 +28,7 @@ and dispatcher, the summary and GNN engines, the numpy oracles), utils/
 (synthetic streams), kernels.py + csrc/ (CUDA build and binding).
 """
 
+from .core.driver import StreamingAnalyticsDriver, WindowResult
 from .core.platform import resolve_device
 from .core.tenancy import (GnnTenantCohort, TenantBackpressure,
                            TenantCohort, TenantError, TenantRejected)
@@ -40,6 +41,7 @@ from .utils.streams import make_stream
 
 __all__ = ["GnnHostEngine", "GnnSummaryEngine", "GnnTenantCohort",
            "SlidingSummaryEngine", "StreamSummaryEngine",
+           "StreamingAnalyticsDriver", "WindowResult",
            "TenantBackpressure", "TenantCohort", "TenantError",
            "TenantRejected", "TriangleWindowKernel", "forced_sync",
            "make_stream", "resolve_device", "triangle_count",

@@ -1,0 +1,878 @@
+"""The columnar streaming analytics driver: the ingest-to-device path.
+
+Port of the JAX package's `core/driver.py` (`WindowResult` :268-303,
+`StreamingAnalyticsDriver` :306-2644), single-chip:
+
+    file -> native parse (native/ingest.cpp, io/sources.py)
+         -> tumbling event-time windows (Flink's TimeWindow floor) or
+            count-based windows of edge_bucket edges
+         -> incremental vertex interning (utils/interning.py)
+         -> per window, against carried state:
+              degrees    running degree of every vertex slot
+              cc         carried min-label components
+              bipartite  carried double-cover odd-cycle flags
+              triangles  exact count of the window alone
+
+The carried analytics run on the snapshot tier the constructor pins:
+"scan" (the default: the snapshot program of ops/window_snapshot.py, its
+CUDA kernel on the card and its plain version on the CPU, chunks of up
+to 64 windows through the ingress pipeline with the finalize one chunk
+behind), "native" (the C++ fold, native.snapshot_windows) or "host"
+(numpy, ops/host_snapshot.py). All three give the same bits. Triangles
+go through `TriangleWindowKernel.count_windows` on the matching stream
+tier ("device", "native", "host"), one flush per call. The host keeps
+mirrors of the carried state in the JAX driver's layouts (degrees int64
+[nv], labels int32 [nv], cover int32 [2·vb] with (-) at vb+v), which
+move only at chunk boundaries, together with the cursors and the
+auto-checkpoint; `state_dict` holds them under the JAX driver's keys, so
+a checkpoint of either driver resumes in the other. Buckets grow by
+doubling. A call with one window is a chunk of one (the JAX driver's
+per-window path: the snapshot program and the counter at W=1).
+
+Not ported yet, each raising NotImplementedError where an argument asks
+for it: the mesh and sharded branches (ROADMAP step 1.10); the resident
+tier, the autotuners and the evidence routing of the snapshot tier and
+the egress (step 1.7: here `snapshot_tier` and `egress` are plain
+arguments); demotion, the write-ahead log, sanitize, latency,
+provenance, metrics, telemetry and tracing (step 1.8); sliding windows
+(`slide`, step 1.6).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import warnings
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import native
+from ..core.platform import resolve_device
+from ..io.sources import iter_edge_chunks
+from ..ops import delta_egress
+from ..ops import host_snapshot
+from ..ops import ingress_pipeline
+from ..ops import segment as seg_ops
+from ..ops import triangles as tri_ops
+from ..ops import window_snapshot as snap_ops
+from ..ops.staging import ChunkStager, HostCopy
+from ..utils import checkpoint
+from ..utils.interning import make_interner, parallel_intern_arrays
+
+SNAPSHOT_TIERS = ("scan", "native", "host")
+_TRIANGLE_TIER = {"scan": "device", "native": "native", "host": "host"}
+_CARRIED = ("degrees", "cc", "bipartite")
+
+
+def _snapshot_view(a: np.ndarray, row_size: int = 0) -> np.ndarray:
+    """A read-only snapshot of `a`: a view where it covers most of its
+    row, an owned copy where it is small beside `row_size` (so a small
+    window's field does not pin its chunk's whole [W, vb] stack)."""
+    if row_size and 4 * a.size < row_size:
+        a = a.copy()
+    else:
+        a = a[:]
+    a.flags.writeable = False
+    return a
+
+
+def _frozen_delta(idx: np.ndarray, vals: np.ndarray) -> tuple:
+    idx.flags.writeable = False
+    vals.flags.writeable = False
+    return (idx, vals)
+
+
+@dataclasses.dataclass
+class WindowResult:
+    """One window's analytics. Vertex-indexed arrays are in dense slot
+    order; `vertex_ids[slot]` is the external id. Every array is a
+    read-only snapshot, never live carried state; `.copy()` for a
+    mutable one."""
+
+    window_start: int
+    num_edges: int
+    vertex_ids: np.ndarray                      # external id per slot
+    degrees: Optional[np.ndarray] = None        # running, per slot
+    cc_labels: Optional[np.ndarray] = None      # carried min-label slots
+    bipartite_odd: Optional[np.ndarray] = None  # carried odd-cycle flag
+    triangles: Optional[int] = None             # exact, this window only
+    # emit_deltas=True: (slot ids, new values) of every slot whose value
+    # differs from the previous window's snapshot (start states: zero
+    # degrees, identity labels, no odd cycle)
+    delta_degrees: Optional[tuple] = None       # (int32 ids, int64 vals)
+    delta_cc: Optional[tuple] = None            # (int32 ids, int32 vals)
+    delta_bipartite: Optional[tuple] = None     # (int32 ids, bool vals)
+    # the JAX driver's latency record: always None here (step 1.8)
+    latency: Optional[dict] = None
+
+
+class StreamingAnalyticsDriver:
+    """Windowed analytics of an edge stream over external int64 vertex
+    ids. `window_ms` sizes event-time windows (rows with timestamps);
+    untimestamped rows are cut into count-based windows of
+    `edge_bucket` edges. `device=None` is the card (raising without
+    one); `device="cpu"` runs the plain versions. `snapshot_tier` pins
+    the carried analytics' tier (SNAPSHOT_TIERS, default "scan");
+    `egress` ("full" by default, or "delta") the scan tier's copy back,
+    `egress_cap` the delta rows' width (ops/delta_egress.egress_cap)."""
+
+    ANALYTICS = ("degrees", "cc", "bipartite", "triangles")
+    _SCAN_CHUNK = 64                    # windows per snapshot call
+    INFLIGHT = ingress_pipeline.DEFAULT_INFLIGHT
+
+    def __init__(self, window_ms: int,
+                 analytics: Sequence[str] = ANALYTICS,
+                 vertex_bucket: int = 1 << 12,
+                 edge_bucket: int = 1 << 12,
+                 mesh=None, tracing: bool = False,
+                 emit_deltas: bool = False,
+                 snapshot_tier: str = None,
+                 egress: str = None,
+                 tenant: str = None,
+                 slide: int = None,
+                 egress_cap: int = None,
+                 device=None):
+        unknown = set(analytics) - set(self.ANALYTICS)
+        if unknown:
+            raise ValueError(f"unknown analytics: {sorted(unknown)}")
+        for name, value, step in (("mesh", mesh, "1.10"),
+                                  ("tenant", tenant, "1.8"),
+                                  ("slide", slide, "1.6")):
+            if value is not None:
+                raise NotImplementedError(
+                    "%s= is not ported yet (ROADMAP step %s)" % (name, step))
+        if tracing:
+            raise NotImplementedError(
+                "tracing is not ported yet (ROADMAP step 1.8)")
+        if snapshot_tier == "resident":
+            raise NotImplementedError(
+                "the resident tier is not ported yet (ROADMAP step 1.7)")
+        tier = "scan" if snapshot_tier is None else snapshot_tier
+        if tier not in SNAPSHOT_TIERS:
+            raise ValueError(f"unknown snapshot_tier: {snapshot_tier!r}")
+        if tier == "native" and not native.available():
+            raise ValueError("native snapshot tier pinned but the native "
+                             "library is unavailable: %s"
+                             % native.build_error())
+        egress = "full" if egress is None else egress
+        if egress not in delta_egress.EGRESS:
+            raise ValueError(f"unknown egress: {egress!r}")
+        self.device = resolve_device(device)
+        self.window_ms = window_ms
+        self.analytics = tuple(analytics)
+        self.snapshot_tier = tier
+        self.egress = egress
+        self.egress_cap = egress_cap
+        self.emit_deltas = bool(emit_deltas)
+        self.vb = seg_ops.bucket_size(vertex_bucket)
+        self.eb = seg_ops.bucket_size(edge_bucket)
+        self._tri_kernel = None
+        self._tri_pending = None   # the call's triangle windows (transient)
+        self._snaps = {}           # (vb, egress, cap) -> WindowSnapshot
+        self._ring = ChunkStager(self.device, slots=self.INFLIGHT + 1)
+        self._copy = (torch.cuda.Stream(self.device)
+                      if self.device.type == "cuda" else None)
+        self._ckpt_path = None
+        self._ckpt_policy = None   # utils.checkpoint.CheckpointPolicy
+        self._pending_ckpt = []    # staged (windows_done, state): _stage_ckpt
+        self._emitted = None       # not None inside stream_file
+        self.reset()
+
+    def reset(self) -> None:
+        """Clear all carried stream state (interner, mirrors, cursors),
+        keeping the buckets and the built kernels."""
+        self.interner = make_interner(np.array([0]))
+        self._ext_ids = np.zeros(0, np.int64)  # slot -> external id cache
+        self._nv_done = 0          # slots of the last finalized window
+        self._degrees = np.zeros(0, np.int64)
+        self._cc = np.zeros(0, np.int32)
+        self._bip = np.zeros(0, np.int32)
+        self.windows_done = 0      # the resume cursor, in checkpoints
+        self.edges_done = 0        # count-based window_start offset
+        self._closed_partial = False
+        self._pending_ckpt = []
+        if self._ckpt_policy is not None:
+            self._ckpt_policy.mark(0)
+
+    def _ensure_buckets(self, num_vertices: int, window_edges: int) -> None:
+        while num_vertices > self.vb:
+            self.vb *= 2
+        while window_edges > self.eb:
+            self.eb *= 2
+
+    # ------------------------------------------------------------------
+    def run_file(self, path: str) -> List[WindowResult]:
+        src, dst, ts = native.parse_edge_file(path)
+        return self.run_arrays(src, dst, ts)
+
+    def stream_file(self, path: str, chunk_bytes: int = 1 << 26,
+                    resume: bool = False):
+        """Generator of the WindowResults of a file of any size, in
+        bounded memory: the file is parsed in `chunk_bytes` pieces
+        (prefetched on a producer thread, io/sources.iter_edge_chunks),
+        and each piece's still-open last window is held back until the
+        next piece closes it, so windows never split at piece
+        boundaries.
+
+        resume=True (after try_resume) skips the `edges_done` edges the
+        restored checkpoint has folded. Auto-checkpoints taken meanwhile
+        are written only once every window they cover has been yielded
+        (_stage_ckpt), so a crash re-emits windows, never drops them."""
+        to_skip = self.edges_done if resume else 0
+        pend = (np.zeros(0, np.int64),) * 3
+        timestamped = None
+        self._emitted = self.windows_done
+        try:
+            for src, dst, ts in iter_edge_chunks(path, chunk_bytes):
+                if to_skip:
+                    drop = min(to_skip, len(src))
+                    src, dst, ts = src[drop:], dst[drop:], ts[drop:]
+                    to_skip -= drop
+                    if not len(src):
+                        continue
+                chunk_timestamped = bool(len(ts)) and int(ts.max()) >= 0
+                if timestamped is None:
+                    timestamped = chunk_timestamped
+                elif timestamped != chunk_timestamped:
+                    raise ValueError(
+                        "mixed timestamped and untimestamped chunks")
+                src = np.concatenate([pend[0], src])
+                dst = np.concatenate([pend[1], dst])
+                ts = np.concatenate([pend[2], ts])
+                if timestamped:
+                    if int(ts.min()) < 0:
+                        raise ValueError(
+                            "mixed timestamped and untimestamped rows")
+                    starts = native.assign_windows(ts, self.window_ms)
+                    open_from = int(np.searchsorted(starts, starts[-1]))
+                else:
+                    open_from = len(src) - (len(src) % self.eb)
+                done = slice(0, open_from)
+                if open_from:
+                    yield from self._emit(self.run_arrays(
+                        src[done], dst[done],
+                        _starts=starts[done] if timestamped else None))
+                pend = (src[open_from:], dst[open_from:], ts[open_from:])
+            if len(pend[0]):
+                yield from self._emit(self.run_arrays(
+                    pend[0], pend[1], pend[2] if timestamped else None))
+        finally:
+            # staged checkpoints cover windows never delivered: drop them
+            self._pending_ckpt = []
+            self._emitted = None
+
+    def run_arrays(self, src: np.ndarray, dst: np.ndarray,
+                   ts: Optional[np.ndarray] = None,
+                   _starts: Optional[np.ndarray] = None
+                   ) -> List[WindowResult]:
+        """Process a (possibly partial) stream. With no timestamps the
+        windows are count-based, `edge_bucket` edges each, continuing
+        from earlier calls. `_starts`: stream_file's window starts."""
+        src = np.asarray(src, np.int64)
+        dst = np.asarray(dst, np.int64)
+        if _starts is not None or (
+                ts is not None and len(ts) and int(np.max(ts)) >= 0):
+            if _starts is not None:
+                starts = _starts
+            else:
+                ts = np.asarray(ts, np.int64)
+                if int(np.min(ts)) < 0:
+                    raise ValueError(
+                        "mixed timestamped and untimestamped rows: every "
+                        "edge needs a timestamp for event-time windows "
+                        "(rows without a third column parse as ts=-1)")
+                starts = native.assign_windows(ts, self.window_ms)
+            if np.any(np.diff(starts) < 0):
+                raise ValueError(
+                    "timestamps must be ascending (the reference's "
+                    "AscendingTimestampExtractor contract, "
+                    "SimpleEdgeStream.java:90-94)")
+            bounds = np.flatnonzero(np.diff(starts)) + 1
+            slices = np.split(np.arange(len(src)), bounds)
+            windows = [(int(starts[idx[0]]), src[idx], dst[idx])
+                       for idx in slices if len(idx)]
+            return self._dispatch_windows(windows)
+        if self._closed_partial:
+            raise ValueError(
+                "a previous count-based run closed a partial window "
+                "(length not a multiple of edge_bucket); chunked "
+                "count-based feeding must use edge_bucket multiples")
+        windows = []
+        at = self.edges_done
+        for i in range(0, len(src), self.eb):
+            idx = slice(i, min(i + self.eb, len(src)))
+            windows.append((at, src[idx], dst[idx]))
+            at += idx.stop - idx.start
+        return self._dispatch_windows(windows, count_based=True)
+
+    def _dispatch_windows(self, windows, count_based: bool = False
+                          ) -> List[WindowResult]:
+        """Every call's windows through the chunked path, with one
+        batched triangle flush; a short count-based last window closes
+        the stream (`_closed_partial`, set at its chunk's boundary)."""
+        if not windows:
+            return []
+        with self._batched_triangles():
+            return self._run_batched(
+                windows, closes_partial=(count_based
+                                         and len(windows[-1][1]) < self.eb))
+
+    # ------------------------------------------------------------------
+    # the chunked path: a chunk of up to _SCAN_CHUNK windows a call of
+    # the snapshot tier; mirrors, cursors and checkpoints move together
+    # at each chunk boundary, so an exception leaves the driver at the
+    # last finished chunk
+    # ------------------------------------------------------------------
+    def _run_batched(self, windows,
+                     closes_partial: bool = False) -> List[WindowResult]:
+        # intern the whole call first (on the pool, the slots of a
+        # sequential loop), so the buckets grow once; sizes[] gives each
+        # window's vertex count for slicing its snapshots
+        flat = []
+        for _wstart, src, dst in windows:
+            flat.append(src)
+            flat.append(dst)
+        dense, sizes = parallel_intern_arrays(self.interner, flat)
+        interned = [(windows[i][0], dense[2 * i], dense[2 * i + 1],
+                     sizes[2 * i + 1]) for i in range(len(windows))]
+        self._ensure_buckets(len(self.interner),
+                             max(len(s) for _w, s, _d, _n in interned))
+        results: List[WindowResult] = []
+        self._scan_interned(interned, results, closes_partial)
+        return results
+
+    def _chunks(self, num_w: int) -> list:
+        return list(range(0, num_w, self._SCAN_CHUNK))
+
+    def _scan_interned(self, interned, results, closes_partial: bool
+                       ) -> None:
+        """The carried analytics of `interned` [(wstart, s, d, nv)] on
+        the snapshot tier, appending a WindowResult per window."""
+        num_w = len(interned)
+
+        def finalize(at, outs, mirrors):
+            chunk = interned[at:at + self._SCAN_CHUNK]
+            self._finalize_chunk(chunk, outs, mirrors, results)
+            self._boundary(chunk, closes_partial
+                           and at + len(chunk) >= num_w)
+
+        if not any(a in self.analytics for a in _CARRIED):
+            for at in self._chunks(num_w):
+                finalize(at, {}, (None, None, None))
+            return
+        if self.snapshot_tier == "scan":
+            self._scan_device(interned, finalize)
+            return
+        fold = (native.snapshot_windows if self.snapshot_tier == "native"
+                else host_snapshot.snapshot_windows)
+        # copies of the mirrors, carried across this call's chunks
+        carry = self._chunk_start_state()
+        for at in self._chunks(num_w):
+            prevs = (tuple(None if a is None else a.copy() for a in carry)
+                     if self.emit_deltas else None)
+            outs = self._host_fold(fold, interned[at:at + self._SCAN_CHUNK],
+                                   carry, prevs)
+            finalize(at, outs, tuple(None if a is None else a.copy()
+                                     for a in carry))
+
+    def _snapshot_program(self, egress: str) -> snap_ops.WindowSnapshot:
+        """The snapshot program at the current vertex bucket on `egress`,
+        built once a bucket and form (its device scratch stays)."""
+        cap = (delta_egress.egress_cap(self.eb, self.vb, self.egress_cap)
+               if egress == "delta" else 0)
+        key = (self.vb, egress, cap)
+        if key not in self._snaps:
+            self._snaps = {k: v for k, v in self._snaps.items()
+                           if k[0] == self.vb}
+            self._snaps[key] = snap_ops.WindowSnapshot(
+                self.vb, self.analytics, self.device,
+                deltas=self.emit_deltas, egress=egress, cap=cap)
+        return self._snaps[key]
+
+    def _device_carry(self) -> tuple:
+        """The snapshot program's carry on the device (the engines'
+        layout), built from the mirrors."""
+        vb = self.vb
+        if "bipartite" in self.analytics and len(self._bip) != 2 * vb:
+            self._bip = self._grow_cover(self._bip, vb)
+        return snap_ops.engine_carry(
+            vb, self._degrees if "degrees" in self.analytics else None,
+            self._cc if "cc" in self.analytics else None,
+            self._bip if "bipartite" in self.analytics else None,
+            self.device)
+
+    def _scan_device(self, interned, finalize) -> None:
+        """The scan tier: the snapshot program over each chunk through
+        the ingress pipeline (ops/ingress_pipeline.run_pipeline): the
+        chunk's [W, eb] stack is built and copied to the device on a
+        worker, the program is launched in chunk order against the
+        device carry (built from the mirrors here), the copies back are
+        enqueued behind it, and the finalize reads them one chunk
+        behind."""
+        vb, eb, dev = self.vb, self.eb, self.device
+        carry = self._device_carry()
+        snap = self._snapshot_program(self.egress)
+        delta = self.egress == "delta"
+
+        def prep(at):
+            chunk = interned[at:at + self._SCAN_CHUNK]
+            return at, seg_ops.stack_window_rows(
+                [(s, d) for _w, s, d, _n in chunk], len(chunk), eb, vb)
+
+        def h2d(payload):
+            at, arrays = payload
+            return at, self._ring.put(arrays, at // self._SCAN_CHUNK)
+
+        def dispatch(dev_payload):
+            at, staged = dev_payload
+            outs = snap(carry, *self._ring.take(staged))
+            self._ring.done(staged)
+            wire = {k: v for k, v in outs.items()
+                    if k.endswith(("_idx", "_val"))}
+            copies = {k: HostCopy(v) for k, v in outs.items()
+                      if k not in wire}
+            mirrors = tuple(None if t is None else HostCopy(
+                t.clone() if t.device.type == "cpu" else t) for t in carry)
+            done = None
+            if delta and dev.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+            return at, copies, wire, done, mirrors
+
+        def fin(raw):
+            at, copies, wire, done, mirrors = raw
+            # copied out of the pinned buffers, which then serve the
+            # next chunks
+            outs = {k: c.numpy().copy() for k, c in copies.items()}
+            if delta and self._delta_overflowed(outs, snap.cap):
+                # a window changed more slots than the cap: the chunk's
+                # full rows again, from the chunk-start mirrors
+                outs = self._refold_chunk_outs(
+                    interned[at:at + self._SCAN_CHUNK])
+            elif delta:
+                outs.update(self._fetch_wire(outs, wire, done))
+            deg, lab, cov = (None if m is None else m.numpy()
+                             for m in mirrors)
+            finalize(at, outs, (
+                None if deg is None else deg[:vb].copy(),
+                None if lab is None else lab[:vb].copy(),
+                None if cov is None else snap_ops.driver_cover(cov, vb)))
+
+        try:
+            ingress_pipeline.run_pipeline(
+                self._chunks(len(interned)), prep, h2d, dispatch, fin,
+                inflight=self.INFLIGHT)
+        except BaseException:
+            self._ring.release_all()
+            raise
+
+    def _fetch_wire(self, outs: dict, wire: dict, done) -> dict:
+        """The used prefix of each delta row ([W, max count]), copied
+        back on the driver's copy stream behind the chunk's kernel
+        alone (the next chunk's launch is already queued on the compute
+        stream)."""
+        got = {}
+        for key in ("deg", "labels", "cover"):
+            if key + "_cnt" not in outs:
+                continue
+            k = int(outs[key + "_cnt"].max())
+            for part in ("_idx", "_val"):
+                t = wire[key + part][:, :k]
+                if done is None:
+                    got[key + part] = t.numpy()
+                    continue
+                with torch.cuda.stream(self._copy):
+                    self._copy.wait_event(done)
+                    got[key + part] = t.cpu().numpy()
+        return got
+
+    @staticmethod
+    def _delta_overflowed(outs: dict, cap: int) -> bool:
+        """True when a window's changed count passed the wire's cap (its
+        rows were cut: the chunk runs again on full rows)."""
+        return any(int(np.max(outs[key + "_cnt"])) > cap
+                   for key in ("deg", "labels", "cover")
+                   if key + "_cnt" in outs)
+
+    def _host_fold(self, fold, chunk, carry, prevs) -> dict:
+        """One chunk on the native or host fold (mutating `carry`, the
+        driver-layout copies), as the scan tier's full outs."""
+        flat_s = np.concatenate([s for _w, s, _d, _n in chunk])
+        flat_d = np.concatenate([d for _w, _s, d, _n in chunk])
+        offs = np.zeros(len(chunk) + 1, np.int64)
+        offs[1:] = np.cumsum([len(s) for _w, s, _d, _n in chunk])
+        outs = fold(flat_s, flat_d, offs, self.vb, *carry)
+        vb = self.vb
+        if "cover" in outs:
+            cov = outs.pop("cover")
+            outs["odd"] = cov[:, :vb] == cov[:, vb:]
+        if prevs is not None:
+            # changed-slot masks against the previous window's snapshot
+            # (row -1: the chunk's start state), as the scan's
+            pd, pl, pc = prevs
+            if "deg" in outs:
+                outs["deg_chg"] = outs["deg"] != np.concatenate(
+                    [pd[None], outs["deg"][:-1]])
+            if "labels" in outs:
+                outs["labels_chg"] = outs["labels"] != np.concatenate(
+                    [pl[None], outs["labels"][:-1]])
+            if "odd" in outs:
+                podd = (pc[:vb] == pc[vb:])[None]
+                outs["cover_chg"] = outs["odd"] != np.concatenate(
+                    [podd, outs["odd"][:-1]])
+        return outs
+
+    def _chunk_start_state(self):
+        """int32 copies of the mirrors in the host folds' layouts (deg
+        [vb], labels [vb], cover [2·vb]), None where an analytic is
+        off."""
+        vb = self.vb
+        deg32 = lab = cov = None
+        if "degrees" in self.analytics:
+            deg32 = np.zeros(vb, np.int32)
+            deg32[:len(self._degrees)] = self._degrees
+        if "cc" in self.analytics:
+            lab = np.arange(vb, dtype=np.int32)
+            lab[:len(self._cc)] = self._cc
+        if "bipartite" in self.analytics:
+            if len(self._bip) != 2 * vb:
+                self._bip = self._grow_cover(self._bip, vb)
+            cov = self._bip.astype(np.int32)
+        return deg32, lab, cov
+
+    def _refold_chunk_outs(self, chunk) -> dict:
+        """The delta wire's overflow fallback: the chunk's full rows (and
+        masks) from the program on full rows on the driver's device,
+        over the chunk's slab staged again (its ring slot serves later
+        chunks by now) and a carry from the chunk-start mirrors (the
+        pipeline's carry has moved on to later chunks)."""
+        arrays = seg_ops.stack_window_rows(
+            [(s, d) for _w, s, d, _n in chunk], len(chunk), self.eb, self.vb)
+        src, dst, valid = (torch.from_numpy(a).to(self.device)
+                           for a in arrays)
+        outs = self._snapshot_program("full")(self._device_carry(), src,
+                                              dst, valid)
+        return {k: v.cpu().numpy() for k, v in outs.items()}
+
+    def _finalize_chunk(self, chunk, outs: dict, mirrors, results) -> None:
+        """A chunk's WindowResults from its outs (full rows, or the
+        delta wire), then the mirrors from its end state `mirrors`
+        (driver layouts: deg [vb], labels [vb], cover [2·vb])."""
+        vb = self.vb
+        if any(k.endswith("_cnt") for k in outs):
+            self._emit_delta_chunk(chunk, outs, results)
+            self._set_mirrors(chunk, mirrors)
+            return
+        for i, (wstart, s, d, nv) in enumerate(chunk):
+            res = WindowResult(window_start=wstart, num_edges=len(s),
+                               vertex_ids=self._vertex_ids(nv))
+            if "deg" in outs:
+                snap = outs["deg"][i][:nv].astype(np.int64)
+                self._check_degree_width(snap)
+                res.degrees = _snapshot_view(snap)
+                if "deg_chg" in outs:
+                    idx = np.nonzero(outs["deg_chg"][i][:nv])[0].astype(
+                        np.int32)
+                    res.delta_degrees = _frozen_delta(idx, snap[idx])
+            if "labels" in outs:
+                res.cc_labels = _snapshot_view(outs["labels"][i][:nv], vb)
+                if "labels_chg" in outs:
+                    idx = np.nonzero(outs["labels_chg"][i][:nv])[0].astype(
+                        np.int32)
+                    res.delta_cc = _frozen_delta(idx, res.cc_labels[idx])
+            if "odd" in outs:
+                res.bipartite_odd = _snapshot_view(outs["odd"][i][:nv], vb)
+                if "cover_chg" in outs:
+                    idx = np.nonzero(outs["cover_chg"][i][:nv])[0].astype(
+                        np.int32)
+                    res.delta_bipartite = _frozen_delta(
+                        idx, res.bipartite_odd[idx])
+            self._pend_triangles(res, s, d)
+            results.append(res)
+        self._set_mirrors(chunk, mirrors)
+
+    def _set_mirrors(self, chunk, mirrors) -> None:
+        nv = chunk[-1][3] if chunk else 0
+        self._nv_done = max(self._nv_done, nv)
+        deg, lab, cov = mirrors
+        if deg is not None:
+            self._degrees = deg[:nv].astype(np.int64)
+        if lab is not None:
+            self._cc = lab[:nv].astype(np.int32)
+        if cov is not None:
+            self._bip = np.array(cov, np.int32)
+
+    def _emit_delta_chunk(self, chunk, outs: dict,
+                          results: List[WindowResult]) -> None:
+        """Decode a chunk's delta wire: each window's (idx, vals) pairs
+        applied to working copies of the mirrors, which after window w
+        are window w's snapshot (the full rows' bits, by definition)."""
+        vb = self.vb
+        want = {key: key + "_cnt" in outs for key in ("deg", "labels",
+                                                      "cover")}
+        if want["deg"]:
+            deg_work = np.zeros(vb, np.int64)
+            deg_work[:len(self._degrees)] = self._degrees
+        if want["labels"]:
+            lab_work = np.arange(vb, dtype=np.int32)
+            lab_work[:len(self._cc)] = self._cc
+        if want["cover"]:
+            if len(self._bip) != 2 * vb:
+                self._bip = self._grow_cover(self._bip, vb)
+            odd_work = self._bip[:vb] == self._bip[vb:2 * vb]
+        for i, (wstart, s, d, nv) in enumerate(chunk):
+            res = WindowResult(window_start=wstart, num_edges=len(s),
+                               vertex_ids=self._vertex_ids(nv))
+            if want["deg"]:
+                k = int(outs["deg_cnt"][i])
+                idx = outs["deg_idx"][i][:k].copy()
+                vals = outs["deg_val"][i][:k].astype(np.int64)
+                self._check_degree_width(vals)
+                delta_egress.apply_delta(deg_work, k, idx, vals)
+                res.degrees = _snapshot_view(deg_work[:nv].copy())
+                if self.emit_deltas:
+                    res.delta_degrees = _frozen_delta(idx, vals)
+            if want["labels"]:
+                k = int(outs["labels_cnt"][i])
+                idx = outs["labels_idx"][i][:k].copy()
+                vals = outs["labels_val"][i][:k].copy()
+                delta_egress.apply_delta(lab_work, k, idx, vals)
+                res.cc_labels = _snapshot_view(lab_work[:nv].copy())
+                if self.emit_deltas:
+                    res.delta_cc = _frozen_delta(idx, vals)
+            if want["cover"]:
+                k = int(outs["cover_cnt"][i])
+                idx = outs["cover_idx"][i][:k].copy()
+                vals = outs["cover_val"][i][:k].astype(bool)
+                delta_egress.apply_delta(odd_work, k, idx, vals)
+                res.bipartite_odd = _snapshot_view(odd_work[:nv].copy())
+                if self.emit_deltas:
+                    res.delta_bipartite = _frozen_delta(idx, vals)
+            self._pend_triangles(res, s, d)
+            results.append(res)
+
+    def _boundary(self, chunk, closes_partial: bool) -> None:
+        """Cursors, the partial flag and the checkpoint move together,
+        after the mirrors."""
+        self.windows_done += len(chunk)
+        self.edges_done += sum(len(s) for _w, s, _d, _n in chunk)
+        if closes_partial:
+            self._closed_partial = True
+        if self._ckpt_due():
+            self._stage_ckpt()
+
+    # ------------------------------------------------------------------
+    # triangles: one count_windows flush per call
+    # ------------------------------------------------------------------
+    def _pend_triangles(self, res: WindowResult, s, d) -> None:
+        if self._tri_pending is not None:
+            self._tri_pending.append((res, np.asarray(s, np.int32),
+                                      np.asarray(d, np.int32)))
+
+    @contextlib.contextmanager
+    def _batched_triangles(self):
+        """Collect the enclosed windows' triangle work and count it in
+        one count_windows call on clean exit (an exception leaves the
+        windows' `triangles` None)."""
+        if "triangles" not in self.analytics \
+                or self._tri_pending is not None:
+            yield
+            return
+        self._tri_pending = []
+        try:
+            yield
+            pending = self._tri_pending
+            if pending:
+                counts = self._flush_triangle_windows(
+                    [(s, d) for _r, s, d in pending])
+                for (res, _s, _d), c in zip(pending, counts):
+                    res.triangles = c
+        finally:
+            self._tri_pending = None
+
+    def _flush_triangle_windows(self, windows) -> list:
+        return self._tri_kern().count_windows(windows)
+
+    def _tri_kern(self) -> tri_ops.TriangleWindowKernel:
+        """The triangle kernel at the current buckets, on the stream
+        tier of the snapshot tier."""
+        k = self._tri_kernel
+        if k is None or (k.eb, k.vb) != (self.eb, self.vb):
+            k = self._tri_kernel = tri_ops.TriangleWindowKernel(
+                edge_bucket=self.eb, vertex_bucket=self.vb,
+                device=self.device,
+                stream_tier=_TRIANGLE_TIER[self.snapshot_tier])
+        return k
+
+    # ------------------------------------------------------------------
+    def _vertex_ids(self, nv: int) -> np.ndarray:
+        """Slot -> external id table, extended by the slots added since
+        the last window."""
+        have = len(self._ext_ids)
+        if nv > have:
+            fresh = np.asarray(self.interner.ids_of(
+                np.arange(have, nv, dtype=np.int32)), np.int64)
+            self._ext_ids = np.concatenate([self._ext_ids, fresh])
+        # a view: the cache grows only by reallocation, so an earlier
+        # window's view keeps its own table
+        return _snapshot_view(self._ext_ids[:nv])
+
+    @staticmethod
+    def _check_degree_width(snap: np.ndarray) -> None:
+        """The device carries degrees in int32: a vertex past 2^31
+        incident edges shows up negative at the next snapshot; fail
+        there instead of checkpointing a wrapped count."""
+        if len(snap) and int(snap.min()) < 0:
+            raise OverflowError(
+                "a vertex's running degree crossed 2^31 (int32 device "
+                "state); shard the stream or reset windows before any "
+                "single vertex accumulates that many incident edges")
+
+    @staticmethod
+    def _grow_cover(old: np.ndarray, vb: int) -> np.ndarray:
+        """A cover labeling laid out over a wider vertex bucket: (-)
+        slots move from old_vb+v to vb+v, labels into the (-) half move
+        with them, new slots are identity."""
+        old_vb = len(old) // 2
+        cover = np.arange(2 * vb, dtype=np.int32)
+        if old_vb:
+            shifted = np.where(old >= old_vb, old + (vb - old_vb),
+                               old).astype(np.int32)
+            cover[:old_vb] = shifted[:old_vb]
+            cover[vb:vb + old_vb] = shifted[old_vb:]
+        return cover
+
+    # ------------------------------------------------------------------
+    # checkpoint / resume (utils/checkpoint.py)
+    # ------------------------------------------------------------------
+    def enable_auto_checkpoint(self, path: str, every_n_windows: int = 16,
+                               every_seconds: float = 0.0,
+                               policy=None) -> None:
+        """Snapshot all carried state to `path` (atomic, the previous
+        generation kept) every N windows and/or T seconds, checked at
+        chunk boundaries (so a crash loses at most max(N, 64) windows,
+        or an interval and a chunk). `policy` (a
+        utils.checkpoint.CheckpointPolicy) may bring its own clock."""
+        if policy is None:
+            if every_n_windows < 1 and every_seconds <= 0:
+                raise ValueError(
+                    "need every_n_windows >= 1 and/or every_seconds > 0")
+            policy = checkpoint.CheckpointPolicy(
+                every_n_windows=max(0, every_n_windows),
+                every_seconds=every_seconds)
+        if not policy.enabled():
+            raise ValueError("checkpoint policy has no trigger enabled")
+        self._ckpt_path = path
+        self._ckpt_policy = policy
+
+    def _ckpt_due(self) -> bool:
+        return (self._ckpt_path is not None
+                and self._ckpt_policy.due(self.windows_done))
+
+    def _stage_ckpt(self) -> None:
+        """Save a due checkpoint, or inside stream_file stage it until
+        every window it covers has been yielded (_emit): a crash then
+        re-emits computed windows and never skips undelivered ones."""
+        self._ckpt_policy.mark(self.windows_done)
+        snap = (self.windows_done, self.state_dict())
+        if self._emitted is None:
+            checkpoint.save(self._ckpt_path, snap[1])
+        else:
+            self._pending_ckpt.append(snap)
+
+    def _emit(self, results):
+        """Yield a batch's results one by one, saving each staged
+        checkpoint once its windows have all been yielded."""
+        for res in results:
+            yield res
+            self._emitted += 1
+            flushed = None
+            while (self._pending_ckpt
+                   and self._pending_ckpt[0][0] <= self._emitted):
+                flushed = self._pending_ckpt.pop(0)
+            if flushed is not None:
+                checkpoint.save(self._ckpt_path, flushed[1])
+
+    def try_resume(self, path: str) -> bool:
+        """Restore from `path` (or its previous generation, when `path`
+        is damaged) if a checkpoint exists; returns whether state was
+        restored. With every generation damaged it warns and returns
+        False; a semantic mismatch (window size, analytics) raises from
+        load_state_dict."""
+        try:
+            got = checkpoint.load_latest(path)
+        except checkpoint.CheckpointCorrupt as e:
+            warnings.warn(f"{e}; no intact generation — starting fresh")
+            return False
+        if got is None:
+            return False
+        state, used = got
+        if used != path:
+            warnings.warn(
+                f"checkpoint {path!r} is corrupt; resumed from the "
+                f"rotated previous generation {used!r}")
+        self.load_state_dict(state)
+        return True
+
+    def state_dict(self) -> dict:
+        """The JAX driver's checkpoint keys and layouts (single-chip), as
+        of the last finalized window: the vertex table ends at its slots,
+        not at the slots a call interned ahead, so a driver resumed from a
+        checkpoint inside a call gives the uninterrupted run's arrays."""
+        return {
+            "window_ms": self.window_ms,
+            "analytics": list(self.analytics),
+            "sharded": False,
+            "mesh_shape": None,
+            "windows_done": self.windows_done,
+            "edges_done": self.edges_done,
+            "wal_offset": self.edges_done,
+            "edge_bucket": self.eb,
+            "vertex_bucket": self.vb,
+            "closed_partial": self._closed_partial,
+            "vertex_ids": np.array(self._vertex_ids(self._nv_done)),
+            "degrees": self._degrees.copy(),
+            "cc": self._cc.copy(),
+            "bip": self._bip.copy(),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        if state["window_ms"] != self.window_ms:
+            raise ValueError("window size mismatch")
+        if tuple(state["analytics"]) != self.analytics:
+            raise ValueError(
+                f"analytics mismatch: checkpoint has "
+                f"{state['analytics']}, driver runs {list(self.analytics)}")
+        if state.get("sharded") or "engine" in state:
+            raise NotImplementedError(
+                "a mesh checkpoint needs the sharded driver (ROADMAP "
+                "step 1.10)")
+        if state.get("slide"):
+            raise ValueError("slide mismatch: checkpoint has %r, driver "
+                             "runs None" % (state["slide"],))
+        edges_done = int(state.get("edges_done", 0))
+        woff = state.get("wal_offset")
+        if woff is not None and int(woff) != edges_done:
+            raise ValueError(
+                "checkpoint wal_offset %d disagrees with its own "
+                "edges_done cursor %d" % (int(woff), edges_done))
+        self.interner = make_interner(np.array([0]))
+        self._ext_ids = np.zeros(0, np.int64)
+        self.windows_done = int(state.get("windows_done", 0))
+        self.edges_done = edges_done
+        self._closed_partial = bool(state.get("closed_partial", False))
+        if "edge_bucket" in state:
+            # count-based windows are cut by eb: resume with the same cut
+            self.eb = int(state["edge_bucket"])
+        if "vertex_bucket" in state:
+            # a larger constructor bucket stays (the mirrors re-lay out)
+            self.vb = max(self.vb, int(state["vertex_bucket"]))
+        self.interner.intern_array(np.asarray(state["vertex_ids"],
+                                              np.int64))
+        self._nv_done = len(self.interner)
+        self._degrees = np.array(state["degrees"])
+        self._cc = np.array(state["cc"])
+        self._bip = np.array(state["bip"])
+        self._ensure_buckets(len(state["vertex_ids"]), 1)

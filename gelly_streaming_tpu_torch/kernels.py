@@ -57,6 +57,10 @@ SIGNATURES = {
                                       _P, _I, _P],
         "gs_cc_fixpoint": [_P, _I, _P, _P, _LL, _I, _P, _I, _P],
     },
+    "window_snapshot": {
+        "gs_window_snapshot": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                               _I, _P],
+    },
     "cohort_summary": {
         "gs_cohort_summary": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                               _I, _P],
@@ -73,8 +77,8 @@ SIGNATURES = {
 # the kernels whose launches are counted: one per library, and the
 # compact-wire forms of the counter and the summary kernel apart
 KERNELS = ("intersect", "window_counter", "window_counter_compact",
-           "window_summary", "window_summary_compact", "cohort_summary",
-           "gnn_round", "dense_triangles")
+           "window_summary", "window_summary_compact", "window_snapshot",
+           "cohort_summary", "gnn_round", "dense_triangles")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _LIBS: dict = {}

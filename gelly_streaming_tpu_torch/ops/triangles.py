@@ -16,10 +16,16 @@ intersected on the device. `triangle_count` counts one window of any
 size: the dense contraction (ops/dense_triangles.py) up to
 2·DENSE_LIMIT vertices, the sparse path past it.
 
-Not ported from the JAX package: the host/native tier routing
-(`_resolve_stream_impl`) and the online autotuner (see ROADMAP.md); K
-comes from the analytic rule and the wire from the constructor, not from
-evidence files.
+The JAX package's evidence-routed `_resolve_stream_impl`
+(triangles.py:508-563) is the `stream_tier=` argument of
+`TriangleWindowKernel` here: "device" (the default: the kernels
+above), "host" (the numpy counter, ops/host_triangles.py) or "native"
+(the C++ counter of native/ingest.cpp, one call per slice of
+windows on the ingress pool). All three give the same counts for ids
+below the vertex bucket. A pinned "native" raises where the library
+cannot load; it never becomes "host". Not ported: the online autotuner
+(ROADMAP step 1.7); K comes from the analytic rule and the wire from
+the constructor, not from evidence files.
 """
 
 from __future__ import annotations
@@ -29,8 +35,10 @@ import math
 import numpy as np
 import torch
 
+from .. import native
 from ..core.platform import resolve_device
 from . import compact_ingress
+from . import host_triangles
 from . import ingress_pipeline
 from . import intersect as _intersect
 from . import segment as seg_ops
@@ -39,7 +47,8 @@ from .staging import ChunkStager, HostCopy
 from .window_counter import (WindowCounter, dedupe_and_positions,
                              orient_by_degree)
 
-__all__ = ["DENSE_LIMIT", "TriangleWindowKernel", "build_window_counter",
+__all__ = ["DENSE_LIMIT", "STREAM_TIERS", "TriangleWindowKernel",
+           "build_window_counter",
            "default_kb", "dedupe_and_positions", "orient_by_degree",
            "resolve_ingress", "triangle_count", "triangle_count_dense",
            "triangle_count_sparse"]
@@ -47,6 +56,57 @@ __all__ = ["DENSE_LIMIT", "TriangleWindowKernel", "build_window_counter",
 # the JAX package's XLA dense limit; its fused contraction, which the
 # port's dense kernel replaces, is exact to twice it
 DENSE_LIMIT = 2048
+
+STREAM_TIERS = ("device", "host", "native")
+
+
+def check_stream_tier(tier: str) -> str:
+    """`tier` if it is one of STREAM_TIERS and can run here: a "native"
+    tier needs the C++ library and raises without it."""
+    if tier not in STREAM_TIERS:
+        raise ValueError("unknown stream tier %r (choices: %s)"
+                         % (tier, ", ".join(STREAM_TIERS)))
+    if tier == "native" and not native.available():
+        raise RuntimeError("native stream tier pinned, but the native "
+                           "library is unavailable: %s"
+                           % native.build_error())
+    return tier
+
+
+def _native_count(src: np.ndarray, dst: np.ndarray, eb: int) -> list:
+    counts = native.triangle_count_stream(src, dst, eb)
+    if counts is None:
+        raise RuntimeError("native library unavailable: %s"
+                           % native.build_error())
+    return [int(x) for x in counts]
+
+
+def _native_window(window) -> int:
+    """The native count of one (src, dst) window."""
+    src, dst = window
+    counts = _native_count(src, dst, max(len(src), 1))
+    return counts[0] if counts else 0
+
+
+def _native_count_stream_parallel(src: np.ndarray, dst: np.ndarray,
+                                  eb: int) -> list:
+    """The native tier of count_stream across the ingress pool: the
+    stream cut into window-aligned slices, one C++ call each (ctypes
+    drops the GIL), the counts joined in order; under forced_sync one
+    call for the whole stream. The same counts either way."""
+    if ingress_pipeline.forced_sync_active():
+        return _native_count(src, dst, eb)
+    num_w = -(-len(src) // eb)
+    # ~4 slices a worker keeps the pool busy through uneven windows
+    groups = max(1, min(num_w, 4 * ingress_pipeline.worker_count()))
+    per = -(-num_w // groups)
+
+    def one(at):
+        return _native_count(src[at * eb:(at + per) * eb],
+                             dst[at * eb:(at + per) * eb], eb)
+
+    parts = ingress_pipeline.map_ordered(one, range(0, num_w, per))
+    return [c for part in parts for c in part]
 
 
 def default_kb(eb: int) -> int:
@@ -149,15 +209,19 @@ class TriangleWindowKernel:
 
     `device=None` means the CUDA card and raises when there is none;
     `device="cpu"` runs the plain PyTorch path. `ingress=None` is the
-    standard wire.
+    standard wire. `stream_tier` picks who counts `count_stream` and
+    `count_windows` (STREAM_TIERS; `count`, the one-window recount,
+    stays on the device).
     """
 
     MAX_STREAM_WINDOWS = 64  # windows per device call in count_stream
     INFLIGHT = ingress_pipeline.DEFAULT_INFLIGHT   # pipeline look-ahead
 
     def __init__(self, edge_bucket: int, vertex_bucket: int,
-                 k_bucket: int = 0, device=None, ingress: str = None):
+                 k_bucket: int = 0, device=None, ingress: str = None,
+                 stream_tier: str = "device"):
         self.device = resolve_device(device)
+        self.stream_tier = check_stream_tier(stream_tier)
         self.eb = seg_ops.bucket_size(edge_bucket)
         self.vb = seg_ops.bucket_size(vertex_bucket)
         self.kb = seg_ops.bucket_size(
@@ -296,6 +360,10 @@ class TriangleWindowKernel:
         if len(src) == 0:
             return []
         eb = self.eb
+        if self.stream_tier == "native":
+            return _native_count_stream_parallel(src, dst, eb)
+        if self.stream_tier == "host":
+            return host_triangles.count_stream(src, dst, eb)
 
         def get_window(w):
             return src[w * eb:(w + 1) * eb], dst[w * eb:(w + 1) * eb]
@@ -312,6 +380,11 @@ class TriangleWindowKernel:
         lengths (each ≤ edge_bucket), stacked and counted in chunks."""
         if not windows:
             return []
+        if self.stream_tier == "native":
+            # one C++ call a window across the pool, in window order
+            return ingress_pipeline.map_ordered(_native_window, windows)
+        if self.stream_tier == "host":
+            return host_triangles.count_windows(windows)
         if self.ingress == "compact":
             s16, d16, nv = compact_ingress.stack_window_list(windows,
                                                              self.eb)
