@@ -4,7 +4,7 @@ NVIDIA GPU.
 
 Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and the
 native host runtime (gelly_streaming_tpu_torch/native, g++) and runs
-seventeen phases. Seven hold a kernel against its plain PyTorch version on
+twenty phases. Eight hold a kernel against its plain PyTorch version on
 the card: intersect (ascending and shuffled rows), counter (count and
 overflow on every window, overflowing ones included, both wires: a
 Zipf chunk, a repeated edge across a whole window, a star, a row past
@@ -20,7 +20,10 @@ tenants at vb=65536 whose last row not odd turns odd mid-chunk), compact
 plain and against the standard wire) and snapshot (the driver's snapshot
 kernel in both tiers, each analytics subset, full rows with and without
 masks and the delta wire, a window of one edge, empty windows,
-self-loops). Ten drive the port's paths, each
+self-loops) and cell_reduce (the windowed reduce's cell-reduce kernel:
+sum/min/max × out/in/all × int32/float32 on both wires, full rows and
+the delta wire, at [64, 8192] vb=16384 and [64, 32768] vb=65536, edge
+cases, cohort_step of 64 rows). Twelve drive the port's paths, each
 with the launch counts set to 0 just before it and read just after,
 every window checked, and each profile holding one summary-body launch
 per summary wrapper call: over the bench's north-star stream
@@ -41,11 +44,20 @@ edge_bucket=32768).run_arrays over the north-star stream, count-based,
 fed in calls that grow its vertex bucket from 4096 to 65536, every
 window equal to one-call runs on both egress forms and on the native
 tier, its triangles to count_stream's, a checkpoint resumed (phase
-driver); and stream_file over a timestamped text file (phase
-driver_file). Each path reports its rate, its launches and
+driver); stream_file over a timestamped text file (phase
+driver_file); WindowedEdgeReduce(16384, 8192, "sum", "out") over
+bench.py's reduce-leg stream (make_stream(2_097_152, 16_384), BASELINE
+config #2) on both wires and egress forms, min and max over "all",
+slide=2048, the native tier, and the north-star stream at vb=65536
+(phase reduce_stream); and the record API (phase api): the reference's
+nine TestSlice goldens through host and Torch* UDFs, 1,048,576
+timestamped edges through slice(512 ms, ALL).reduce_on_edges(
+TorchEdgesReduce(name="sum")), WindowTriangleCount taking both routes
+of triangle_count, and get_degrees(). Each path reports its rate, its
+launches and
 where its time goes. Beside the dense and GNN kernels it times one
 PyTorch call for the same product as a yardstick (torch.mm, torch._int_mm;
-torch.addmm), and it counts the tensor-core instructions in those two
+torch.addmm; index_add_ beside the cell reduce), and it counts the tensor-core instructions in those two
 libraries' SASS where the toolkit has cuobjdump (a diagnostic only).
 
     python3 chip_smoke.py          # from the repository root
@@ -129,6 +141,18 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` runs after one warm-up: the
+    sum of its device rows under torch.profiler over the runs, so the
+    host's launch gaps between short kernels are not counted."""
+    from gelly_streaming_tpu_torch.utils.profiling import device_times
+
+    fn()
+    _wall, by_name = device_times(lambda: [fn() for _ in range(reps)])
+    require(by_name, "no device rows in a profile of %d calls" % reps)
+    return sum(ms for ms, _n in by_name.values()) / reps
 
 
 def bound(nbytes: float, ops: float, ops_rate: float = PEAK_OPS_S):
@@ -2320,6 +2344,712 @@ def phase_driver_file(dev) -> None:
           % (len(got), FILE_EDGES / wall, size))
 
 
+# ----------------------------------------------------------------------
+# the cell reduce, the columnar windowed reduce and the graph API
+# ----------------------------------------------------------------------
+
+RED_EB, RED_VB = 8192, 16384        # BASELINE config #2 (bench.py:531)
+RED_EDGES = 2_097_152               # its stream: make_stream(RED_EDGES, RED_VB)
+RED_BIG_EB = 32768                  # the north-star stream, sum over "all"
+RED_SLIDE = 2048
+CELL_PASSES_VB = 1 << 18            # rows past a cluster's shared memory
+API_EDGES = 1_048_576               # make_stream(API_EDGES, VB, seed=7)
+API_EDGES_PER_MS = 16
+API_WINDOW_MS = 512                 # the reduce_on_edges slice
+API_TRI_MS = (128, 2048)            # dense route, sparse route
+DENSE_MAX_V = 4096                  # triangle_count's dense limit
+
+
+def red_values(src, dst) -> np.ndarray:
+    """bench.py's reduce-leg weights (bench.py:532)."""
+    return (1 + (src + 3 * dst) % 97).astype(np.int32)
+
+
+def cell_wire(src, dst, val, eb: int, vb: int, direction: str, wire: str,
+              dev, nvalid=None):
+    """The first [wb, eb] windows of a stream as the device tier stages
+    them, on the card: the standard wire (cell ids, values) or the
+    compact one (s16, d16, nvalid, values). `nvalid` overrides the valid
+    counts (then the arrays are [wb·eb] already padded)."""
+    wb = len(src) // eb
+    vbp = vb + 1
+    if nvalid is None:
+        nvalid = np.full(wb, eb, np.int32)
+    if wire == "compact":
+        arrays = (src.astype(np.uint16).reshape(wb, eb),
+                  dst.astype(np.uint16).reshape(wb, eb),
+                  nvalid.astype(np.int32), val.reshape(wb, eb))
+    else:
+        valid = (np.arange(eb)[None, :] < nvalid[:, None]).reshape(-1)
+        win = np.arange(wb * eb) // eb
+        vtx = {"out": [src], "in": [dst], "all": [src, dst]}[direction]
+        ids = np.concatenate([np.where(valid, win * vbp + v, wb * vbp)
+                              for v in vtx]).astype(np.int32)
+        arrays = (ids, np.concatenate([val] * len(vtx)))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in arrays)
+
+
+def reduce_call(wire, t, wb, eb, vbp, name, direction, egress="full",
+                cap=0, plain=False):
+    """One cell reduce of a staged wire: the kernel, or with plain the
+    plain version on the same device."""
+    from gelly_streaming_tpu_torch.ops import cell_reduce as cr
+
+    if plain:
+        ids, vals = (cr.compact_cell_ids(*t, vbp, direction)
+                     if wire == "compact" else t)
+        res = cr.cell_reduce_plain(ids, vals, wb, eb, vbp, name)
+        return cr.touched_wire(*res, cap) if egress == "delta" else res
+    if wire == "compact":
+        return cr.cell_reduce_compact(*t, vbp, name, direction, egress,
+                                      cap)
+    return cr.cell_reduce(*t, wb, eb, vbp, name, egress, cap)
+
+
+def compare_cells(label, got, want, name, tol=None) -> float:
+    """Kernel outputs against plain ones: counts, indices and integer
+    or min/max cells exact; float sums within 1e-5 · Σ|v| a cell (`tol`,
+    the plain sum of |v| laid out as the cells). Returns the largest
+    |kernel - plain| of the cells."""
+    err = 0.0
+    cells_at = 0 if len(got) == 2 else 2
+    for k, (g, w) in enumerate(zip(got, want)):
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                "%s: output %d %s %s != plain %s %s"
+                % (label, k, tuple(g.shape), g.dtype, tuple(w.shape),
+                   w.dtype))
+        if k == cells_at and g.dtype == torch.float32:
+            fin = torch.isfinite(w)
+            require(torch.equal(fin, torch.isfinite(g)),
+                    "%s: fills differ" % label)
+            d = (g[fin].double() - w[fin].double()).abs()
+            e = float(d.max()) if d.numel() else 0.0
+            err = max(err, e)
+            if name == "sum":
+                require(bool((d <= 1e-5 * tol[fin].double() + 1e-30)
+                             .all()), "%s: float sum past 1e-5 Σ|v| "
+                        "(max %g)" % (label, e))
+            else:
+                require(e == 0, "%s: cells differ by %g" % (label, e))
+            continue
+        if not torch.equal(g, w):
+            e = float((g.double() - w.double()).abs().max())
+            raise SmokeFailure("%s: output %d differs (max %g)"
+                               % (label, k, e))
+    return err
+
+
+def cell_edge_stack(eb: int, vb: int, rng):
+    """Eight windows of edge cases: empty, one edge, ids 0 and vb-1
+    alternating, all on one hub vertex, three random, a ragged last
+    (half full). Returns (src, dst, nvalid) [8·eb]."""
+    wb = 8
+    src = rng.integers(0, vb, wb * eb)
+    dst = rng.integers(0, vb, wb * eb)
+    nvalid = np.full(wb, eb, np.int32)
+    nvalid[0] = 0
+    nvalid[1] = 1
+    src[eb], dst[eb] = 0, vb - 1
+    top = np.where(np.arange(eb) % 2 == 0, 0, vb - 1)
+    src[2 * eb:3 * eb], dst[2 * eb:3 * eb] = top, top[::-1]
+    src[3 * eb:4 * eb] = 4242 % vb
+    nvalid[7] = eb // 2
+    return src, dst, nvalid
+
+
+def cell_bytes(rep: int, wb: int, eb: int, vbp: int, wire: str) -> int:
+    """Bytes a call must move: each input once (the standard wire's
+    int32 ids and 4-byte values, rep of each a slot; the compact wire's
+    two uint16 ids and one value a slot and a count a window), the full
+    rows once (4-byte cell and count a vertex a window)."""
+    inp = (rep * wb * eb * 8 if wire == "standard"
+           else wb * eb * 8 + 4 * wb)
+    return inp + wb * vbp * 8
+
+
+def phase_cell_reduce(dev) -> dict:
+    """The cell-reduce kernel (csrc/cell_reduce.cu) against its plain
+    version on the card: sum/min/max × out/in/all × int32/float32 on
+    both wires, full rows and the delta wire, at [64, 8192] vb=16384 (one
+    block a window's row in shared memory) and [64, 32768] vb=65536 (a
+    cluster of blocks a row); the edge-case windows; cohort_step of 64
+    rows. Then times at the main path's chunk beside the plain version
+    and the library calls (index_add_ for cells and counts): device
+    time under the profiler, and each call's time by CUDA events."""
+    from gelly_streaming_tpu_torch import make_stream
+    from gelly_streaming_tpu_torch.ops import cell_reduce as cr
+    from gelly_streaming_tpu_torch.ops import windowed_reduce as wr
+
+    rng = np.random.default_rng(31)
+    err = 0.0
+    plans = {}
+    checked = 0
+    for eb, vb, seed in ((RED_EB, RED_VB, 7), (EB, VB, 7)):
+        wb, vbp = CHUNK, vb + 1
+        src, dst = make_stream(wb * eb, vb, seed=seed)
+        plans[vb] = cr.plan(wb, vbp, dev)
+        values = {"int32": rng.integers(-1000, 1000, wb * eb)
+                  .astype(np.int32),
+                  "float32": (rng.standard_normal(wb * eb) * 100)
+                  .astype(np.float32)}
+        for direction in ("out", "in", "all"):
+            cap = min(eb * (2 if direction == "all" else 1), vbp)
+            for dtype, val in values.items():
+                std = cell_wire(src, dst, val, eb, vb, direction,
+                                "standard", dev)
+                tol = reduce_call("standard", (std[0], std[1].abs()), wb,
+                                  eb, vbp, "sum", direction,
+                                  plain=True)[0] if dtype == "float32" \
+                    else None
+                for wire in ("standard", "compact"):
+                    t = std if wire == "standard" else cell_wire(
+                        src, dst, val, eb, vb, direction, wire, dev)
+                    for name in ("sum", "min", "max"):
+                        want = reduce_call(wire, t, wb, eb, vbp, name,
+                                           direction, plain=True)
+                        got = reduce_call(wire, t, wb, eb, vbp, name,
+                                          direction)
+                        label = "cell_reduce %d/%d %s %s %s %s" % (
+                            eb, vb, direction, dtype, wire, name)
+                        err = max(err, compare_cells(label, got, want,
+                                                     name, tol))
+                        dwant = cr.touched_wire(*want, cap)
+                        dgot = reduce_call(wire, t, wb, eb, vbp, name,
+                                           direction, "delta", cap)
+                        dtol = None
+                        if tol is not None:
+                            dtol = torch.gather(tol, 1,
+                                                dwant[1].long())
+                        err = max(err, compare_cells(label + " delta",
+                                                     dgot, dwant, name,
+                                                     dtol))
+                        checked += 2
+        print("phase cell_reduce %d/%d: ok  (cluster %d, span %d, "
+              "passes %d)" % (eb, vb, plans[vb]["cluster"],
+                              plans[vb]["span"], plans[vb]["passes"]))
+
+    # edge cases, both wires, full and delta
+    for eb, vb in ((RED_EB, RED_VB), (EB, VB)):
+        vbp = vb + 1
+        src, dst, nvalid = cell_edge_stack(eb, vb, rng)
+        val = rng.integers(-9, 9, len(src)).astype(np.int32)
+        for name, direction in (("sum", "all"), ("min", "out"),
+                                ("max", "in")):
+            cap = min(eb * (2 if direction == "all" else 1), vbp)
+            for wire in ("standard", "compact"):
+                t = cell_wire(src, dst, val, eb, vb, direction, wire, dev,
+                              nvalid)
+                want = reduce_call(wire, t, 8, eb, vbp, name, direction,
+                                   plain=True)
+                got = reduce_call(wire, t, 8, eb, vbp, name, direction)
+                label = "cell_reduce edge cases %d %s %s %s" % (
+                    vb, wire, name, direction)
+                compare_cells(label, got, want, name)
+                compare_cells(label + " delta", reduce_call(
+                    wire, t, 8, eb, vbp, name, direction, "delta", cap),
+                    cr.touched_wire(*want, cap), name)
+                require(not got[1][0].any(), label + ": empty window")
+                require(int(got[1][1].sum()) ==
+                        (2 if direction == "all" else 1),
+                        label + ": one-edge window")
+    # rows past 8 blocks' shared memory: several passes a cluster
+    eb, vb, wb = RED_EB, CELL_PASSES_VB, 2
+    vbp = vb + 1
+    plans[vb] = cr.plan(wb, vbp, dev)
+    require(plans[vb]["passes"] > 1, "multi-pass plan %s" % plans[vb])
+    src, dst = rng.integers(0, vb, wb * eb), rng.integers(0, vb, wb * eb)
+    for name, direction, val in (
+            ("sum", "all", rng.integers(-50, 50, wb * eb).astype(np.int32)),
+            ("min", "out", rng.standard_normal(wb * eb).astype(np.float32))):
+        cap = min(eb * (2 if direction == "all" else 1), vbp)
+        for wire in ("standard",):      # ids past 16 bits
+            t = cell_wire(src, dst, val, eb, vb, direction, wire, dev)
+            want = reduce_call(wire, t, wb, eb, vbp, name, direction,
+                               plain=True)
+            label = "cell_reduce passes %s %s" % (wire, name)
+            compare_cells(label, reduce_call(wire, t, wb, eb, vbp, name,
+                                             direction), want, name)
+            compare_cells(label + " delta", reduce_call(
+                wire, t, wb, eb, vbp, name, direction, "delta", cap),
+                cr.touched_wire(*want, cap), name)
+            checked += 2
+
+    # cohort_step: 64 tenants' windows in one launch, each equal to its
+    # own window on the host tier
+    eng = wr.WindowedEdgeReduce(RED_VB, RED_EB, "sum", "all", device=dev)
+    rows = []
+    for i in range(CHUNK):
+        k = int(rng.integers(0, RED_EB + 1)) if i % 9 else 0
+        s = rng.integers(0, RED_VB, k)
+        d = rng.integers(0, RED_VB, k)
+        rows.append((s, d, red_values(s, d)))
+    from gelly_streaming_tpu_torch import kernels
+
+    before = kernels.LAUNCHES["cell_reduce"]
+    got = eng.cohort_step(rows)
+    require(kernels.LAUNCHES["cell_reduce"] - before == 1,
+            "cohort_step: not one launch")
+    host = wr.WindowedEdgeReduce(RED_VB, RED_EB, "sum", "all", tier="host")
+    for r, ((gc, gn), (s, d, v)) in enumerate(zip(got, rows)):
+        if len(s) == 0:
+            require(not gn.any(), "cohort row %d: empty row touched" % r)
+            continue
+        (hc, hn), = host.process_stream(s, d, v)
+        require(np.array_equal(gn, hn) and np.array_equal(gc, hc),
+                "cohort row %d differs from the host tier" % r)
+
+    # times at the main path's chunk (out, sum, int32, standard, full)
+    res = {}
+    for key, eb, vb, direction in (("main", RED_EB, RED_VB, "out"),
+                                   ("big", EB, VB, "all")):
+        wb, vbp = CHUNK, vb + 1
+        src, dst = make_stream(wb * eb, vb, seed=7)
+        val = red_values(src, dst)
+        t = cell_wire(src, dst, val, eb, vb, direction, "standard", dev)
+        rep = 2 if direction == "all" else 1
+        n_cells = wb * vbp
+        ids = t[0]
+
+        def library():
+            cells = torch.zeros(n_cells + 1, dtype=torch.int32, device=dev)
+            cells.index_add_(0, ids, t[1])
+            counts = torch.zeros(n_cells + 1, dtype=torch.int32,
+                                 device=dev)
+            counts.index_add_(0, ids, torch.ones_like(ids))
+            return cells, counts
+
+        lc, ln = library()
+        kc, kn = reduce_call("standard", t, wb, eb, vbp, "sum", direction)
+        require(torch.equal(lc[:-1].reshape(wb, vbp), kc)
+                and torch.equal(ln[:-1].reshape(wb, vbp), kn),
+                "cell_reduce %s: kernel != library" % key)
+        # device time (profiled) beside the call's time (CUDA events,
+        # which a call of a few µs leaves bound by the host's launches)
+        kernel = lambda: reduce_call("standard", t, wb, eb, vbp,  # noqa
+                                     "sum", direction)
+        ms = device_ms(kernel, 50)
+        call_ms = cuda_ms(kernel, 50)
+        lib_ms = device_ms(library, 50)
+        lib_call_ms = cuda_ms(library, 50)
+        plain_ms = device_ms(lambda: reduce_call(
+            "standard", t, wb, eb, vbp, "sum", direction, plain=True), 3)
+        delta_ms = device_ms(lambda: reduce_call(
+            "standard", t, wb, eb, vbp, "sum", direction, "delta",
+            min(rep * eb, vbp)), 50)
+        ct = cell_wire(src, dst, val, eb, vb, direction, "compact", dev)
+        compact_ms = device_ms(lambda: reduce_call(
+            "compact", ct, wb, eb, vbp, "sum", direction), 50)
+        b_ms, b_by = bound(cell_bytes(rep, wb, eb, vbp, "standard"),
+                           2 * rep * wb * eb)
+        res[key] = {"ms": ms, "library_ms": lib_ms, "plain_ms": plain_ms,
+                    "call_ms": call_ms, "library_call_ms": lib_call_ms,
+                    "delta_ms": delta_ms, "compact_ms": compact_ms,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "eb": eb, "vb": vb, "direction": direction}
+    # a window all on one hub vertex (the atomics serialise), one chunk
+    hub = np.full(CHUNK * RED_EB, 4242, np.int64)
+    ht = cell_wire(hub, hub, np.ones(len(hub), np.int32), RED_EB, RED_VB,
+                   "out", "standard", dev)
+    hub_ms = device_ms(lambda: reduce_call("standard", ht, CHUNK, RED_EB,
+                                           RED_VB + 1, "sum", "out"), 50)
+    main = res["main"]
+    print(json.dumps({"cell_reduce": {
+        "checked_calls": checked, "max_abs_err": err, "plans": plans,
+        "times": res, "hub_chunk_ms": hub_ms,
+        "device": torch.cuda.get_device_name(0)}}))
+    print("phase cell_reduce: ok  kernel %.4f ms/chunk on the device "
+          "(call %.4f; delta %.4f, compact %.4f)  library %.4f (call "
+          "%.4f)  plain %.3f  bound %.4f (%s); vb=65536 all %.4f (library "
+          "%.4f); hub chunk %.4f  (%d calls checked, max float |kernel - "
+          "plain| %g)"
+          % (main["ms"], main["call_ms"], main["delta_ms"],
+             main["compact_ms"], main["library_ms"],
+             main["library_call_ms"], main["plain_ms"], main["bound_ms"],
+             main["bound_by"], res["big"]["ms"], res["big"]["library_ms"],
+             hub_ms, checked, err))
+    return dict(main, max_abs_err=err, big=res["big"], hub_ms=hub_ms)
+
+
+def np_port_with_counts(src, val, eb: int, vb: int) -> list:
+    """bench.py's baseline (bench.py:553-567): per window the bincount of
+    the values and of the contributions by source."""
+    out = []
+    for lo in range(0, len(src), eb):
+        s = src[lo:lo + eb]
+        out.append((np.bincount(s, val[lo:lo + eb], minlength=vb),
+                    np.bincount(s, minlength=vb)))
+    return out
+
+
+def same_rows(label, got, want, exact_len=True) -> None:
+    """Every window's (cells, counts) equal: counts everywhere, cells
+    where counted (the fills differ by tier)."""
+    require(len(got) == len(want), "%s: %d windows, want %d"
+            % (label, len(got), len(want)))
+    for w, ((gc, gn), (wc, wn)) in enumerate(zip(got, want)):
+        k = len(wn)
+        require(np.array_equal(gn[:k], wn) and not gn[k:].any(),
+                "%s window %d: counts differ" % (label, w))
+        m = wn > 0
+        require(np.array_equal(np.asarray(gc[:k])[m],
+                               np.asarray(wc)[m]),
+                "%s window %d: cells differ" % (label, w))
+
+
+def phase_reduce_stream(dev) -> dict:
+    """The columnar windowed reduce's main path: WindowedEdgeReduce(16384,
+    8192, "sum", "out") over bench.py's reduce-leg stream (BASELINE
+    config #2 at its published size), launch counts set to 0 just
+    before and read just after, every window equal to bench.py's
+    np.bincount port on both wires and both egress forms and under
+    forced_sync; "all" with min and max equal to the native tier (its
+    first windows to numpy_reference); slide=2048 equal to
+    sliding_numpy_reference; the native tier equal to the device tier;
+    the north-star stream at vb=65536 (sum over "all") equal to the
+    native tier. Each form's edges/s, repeats and a profiled idle
+    share."""
+    from gelly_streaming_tpu_torch import (WindowedEdgeReduce, forced_sync,
+                                           kernels, make_stream)
+    from gelly_streaming_tpu_torch.ops import windowed_reduce as wr
+
+    src, dst = make_stream(RED_EDGES, RED_VB)
+    val = red_values(src, dst)
+    want = np_port_with_counts(src, val, RED_EB, RED_VB)
+    num_w = RED_EDGES // RED_EB
+    out = {}
+
+    def timed(eng, s=src, d=dst, v=val, reps=2):
+        eng.process_stream(s, d, v)           # warm-up: builds, fills the ring
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = eng.process_stream(s, d, v)
+        wall = time.perf_counter() - t0
+        launches = kernels.LAUNCHES["cell_reduce"]
+        repeats = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            eng.process_stream(s, d, v)
+            repeats.append(time.perf_counter() - t0)
+        return got, wall, launches, repeats
+
+    main = WindowedEdgeReduce(RED_VB, RED_EB, "sum", "out")  # the card
+    require(main.device.type == "cuda", "reduce engine not on the card")
+    for ingress, egress in (("standard", "full"), ("compact", "full"),
+                            ("standard", "delta"), ("compact", "delta")):
+        eng = (main if (ingress, egress) == ("standard", "full") else
+               WindowedEdgeReduce(RED_VB, RED_EB, "sum", "out",
+                                  ingress=ingress, egress=egress))
+        got, wall, launches, repeats = timed(eng)
+        label = "reduce_stream %s/%s" % (ingress, egress)
+        same_rows(label, got, want)
+        require(launches == -(-num_w // eng.MAX_STREAM_WINDOWS),
+                "%s: %d cell_reduce launches" % (label, launches))
+        prof = profile_run(lambda: eng.process_stream(src, dst, val))
+        out["%s/%s" % (ingress, egress)] = {
+            "seconds": wall, "edges_per_s": RED_EDGES / wall,
+            "repeat_seconds": repeats, "launches": launches,
+            "stage_ms_per_chunk": eng.stage_timers.snapshot(),
+            "idle_share": prof["idle_share"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "profiled_wall_ms": prof["wall_ms"]}
+    main_launches = out["standard/full"]["launches"]
+    with forced_sync():
+        t0 = time.perf_counter()
+        got = main.process_stream(src, dst, val)
+        sync_wall = time.perf_counter() - t0
+    same_rows("reduce_stream forced_sync", got, want)
+    out["standard/full"]["forced_sync_seconds"] = sync_wall
+    out["standard/full"]["forced_sync_edges_per_s"] = RED_EDGES / sync_wall
+
+    # the native tier, equal to the device tier
+    nat = WindowedEdgeReduce(RED_VB, RED_EB, "sum", "out", tier="native")
+    t0 = time.perf_counter()
+    ngot = nat.process_stream(src, dst, val)
+    out["native"] = {"seconds": time.perf_counter() - t0}
+    out["native"]["edges_per_s"] = RED_EDGES / out["native"]["seconds"]
+    same_rows("reduce_stream native", ngot, want)
+    np_t0 = time.perf_counter()
+    np_port_with_counts(src, val, RED_EB, RED_VB)
+    out["numpy_port_edges_per_s"] = RED_EDGES / (time.perf_counter()
+                                                  - np_t0)
+
+    # "all" with min and max
+    for name in ("min", "max"):
+        eng = WindowedEdgeReduce(RED_VB, RED_EB, name, "all")
+        got, wall, launches, repeats = timed(eng, reps=1)
+        ref = WindowedEdgeReduce(RED_VB, RED_EB, name, "all",
+                                 tier="native").process_stream(src, dst,
+                                                               val)
+        same_rows("reduce_stream all/%s vs native" % name, got,
+                  [(c, n) for c, n in ref])
+        same_rows("reduce_stream all/%s vs numpy" % name, got[:4],
+                  wr.numpy_reference(src[:4 * RED_EB], dst[:4 * RED_EB],
+                                     val[:4 * RED_EB], RED_EB, "all",
+                                     name))
+        out["all/" + name] = {"seconds": wall,
+                              "edges_per_s": RED_EDGES / wall,
+                              "repeat_seconds": repeats,
+                              "launches": launches}
+
+    # sliding windows by pane composition
+    eng = WindowedEdgeReduce(RED_VB, RED_EB, "sum", "out", slide=RED_SLIDE)
+    got, wall, launches, repeats = timed(eng, reps=1)
+    ref = wr.sliding_numpy_reference(src, dst, val, RED_EB, RED_SLIDE,
+                                     "out", "sum")
+    same_rows("reduce_stream slide=%d" % RED_SLIDE, got, ref)
+    out["slide"] = {"slide": RED_SLIDE, "emissions": len(got),
+                    "seconds": wall, "edges_per_s": RED_EDGES / wall,
+                    "repeat_seconds": repeats, "launches": launches}
+
+    # the large-vb tier: the north-star stream, sum over "all"
+    bsrc, bdst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    bval = red_values(bsrc, bdst)
+    eng = WindowedEdgeReduce(VB, RED_BIG_EB, "sum", "all")
+    got, wall, launches, repeats = timed(eng, bsrc, bdst, bval, reps=1)
+    ref = WindowedEdgeReduce(VB, RED_BIG_EB, "sum", "all",
+                             tier="native").process_stream(bsrc, bdst, bval)
+    same_rows("reduce_stream vb=65536 all/sum", got,
+              [(c, n) for c, n in ref])
+    prof = profile_run(lambda: eng.process_stream(bsrc, bdst, bval))
+    out["big_all_sum"] = {"edges": STREAM_EDGES, "eb": RED_BIG_EB,
+                          "vb": VB, "seconds": wall,
+                          "edges_per_s": STREAM_EDGES / wall,
+                          "repeat_seconds": repeats, "launches": launches,
+                          "idle_share": prof["idle_share"]}
+    print(json.dumps({"reduce_stream": dict(
+        out, edges=RED_EDGES, windows=num_w, eb=RED_EB, vb=RED_VB,
+        device=torch.cuda.get_device_name(0))}))
+    m = out["standard/full"]
+    print("phase reduce_stream: ok  %d windows  %.1f edges/s  (forced_sync "
+          "%.1f, compact %.1f, delta %.1f, native %.1f, numpy port %.1f; "
+          "vb=65536 all %.1f)  idle %s"
+          % (num_w, m["edges_per_s"], m["forced_sync_edges_per_s"],
+             out["compact/full"]["edges_per_s"],
+             out["standard/delta"]["edges_per_s"],
+             out["native"]["edges_per_s"], out["numpy_port_edges_per_s"],
+             out["big_all_sum"]["edges_per_s"], m["idle_share"]))
+    return {"cell_reduce": main_launches}
+
+
+def api_goldens(dev) -> None:
+    """The nine goldens of the reference's TestSlice.java:81-229 through
+    the host UDFs and the Torch* UDFs on the card."""
+    import gelly_streaming_tpu_torch as P
+    from gelly_streaming_tpu_torch.core.types import csv_line
+
+    fold_want = {"OUT": ["1,25", "2,23", "3,69", "4,45", "5,51"],
+                 "IN": ["1,51", "2,12", "3,36", "4,34", "5,80"],
+                 "ALL": ["1,76", "2,35", "3,105", "4,79", "5,131"]}
+    apply_want = {
+        "OUT": ["1,small", "2,small", "3,big", "4,small", "5,big"],
+        "IN": ["1,big", "2,small", "3,small", "4,small", "5,big"],
+        "ALL": ["1,big", "2,small", "3,big", "4,big", "5,big"]}
+    edges = [(1, 2, 12), (1, 3, 13), (2, 3, 23), (3, 4, 34), (3, 5, 35),
+             (4, 5, 45), (5, 1, 51)]
+
+    def run(direction, op):
+        env = P.StreamEnvironment(clock=P.ManualClock(0))   # the card
+        g = P.SimpleEdgeStream(env.from_collection(
+            [P.Edge(*e) for e in edges]), env).slice(
+            P.Time.seconds(1), P.EdgeDirection[direction])
+        sink = op(g).collect()
+        env.execute()
+        require(env.device.type == "cuda", "api: env not on the card")
+        return sorted(csv_line(v) for v in env.results_of(sink))
+
+    def classify(vid, nbrs, collect):
+        collect((vid, "big" if sum(v for _n, v in nbrs) > 50
+                 else "small"))
+
+    i32 = lambda: torch.tensor(0, dtype=torch.int32)  # noqa: E731
+    for direction in ("OUT", "IN", "ALL"):
+        cases = {
+            "fold host": (lambda g: g.fold_neighbors((0, 0), P.EdgesFold(
+                lambda acc, vid, nid, val: (vid, acc[1] + val))),
+                fold_want),
+            "fold torch": (lambda g: g.fold_neighbors(P.TorchEdgesFold(
+                (i32(), i32()), lambda acc, vid, nid, val:
+                (vid, acc[1] + val))), fold_want),
+            "reduce host": (lambda g: g.reduce_on_edges(P.EdgesReduce(
+                lambda a, b: a + b)), fold_want),
+            "reduce torch named": (lambda g: g.reduce_on_edges(
+                P.TorchEdgesReduce(name="sum")), fold_want),
+            "reduce torch fn": (lambda g: g.reduce_on_edges(
+                P.TorchEdgesReduce(fn=torch.add)), fold_want),
+            "reduce torch associative": (lambda g: g.reduce_on_edges(
+                P.TorchEdgesReduce(fn=torch.add, associative=True)),
+                fold_want),
+            "apply host": (lambda g: g.apply_on_neighbors(
+                P.EdgesApply(classify)), apply_want),
+            "apply torch": (lambda g: g.apply_on_neighbors(
+                P.TorchEdgesApply(
+                    lambda vid, nbrs, vals, mask:
+                    torch.where(mask, vals, 0).sum(-1),
+                    emit=lambda vid, row: (vid, "big" if row[0] > 50
+                                           else "small"))), apply_want)}
+        for label, (op, table) in cases.items():
+            got = run(direction, op)
+            require(got == sorted(table[direction]), "api golden %s %s: "
+                    "%s" % (label, direction, got))
+
+
+def api_graph(P, src, dst, ts):
+    """A SimpleEdgeStream over (src, dst) at event times ts (ms), edge
+    values bench.py's reduce-leg weights, on a fresh environment on the
+    card."""
+    env = P.StreamEnvironment(clock=P.ManualClock(0))
+    edges = env.from_collection(
+        [P.Edge(s, d, t) for s, d, t in zip(src.tolist(), dst.tolist(),
+                                            ts.tolist())])
+    graph = P.SimpleEdgeStream(
+        edges, env,
+        timestamp_extractor=P.AscendingTimestampExtractor(lambda e: e.value))
+    return env, graph.map_edges(
+        lambda e: 1 + (e.source + 3 * e.target) % 97)
+
+
+def phase_api(dev) -> dict:
+    """The record API on the card: the nine TestSlice goldens through
+    host and Torch* UDFs; API_EDGES timestamped edges (API_EDGES_PER_MS
+    edges a ms) through slice(512 ms, ALL).reduce_on_edges(
+    TorchEdgesReduce(name="sum")), every window equal to numpy, launch
+    counts set to 0 just before and read just after; WindowTriangleCount
+    over the same graph at API_TRI_MS, both routes of triangle_count
+    taken, every window equal to ops/host_triangles; get_degrees() equal
+    to a numpy running degree."""
+    import gelly_streaming_tpu_torch as P
+    from gelly_streaming_tpu_torch import kernels
+    from gelly_streaming_tpu_torch.models.triangles import \
+        WindowTriangleCount
+    from gelly_streaming_tpu_torch.ops import host_triangles
+
+    t0 = time.perf_counter()
+    api_goldens(dev)
+    golden_s = time.perf_counter() - t0
+    src, dst = P.make_stream(API_EDGES, VB, seed=SEED)
+    ts = np.arange(API_EDGES) // API_EDGES_PER_MS
+    weight = 1 + (src + 3 * dst) % 97
+    res = {"goldens_seconds": golden_s}
+
+    # reduce_on_edges over 512 ms tumbling windows, direction ALL
+    env, graph = api_graph(P, src, dst, ts)
+    out = graph.slice(P.Time.milliseconds_of(API_WINDOW_MS),
+                      P.EdgeDirection.ALL).reduce_on_edges(
+        P.TorchEdgesReduce(name="sum")).collect()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    env.execute()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    records = env._results[out.node.id]
+    n_win = -(-API_EDGES // (API_WINDOW_MS * API_EDGES_PER_MS))
+    require(launches["cell_reduce"] == n_win,
+            "api: %d cell_reduce launches for %d windows"
+            % (launches["cell_reduce"], n_win))
+    win = ts // API_WINDOW_MS
+    got = {}
+    for (vid, value), wmax in records:
+        got.setdefault(wmax, []).append((vid, value))
+    require(len(got) == n_win, "api: %d windows" % len(got))
+    for w in range(n_win):
+        m = win == w
+        ids = np.concatenate([src[m], dst[m]])
+        sums = np.bincount(ids, np.concatenate([weight[m], weight[m]]),
+                           minlength=VB)
+        have = np.flatnonzero(np.bincount(ids, minlength=VB))
+        rows = sorted(got[w * API_WINDOW_MS + API_WINDOW_MS - 1])
+        require([r[0] for r in rows] == have.tolist()
+                and [r[1] for r in rows] == sums[have].astype(np.int64)
+                .tolist(), "api reduce window %d differs" % w)
+    res["reduce"] = {"edges": API_EDGES, "windows": n_win,
+                     "seconds": wall, "edges_per_s": API_EDGES / wall,
+                     "launches": launches["cell_reduce"]}
+    # where its time goes: a 1/8 prefix of the same job, profiled
+    k = API_EDGES // 8
+    penv, pgraph = api_graph(P, src[:k], dst[:k], ts[:k])
+    pgraph.slice(P.Time.milliseconds_of(API_WINDOW_MS),
+                 P.EdgeDirection.ALL).reduce_on_edges(
+        P.TorchEdgesReduce(name="sum")).collect()
+    prof = profile_run(penv.execute)
+    res["reduce"]["profiled_edges"] = k
+    res["reduce"]["idle_share"] = prof["idle_share"]
+    res["reduce"]["host_share"] = prof["idle_share"]
+    res["reduce"]["device_busy_ms"] = prof["device_busy_ms"]
+    res["reduce"]["profiled_wall_ms"] = prof["wall_ms"]
+
+    # WindowTriangleCount at two window sizes: the dense and sparse routes
+    routes = {"dense": 0, "sparse": 0}
+    tri_launches = {}
+    for size in API_TRI_MS:
+        env, graph = api_graph(P, src, dst, ts)
+        out = WindowTriangleCount(P.Time.milliseconds_of(size)).run(
+            graph).collect()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        env.execute()
+        wall = time.perf_counter() - t0
+        tri_launches[size] = {k: v for k, v in kernels.LAUNCHES.items()
+                              if v}
+        counts = env.results_of(out)
+        win = ts // size
+        n_w = int(win[-1]) + 1
+        require(len(counts) == n_w, "triangles %d ms: %d windows"
+                % (size, len(counts)))
+        here = {"dense": 0, "sparse": 0}
+        for w, (count, wmax) in enumerate(counts):
+            m = win == w
+            nv = len(np.unique(np.concatenate([src[m], dst[m]])))
+            here["dense" if nv <= DENSE_MAX_V else "sparse"] += 1
+            require(wmax == w * size + size - 1 and count ==
+                    host_triangles.window_count(src[m], dst[m]),
+                    "triangles %d ms window %d: %d" % (size, w, count))
+        require(tri_launches[size].get("dense_triangles", 0) ==
+                here["dense"] and tri_launches[size].get("intersect", 0) ==
+                here["sparse"], "triangles %d ms: launches %s for routes %s"
+                % (size, tri_launches[size], here))
+        for r in routes:
+            routes[r] += here[r]
+        res["triangles_%dms" % size] = {
+            "windows": n_w, "routes": here, "seconds": wall,
+            "edges_per_s": API_EDGES / wall,
+            "launches": tri_launches[size]}
+    require(routes["dense"] > 0 and routes["sparse"] > 0,
+            "triangles: routes %s" % routes)
+
+    # get_degrees (BASELINE config #1): a running degree a contribution
+    env, graph = api_graph(P, src, dst, ts)
+    out = graph.get_degrees().collect()
+    t0 = time.perf_counter()
+    env.execute()
+    wall = time.perf_counter() - t0
+    got = env.results_of(out)
+    ids = np.stack([src, dst], 1).reshape(-1)
+    order = np.argsort(ids, kind="stable")
+    run = np.empty(len(ids), np.int64)
+    first = np.r_[0, np.flatnonzero(np.diff(ids[order])) + 1]
+    starts = np.repeat(first, np.diff(np.r_[first, len(ids)]))
+    run[order] = np.arange(len(ids)) - starts + 1
+    require(len(got) == len(ids)
+            and [v.id for v in got] == ids.tolist()
+            and [v.value for v in got] == run.tolist(),
+            "api get_degrees differs from the numpy running degree")
+    res["degrees"] = {"records": len(got), "seconds": wall,
+                      "edges_per_s": API_EDGES / wall}
+    print(json.dumps({"api": dict(res, routes=routes,
+                                  device=torch.cuda.get_device_name(0))}))
+    print("phase api: ok  goldens 9 × 2 forms; reduce_on_edges %d windows "
+          "%.1f edges/s (host share %s); triangles %s routes %s; degrees "
+          "%.1f edges/s"
+          % (n_win, res["reduce"]["edges_per_s"],
+             res["reduce"]["host_share"],
+             {s: round(res["triangles_%dms" % s]["edges_per_s"], 1)
+              for s in API_TRI_MS}, routes,
+             res["degrees"]["edges_per_s"]))
+    return {"cell_reduce": launches["cell_reduce"]}
+
+
 def profile_both(run, setup=lambda: None) -> dict:
     """profile_run of run(), pipelined and under forced_sync, each after
     setup() outside the profiled region."""
@@ -2429,6 +3159,7 @@ def main() -> int:
     cohort = phase_cohort(dev)
     compact = phase_compact(dev)
     snapshot = phase_snapshot(dev)
+    cells = phase_cell_reduce(dev)
     launches, counts = phase_stream(dev)
     compact_launches = phase_stream_compact(dev, counts)
     summary_launches, summaries, state = phase_summary_stream(dev)
@@ -2440,6 +3171,9 @@ def main() -> int:
     phase_gnn_cohort(dev)
     driver_launches = phase_driver(dev, counts)
     phase_driver_file(dev)
+    reduce_launches = phase_reduce_stream(dev)
+    api_launches = phase_api(dev)
+    require(api_launches["cell_reduce"] > 0, "api: no cell_reduce launch")
 
     rows = []
     pw = "gelly_streaming_tpu/ops/pallas_window.py:"
@@ -2466,14 +3200,19 @@ def main() -> int:
             # no Pallas counterpart: the JAX driver's XLA lax.scan
             ("window_snapshot", "window_snapshot",
              "gelly_streaming_tpu/core/driver.py:91", snapshot,
-             driver_launches["window_snapshot"])):
+             driver_launches["window_snapshot"]),
+            # no Pallas counterpart: the JAX package's XLA segment programs
+            ("cell_reduce", "cell_reduce",
+             "gelly_streaming_tpu/ops/windowed_reduce.py:317", cells,
+             reduce_launches["cell_reduce"])):
         rows.append({
             "name": name, "route": "cuda",
             "source": "gelly_streaming_tpu_torch/csrc/%s.cu" % source,
             "replaces": replaces, "launches": n,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": None})
+            "bound_by": res["bound_by"],
+            "library_ms": res.get("library_ms")})
     print(card())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

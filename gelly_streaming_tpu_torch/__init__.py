@@ -1,7 +1,11 @@
 """gelly_streaming_tpu_torch — the PyTorch/CUDA port of
 gelly_streaming_tpu for one NVIDIA H100.
 
-It runs the exact per-window triangle count over an edge stream
+It carries the graph-streaming API (`StreamEnvironment`,
+`SimpleEdgeStream`, `slice()` and the neighborhood fold/reduce/apply on
+`Torch*` or host UDFs, `models.triangles.WindowTriangleCount`) and the
+columnar windowed reduce (`WindowedEdgeReduce`, over the cell-reduce
+kernel). It runs the exact per-window triangle count over an edge stream
 (`TriangleWindowKernel.count_stream`), the fused summary engine
 (`StreamSummaryEngine.process`: carried degrees, connected components,
 bipartiteness and triangles per window, and its sliding form), the
@@ -20,7 +24,10 @@ load it. It imports torch and numpy, never JAX and nothing of the JAX
 package. Entry points run on the card unless the caller passes
 `device="cpu"`, which runs each kernel's plain PyTorch version.
 
-Layers: core/ (device selection, the tenant cohorts), ops/ (window
+Layers: core/ (the graph-stream API and its runtime, device selection,
+the tenant cohorts, the columnar driver), models/ (the window triangle
+count and its workloads), ops/ (the neighborhood kernels, the windowed
+reduce and cell reduce, window
 layout, the compact wire, the ingress pipeline and staging, the
 intersect, window-counter, window-summary, cohort-summary, GNN-round and
 dense-triangle kernels' wrappers, the union-find, the triangle stream
@@ -28,8 +35,17 @@ and dispatcher, the summary and GNN engines, the numpy oracles), utils/
 (synthetic streams), kernels.py + csrc/ (CUDA build and binding).
 """
 
+from .core.datastream import DataStream
 from .core.driver import StreamingAnalyticsDriver, WindowResult
+from .core.env import StreamEnvironment
+from .core.functions import (EdgesApply, EdgesFold, EdgesReduce,
+                             TorchEdgesApply, TorchEdgesFold,
+                             TorchEdgesReduce)
+from .core.graphstream import GraphStream, GraphWindowStream, SimpleEdgeStream
+from .core.gtime import (AscendingTimestampExtractor, ManualClock, SystemClock,
+                         Time, TimeCharacteristic)
 from .core.platform import resolve_device
+from .core.types import NULL, Edge, EdgeDirection, NullValue, Vertex
 from .core.tenancy import (GnnTenantCohort, TenantBackpressure,
                            TenantCohort, TenantError, TenantRejected)
 from .ops.gnn_window import GnnHostEngine, GnnSummaryEngine
@@ -37,12 +53,19 @@ from .ops.ingress_pipeline import forced_sync
 from .ops.scan_analytics import SlidingSummaryEngine, StreamSummaryEngine
 from .ops.triangles import (TriangleWindowKernel, triangle_count,
                             triangle_count_dense)
+from .ops.windowed_reduce import WindowedEdgeReduce
 from .utils.streams import make_stream
 
-__all__ = ["GnnHostEngine", "GnnSummaryEngine", "GnnTenantCohort",
+__all__ = ["DataStream", "StreamEnvironment", "EdgesApply", "EdgesFold",
+           "EdgesReduce", "TorchEdgesApply", "TorchEdgesFold",
+           "TorchEdgesReduce", "GraphStream", "GraphWindowStream",
+           "SimpleEdgeStream", "AscendingTimestampExtractor",
+           "ManualClock", "SystemClock", "Time", "TimeCharacteristic",
+           "NULL", "Edge", "EdgeDirection", "NullValue", "Vertex",
+           "GnnHostEngine", "GnnSummaryEngine", "GnnTenantCohort",
            "SlidingSummaryEngine", "StreamSummaryEngine",
            "StreamingAnalyticsDriver", "WindowResult",
            "TenantBackpressure", "TenantCohort", "TenantError",
-           "TenantRejected", "TriangleWindowKernel", "forced_sync",
-           "make_stream", "resolve_device", "triangle_count",
-           "triangle_count_dense"]
+           "TenantRejected", "TriangleWindowKernel", "WindowedEdgeReduce",
+           "forced_sync", "make_stream", "resolve_device",
+           "triangle_count", "triangle_count_dense"]

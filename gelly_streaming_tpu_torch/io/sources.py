@@ -1,10 +1,9 @@
-"""Edge sources of the columnar driver: 'src dst [ts]' text files parsed
-by the native parser (native/ingest.cpp) straight into int64 COO arrays,
-whole or in bounded-memory chunks.
+"""Edge sources: 'src dst [ts]' text files parsed by the native parser
+(native/ingest.cpp) straight into int64 COO arrays, whole or in
+bounded-memory chunks, for the columnar driver; and `read_edge_file`,
+the same data as a record-level SimpleEdgeStream for the graph API.
 
-Port of the JAX package's `io/sources.py` (:27-160). `read_edge_file`,
-the record-level DataStream form, waits for the port's API layer
-(ROADMAP step 1.6).
+Port of the JAX package's `io/sources.py` (:27-186).
 """
 
 from __future__ import annotations
@@ -14,6 +13,11 @@ from typing import Tuple
 import numpy as np
 
 from .. import native
+from ..core.datastream import DataStream
+from ..core.graphstream import SimpleEdgeStream
+from ..core.gtime import AscendingTimestampExtractor
+from ..core.plan import OpNode
+from ..core.types import NULL, Edge
 
 
 def load_edge_arrays(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -132,3 +136,28 @@ def iter_edge_chunks(path: str, chunk_bytes: int = 1 << 24,
             except queue.Empty:
                 pass
             t.join(timeout=0.05)
+
+
+def read_edge_file(env, path: str,
+                   event_time: bool = False) -> SimpleEdgeStream:
+    """A SimpleEdgeStream over a 'src dst [ts]' file. With event_time,
+    the third column drives event-time windows (and edge values become
+    NullValue, matching the reference's RemoveEdgeValue pattern)."""
+    src, dst, ts = load_edge_arrays(path)
+
+    def _records():
+        if event_time:
+            for s, d, t in zip(src.tolist(), dst.tolist(), ts.tolist()):
+                yield Edge(s, d, t)
+        else:
+            for s, d in zip(src.tolist(), dst.tolist()):
+                yield Edge(s, d, NULL)
+
+    edges = DataStream(env, OpNode("source", (), items_fn=_records))
+    if event_time:
+        stream = SimpleEdgeStream(
+            edges, env,
+            timestamp_extractor=AscendingTimestampExtractor(lambda e: e.value),
+        )
+        return stream.map_edges(lambda e: NULL)
+    return SimpleEdgeStream(edges, env)

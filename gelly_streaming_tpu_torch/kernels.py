@@ -72,13 +72,20 @@ SIGNATURES = {
     "dense_triangles": {
         "gs_six_t_partials": [_P, _I, _P, _I, _P],
     },
+    "cell_reduce": {
+        "gs_cell_reduce_plan": [_I, _I, _I, _P],
+        "gs_cell_reduce": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+        "gs_cell_reduce_compact": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _P, _I, _P],
+    },
 }
 
-# the kernels whose launches are counted: one per library, and the
-# compact-wire forms of the counter and the summary kernel apart
+# the kernels whose launches are counted: one per library (the cell
+# reduce's two wires together), and the compact-wire forms of the counter
+# and the summary kernel apart
 KERNELS = ("intersect", "window_counter", "window_counter_compact",
            "window_summary", "window_summary_compact", "window_snapshot",
-           "cohort_summary", "gnn_round", "dense_triangles")
+           "cohort_summary", "gnn_round", "dense_triangles", "cell_reduce")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _LIBS: dict = {}

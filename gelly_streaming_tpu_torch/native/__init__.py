@@ -1,6 +1,7 @@
 """ctypes bindings of the native host runtime (native/ingest.cpp): edge
 parsing, tumbling-window assignment, the vertex interner, the carried
-snapshot fold and the exact triangle stream counter.
+snapshot fold, the exact triangle stream counter and the fused windowed
+reduce.
 
 Port of the JAX package's `native/__init__.py` (:26-425). ingest.cpp
 and its Makefile are copies of that package's. g++ builds the library
@@ -10,10 +11,10 @@ at first use with the Makefile's CXX and CXXFLAGS into
 source builds anew). Parsing, window assignment and interning keep a
 Python form with the same results where the library cannot build;
 `available()` says which form is live, and `build_error()` why the
-library is missing. `snapshot_windows` and `triangle_count_stream`
-return None without the library: their callers (ops/host_snapshot.py,
-ops/triangles.py) decide what stands in, and a pinned native tier
-raises there. `windowed_reduce` is not bound yet (ROADMAP step 1.6).
+library is missing. `snapshot_windows`, `triangle_count_stream` and
+`windowed_reduce` return None without the library: their callers
+(ops/host_snapshot.py, ops/triangles.py, ops/windowed_reduce.py) decide
+what stands in, and a pinned native tier raises there.
 """
 
 from __future__ import annotations
@@ -91,6 +92,20 @@ _SIGNATURES = {
     "gs_snapshot_windows": (ctypes.c_int64, [
         _I32P, _I32P, _I64P, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int32, _I32P, _I32P, _I32P, _I32P, _I32P, _I32P]),
+    # windowed reduce: ids, ids, values, n, eb, vbp, op, direction,
+    # cells, counts (the suffix names the id, value and output widths)
+    "gs_windowed_reduce": (ctypes.c_int64, [
+        _I64P, _I64P, _I64P] + [ctypes.c_int64] * 3 + [ctypes.c_int32] * 2
+        + [_I64P, _I64P]),
+    "gs_windowed_reduce_i32": (ctypes.c_int64, [
+        _I32P, _I32P, _I32P] + [ctypes.c_int64] * 3 + [ctypes.c_int32] * 2
+        + [_I64P, _I64P]),
+    "gs_windowed_reduce_i32o": (ctypes.c_int64, [
+        _I32P, _I32P, _I32P] + [ctypes.c_int64] * 3 + [ctypes.c_int32] * 2
+        + [_I32P, _I32P]),
+    "gs_windowed_reduce_i64i32o": (ctypes.c_int64, [
+        _I64P, _I64P, _I32P] + [ctypes.c_int64] * 3 + [ctypes.c_int32] * 2
+        + [_I32P, _I32P]),
 }
 
 
@@ -295,3 +310,76 @@ class NativeInterner:
         handle, self._handle = getattr(self, "_handle", None), None
         if handle is not None:
             self._lib.gs_interner_free(handle)
+
+
+_REDUCE_OPS = {"sum": 0, "min": 1, "max": 2}
+_REDUCE_DIRS = {"out": 0, "in": 1, "all": 2}
+
+
+def windowed_reduce_available() -> bool:
+    """True when the library (with its windowed reduce) is loaded."""
+    return _load() is not None
+
+
+def windowed_reduce(src: np.ndarray, dst: np.ndarray, val: np.ndarray,
+                    eb: int, vbp: int, name: str, direction: str,
+                    ident: int):
+    """(cells [num_w, vbp], counts [num_w, vbp]) of every tumbling
+    `eb`-edge window in one C++ pass (ingest.cpp gs_windowed_reduce*):
+    the native tier of ops/windowed_reduce.WindowedEdgeReduce for
+    integer values, cells pre-filled with `ident`; None without the
+    library. The slabs are int32 where the values are int32 and the
+    largest cell sum (max|val| × the most contributions a cell takes,
+    2·eb for "all") fits int32, int64 otherwise, decided per call (the
+    JAX loader's rule, native/__init__.py :233-324). Ids outside
+    [0, vbp) raise ValueError."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(src)
+    num_w = -(-n // eb) if n else 0
+    src, dst, val = (np.asarray(a) for a in (src, dst, val))
+    ids_i32 = src.dtype == np.int32 and dst.dtype == np.int32
+    ids_i64 = src.dtype == np.int64 and dst.dtype == np.int64
+    per_cell = eb * (2 if direction == "all" else 1)
+    out_i32 = (val.dtype == np.int32 and (ids_i32 or ids_i64)
+               and per_cell <= np.iinfo(np.int32).max)
+    if out_i32 and name == "sum" and n:
+        # exact max|val| in Python ints (np.abs wraps on INT32_MIN)
+        maxabs = max(int(val.max()), -int(val.min()))
+        out_i32 = maxabs * per_cell <= np.iinfo(np.int32).max
+    out_dt = np.int32 if out_i32 else np.int64
+    if ident == 0:
+        cells = np.zeros((max(num_w, 1), vbp), out_dt)
+    else:
+        cells = np.full((max(num_w, 1), vbp), ident, out_dt)
+    counts = np.zeros((max(num_w, 1), vbp), out_dt)
+    op, how = _REDUCE_OPS[name], _REDUCE_DIRS[direction]
+    if out_i32 and ids_i32:
+        s32, d32, v32 = (np.ascontiguousarray(a) for a in (src, dst, val))
+        oob = lib.gs_windowed_reduce_i32o(
+            _i32ptr(s32), _i32ptr(d32), _i32ptr(v32), n, eb, vbp, op, how,
+            _i32ptr(cells), _i32ptr(counts))
+    elif out_i32:
+        s64, d64 = np.ascontiguousarray(src), np.ascontiguousarray(dst)
+        v32 = np.ascontiguousarray(val)
+        oob = lib.gs_windowed_reduce_i64i32o(
+            _i64ptr(s64), _i64ptr(d64), _i32ptr(v32), n, eb, vbp, op, how,
+            _i32ptr(cells), _i32ptr(counts))
+    elif ids_i32 and val.dtype == np.int32:
+        s32, d32, v32 = (np.ascontiguousarray(a) for a in (src, dst, val))
+        oob = lib.gs_windowed_reduce_i32(
+            _i32ptr(s32), _i32ptr(d32), _i32ptr(v32), n, eb, vbp, op, how,
+            _i64ptr(cells), _i64ptr(counts))
+    else:
+        s64 = np.ascontiguousarray(src, np.int64)
+        d64 = np.ascontiguousarray(dst, np.int64)
+        v64 = np.ascontiguousarray(val, np.int64)
+        oob = lib.gs_windowed_reduce(
+            _i64ptr(s64), _i64ptr(d64), _i64ptr(v64), n, eb, vbp, op, how,
+            _i64ptr(cells), _i64ptr(counts))
+    if oob:
+        raise ValueError(
+            "%d vertex id(s) outside [0, %d) in windowed_reduce input"
+            % (oob, vbp))
+    return cells[:num_w], counts[:num_w]

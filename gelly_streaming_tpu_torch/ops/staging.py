@@ -19,7 +19,8 @@ import torch
 
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
                  np.dtype(np.uint16): torch.uint16,
-                 np.dtype(np.bool_): torch.bool}
+                 np.dtype(np.bool_): torch.bool,
+                 np.dtype(np.float32): torch.float32}
 _ALIGN = 16
 
 

@@ -154,3 +154,109 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
     assert int(out.stdout.split()[1]) >= 24
+
+
+# ---- the fold/reduce half (ops/segment.py :51-211 of the JAX package) ----
+
+def _segments(seed, n_seg=23):
+    """Sorted segment ids of very unequal lengths (one hub segment of
+    hundreds of edges, many of one or two), with segment ids absent."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 3, n_seg)
+    lens[5] = 400
+    lens[n_seg - 1] = 1
+    seg = np.repeat(np.arange(n_seg), lens).astype(np.int32)
+    vals = rng.integers(-100, 100, len(seg)).astype(np.int64)
+    return seg, vals, n_seg
+
+
+def _jnp_fns():
+    import jax.numpy as jnp
+    return {"add": (torch.add, jnp.add),
+            "max": (torch.maximum, jnp.maximum),
+            "take_right": (lambda a, b: b, lambda a, b: b),
+            "affine": (lambda a, b: a * 3 - b, lambda a, b: a * 3 - b)}
+
+
+@pytest.mark.parametrize("fn", ["add", "max", "take_right", "affine"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segmented_reduce_matches_jax(fn, seed):
+    """The stepped fold in arrival order (a non-commutative and a
+    non-associative fn included) equals the JAX lax.scan fold."""
+    seg, vals, n_seg = _segments(seed)
+    pf, jf = _jnp_fns()[fn]
+    got, gh = port_seg.segmented_reduce(pf, seg, vals, n_seg, "cpu")
+    want, wh = jax_seg.segmented_reduce(jf, seg, vals, n_seg)
+    np.testing.assert_array_equal(gh, np.asarray(wh))
+    np.testing.assert_array_equal(got[gh], np.asarray(want)[gh])
+    assert got.dtype == np.asarray(want).dtype
+
+
+@pytest.mark.parametrize("fn", ["add", "max", "take_right"])
+@pytest.mark.parametrize("dtype", [np.int64, np.float64])
+def test_segmented_reduce_associative_matches_jax(fn, dtype):
+    seg, vals, n_seg = _segments(2)
+    vals = vals.astype(dtype) / (7 if dtype == np.float64 else 1)
+    pf, jf = _jnp_fns()[fn]
+    got, gh = port_seg.segmented_reduce_associative(pf, seg, vals, n_seg,
+                                                    "cpu")
+    want, wh = jax_seg.segmented_reduce_associative(jf, seg, vals, n_seg)
+    np.testing.assert_array_equal(gh, np.asarray(wh))
+    if fn == "add" and dtype == np.float64:
+        np.testing.assert_allclose(got[gh], np.asarray(want)[gh],
+                                   rtol=1e-5)
+    else:
+        np.testing.assert_array_equal(got[gh], np.asarray(want)[gh])
+    slow, sh = port_seg.segmented_reduce(pf, seg, vals, n_seg, "cpu")
+    np.testing.assert_array_equal(sh, gh)
+
+
+def test_segmented_fold_tree_matches_jax():
+    """A tuple accumulator folding (vertex, neighbor, value) fields over
+    unequal segments: every lane of every segment equals the JAX fold;
+    a segment with no edges reports has_any False."""
+    import jax.numpy as jnp
+    seg, vals, n_seg = _segments(3)
+    nbr = (vals * 7) % 31
+    fields = (seg.astype(np.int64), nbr, vals)
+    fold_p = lambda acc, v, u, x: (v, acc[1] * 2 + x - u, acc[2] + 1)  # noqa
+    init_p = tuple(torch.tensor(0, dtype=torch.int32) for _ in range(3))
+    init_j = tuple(jnp.zeros((), jnp.int32) for _ in range(3))
+    got, gh = port_seg.segmented_fold(fold_p, init_p, seg, fields, n_seg,
+                                      "cpu")
+    want, wh = jax_seg.segmented_fold(fold_p, init_j, seg, fields, n_seg)
+    np.testing.assert_array_equal(gh, np.asarray(wh))
+    assert not gh.all()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[gh], np.asarray(w)[gh])
+    empty, eh = port_seg.segmented_fold(fold_p, init_p, seg[:0],
+                                        tuple(f[:0] for f in fields), 4,
+                                        "cpu")
+    assert not eh.any() and len(empty) == 3
+
+
+@pytest.mark.parametrize("kind", ["sum", "min", "max", "count"])
+def test_segment_reduce_matches_jax(kind):
+    import jax.numpy as jnp
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, 12, 200).astype(np.int32)
+    ids[:5] = 40                       # out of range: dropped
+    vals = rng.integers(-50, 50, 200).astype(np.int32)
+    got = port_seg.segment_reduce(torch.from_numpy(vals),
+                                  torch.from_numpy(ids), 16, kind)
+    want = jax_seg.segment_reduce(jnp.asarray(vals), jnp.asarray(ids), 16,
+                                  kind)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_degree_update_matches_jax():
+    import jax.numpy as jnp
+    state = np.arange(9, dtype=np.int32)
+    src = np.array([0, 1, 8, 8], np.int32)
+    dst = np.array([2, 2, 8, 3], np.int32)
+    got = port_seg.degree_update(torch.from_numpy(state.copy()),
+                                 torch.from_numpy(src), torch.from_numpy(dst))
+    want = jax_seg.degree_update(jnp.asarray(state.copy()),
+                                 jnp.asarray(src), jnp.asarray(dst))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert port_seg.warm_stream_buckets(None) is None
