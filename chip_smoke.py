@@ -4,7 +4,7 @@ NVIDIA GPU.
 
 Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and the
 native host runtime (gelly_streaming_tpu_torch/native, g++) and runs
-twenty phases. Eight hold a kernel against its plain PyTorch version on
+twenty-two phases. Eight hold a kernel against its plain PyTorch version on
 the card: intersect (ascending and shuffled rows), counter (count and
 overflow on every window, overflowing ones included, both wires: a
 Zipf chunk, a repeated edge across a whole window, a star, a row past
@@ -23,7 +23,7 @@ masks and the delta wire, a window of one edge, empty windows,
 self-loops) and cell_reduce (the windowed reduce's cell-reduce kernel:
 sum/min/max × out/in/all × int32/float32 on both wires, full rows and
 the delta wire, at [64, 8192] vb=16384 and [64, 32768] vb=65536, edge
-cases, cohort_step of 64 rows). Twelve drive the port's paths, each
+cases, cohort_step of 64 rows). Fourteen drive the port's paths, each
 with the launch counts set to 0 just before it and read just after,
 every window checked, and each profile holding one summary-body launch
 per summary wrapper call: over the bench's north-star stream
@@ -53,7 +53,19 @@ slide=2048, the native tier, and the north-star stream at vb=65536
 nine TestSlice goldens through host and Torch* UDFs, 1,048,576
 timestamped edges through slice(512 ms, ALL).reduce_on_edges(
 TorchEdgesReduce(name="sum")), WindowTriangleCount taking both routes
-of triangle_count, and get_degrees(). Each path reports its rate, its
+of triangle_count, and get_degrees(); the summary-aggregation models
+(phase models) over the synthetic cit-HepPh stream (421,578 edges, ts =
+arrival index): aggregate(TorchConnectedComponents(4096)) and
+aggregate(TorchBipartitenessCheck(4096)), also over a bipartite stream
+of the same size, against scipy and host double-cover oracles,
+TorchIterativeConnectedComponents in batches of 32768, the weighted
+matching and both sampling estimators, then the union-find kernel
+(gs_cc_fixpoint) timed at the models' sizes against its plain fixpoint;
+and StreamingAnalyticsDriver(window_ms=1, edge_bucket=32768,
+vertex_bucket=65536, slide=8192) over 2,097,152 edges of the north-star
+stream, every emission's triangles equal to the raw trailing slice's,
+its cumulative fields to a tumbling driver at the pane size, a resume
+mid pane ring (phase driver_slide). Each path reports its rate, its
 launches and
 where its time goes. Beside the dense and GNN kernels it times one
 PyTorch call for the same product as a yardstick (torch.mm, torch._int_mm;
@@ -3050,6 +3062,463 @@ def phase_api(dev) -> dict:
     return {"cell_reduce": launches["cell_reduce"]}
 
 
+# ----------------------------------------------------------------------
+# the summary-aggregation models and the driver's sliding windows
+# ----------------------------------------------------------------------
+MODEL_WINDOW_MS = 4096              # the models' merge window (ts = index)
+MODEL_BATCH = 32768                 # the iterative CC's batch
+MODEL_SAMPLE_EDGES = 131072         # the estimators' prefix
+MODEL_SAMPLES = 64
+MODEL_STATE_EDGES = 16384           # the samplers' determinism prefix
+SLIDE_EDGES = 2_097_152             # phase driver_slide: the stream's prefix
+SLIDE = 8192                        # its pane: 256 emissions
+
+
+def canonical_components(src, dst, n: int) -> np.ndarray:
+    """Each vertex's smallest same-component vertex, by scipy's
+    connected_components over the undirected graph."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    adj = coo_matrix((np.ones(len(src), np.int8), (src, dst)), (n, n))
+    k, lab = connected_components(adj, directed=False)
+    mins = np.full(k, n, np.int64)
+    np.minimum.at(mins, lab, np.arange(n))
+    return mins[lab]
+
+
+def double_cover_bipartite(src, dst, n: int) -> bool:
+    """The host double-cover check: bipartite iff no vertex's two cover
+    copies share a component."""
+    lab = canonical_components(np.concatenate([src, src + n]),
+                               np.concatenate([dst + n, dst]), 2 * n)
+    return not bool((lab[:n] == lab[n:]).any())
+
+
+def disjoint_set_components(ds, n: int) -> np.ndarray:
+    """canonical_components' form of a DisjointSet over ids 0..n-1."""
+    out = np.full(n, -1, np.int64)
+    for members in ds.components().values():
+        out[members] = min(members)
+    return out
+
+
+def bipartite_citation_stream():
+    """A bipartite stream of the citation stream's size and shape, made
+    from its seed: each cited paper moved to the citing paper's other
+    parity side (w -> w ^ 1 where w's parity matches), so the graph is
+    bipartite by parity."""
+    from gelly_streaming_tpu_torch.utils.realgraph import citation_stream
+
+    src, dst, ts = citation_stream()
+    same = (src & 1) == (dst & 1)
+    dst = np.where(same, dst ^ 1, dst).astype(np.int32)
+    return src, dst, ts
+
+
+def model_run(P, model, src, dst, ts):
+    """graph.aggregate(model) over (src, dst) at event times ts on a
+    fresh environment on the card; returns (final state, emissions,
+    seconds)."""
+    env = P.StreamEnvironment(clock=P.ManualClock(0))
+    edges = env.from_collection(
+        [P.Edge(s, d, t) for s, d, t in zip(src.tolist(), dst.tolist(),
+                                            ts.tolist())])
+    graph = P.SimpleEdgeStream(
+        edges, env,
+        timestamp_extractor=P.AscendingTimestampExtractor(lambda e: e.value))
+    out = graph.aggregate(model).collect()
+    t0 = time.perf_counter()
+    env.execute()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    states = env.results_of(out)
+    return states[-1], len(states), wall
+
+
+def uf_work(n: int, ne: int, carried: bool) -> tuple:
+    """(bytes, operations) of a union-find call over n slots and ne
+    edges: the labels read and written once (4 B a slot each way), 8 B
+    an edge; a union an edge (two root reads and a min) and a pass a
+    slot, two with `carried` (its links)."""
+    return 8 * n + 8 * ne, 3 * ne + (2 if carried else 1) * n
+
+
+def time_union_find(label, lab0, s, d, carried: bool, reps: int) -> dict:
+    """cc_fixpoint against its plain version on one call's tensors:
+    equal labels, CUDA-event and profiled device ms of each, the
+    bound."""
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    got = uf.cc_fixpoint(lab0, s, d, carried)
+    want = uf.cc_fixpoint_plain(lab0, s, d, carried)
+    err = int((got.long() - want.long()).abs().max())
+    require(err == 0, "cc_fixpoint %s: kernel != plain" % label)
+    n, ne = lab0.numel(), s.numel()
+    b_ms, b_by = bound(*uf_work(n, ne, carried))
+    res = {"slots": n, "edges": ne, "carried": carried,
+           "ms": cuda_ms(lambda: uf.cc_fixpoint(lab0, s, d, carried), reps),
+           "device_ms": device_ms(lambda: uf.cc_fixpoint(lab0, s, d,
+                                                         carried), reps),
+           "plain_ms": cuda_ms(lambda: uf.cc_fixpoint_plain(
+               lab0, s, d, carried), 3),
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+    print("  cc_fixpoint %s: %d slots, %d edges: %.4f ms (device %.4f), "
+          "plain %.3f ms, bound %.5f ms (%s)"
+          % (label, n, ne, res["ms"], res["device_ms"], res["plain_ms"],
+             b_ms, b_by))
+    return res
+
+
+def union_find_cases(src, dst, carry, dev) -> dict:
+    """The union-find kernel timed at the models' sizes: one merge
+    window of each model (the middle one), padded as ops/unionfind's
+    host wrappers pad it; the whole citation graph in one fresh call and
+    its double cover at 2·V; and a carried batch of MODEL_BATCH edges,
+    `carry` = (the iterative CC's labels before its last full batch, the
+    batch's slots, the vertex count after it), laid out as its
+    process_batch lays them out."""
+    from gelly_streaming_tpu_torch.ops import segment as seg
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+
+    def fresh(s, d, n):
+        eb, vb = seg.bucket_size(len(s)), seg.bucket_size(n)
+        st, dt = uf._padded_edges(s, d, eb, vb, dev)
+        return torch.arange(vb + 1, dtype=torch.int32, device=dev), st, dt
+
+    cases = {}
+    w = len(src) // MODEL_WINDOW_MS // 2
+    m = slice(w * MODEL_WINDOW_MS, (w + 1) * MODEL_WINDOW_MS)
+    uniq, (ws, wd) = seg.intern(src[m], dst[m])
+    cases["cc_window"] = time_union_find(
+        "cc window", *fresh(ws, wd, len(uniq)), False, 50)
+    cs, cd = uf.double_cover_edges(ws, wd, len(uniq))
+    cases["bipartite_window"] = time_union_find(
+        "bipartite window", *fresh(cs, cd, 2 * len(uniq)), False, 50)
+    n = int(max(src.max(), dst.max())) + 1
+    cases["cc_graph"] = time_union_find("cc graph", *fresh(src, dst, n),
+                                        False, 10)
+    cs, cd = uf.double_cover_edges(src, dst, n)
+    cases["bipartite_graph"] = time_union_find(
+        "bipartite graph", *fresh(cs, cd, 2 * n), False, 10)
+    labels, slot_s, slot_d, nv = carry
+    vb = seg.bucket_size(nv)
+    st, dt = uf._padded_edges(slot_s, slot_d, seg.bucket_size(len(slot_s)),
+                              vb, dev)
+    lab0 = torch.from_numpy(np.concatenate([
+        labels, np.arange(len(labels), vb + 1, dtype=np.int32)])).to(dev)
+    cases["carried_batch"] = time_union_find("carried batch", lab0, st, dt,
+                                             True, 20)
+    return cases
+
+
+def phase_models(dev) -> dict:
+    """The summary-aggregation models on the card over the synthetic
+    cit-HepPh stream (421,578 edges, 34,546 vertices, ts = arrival
+    index), with the launch counts set to 0 just before and read just
+    after each model path: aggregate(TorchConnectedComponents(4096)),
+    its final components equal to the host ConnectedComponents' on the
+    same stream and to scipy's, profiled for the card's idle share;
+    aggregate(TorchBipartitenessCheck(4096)), its verdict equal to a
+    host double-cover check; both again on a bipartite stream of the
+    same size (verdict true); TorchIterativeConnectedComponents in
+    batches of MODEL_BATCH, its final labels equal to a host
+    DisjointSet's components; the weighted matching over the stream
+    with seeded weights (a matching, and every ADD worth more than twice
+    the edges it removed); both sampling estimators on a prefix,
+    their samplers deterministic on a repeat. Then the union-find kernel
+    timed at the models' sizes. Returns the kernel row's numbers."""
+    import gelly_streaming_tpu_torch as P
+    from gelly_streaming_tpu_torch import kernels
+    from gelly_streaming_tpu_torch.models import (
+        ConnectedComponents, TorchBipartitenessCheck,
+        TorchConnectedComponents, TorchIterativeConnectedComponents)
+    from gelly_streaming_tpu_torch.models.matching import \
+        centralized_weighted_matching
+    from gelly_streaming_tpu_torch.models.sampling_triangles import (
+        EdgeSampleRouter, VectorTriangleSampler, broadcast_triangle_count,
+        incidence_sampling_triangle_count)
+    from gelly_streaming_tpu_torch.utils.disjoint_set import DisjointSet
+    from gelly_streaming_tpu_torch.utils.events import MatchingEventType
+    from gelly_streaming_tpu_torch.utils.profiling import device_times
+    from gelly_streaming_tpu_torch.utils.realgraph import citation_stream
+
+    src, dst, ts = citation_stream()
+    n = int(max(src.max(), dst.max())) + 1
+    require(len(src) == 421_578 and n == 34_546,
+            "citation stream: %d edges over %d vertices" % (len(src), n))
+    want_cc = canonical_components(src, dst, n)
+    res = {"edges": len(src), "vertices": n, "window_ms": MODEL_WINDOW_MS}
+    launches = {}
+
+    # connected components on the card, profiled: edges/s and idle share
+    kernels.reset_launches()
+    box = {}
+
+    def cc_run():
+        box["state"], box["emissions"], box["seconds"] = model_run(
+            P, TorchConnectedComponents(MODEL_WINDOW_MS), src, dst, ts)
+
+    wall_ms, by_name = device_times(cc_run)
+    launches["cc"] = kernels.LAUNCHES["cc_fixpoint"]
+    require(launches["cc"] == box["emissions"] > 100,
+            "cc: %d cc_fixpoint launches for %d windows"
+            % (launches["cc"], box["emissions"]))
+    require(np.array_equal(disjoint_set_components(box["state"], n),
+                           want_cc), "cc: components differ from scipy's")
+    busy = sum(ms for ms, _n in by_name.values())
+    require(busy > 0, "cc: the profile has no device rows")
+    res["cc"] = {"windows": box["emissions"], "seconds": box["seconds"],
+                 "edges_per_s": len(src) / box["seconds"],
+                 "profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+                 "idle_share": 1 - busy / wall_ms,
+                 "device_ms_by_name": {k: v[0] for k, v in by_name.items()}}
+    host_state, _k, host_s = model_run(
+        P, ConnectedComponents(MODEL_WINDOW_MS), src, dst, ts)
+    require(np.array_equal(disjoint_set_components(host_state, n), want_cc),
+            "cc: the host ConnectedComponents differs from scipy's")
+    res["cc"]["host_seconds"] = host_s
+
+    # bipartiteness on the card: the citation stream (odd cycles) and a
+    # bipartite stream of its size
+    bsrc, bdst, bts = bipartite_citation_stream()
+    for label, (s, d, t) in (("bipartiteness", (src, dst, ts)),
+                             ("bipartiteness_bipartite", (bsrc, bdst, bts))):
+        kernels.reset_launches()
+        cand, k, wall = model_run(
+            P, TorchBipartitenessCheck(MODEL_WINDOW_MS), s, d, t)
+        launches[label] = kernels.LAUNCHES["cc_fixpoint"]
+        want = double_cover_bipartite(s, d, n)
+        require(launches[label] == k and cand.success == want,
+                "%s: verdict %s, want %s, %d launches for %d windows"
+                % (label, cand.success, want, launches[label], k))
+        if want:
+            seen = sorted(v for comp in cand.map.values() for v in comp)
+            require(seen == sorted(set(s.tolist()) | set(d.tolist())),
+                    "%s: the candidates miss vertices" % label)
+        res[label] = {"windows": k, "seconds": wall, "verdict": want,
+                      "edges_per_s": len(s) / wall}
+    require(not res["bipartiteness"]["verdict"]
+            and res["bipartiteness_bipartite"]["verdict"],
+            "bipartiteness: verdicts %s" % res)
+    kernels.reset_launches()
+    state, k, wall = model_run(P, TorchConnectedComponents(MODEL_WINDOW_MS),
+                               bsrc, bdst, bts)
+    launches["cc_bipartite"] = kernels.LAUNCHES["cc_fixpoint"]
+    require(launches["cc_bipartite"] == k and np.array_equal(
+        disjoint_set_components(state, n),
+        canonical_components(bsrc, bdst, n)),
+            "cc on the bipartite stream differs from scipy's")
+    res["cc_bipartite"] = {"windows": k, "seconds": wall,
+                           "edges_per_s": len(bsrc) / wall}
+
+    # iterative CC in batches, labels carried on the card
+    kernels.reset_launches()
+    model = TorchIterativeConnectedComponents()
+    batches = range(0, len(src), MODEL_BATCH)
+    last_full = (len(src) // MODEL_BATCH - 1) * MODEL_BATCH
+    t0 = time.perf_counter()
+    for at in batches:
+        if at == last_full:
+            before = model.state_dict()["labels"].copy()
+        model.process_batch(src[at:at + MODEL_BATCH],
+                            dst[at:at + MODEL_BATCH])
+    wall = time.perf_counter() - t0
+    launches["iterative_cc"] = kernels.LAUNCHES["cc_fixpoint"]
+    require(launches["iterative_cc"] == len(batches),
+            "iterative cc: %d launches for %d batches"
+            % (launches["iterative_cc"], len(batches)))
+    host = DisjointSet()
+    for a, b in zip(src.tolist(), dst.tolist()):
+        host.union(a, b)
+    st = model.state_dict()
+    ids = np.asarray(st["ids"], np.int64)
+    got = np.full(n, -1, np.int64)
+    got[ids] = ids[st["labels"]]
+    roots = np.full(n, n, np.int64)
+    np.minimum.at(roots, got, np.arange(n))
+    require(np.array_equal(roots[got], disjoint_set_components(host, n)),
+            "iterative cc: labels differ from the host DisjointSet's")
+    res["iterative_cc"] = {"batches": len(batches), "seconds": wall,
+                           "edges_per_s": len(src) / wall}
+
+    # weighted matching with seeded weights, on the host by design
+    weight = np.random.default_rng(SEED).integers(1, 1000, len(src))
+    env = P.StreamEnvironment(clock=P.ManualClock(0))
+    out = centralized_weighted_matching(env.from_collection(
+        [P.Edge(a, b, w) for a, b, w in zip(src.tolist(), dst.tolist(),
+                                            weight.tolist())])).collect()
+    t0 = time.perf_counter()
+    env.execute()
+    wall = time.perf_counter() - t0
+    matched, by_vertex, removed, adds = {}, {}, [], 0
+    for ev in env.results_of(out):
+        e = ev.edge
+        if ev.type == MatchingEventType.REMOVE:
+            require(matched.pop(e, None) is not None,
+                    "matching: REMOVE of an unmatched edge")
+            for v in (e.source, e.target):
+                by_vertex.pop(v)
+            removed.append(e.value)
+            continue
+        require(e.source not in by_vertex and e.target not in by_vertex
+                and e.value > 2 * sum(removed),
+                "matching: ADD %s breaks the 2x rule or the matching" % (e,))
+        matched[e] = True
+        by_vertex[e.source] = by_vertex[e.target] = e
+        removed, adds = [], adds + 1
+    res["matching"] = {"seconds": wall, "edges_per_s": len(src) / wall,
+                       "adds": adds, "matched": len(matched),
+                       "weight": int(sum(e.value for e in matched))}
+
+    # the sampling estimators on a prefix; at this many vertices their
+    # samples rarely close a wedge, so determinism is held on the
+    # samplers' state after the same edges, twice
+    k = MODEL_SAMPLE_EDGES
+    prefix = [P.Edge(a, b, P.NULL) for a, b in zip(src[:k].tolist(),
+                                                    dst[:k].tolist())]
+    for label, fn in (("broadcast", broadcast_triangle_count),
+                      ("incidence", incidence_sampling_triangle_count)):
+        env = P.StreamEnvironment(clock=P.ManualClock(0))
+        out = fn(env.from_collection(prefix), MODEL_SAMPLES, n).collect()
+        t0 = time.perf_counter()
+        env.execute()
+        wall = time.perf_counter() - t0
+        got = env.results_of(out)
+        res[label] = {"edges": k, "samples": MODEL_SAMPLES, "seconds": wall,
+                      "edges_per_s": k / wall, "emissions": len(got),
+                      "estimate": got[-1][1] if got else 0}
+
+    def sampler_states():
+        vec = VectorTriangleSampler(MODEL_SAMPLES, n)
+        router = EdgeSampleRouter(MODEL_SAMPLES, 1)
+        for e in prefix[:MODEL_STATE_EDGES]:
+            vec(e, lambda _rec: None)
+            router(e, lambda _rec: None)
+        return (vec.src, vec.trg, vec.third, vec.beta, router.sample_src,
+                router.sample_trg)
+
+    first, again = sampler_states(), sampler_states()
+    require(all(np.array_equal(a, b) for a, b in zip(first, again))
+            and (first[2] >= 0).all() and (first[4] >= 0).all(),
+            "sampling estimators: not deterministic on a repeat")
+
+    # the last full batch as its call got it: the labels before it, its
+    # edges as slots (stable: the final id table gives them)
+    slot = np.zeros(n, np.int32)
+    slot[ids] = np.arange(len(ids), dtype=np.int32)
+    m = slice(last_full, last_full + MODEL_BATCH)
+    nv = len(np.unique(np.concatenate([ids[:len(before)], src[m], dst[m]])))
+    res["launches"] = launches
+    res["union_find"] = union_find_cases(
+        src, dst, (before, slot[src[m]], slot[dst[m]], nv), dev)
+    print(json.dumps({"models": dict(res,
+                                     device=torch.cuda.get_device_name(0))}))
+    print("phase models: ok  cc %.1f edges/s (idle %.4f, host fold %.1f s), "
+          "bipartiteness %.1f / %.1f edges/s (verdicts false / true), "
+          "iterative cc %.1f, matching %.1f, estimators %.1f / %.1f edges/s; "
+          "cc_fixpoint launches %s"
+          % (res["cc"]["edges_per_s"], res["cc"]["idle_share"],
+             res["cc"]["host_seconds"],
+             res["bipartiteness"]["edges_per_s"],
+             res["bipartiteness_bipartite"]["edges_per_s"],
+             res["iterative_cc"]["edges_per_s"],
+             res["matching"]["edges_per_s"],
+             res["broadcast"]["edges_per_s"],
+             res["incidence"]["edges_per_s"], launches))
+    # the kernels line: a merge window's call, bound by its launches, so
+    # its ms is the profiled device time (as the cell reduce's)
+    window = res["union_find"]["cc_window"]
+    return {"ms": window["device_ms"], "plain_ms": window["plain_ms"],
+            "bound_ms": window["bound_ms"], "bound_by": window["bound_by"],
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in res["union_find"].values()),
+            "launches": launches["cc"]}
+
+
+def phase_driver_slide(dev) -> dict:
+    """The driver's sliding windows: StreamingAnalyticsDriver(window_ms=1,
+    edge_bucket=32768, vertex_bucket=65536, slide=8192) over the first
+    SLIDE_EDGES edges of the north-star stream in one call (launch
+    counts set to 0 just before, read just after): 256 emissions, each
+    emission's triangles equal to count_windows over the raw trailing
+    slice of 32768 edges rebuilt on the host, the cumulative fields
+    equal to a tumbling driver at edge_bucket=8192, and a checkpoint
+    taken inside a call mid pane ring resumed to equal results."""
+    import tempfile
+
+    from gelly_streaming_tpu_torch import (StreamingAnalyticsDriver,
+                                           TriangleWindowKernel, kernels,
+                                           make_stream)
+
+    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    src, dst = src[:SLIDE_EDGES], dst[:SLIDE_EDGES]
+    num_e = SLIDE_EDGES // SLIDE
+
+    def driver(**kw):
+        return StreamingAnalyticsDriver(window_ms=1, edge_bucket=EB,
+                                        vertex_bucket=VB, **kw)
+
+    warm = driver(slide=SLIDE)
+    warm.run_arrays(src[:2 * EB], dst[:2 * EB])
+    torch.cuda.synchronize()
+    drv = driver(slide=SLIDE)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = drv.run_arrays(src, dst)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for name in ("window_snapshot", "window_counter"):
+        require(launches[name] > 0, "kernel %s was not launched on the "
+                "sliding driver's path" % name)
+    require(len(got) == num_e, "%d emissions, want %d" % (len(got), num_e))
+
+    trailing = [(src[max(0, (i + 1) * SLIDE - EB):(i + 1) * SLIDE]
+                 .astype(np.int32),
+                 dst[max(0, (i + 1) * SLIDE - EB):(i + 1) * SLIDE]
+                 .astype(np.int32)) for i in range(num_e)]
+    want = TriangleWindowKernel(EB, VB).count_windows(trailing)
+    require([r.triangles for r in got] == list(want),
+            "driver slide: triangles differ from the raw trailing slices'")
+    require(all(r.num_edges == SLIDE and r.window_start == i * SLIDE
+                for i, r in enumerate(got)), "driver slide: emission cuts")
+
+    panes = StreamingAnalyticsDriver(
+        window_ms=1, edge_bucket=SLIDE, vertex_bucket=VB,
+        analytics=("degrees", "cc", "bipartite")).run_arrays(src, dst)
+    require(len(panes) == num_e, "pane tumbling: %d windows" % len(panes))
+    for i, (a, b) in enumerate(zip(got, panes)):
+        for f in ARRAYS:
+            x, y = getattr(a, f), getattr(b, f)
+            require(x.dtype == y.dtype and np.array_equal(x, y),
+                    "driver slide emission %d: %s differs from pane "
+                    "tumbling" % (i, f))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "slide.npz")
+        first = driver(slide=SLIDE)
+        first.enable_auto_checkpoint(path, every_n_windows=64)
+        first.run_arrays(src[:100 * SLIDE], dst[:100 * SLIDE])
+        second = driver(slide=SLIDE)
+        require(second.try_resume(path), "no checkpoint to resume")
+        done = second.windows_done
+        require(done == 64 and len(second.state_dict()["pane_ring_src"])
+                == EB // SLIDE - 1, "resumed at window %d" % done)
+        rest = second.run_arrays(src[done * SLIDE:], dst[done * SLIDE:])
+    same_results("driver slide resumed", got[done:], rest, offset=done)
+    res = {"edges": SLIDE_EDGES, "emissions": num_e, "eb": EB, "vb": VB,
+           "slide": SLIDE, "seconds": wall,
+           "edges_per_s": SLIDE_EDGES / wall, "launches": launches,
+           "resumed_at": done, "device": torch.cuda.get_device_name(0)}
+    print(json.dumps({"driver_slide": res}))
+    print("phase driver_slide: ok  %d emissions  %.1f edges/s  launches "
+          "window_counter %d, window_snapshot %d"
+          % (num_e, SLIDE_EDGES / wall, launches["window_counter"],
+             launches["window_snapshot"]))
+    return launches
+
+
 def profile_both(run, setup=lambda: None) -> dict:
     """profile_run of run(), pipelined and under forced_sync, each after
     setup() outside the profiled region."""
@@ -3174,6 +3643,8 @@ def main() -> int:
     reduce_launches = phase_reduce_stream(dev)
     api_launches = phase_api(dev)
     require(api_launches["cell_reduce"] > 0, "api: no cell_reduce launch")
+    union_find = phase_models(dev)
+    phase_driver_slide(dev)
 
     rows = []
     pw = "gelly_streaming_tpu/ops/pallas_window.py:"
@@ -3204,7 +3675,11 @@ def main() -> int:
             # no Pallas counterpart: the JAX package's XLA segment programs
             ("cell_reduce", "cell_reduce",
              "gelly_streaming_tpu/ops/windowed_reduce.py:317", cells,
-             reduce_launches["cell_reduce"])):
+             reduce_launches["cell_reduce"]),
+            # no Pallas counterpart: the JAX package's XLA while_loop
+            ("cc_fixpoint", "window_summary",
+             "gelly_streaming_tpu/ops/unionfind.py:47", union_find,
+             union_find["launches"])):
         rows.append({
             "name": name, "route": "cuda",
             "source": "gelly_streaming_tpu_torch/csrc/%s.cu" % source,

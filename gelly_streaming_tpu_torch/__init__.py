@@ -3,9 +3,12 @@ gelly_streaming_tpu for one NVIDIA H100.
 
 It carries the graph-streaming API (`StreamEnvironment`,
 `SimpleEdgeStream`, `slice()` and the neighborhood fold/reduce/apply on
-`Torch*` or host UDFs, `models.triangles.WindowTriangleCount`) and the
-columnar windowed reduce (`WindowedEdgeReduce`, over the cell-reduce
-kernel). It runs the exact per-window triangle count over an edge stream
+`Torch*` or host UDFs, `models.triangles.WindowTriangleCount`), the
+summary-aggregation models of `models/` (connected components and the
+bipartiteness check as host folds and as `Torch*` device folds on the
+union-find kernel, iterative CC, weighted matching, the sampling
+triangle estimators) and the columnar windowed reduce
+(`WindowedEdgeReduce`, over the cell-reduce kernel). It runs the exact per-window triangle count over an edge stream
 (`TriangleWindowKernel.count_stream`), the fused summary engine
 (`StreamSummaryEngine.process`: carried degrees, connected components,
 bipartiteness and triangles per window, and its sliding form), the
@@ -25,14 +28,17 @@ package. Entry points run on the card unless the caller passes
 `device="cpu"`, which runs each kernel's plain PyTorch version.
 
 Layers: core/ (the graph-stream API and its runtime, device selection,
-the tenant cohorts, the columnar driver), models/ (the window triangle
-count and its workloads), ops/ (the neighborhood kernels, the windowed
+the tenant cohorts, the columnar driver with tumbling or sliding
+windows), models/ (the window triangle count and its workloads,
+connected components, bipartiteness, iterative CC, matching, the
+sampling estimators), ops/ (the neighborhood kernels, the windowed
 reduce and cell reduce, window
 layout, the compact wire, the ingress pipeline and staging, the
 intersect, window-counter, window-summary, cohort-summary, GNN-round and
 dense-triangle kernels' wrappers, the union-find, the triangle stream
 and dispatcher, the summary and GNN engines, the numpy oracles), utils/
-(synthetic streams), kernels.py + csrc/ (CUDA build and binding).
+(synthetic streams, the synthetic cit-HepPh stream, the models' summary
+states and event records), kernels.py + csrc/ (CUDA build and binding).
 """
 
 from .core.datastream import DataStream

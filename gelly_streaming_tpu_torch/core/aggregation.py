@@ -69,7 +69,9 @@ class WindowGraphAggregation(GraphAggregation):
     partials through one merger.
 
     With `fold_kernel` set, the per-window fold runs as a device kernel
-    over the window's columnar edge batch: kernel(edges, wmax) -> S.
+    over the window's columnar edge batch: kernel(edges, wmax, device)
+    -> S, `device` the environment's (the JAX package's kernel takes no
+    device: its programs run on the default backend).
     """
 
     def __init__(self, update_fun: Callable, combine_fun: Callable,
@@ -89,7 +91,7 @@ class WindowGraphAggregation(GraphAggregation):
             kernel = self.fold_kernel
 
             def window_kernel(edges, wmax):
-                return [(kernel(edges, wmax), wmax)]
+                return [(kernel(edges, wmax, env.device), wmax)]
 
             node = OpNode("window_batch", [edge_stream.node],
                           size_ms=self.time_millis, kernel=window_kernel)

@@ -5,13 +5,16 @@ Port of the JAX package's `core/driver.py` (`WindowResult` :268-303,
 
     file -> native parse (native/ingest.cpp, io/sources.py)
          -> tumbling event-time windows (Flink's TimeWindow floor) or
-            count-based windows of edge_bucket edges
+            count-based windows of edge_bucket edges, or with `slide`
+            sliding count-based windows: an emission every `slide`
+            edges (a pane)
          -> incremental vertex interning (utils/interning.py)
          -> per window, against carried state:
               degrees    running degree of every vertex slot
               cc         carried min-label components
               bipartite  carried double-cover odd-cycle flags
-              triangles  exact count of the window alone
+              triangles  exact count of the window alone (sliding:
+                         of the last edge_bucket/slide panes)
 
 The carried analytics run on the snapshot tier the constructor pins:
 "scan" (the default: the snapshot program of ops/window_snapshot.py, its
@@ -29,13 +32,22 @@ a checkpoint of either driver resumes in the other. Buckets grow by
 doubling. A call with one window is a chunk of one (the JAX driver's
 per-window path: the snapshot program and the counter at W=1).
 
+Sliding windows (`slide`, the JAX driver's pane composition,
+core/driver.py:357-379 there) stay on the chunked path: each pane is a
+window of the snapshot tier, so the cumulative fields come at pane
+granularity, and each emission's triangles are counted in the call's one
+flush over its composed slab, the last edge_bucket/slide − 1 panes (the
+pane ring) and its own. The ring moves with the mirrors at chunk
+boundaries and rides the checkpoint (`slide`, `pane_ring_src`,
+`pane_ring_dst`).
+
 Not ported yet, each raising NotImplementedError where an argument asks
 for it: the mesh and sharded branches (ROADMAP step 1.10); the resident
 tier, the autotuners and the evidence routing of the snapshot tier and
 the egress (step 1.7: here `snapshot_tier` and `egress` are plain
 arguments); demotion, the write-ahead log, sanitize, latency,
-provenance, metrics, telemetry and tracing (step 1.8); sliding windows
-(`slide`, step 1.6).
+provenance, metrics, telemetry and tracing (step 1.8; so is the
+`GS_SLIDE` knob, which the JAX driver reads where `slide` is None).
 """
 
 from __future__ import annotations
@@ -116,7 +128,9 @@ class StreamingAnalyticsDriver:
     one); `device="cpu"` runs the plain versions. `snapshot_tier` pins
     the carried analytics' tier (SNAPSHOT_TIERS, default "scan");
     `egress` ("full" by default, or "delta") the scan tier's copy back,
-    `egress_cap` the delta rows' width (ops/delta_egress.egress_cap)."""
+    `egress_cap` the delta rows' width (ops/delta_egress.egress_cap).
+    `slide`, a power of two dividing the edge bucket, makes the
+    count-based windows slide: one WindowResult every `slide` edges."""
 
     ANALYTICS = ("degrees", "cc", "bipartite", "triangles")
     _SCAN_CHUNK = 64                    # windows per snapshot call
@@ -138,8 +152,7 @@ class StreamingAnalyticsDriver:
         if unknown:
             raise ValueError(f"unknown analytics: {sorted(unknown)}")
         for name, value, step in (("mesh", mesh, "1.10"),
-                                  ("tenant", tenant, "1.8"),
-                                  ("slide", slide, "1.6")):
+                                  ("tenant", tenant, "1.8")):
             if value is not None:
                 raise NotImplementedError(
                     "%s= is not ported yet (ROADMAP step %s)" % (name, step))
@@ -168,6 +181,16 @@ class StreamingAnalyticsDriver:
         self.emit_deltas = bool(emit_deltas)
         self.vb = seg_ops.bucket_size(vertex_bucket)
         self.eb = seg_ops.bucket_size(edge_bucket)
+        slide = int(slide) if slide else None
+        if slide is not None and (seg_ops.bucket_size(slide) != slide
+                                  or self.eb % slide != 0):
+            raise ValueError(
+                "slide must be a power of two dividing the window "
+                "size (%d), got %d" % (self.eb, slide))
+        # slide == eb is tumbling; None there, so such a driver resumes
+        # its own checkpoints (the JAX driver keeps eb and refuses them)
+        self.slide = slide if slide != self.eb else None
+        self._wp = (self.eb // slide) if slide else 1  # panes a window
         self._tri_kernel = None
         self._tri_pending = None   # the call's triangle windows (transient)
         self._snaps = {}           # (vb, egress, cap) -> WindowSnapshot
@@ -192,6 +215,7 @@ class StreamingAnalyticsDriver:
         self.windows_done = 0      # the resume cursor, in checkpoints
         self.edges_done = 0        # count-based window_start offset
         self._closed_partial = False
+        self._pane_ring = []       # the last ≤ wp−1 interned (s, d) panes
         self._pending_ckpt = []
         if self._ckpt_policy is not None:
             self._ckpt_policy.mark(0)
@@ -274,6 +298,11 @@ class StreamingAnalyticsDriver:
         dst = np.asarray(dst, np.int64)
         if _starts is not None or (
                 ts is not None and len(ts) and int(np.max(ts)) >= 0):
+            if self._wp > 1:
+                raise ValueError(
+                    "sliding windows (slide=) are count-based: "
+                    "event-time streams window by window_ms (panes "
+                    "over event time need an upstream assigner)")
             if _starts is not None:
                 starts = _starts
             else:
@@ -301,11 +330,17 @@ class StreamingAnalyticsDriver:
                 "count-based feeding must use edge_bucket multiples")
         windows = []
         at = self.edges_done
-        for i in range(0, len(src), self.eb):
-            idx = slice(i, min(i + self.eb, len(src)))
+        cut = self._cut_size()
+        for i in range(0, len(src), cut):
+            idx = slice(i, min(i + cut, len(src)))
             windows.append((at, src[idx], dst[idx]))
             at += idx.stop - idx.start
         return self._dispatch_windows(windows, count_based=True)
+
+    def _cut_size(self) -> int:
+        """Edges a count-based window: a pane (`slide`) under sliding
+        windows, the whole edge bucket otherwise."""
+        return self.slide if self._wp > 1 else self.eb
 
     def _dispatch_windows(self, windows, count_based: bool = False
                           ) -> List[WindowResult]:
@@ -316,8 +351,8 @@ class StreamingAnalyticsDriver:
             return []
         with self._batched_triangles():
             return self._run_batched(
-                windows, closes_partial=(count_based
-                                         and len(windows[-1][1]) < self.eb))
+                windows, closes_partial=(
+                    count_based and len(windows[-1][1]) < self._cut_size()))
 
     # ------------------------------------------------------------------
     # the chunked path: a chunk of up to _SCAN_CHUNK windows a call of
@@ -411,7 +446,7 @@ class StreamingAnalyticsDriver:
         device carry (built from the mirrors here), the copies back are
         enqueued behind it, and the finalize reads them one chunk
         behind."""
-        vb, eb, dev = self.vb, self.eb, self.device
+        vb, width, dev = self.vb, self._cut_size(), self.device
         carry = self._device_carry()
         snap = self._snapshot_program(self.egress)
         delta = self.egress == "delta"
@@ -419,7 +454,7 @@ class StreamingAnalyticsDriver:
         def prep(at):
             chunk = interned[at:at + self._SCAN_CHUNK]
             return at, seg_ops.stack_window_rows(
-                [(s, d) for _w, s, d, _n in chunk], len(chunk), eb, vb)
+                [(s, d) for _w, s, d, _n in chunk], len(chunk), width, vb)
 
         def h2d(payload):
             at, arrays = payload
@@ -549,7 +584,8 @@ class StreamingAnalyticsDriver:
         chunks by now) and a carry from the chunk-start mirrors (the
         pipeline's carry has moved on to later chunks)."""
         arrays = seg_ops.stack_window_rows(
-            [(s, d) for _w, s, d, _n in chunk], len(chunk), self.eb, self.vb)
+            [(s, d) for _w, s, d, _n in chunk], len(chunk), self._cut_size(),
+            self.vb)
         src, dst, valid = (torch.from_numpy(a).to(self.device)
                            for a in arrays)
         outs = self._snapshot_program("full")(self._device_carry(), src,
@@ -559,11 +595,13 @@ class StreamingAnalyticsDriver:
     def _finalize_chunk(self, chunk, outs: dict, mirrors, results) -> None:
         """A chunk's WindowResults from its outs (full rows, or the
         delta wire), then the mirrors from its end state `mirrors`
-        (driver layouts: deg [vb], labels [vb], cover [2·vb])."""
+        (driver layouts: deg [vb], labels [vb], cover [2·vb]) and the
+        pane ring."""
         vb = self.vb
+        slabs, ring = self._triangle_slabs(chunk)
         if any(k.endswith("_cnt") for k in outs):
-            self._emit_delta_chunk(chunk, outs, results)
-            self._set_mirrors(chunk, mirrors)
+            self._emit_delta_chunk(chunk, outs, results, slabs)
+            self._set_mirrors(chunk, mirrors, ring)
             return
         for i, (wstart, s, d, nv) in enumerate(chunk):
             res = WindowResult(window_start=wstart, num_edges=len(s),
@@ -589,11 +627,32 @@ class StreamingAnalyticsDriver:
                         np.int32)
                     res.delta_bipartite = _frozen_delta(
                         idx, res.bipartite_odd[idx])
-            self._pend_triangles(res, s, d)
+            self._pend_triangles(res, *slabs[i])
             results.append(res)
-        self._set_mirrors(chunk, mirrors)
+        self._set_mirrors(chunk, mirrors, ring)
 
-    def _set_mirrors(self, chunk, mirrors) -> None:
+    def _triangle_slabs(self, chunk):
+        """Each window's triangle slab, and the pane ring after the
+        chunk. Tumbling, a window's slab is the window. Sliding, it is
+        the ring's panes before it and its own pane (≤ eb edges; the JAX
+        driver's `_tri_window_edges`), and the ring keeps the last wp−1
+        panes. Interned slots are stable, so ring panes stay valid as
+        the vertex bucket grows."""
+        if self._wp == 1:
+            return [(s, d) for _w, s, d, _n in chunk], self._pane_ring
+        ring = list(self._pane_ring)
+        slabs = []
+        for _w, s, d, _n in chunk:
+            pane = (np.asarray(s, np.int32), np.asarray(d, np.int32))
+            slabs.append(tuple(np.concatenate([p[k] for p in ring]
+                                              + [pane[k]])
+                               for k in (0, 1)))
+            ring.append(pane)
+            del ring[:-(self._wp - 1)]
+        return slabs, ring
+
+    def _set_mirrors(self, chunk, mirrors, ring) -> None:
+        self._pane_ring = ring
         nv = chunk[-1][3] if chunk else 0
         self._nv_done = max(self._nv_done, nv)
         deg, lab, cov = mirrors
@@ -605,7 +664,7 @@ class StreamingAnalyticsDriver:
             self._bip = np.array(cov, np.int32)
 
     def _emit_delta_chunk(self, chunk, outs: dict,
-                          results: List[WindowResult]) -> None:
+                          results: List[WindowResult], slabs) -> None:
         """Decode a chunk's delta wire: each window's (idx, vals) pairs
         applied to working copies of the mirrors, which after window w
         are window w's snapshot (the full rows' bits, by definition)."""
@@ -650,7 +709,7 @@ class StreamingAnalyticsDriver:
                 res.bipartite_odd = _snapshot_view(odd_work[:nv].copy())
                 if self.emit_deltas:
                     res.delta_bipartite = _frozen_delta(idx, vals)
-            self._pend_triangles(res, s, d)
+            self._pend_triangles(res, *slabs[i])
             results.append(res)
 
     def _boundary(self, chunk, closes_partial: bool) -> None:
@@ -820,8 +879,10 @@ class StreamingAnalyticsDriver:
         """The JAX driver's checkpoint keys and layouts (single-chip), as
         of the last finalized window: the vertex table ends at its slots,
         not at the slots a call interned ahead, so a driver resumed from a
-        checkpoint inside a call gives the uninterrupted run's arrays."""
-        return {
+        checkpoint inside a call gives the uninterrupted run's arrays.
+        Sliding, the pane ring rides along, so a resumed stream composes
+        the same triangle slabs."""
+        state = {
             "window_ms": self.window_ms,
             "analytics": list(self.analytics),
             "sharded": False,
@@ -837,6 +898,11 @@ class StreamingAnalyticsDriver:
             "cc": self._cc.copy(),
             "bip": self._bip.copy(),
         }
+        if self._wp > 1:
+            state["slide"] = self.slide
+            state["pane_ring_src"] = [s.copy() for s, _d in self._pane_ring]
+            state["pane_ring_dst"] = [d.copy() for _s, d in self._pane_ring]
+        return state
 
     def load_state_dict(self, state: dict) -> None:
         if state["window_ms"] != self.window_ms:
@@ -849,9 +915,12 @@ class StreamingAnalyticsDriver:
             raise NotImplementedError(
                 "a mesh checkpoint needs the sharded driver (ROADMAP "
                 "step 1.10)")
-        if state.get("slide"):
-            raise ValueError("slide mismatch: checkpoint has %r, driver "
-                             "runs None" % (state["slide"],))
+        ckpt_slide = state.get("slide")
+        if (int(ckpt_slide) if ckpt_slide else None) != self.slide:
+            # pane cuts are governed by slide as window cuts are by eb
+            raise ValueError(
+                "slide mismatch: checkpoint has %r, driver runs %r"
+                % (ckpt_slide, self.slide))
         edges_done = int(state.get("edges_done", 0))
         woff = state.get("wal_offset")
         if woff is not None and int(woff) != edges_done:
@@ -863,6 +932,10 @@ class StreamingAnalyticsDriver:
         self.windows_done = int(state.get("windows_done", 0))
         self.edges_done = edges_done
         self._closed_partial = bool(state.get("closed_partial", False))
+        self._pane_ring = [
+            (np.asarray(s, np.int32), np.asarray(d, np.int32))
+            for s, d in zip(state.get("pane_ring_src", []),
+                            state.get("pane_ring_dst", []))]
         if "edge_bucket" in state:
             # count-based windows are cut by eb: resume with the same cut
             self.eb = int(state["edge_bucket"])

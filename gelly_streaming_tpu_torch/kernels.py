@@ -14,7 +14,8 @@ starts one nvcc per source, all at once. The libraries are loaded with
 ctypes and called with tensor pointers and PyTorch's current stream.
 
 `LAUNCHES` counts, per kernel (`KERNELS`: each library's, and the
-compact-wire forms of the counter and the summary kernel apart), the
+compact-wire forms of the counter and the summary kernel and the
+summary library's union-find entry apart), the
 launches its wrapper made: each wrapper adds one where it launches its
 kernel and nowhere else.
 """
@@ -82,10 +83,12 @@ SIGNATURES = {
 
 # the kernels whose launches are counted: one per library (the cell
 # reduce's two wires together), and the compact-wire forms of the counter
-# and the summary kernel apart
+# and the summary kernel and the union-find entry of the summary library
+# (`cc_fixpoint`) apart
 KERNELS = ("intersect", "window_counter", "window_counter_compact",
-           "window_summary", "window_summary_compact", "window_snapshot",
-           "cohort_summary", "gnn_round", "dense_triangles", "cell_reduce")
+           "window_summary", "window_summary_compact", "cc_fixpoint",
+           "window_snapshot", "cohort_summary", "gnn_round",
+           "dense_triangles", "cell_reduce")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _LIBS: dict = {}

@@ -85,7 +85,7 @@ def cc_fixpoint(labels0: torch.Tensor, src: torch.Tensor,
         dst.data_ptr(), src.shape[0], int(carried), out.data_ptr(),
         labels0.device.index, kernels.stream_of(labels0))
     kernels.check("window_summary", code)
-    kernels.LAUNCHES["window_summary"] += 1
+    kernels.LAUNCHES["cc_fixpoint"] += 1
     return out
 
 

@@ -25,6 +25,15 @@ from gelly_streaming_tpu_torch.ops import host_triangles
 from gelly_streaming_tpu_torch.ops import triangles as port_tri
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test: the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _brute_force(src, dst, n):
     adj = [set() for _ in range(n)]
     for u, v in zip(src, dst):

@@ -336,10 +336,14 @@ def test_refusals(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             StreamingAnalyticsDriver(window_ms=10)
-    for kw in (dict(mesh=object()), dict(slide=2), dict(tenant="t"),
+    for kw in (dict(mesh=object()), dict(tenant="t"),
                dict(tracing=True), dict(snapshot_tier="resident")):
         with pytest.raises(NotImplementedError):
             StreamingAnalyticsDriver(window_ms=10, device="cpu", **kw)
+    for slide in (24, 2 * 4096):
+        with pytest.raises(ValueError, match="power of two dividing"):
+            StreamingAnalyticsDriver(window_ms=10, device="cpu",
+                                     slide=slide)
     for kw in (dict(snapshot_tier="gpu"), dict(egress="wide"),
                dict(analytics=("pagerank",))):
         with pytest.raises(ValueError):

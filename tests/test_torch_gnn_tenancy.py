@@ -24,6 +24,15 @@ from gelly_streaming_tpu_torch.ops import gnn_window as gw
 EB, VB, F = 64, 128, 8
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test: the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _xla_round():
     with pytest.MonkeyPatch.context() as mp:

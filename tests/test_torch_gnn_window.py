@@ -22,6 +22,15 @@ from gelly_streaming_tpu_torch.ops import gnn_round
 from gelly_streaming_tpu_torch.ops import gnn_window as gw
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test: the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(params=["xla", "pallas_interpret"])
 def jax_gnn(request, monkeypatch):
     """The JAX package's GNN scan in one of its two forms."""

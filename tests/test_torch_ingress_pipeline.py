@@ -14,11 +14,21 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from gelly_streaming_tpu_torch import (GnnSummaryEngine, StreamSummaryEngine,
                                        TriangleWindowKernel)
 from gelly_streaming_tpu_torch.ops import ingress_pipeline as ip
 from gelly_streaming_tpu_torch.utils.streams import make_stream
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test: the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

@@ -18,6 +18,15 @@ from gelly_streaming_tpu.ops import triangles as jax_tri
 from gelly_streaming_tpu_torch.ops import intersect as port
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test: the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rows(rng, vb, k, shuffle):
     """The fixture of tests/library/test_triangles.py:143-149 (sorted
     rows, in-row duplicates turned into the sentinel); `shuffle` also

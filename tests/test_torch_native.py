@@ -26,6 +26,15 @@ TEXT = (b"1 2 100\n3\t4\t200\n\nbad line\n5 6\n-7 8 300\n1 2 100 label\n"
         b"3 4 200 x y z\n5 6x 300\n7 8\r\n9 10 400\r\n11 12")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test: the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_library_builds_into_the_ports_build_dir():
     assert native.available(), native.build_error()
     assert native.build_error() is None

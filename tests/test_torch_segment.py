@@ -25,6 +25,15 @@ from gelly_streaming_tpu_torch.utils.streams import make_stream
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test: the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _equal(a, b):
     if isinstance(a, tuple):
         assert isinstance(b, tuple) and len(a) == len(b)

@@ -35,6 +35,15 @@ _KNOBS = ("GS_TENANT_MAX", "GS_TENANT_QUEUE_WINDOWS", "GS_TENANT_ADMISSION",
           "GS_COHORT_PALLAS", "GS_OOO_BOUND", "GS_SANITIZE")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test: the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _clean_knobs():
     with pytest.MonkeyPatch.context() as mp:

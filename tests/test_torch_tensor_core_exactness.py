@@ -21,6 +21,15 @@ ROWS = 48
 K_STEP = 16          # the k depth of one mma.sync.m16n8k16
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test: the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _operands(F, seed):
     """(p, W) on the lattice at width F: p integers in [0, 511] with one
     row saturated, W snapped (snap_weights) with a column at +cap and

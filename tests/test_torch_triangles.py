@@ -25,6 +25,15 @@ GOLDEN = [(1, 2, 100), (1, 3, 150), (3, 2, 200), (2, 4, 250), (3, 4, 300),
 
 
 @pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test: the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True)
 def _no_autotune(monkeypatch):
     monkeypatch.setenv("GS_AUTOTUNE", "0")
 

@@ -21,6 +21,15 @@ from gelly_streaming_tpu_torch.ops import unionfind as uf
 _jax_fixpoint = jax.jit(jax_uf.cc_fixpoint, static_argnames=("carried",))
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test: the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.from_numpy(np.asarray(a, np.int32))
 

@@ -23,6 +23,15 @@ from gelly_streaming_tpu_torch.ops import window_counter as wc
 from gelly_streaming_tpu_torch.utils.streams import make_stream
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test: the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(params=["xla", "pallas_interpret"])
 def jax_counter(request, monkeypatch):
     """build(vb, kb) -> the JAX package's jitted one-window counter."""

@@ -28,6 +28,15 @@ from gelly_streaming_tpu_torch.ops import window_summary as ws
 from gelly_streaming_tpu_torch.utils.streams import make_stream
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test: the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(params=["xla", "pallas_interpret"])
 def jax_scan_fn(request, monkeypatch):
     """build(eb, vb, kb) -> jitted (carry, s, d, v) -> (carry, outs) of
