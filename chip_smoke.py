@@ -4,7 +4,9 @@ NVIDIA GPU.
 
 Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and the
 native host runtime (gelly_streaming_tpu_torch/native, g++) and runs
-twenty-two phases. Eight hold a kernel against its plain PyTorch version on
+twenty-six phases, with the dispatch tuner's cache (GS_TUNE_CACHE) in a
+fresh temporary directory. The first twenty-two run with GS_AUTOTUNE=0,
+so their numbers stay comparable across runs. Eight hold a kernel against its plain PyTorch version on
 the card: intersect (ascending and shuffled rows), counter (count and
 overflow on every window, overflowing ones included, both wires: a
 Zipf chunk, a repeated edge across a whole window, a star, a row past
@@ -65,8 +67,21 @@ and StreamingAnalyticsDriver(window_ms=1, edge_bucket=32768,
 vertex_bucket=65536, slide=8192) over 2,097,152 edges of the north-star
 stream, every emission's triangles equal to the raw trailing slice's,
 its cumulative fields to a tumbling driver at the pane size, a resume
-mid pane ring (phase driver_slide). Each path reports its rate, its
-launches and
+mid pane ring (phase driver_slide). Four more drive the resident tier and
+the dispatch tuner (ops/autotune.py, ops/resident_engine.py) over the
+north-star stream: count_stream and StreamSummaryEngine.process with the
+tuner on, three passes each, every count and summary equal to the static
+path's, a tuned checkpoint resumed with its incumbent, and six passes at
+the tuner's default knobs in turns with the static path (phase autotune);
+ResidentSummaryEngine(32768, 65536) on the compact and the standard wire
+(phase resident), GnnResidentEngine(32768, 65536, feature_dim=64)
+(phase gnn_resident) and StreamingAnalyticsDriver(...,
+snapshot_tier="resident") (phase driver_resident), each super-batch a
+replayed CUDA graph (replays counted), every result, carry and slab
+equal to the scan twin's, a resume at a super-batch boundary exact,
+edges/s and the idle share (device busy from CUDA events around each
+dispatch) beside the twin in turns. Each path reports
+its rate, its launches and
 where its time goes. Beside the dense and GNN kernels it times one
 PyTorch call for the same product as a yardstick (torch.mm, torch._int_mm;
 torch.addmm; index_add_ beside the cell reduce), and it counts the tensor-core instructions in those two
@@ -155,14 +170,49 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+PROFILE_ATTEMPTS = 3
+
+
+def take_profile(run, whole, setup=lambda: None) -> tuple:
+    """(wall ms, {name: [device ms, launches]}, the launch counts before)
+    of run() under torch.profiler (utils/profiling.device_times), after
+    setup(). On the H100 the profiler has at times returned a profile
+    with no device row, or short of a kernel's launches. A profile that
+    whole(by_name, before) refuses is taken again, setup() first, up to
+    PROFILE_ATTEMPTS in all, only where the same profile's host-side
+    CUDA API rows hold at least as many launch calls as the wrappers
+    counted in the run: the profiler itself saw the launches made (its
+    record of the API calls, not the wrappers' counters), and lost only
+    their device records. Each refused attempt's reading is printed.
+    Where the API rows fall short, or no attempt is whole, the last
+    profile goes to the caller's checks, which fail on it."""
+    from gelly_streaming_tpu_torch import kernels
+    from gelly_streaming_tpu_torch.utils.profiling import device_times
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        setup()
+        before = dict(kernels.LAUNCHES)
+        wall_ms, by_name, calls = device_times(run, launch_calls=True)
+        if whole(by_name, before):
+            break
+        made = sum(kernels.LAUNCHES[k] - before[k] for k in before)
+        print("profile attempt %d refused: %d device rows (%d launches), "
+              "%d launch calls in the API rows, %d wrapper launches%s"
+              % (attempt, len(by_name), sum(n for _ms, n in by_name.values()),
+                 calls, made, "" if calls >= made else
+                 "; the API rows do not confirm them: not taken again"))
+        if calls < made:
+            break
+    return wall_ms, by_name, before
+
+
 def device_ms(fn, reps: int) -> float:
     """Mean device time of fn() over `reps` runs after one warm-up: the
     sum of its device rows under torch.profiler over the runs, so the
     host's launch gaps between short kernels are not counted."""
-    from gelly_streaming_tpu_torch.utils.profiling import device_times
-
     fn()
-    _wall, by_name = device_times(lambda: [fn() for _ in range(reps)])
+    _wall, by_name, _before = take_profile(
+        lambda: [fn() for _ in range(reps)], lambda rows, _b: bool(rows))
     require(by_name, "no device rows in a profile of %d calls" % reps)
     return sum(ms for ms, _n in by_name.values()) / reps
 
@@ -1413,7 +1463,9 @@ def phase_gnn_stream(dev) -> dict:
     print("phase gnn_stream: ok  %d windows  %.1f edges/s  %.4g "
           "edge-features/s  (forced_sync %.1f edges/s)"
           % (num_w, rate, rate * GNN_F, STREAM_EDGES / sync_wall))
-    return launches
+    return launches, out, final, {"edges_per_s": rate,
+                                  "idle_share": prof["pipelined"][
+                                      "idle_share"]}
 
 
 def dense_windows():
@@ -2308,7 +2360,8 @@ def phase_driver(dev, counts: list) -> dict:
              DRIVER_SMALL_CAP, STREAM_EDGES / runs["scan_delta_overflow"],
              refolds["scan_delta_overflow"], chunks,
              STREAM_EDGES / runs["native"]))
-    return launches
+    return launches, got, {"edges_per_s": STREAM_EDGES / runs["scan"],
+                           "idle_share": prof["idle_share"]}
 
 
 def phase_driver_file(dev) -> None:
@@ -2984,7 +3037,7 @@ def phase_api(dev) -> dict:
     pgraph.slice(P.Time.milliseconds_of(API_WINDOW_MS),
                  P.EdgeDirection.ALL).reduce_on_edges(
         P.TorchEdgesReduce(name="sum")).collect()
-    prof = profile_run(penv.execute)
+    prof = profile_run(penv.execute, retry=False)
     res["reduce"]["profiled_edges"] = k
     res["reduce"]["idle_share"] = prof["idle_share"]
     res["reduce"]["host_share"] = prof["idle_share"]
@@ -3240,7 +3293,6 @@ def phase_models(dev) -> dict:
         incidence_sampling_triangle_count)
     from gelly_streaming_tpu_torch.utils.disjoint_set import DisjointSet
     from gelly_streaming_tpu_torch.utils.events import MatchingEventType
-    from gelly_streaming_tpu_torch.utils.profiling import device_times
     from gelly_streaming_tpu_torch.utils.realgraph import citation_stream
 
     src, dst, ts = citation_stream()
@@ -3259,7 +3311,8 @@ def phase_models(dev) -> dict:
         box["state"], box["emissions"], box["seconds"] = model_run(
             P, TorchConnectedComponents(MODEL_WINDOW_MS), src, dst, ts)
 
-    wall_ms, by_name = device_times(cc_run)
+    wall_ms, by_name, _before = take_profile(
+        cc_run, lambda rows, _b: bool(rows), kernels.reset_launches)
     launches["cc"] = kernels.LAUNCHES["cc_fixpoint"]
     require(launches["cc"] == box["emissions"] > 100,
             "cc: %d cc_fixpoint launches for %d windows"
@@ -3519,6 +3572,530 @@ def phase_driver_slide(dev) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# the resident tier and the dispatch autotuner
+# ----------------------------------------------------------------------
+AUTOTUNE_PASSES = 3                # tuned passes of each autotuned path
+RESIDENT_RESUME = 256              # the resident resumes: a super-batch in
+
+
+class knob_env:
+    """Set GS_* environment knobs for a block, restoring them after."""
+
+    def __init__(self, **knobs):
+        self.knobs = {k: str(v) for k, v in knobs.items()}
+        self.saved = {}
+
+    def __enter__(self):
+        for k, v in self.knobs.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def timed(run) -> float:
+    """Host seconds of run(), ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def same_carry(label, got, want) -> None:
+    for name, a, b in zip(("deg", "labels", "cover"), got, want):
+        require(np.array_equal(a, b), "%s: final carry %s differs"
+                % (label, name))
+
+
+def phase_autotune(dev, counts: list, summaries: list, state: dict) -> dict:
+    """The online dispatch tuner (ops/autotune.py) on, exploring every
+    second round (GS_AUTOTUNE_EXPLORE=2), over the 320-window stream:
+    TriangleWindowKernel(32768, 65536).count_stream and
+    StreamSummaryEngine(32768, 65536).process, wire untied (the tuner
+    moves wb, K and the wire; the engine wb and the wire), three passes
+    each, every pass's counts equal to phase stream's and summaries and
+    final carry to phase summary_stream's; each pass's edges/s beside
+    the static path's (GS_AUTOTUNE=0) in the same phase; each tuner's
+    summary printed. A summary checkpoint taken mid-stream carries
+    "autotune"; a fresh engine loads it, holds the same incumbent and
+    finishes the stream equal. No promotion is required: they depend on
+    timing."""
+    from gelly_streaming_tpu_torch import (StreamSummaryEngine,
+                                           TriangleWindowKernel, kernels,
+                                           make_stream)
+
+    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    num_w = STREAM_EDGES // EB
+    report = {}
+    with knob_env(GS_AUTOTUNE=0):
+        static_tri = TriangleWindowKernel(EB, VB)
+        static_tri.count_stream(src, dst)
+        static_eng = StreamSummaryEngine(EB, VB)
+        static_eng.warm_fallback()
+        static_eng.process(src, dst)
+
+    def static_rates():
+        with knob_env(GS_AUTOTUNE=0):
+            t_tri = timed(lambda: static_tri.count_stream(src, dst))
+            static_eng.reset()
+            t_sum = timed(lambda: static_eng.process(src, dst))
+        return STREAM_EDGES / t_tri, STREAM_EDGES / t_sum
+
+    with knob_env(GS_AUTOTUNE=1, GS_AUTOTUNE_EXPLORE=2):
+        kern = TriangleWindowKernel(EB, VB)
+        require(kern.device.type == "cuda", "tuned kernel not on the card")
+        eng = StreamSummaryEngine(EB, VB)
+        eng.warm_fallback()
+        passes = []
+        kernels.reset_launches()
+        for p in range(AUTOTUNE_PASSES):
+            tri_static, sum_static = static_rates()
+            got = []
+            t_tri = timed(lambda: got.append(kern.count_stream(src, dst)))
+            require(got[0] == counts, "autotune: pass %d counts differ from "
+                    "the static path's" % p)
+            eng.reset()
+            t_sum = timed(lambda: got.append(eng.process(src, dst)))
+            require(got[1] == summaries, "autotune: pass %d summaries differ "
+                    "from the static path's" % p)
+            same_carry("autotune pass %d" % p, eng.state_dict()["carry"],
+                       state["carry"])
+            passes.append({
+                "triangle_edges_per_s": STREAM_EDGES / t_tri,
+                "triangle_static_edges_per_s": tri_static,
+                "summary_edges_per_s": STREAM_EDGES / t_sum,
+                "summary_static_edges_per_s": sum_static,
+                "triangle_arm": kern.tuner.best(),
+                "summary_arm": eng._tuner.best()})
+        launches = dict(kernels.LAUNCHES)
+        for name in ("window_counter", "window_summary"):
+            require(launches[name] > 0, "autotune: kernel %s was not "
+                    "launched" % name)
+        # a checkpoint mid-stream carries the tuner; a fresh engine
+        # resumes it with the same incumbent
+        half = num_w // 2
+        eng.reset()
+        first = eng.process(src[:half * EB], dst[:half * EB])
+        ckpt = eng.state_dict()
+        require("autotune" in ckpt, "autotune: no tuner state in the "
+                "checkpoint")
+        fresh = StreamSummaryEngine(EB, VB)
+        fresh.load_state_dict(ckpt)
+        require(fresh._tuner is not None
+                and fresh._tuner.best() == eng._tuner.best(),
+                "autotune: the resumed engine's incumbent differs")
+        rest = fresh.process(src[half * EB:], dst[half * EB:])
+        require(first + rest == summaries, "autotune: resumed summaries "
+                "differ")
+        same_carry("autotune resumed", fresh.state_dict()["carry"],
+                   state["carry"])
+        report = {"passes": passes, "launches": launches,
+                  "triangle_tuner": kern.tuner.summary(),
+                  "summary_tuner": eng._tuner.summary(),
+                  "resumed_incumbent": fresh._tuner.best()}
+    report["default"] = default_vs_static(src, dst, counts, summaries,
+                                          static_tri, static_eng)
+    report["device"] = torch.cuda.get_device_name(0)
+    print(json.dumps({"autotune": report}))
+    last, dflt = passes[-1], report["default"]
+    print("phase autotune: ok  triangle %.1f edges/s (static %.1f), summary "
+          "%.1f (static %.1f); arms %s, %s; default knobs over %d passes: "
+          "triangle %.3fx static, summary %.3fx static"
+          % (last["triangle_edges_per_s"], last["triangle_static_edges_per_s"],
+             last["summary_edges_per_s"], last["summary_static_edges_per_s"],
+             last["triangle_arm"], last["summary_arm"], DEFAULT_PASSES,
+             dflt["triangle_ratio"], dflt["summary_ratio"]))
+    return report
+
+
+DEFAULT_PASSES = 6                 # passes of the default configuration
+
+
+def default_vs_static(src, dst, counts, summaries, static_tri,
+                      static_eng) -> dict:
+    """The tuner at its default knobs (GS_AUTOTUNE on, GS_AUTOTUNE_ROUND
+    and GS_AUTOTUNE_EXPLORE unset) against the static path (GS_AUTOTUNE=0)
+    on the 320-window stream: a fresh TriangleWindowKernel and
+    StreamSummaryEngine, one untimed pass each (as the static engines
+    had: their staging and scratch made), then DEFAULT_PASSES passes
+    each, every pass's counts and summaries equal to the static path's,
+    timed in turns with the static engines (static, default, default,
+    static); the ratio is of the summed walls."""
+    from gelly_streaming_tpu_torch import StreamSummaryEngine
+    from gelly_streaming_tpu_torch import TriangleWindowKernel
+
+    for k in ("GS_AUTOTUNE_ROUND", "GS_AUTOTUNE_EXPLORE"):
+        require(k not in os.environ, "%s is set: not the default" % k)
+    with knob_env(GS_AUTOTUNE=1):
+        kern = TriangleWindowKernel(EB, VB)
+        eng = StreamSummaryEngine(EB, VB)
+        eng.warm_fallback()
+        require(kern.count_stream(src, dst) == counts
+                and eng.process(src, dst) == summaries,
+                "autotune default warm pass: results differ")
+    walls = {k: [] for k in ("triangle", "triangle_static", "summary",
+                             "summary_static")}
+    for turn in range(DEFAULT_PASSES // 2):
+        for tuned in (False, True, True, False):
+            got = []
+            with knob_env(GS_AUTOTUNE=int(tuned)):
+                k, e = (kern, eng) if tuned else (static_tri, static_eng)
+                tag = "" if tuned else "_static"
+                walls["triangle" + tag].append(timed(
+                    lambda: got.append(k.count_stream(src, dst))))
+                e.reset()
+                walls["summary" + tag].append(timed(
+                    lambda: got.append(e.process(src, dst))))
+            require(got[0] == counts and got[1] == summaries,
+                    "autotune default turn %d: results differ" % turn)
+    out = {"walls_s": walls,
+           "triangle_tuner": kern.tuner.summary(),
+           "summary_tuner": eng._tuner.summary()}
+    for path in ("triangle", "summary"):
+        out[path + "_edges_per_s"] = (
+            STREAM_EDGES * len(walls[path]) / sum(walls[path]))
+        out[path + "_static_edges_per_s"] = (
+            STREAM_EDGES * len(walls[path + "_static"])
+            / sum(walls[path + "_static"]))
+        out[path + "_ratio"] = (out[path + "_edges_per_s"]
+                                / out[path + "_static_edges_per_s"])
+    return out
+
+
+class dispatch_events:
+    """CUDA events around every dispatch through the staging rings
+    `stagers` (ops/staging.ChunkStager) inside the block: a start
+    recorded on the compute stream right after a chunk's take() (so its
+    wait for the chunk's copy lies before it), an end right after its
+    done() (behind the chunk's launches, or its graph's replay). Their
+    spans summed are the device time of the dispatches, read without
+    torch.profiler, so a replayed graph counts as its eager launches do;
+    copies are not in it, and host gaps between the launches of one
+    dispatch are."""
+
+    def __init__(self, stagers):
+        self.stagers = list(stagers)
+        self.spans = []
+
+    def __enter__(self):
+        open_ = {}
+
+        def patch(st):
+            take, done = st.take, st.done
+
+            def take_(staged):
+                out = take(staged)
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                open_[id(staged.slot)] = ev
+                return out
+
+            def done_(staged):
+                start = open_.pop(id(staged.slot), None)
+                if start is not None:
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record()
+                    self.spans.append((start, end))
+                done(staged)
+
+            st.take, st.done = take_, done_
+
+        for st in self.stagers:
+            patch(st)
+        return self
+
+    def __exit__(self, *exc):
+        for st in self.stagers:
+            del st.take, st.done        # the class's methods again
+        return False
+
+    def busy_ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.spans)
+
+
+def event_busy(run, setup, stagers) -> dict:
+    """Wall ms of one run() (after setup(), outside the timing), its
+    dispatches' device busy ms from CUDA events (dispatch_events) and
+    the device's idle share 1 - busy / wall; graph replays in the run
+    beside them. Fails on a run with no dispatch or no busy time."""
+    from gelly_streaming_tpu_torch import kernels
+
+    setup()
+    before = dict(kernels.REPLAYS)
+    with dispatch_events(stagers) as evs:
+        wall_ms = 1e3 * timed(run)
+    busy = evs.busy_ms()
+    require(evs.spans and busy > 0, "no dispatch timed in the run: %d "
+            "spans, %.3f ms" % (len(evs.spans), busy))
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms, "dispatches": len(evs.spans),
+            "replays": {k: kernels.REPLAYS[k] - before[k]
+                        for k in kernels.REPLAYS},
+            "method": "cuda_events"}
+
+
+def phase_resident(dev, summaries: list, state: dict) -> dict:
+    """ResidentSummaryEngine(32768, 65536) over the 320-window stream
+    (GS_AUTOTUNE=0: super-batches of 256 and 64 windows) on the compact
+    wire (its default at vb=65536) and the standard wire: every window's
+    summaries and the final carry equal to phase summary_stream's, the
+    super-batches replayed as CUDA graphs (replays and launches counted),
+    a forced_sync run equal, a resume from the state_dict taken at the
+    first super-batch's boundary exact, and one pass with the tuner on
+    equal; edges/s pipelined and forced_sync, and device busy ms and
+    idle share (event_busy), beside StreamSummaryEngine on the same wire
+    in turns (scan, resident, resident, scan)."""
+    from gelly_streaming_tpu_torch import (StreamSummaryEngine, forced_sync,
+                                           kernels, make_stream)
+    from gelly_streaming_tpu_torch.ops.resident_engine import (
+        ResidentSummaryEngine)
+
+    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    report = {}
+    for pin in (None, "standard"):
+        with knob_env(GS_AUTOTUNE=0):
+            eng = ResidentSummaryEngine(EB, VB, ingress=pin)
+            wire = eng.ingress
+            require(eng.device.type == "cuda" and eng.MAX_WINDOWS == 256
+                    and wire == (pin or "compact"),
+                    "resident engine: %s %d %s" % (eng.device,
+                                                   eng.MAX_WINDOWS, wire))
+            scan = StreamSummaryEngine(EB, VB, ingress=wire)
+            for e in (eng, scan):
+                e.warm_fallback()
+                e.process(src, dst)     # warm-up: graphs captured here
+                e.reset()
+            captured = eng._graphs.captures
+            kernels.reset_launches()
+            out = eng.process(src, dst)
+            launches = dict(kernels.LAUNCHES)
+            replays = kernels.REPLAYS["resident_summary"]
+            require(replays == 2 and eng._graphs.captures == captured,
+                    "resident %s: %d replays, %d captures in the pass"
+                    % (wire, replays, eng._graphs.captures - captured))
+            require(out == summaries, "resident %s: summaries differ from "
+                    "summary_stream's" % wire)
+            same_carry("resident " + wire, eng.state_dict()["carry"],
+                       state["carry"])
+            walls = {"scan": [], "resident": []}
+            for label in ("scan", "resident", "resident", "scan"):
+                e = eng if label == "resident" else scan
+                e.reset()
+                walls[label].append(timed(lambda: e.process(src, dst)))
+            eng.reset()
+            with forced_sync():
+                sync_out = []
+                sync_wall = timed(lambda: sync_out.extend(
+                    eng.process(src, dst)))
+            require(sync_out == summaries, "resident %s: forced_sync "
+                    "differs" % wire)
+            scan.reset()
+            with forced_sync():
+                scan_sync = timed(lambda: scan.process(src, dst))
+            # a resume from the checkpoint at the first super-batch's end
+            cut = RESIDENT_RESUME * EB
+            eng.reset()
+            head = eng.process(src[:cut], dst[:cut])
+            fresh = ResidentSummaryEngine(EB, VB, ingress=pin)
+            fresh.load_state_dict(eng.state_dict())
+            require(fresh.windows_done == RESIDENT_RESUME,
+                    "resident resume at %d" % fresh.windows_done)
+            tail = fresh.process(src[cut:], dst[cut:])
+            require(head + tail == summaries, "resident %s: resumed "
+                    "summaries differ" % wire)
+            same_carry("resident %s resumed" % wire,
+                       fresh.state_dict()["carry"], state["carry"])
+            prof = {label: event_busy(lambda e=e: e.process(src, dst),
+                                      e.reset, [e._ring])
+                    for label, e in (("scan", scan), ("resident", eng))}
+        with knob_env(GS_AUTOTUNE=1):
+            eng.reset()
+            tuned = eng.process(src, dst)
+            require(tuned == summaries, "resident %s: the tuned pass "
+                    "differs" % wire)
+            tuner = eng._tuner.summary()
+        best = {k: STREAM_EDGES / min(v) for k, v in walls.items()}
+        report[wire] = {
+            "edges_per_s": best["resident"],
+            "scan_edges_per_s": best["scan"],
+            "walls_s": walls,
+            "forced_sync_edges_per_s": STREAM_EDGES / sync_wall,
+            "scan_forced_sync_edges_per_s": STREAM_EDGES / scan_sync,
+            "replays_a_pass": replays, "graphs_captured": captured,
+            "launches": launches, "profile": prof, "tuner": tuner}
+        print("phase resident (%s): ok  %.1f edges/s (scan %.1f), "
+              "forced_sync %.1f (scan %.1f), %d replays a pass, idle %s "
+              "(scan %s)"
+              % (wire, best["resident"], best["scan"],
+                 STREAM_EDGES / sync_wall, STREAM_EDGES / scan_sync,
+                 replays, prof["resident"]["idle_share"],
+                 prof["scan"]["idle_share"]))
+    report["device"] = torch.cuda.get_device_name(0)
+    print(json.dumps({"resident": report}))
+    return report
+
+
+def phase_gnn_resident(dev, want: list, want_slab: np.ndarray) -> dict:
+    """GnnResidentEngine(32768, 65536, feature_dim=64) over the 320-window
+    stream from phase gnn_stream's slab and weights: summaries and final
+    slab equal to phase gnn_stream's, the super-batches replayed as CUDA
+    graphs; edges/s and the idle share beside GnnSummaryEngine in turns."""
+    from gelly_streaming_tpu_torch import (GnnResidentEngine,
+                                           GnnSummaryEngine, forced_sync,
+                                           kernels, make_stream)
+    from gelly_streaming_tpu_torch.ops import gnn_window as gw
+
+    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    W, b = gnn_weights(GNN_F, -12, -3)
+    slab = gw.default_features(VB, GNN_F, seed=0)
+    eng = GnnResidentEngine(EB, VB, feature_dim=GNN_F)   # device=None
+    scan = GnnSummaryEngine(EB, VB, feature_dim=GNN_F)
+    require(eng.device.type == "cuda" and eng.MAX_WINDOWS == 256,
+            "GNN resident engine: %s %d" % (eng.device, eng.MAX_WINDOWS))
+    for e in (eng, scan):
+        e.set_weights(W / 32, b / 32)
+
+    def start(e):
+        e.reset()
+        e.load_feature_units(slab)
+
+    for e in (eng, scan):
+        start(e)
+        e.process(src, dst)           # warm-up: graphs captured here
+    start(eng)
+    captured = eng._graphs.captures
+    kernels.reset_launches()
+    out = eng.process(src, dst)
+    launches = dict(kernels.LAUNCHES)
+    replays = kernels.REPLAYS["gnn_resident"]
+    require(replays == 2 and launches["gnn_round"] == 2,
+            "gnn resident: %d replays, launches %s" % (replays, launches))
+    require(out == want, "gnn resident: summaries differ from gnn_stream's")
+    require(np.array_equal(eng.state_dict()["carry"][0], want_slab),
+            "gnn resident: final slab differs from gnn_stream's")
+    require(eng._graphs.captures == captured, "gnn resident: recaptured")
+    walls = {"scan": [], "resident": []}
+    for label in ("scan", "resident", "resident", "scan"):
+        e = eng if label == "resident" else scan
+        start(e)
+        walls[label].append(timed(lambda: e.process(src, dst)))
+    start(eng)
+    with forced_sync():
+        sync_out = []
+        sync_wall = timed(lambda: sync_out.extend(eng.process(src, dst)))
+    require(sync_out == want, "gnn resident: forced_sync differs")
+    prof = {label: event_busy(lambda e=e: e.process(src, dst),
+                              lambda e=e: start(e), [e._ring])
+            for label, e in (("scan", scan), ("resident", eng))}
+    best = {k: STREAM_EDGES / min(v) for k, v in walls.items()}
+    report = {"edges_per_s": best["resident"],
+              "scan_edges_per_s": best["scan"], "walls_s": walls,
+              "edge_features_per_s": best["resident"] * GNN_F,
+              "forced_sync_edges_per_s": STREAM_EDGES / sync_wall,
+              "replays_a_pass": replays, "graphs_captured": captured,
+              "launches": launches, "profile": prof,
+              "device": torch.cuda.get_device_name(0)}
+    print(json.dumps({"gnn_resident": report}))
+    print("phase gnn_resident: ok  %.1f edges/s (scan %.1f), %d replays a "
+          "pass, idle %s (scan %s)"
+          % (best["resident"], best["scan"], replays,
+             prof["resident"]["idle_share"], prof["scan"]["idle_share"]))
+    return report
+
+
+def phase_driver_resident(dev, want: list) -> dict:
+    """StreamingAnalyticsDriver(window_ms=1, edge_bucket=32768,
+    vertex_bucket=65536, snapshot_tier="resident") over the 320-window
+    stream in one call (GS_AUTOTUNE=0: super-batches of 256 and 64):
+    every WindowResult equal to phase driver's scan tier (`want`), the
+    super-batches replayed as CUDA graphs; the delta wire and a pass with
+    the tuner on equal too; a resume from the checkpoint at window 256,
+    taken inside the call, equal to the uninterrupted run; edges/s,
+    replays and the idle share beside the scan tier's one call in turns."""
+    import tempfile
+
+    from gelly_streaming_tpu_torch import (StreamingAnalyticsDriver,
+                                           kernels, make_stream)
+
+    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+
+    def driver(**kw):
+        return StreamingAnalyticsDriver(window_ms=1, edge_bucket=EB,
+                                        vertex_bucket=VB, **kw)
+
+    with knob_env(GS_AUTOTUNE=0):
+        res = driver(snapshot_tier="resident")
+        require(res.device.type == "cuda"
+                and res.snapshot_tier == "resident", "resident driver")
+        scan = driver()
+        for d in (res, scan):
+            d.run_arrays(src, dst)      # warm-up: graphs captured here
+            d.reset()
+        kernels.reset_launches()
+        got = res.run_arrays(src, dst)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        replays = kernels.REPLAYS["driver_resident"]
+        require(replays == 2 and launches["window_snapshot"] == 2,
+                "driver resident: %d replays, launches %s"
+                % (replays, launches))
+        same_results("driver resident", want, got)
+        del got
+        walls = {"scan": [], "resident": []}
+        for label in ("scan", "resident", "resident", "scan"):
+            d = res if label == "resident" else scan
+            d.reset()
+            walls[label].append(timed(lambda: d.run_arrays(src, dst)))
+        delta = driver(snapshot_tier="resident", egress="delta")
+        same_results("driver resident delta", want, delta.run_arrays(
+            src, dst))
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "driver.npz")
+            first = driver(snapshot_tier="resident")
+            first.enable_auto_checkpoint(path,
+                                         every_n_windows=RESIDENT_RESUME)
+            first.run_arrays(src, dst)
+            second = driver(snapshot_tier="resident")
+            require(second.try_resume(path), "no checkpoint to resume")
+            done = second.windows_done
+            require(done == RESIDENT_RESUME, "driver resident resumed at "
+                    "window %d, want %d" % (done, RESIDENT_RESUME))
+            rest = second.run_arrays(src[done * EB:], dst[done * EB:])
+        same_results("driver resident resumed", want[done:], rest,
+                     offset=done)
+        prof = {label: event_busy(
+                    lambda d=d: d.run_arrays(src, dst), d.reset,
+                    [d._res_stager if d is res else d._ring,
+                     d._tri_kern()._ring])
+                for label, d in (("scan", scan), ("resident", res))}
+    with knob_env(GS_AUTOTUNE=1):
+        res.reset()
+        same_results("driver resident tuned", want, res.run_arrays(src, dst))
+        tuner = res._resident_tuner.summary()
+    best = {k: STREAM_EDGES / min(v) for k, v in walls.items()}
+    report = {"edges_per_s": best["resident"],
+              "scan_edges_per_s": best["scan"], "walls_s": walls,
+              "replays_a_call": replays, "launches": launches,
+              "resumed_at": done, "profile": prof, "tuner": tuner,
+              "device": torch.cuda.get_device_name(0)}
+    print(json.dumps({"driver_resident": report}))
+    print("phase driver_resident: ok  %.1f edges/s (scan %.1f), %d replays "
+          "a call, idle %s (scan %s)"
+          % (best["resident"], best["scan"], replays,
+             prof["resident"]["idle_share"], prof["scan"]["idle_share"]))
+    return report
+
+
 def profile_both(run, setup=lambda: None) -> dict:
     """profile_run of run(), pipelined and under forced_sync, each after
     setup() outside the profiled region."""
@@ -3528,10 +4105,8 @@ def profile_both(run, setup=lambda: None) -> dict:
         with forced_sync():
             run()
 
-    setup()
-    pipelined = profile_run(run)
-    setup()
-    return {"pipelined": pipelined, "forced_sync": profile_run(synced)}
+    return {"pipelined": profile_run(run, setup=setup),
+            "forced_sync": profile_run(synced, setup=setup)}
 
 
 def tensor_core_ops(lib) -> dict:
@@ -3556,7 +4131,7 @@ SUMMARY_CALLS = ("window_summary", "window_summary_compact",
                  "cohort_summary")
 
 
-def profile_run(run) -> dict:
+def profile_run(run, setup=lambda: None, retry: bool = True) -> dict:
     """One run() under torch.profiler: device time by name (the
     device-side rows only, so nothing is counted twice) and launches of
     the eight largest, their sum, and the device's idle share of the
@@ -3566,31 +4141,41 @@ def profile_run(run) -> dict:
     launch of these ctypes-loaded libraries in a profiled run (seen on
     the H100: the first of a run, at times), so one fewer passes, and
     the launches missed are printed; a run with summary calls whose
-    profile has no device rows at all fails."""
+    profile has no device rows at all fails; before failing, such a
+    profile is taken again where its API rows confirm the launches
+    (take_profile; setup() before each, `retry` False for a run() that
+    cannot repeat)."""
     from gelly_streaming_tpu_torch import kernels
-    from gelly_streaming_tpu_torch.utils.profiling import device_times
 
-    before = dict(kernels.LAUNCHES)
-    wall_ms, by_name = device_times(run)
-    calls = sum(kernels.LAUNCHES[k] - before[k] for k in SUMMARY_CALLS)
-    body = {k: v for k, v in by_name.items()
-            if any(b in k for b in SUMMARY_BODY)}
-    seen = sum(n for _ms, n in body.values())
+    def summary_rows(by_name, before):
+        calls = sum(kernels.LAUNCHES[k] - before[k] for k in SUMMARY_CALLS)
+        body = {k: v for k, v in by_name.items()
+                if any(b in k for b in SUMMARY_BODY)}
+        return calls, body, sum(n for _ms, n in body.values())
+
+    def whole(by_name, before):
+        calls, _body, seen = summary_rows(by_name, before)
+        return not retry or (
+            (by_name or not calls) and calls - 1 <= seen <= calls)
+
+    wall_ms, by_name, before = take_profile(run, whole, setup)
+    calls, body, seen = summary_rows(by_name, before)
     require(by_name or not calls,
             "%d summary calls, but the profile has no device rows" % calls)
     require(calls - 1 <= seen <= calls,
             "summary body launches %s, wrapper calls %d" % (body, calls))
     busy = sum(ms for ms, _n in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"wall_ms": wall_ms,
-            "device_busy_ms": busy if busy else "not measured",
-            "idle_share": 1 - busy / wall_ms if busy else "not measured",
-            "device_ms_by_name": {k: ms for k, (ms, _n) in top},
-            "launches_by_name": {k: n for k, (_ms, n) in top},
-            "summary_calls": calls,
-            "summary_body_missed": calls - seen,
-            "summary_body": {k: {"ms": ms, "launches": n}
-                             for k, (ms, n) in body.items()}}
+    out = {"wall_ms": wall_ms,
+           "device_busy_ms": busy if busy else "not measured",
+           "idle_share": 1 - busy / wall_ms if busy else "not measured",
+           "device_ms_by_name": {k: ms for k, (ms, _n) in top},
+           "launches_by_name": {k: n for k, (_ms, n) in top},
+           "summary_calls": calls,
+           "summary_body_missed": calls - seen,
+           "summary_body": {k: {"ms": ms, "launches": n}
+                            for k, (ms, n) in body.items()}}
+    return out
 
 
 def main() -> int:
@@ -3598,6 +4183,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import tempfile
+
+    # the tuners' cache in a fresh directory: one run never seeds another
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["GS_TUNE_CACHE"] = cache
+        return run_phases()
+
+
+def run_phases() -> int:
     from gelly_streaming_tpu_torch import kernels
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -3620,6 +4214,12 @@ def main() -> int:
         print("sass %s: %s" % (name, json.dumps(tensor_core_ops(
             kernels.library_path(name)))))
 
+    # the phases of PRs 1-11 run the static configuration, so their
+    # numbers stay comparable; the new ones set the tuner themselves
+    os.environ["GS_AUTOTUNE"] = "0"
+    print("phases intersect .. driver_slide: GS_AUTOTUNE=0 (the static "
+          "configuration); autotune, resident, gnn_resident and "
+          "driver_resident set it themselves")
     rng = np.random.default_rng(SEED)
     inter = phase_intersect(dev, rng)
     counter = phase_counter(dev)
@@ -3634,17 +4234,21 @@ def main() -> int:
     summary_launches, summaries, state = phase_summary_stream(dev)
     summary_compact_launches = phase_summary_stream_compact(dev, summaries,
                                                             state)
-    gnn_launches = phase_gnn_stream(dev)
+    gnn_launches, gnn_out, gnn_slab, gnn_scan = phase_gnn_stream(dev)
     dense, dense_launches, sparse_launches = phase_dense(dev)
     cohort_launches = phase_cohort_stream(dev)
     phase_gnn_cohort(dev)
-    driver_launches = phase_driver(dev, counts)
+    driver_launches, driver_got, driver_scan = phase_driver(dev, counts)
     phase_driver_file(dev)
     reduce_launches = phase_reduce_stream(dev)
     api_launches = phase_api(dev)
     require(api_launches["cell_reduce"] > 0, "api: no cell_reduce launch")
     union_find = phase_models(dev)
     phase_driver_slide(dev)
+    phase_autotune(dev, counts, summaries, state)
+    phase_resident(dev, summaries, state)
+    phase_gnn_resident(dev, gnn_out, gnn_slab)
+    phase_driver_resident(dev, driver_got)
 
     rows = []
     pw = "gelly_streaming_tpu/ops/pallas_window.py:"

@@ -54,7 +54,8 @@ from .core.platform import resolve_device
 from .core.types import NULL, Edge, EdgeDirection, NullValue, Vertex
 from .core.tenancy import (GnnTenantCohort, TenantBackpressure,
                            TenantCohort, TenantError, TenantRejected)
-from .ops.gnn_window import GnnHostEngine, GnnSummaryEngine
+from .ops.gnn_window import (GnnHostEngine, GnnResidentEngine,
+                             GnnSummaryEngine)
 from .ops.ingress_pipeline import forced_sync
 from .ops.scan_analytics import SlidingSummaryEngine, StreamSummaryEngine
 from .ops.triangles import (TriangleWindowKernel, triangle_count,
@@ -68,7 +69,8 @@ __all__ = ["DataStream", "StreamEnvironment", "EdgesApply", "EdgesFold",
            "SimpleEdgeStream", "AscendingTimestampExtractor",
            "ManualClock", "SystemClock", "Time", "TimeCharacteristic",
            "NULL", "Edge", "EdgeDirection", "NullValue", "Vertex",
-           "GnnHostEngine", "GnnSummaryEngine", "GnnTenantCohort",
+           "GnnHostEngine", "GnnResidentEngine", "GnnSummaryEngine",
+           "GnnTenantCohort",
            "SlidingSummaryEngine", "StreamSummaryEngine",
            "StreamingAnalyticsDriver", "WindowResult",
            "TenantBackpressure", "TenantCohort", "TenantError",

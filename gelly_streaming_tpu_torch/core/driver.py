@@ -16,12 +16,26 @@ Port of the JAX package's `core/driver.py` (`WindowResult` :268-303,
               triangles  exact count of the window alone (sliding:
                          of the last edge_bucket/slide panes)
 
-The carried analytics run on the snapshot tier the constructor pins:
-"scan" (the default: the snapshot program of ops/window_snapshot.py, its
+The carried analytics run on the snapshot tier the constructor pins, or
+`resolve_snapshot_tier()` picks (GS_RESIDENT=on: "resident", else
+"scan"): "scan" (the snapshot program of ops/window_snapshot.py, its
 CUDA kernel on the card and its plain version on the CPU, chunks of up
 to 64 windows through the ingress pipeline with the finalize one chunk
-behind), "native" (the C++ fold, native.snapshot_windows) or "host"
-(numpy, ops/host_snapshot.py). All three give the same bits. Triangles
+behind), "resident" (the same program at GS_RESIDENT_SPB windows a
+super-batch, each one a replayed CUDA graph over a device carry kept
+across calls, GS_RESIDENT_SLOTS super-batches prepped and copied ahead;
+ops/resident_engine.py, the JAX driver's :847-884 and :1520-1600, where
+the resident branch has an ingest ring of its own: here both tiers are
+one chunk loop, `_scan_device`), "native" (the C++ fold,
+native.snapshot_windows) or "host" (numpy, ops/host_snapshot.py). All
+four give the same bits. With GS_AUTOTUNE on (the default) the scan
+tier's windows per call and the resident tier's windows per super-batch
+are tuned online (ops/autotune.py; the JAX driver's
+`_ensure_scan_tuner`, `_warm_scan_arm`, `_ensure_resident_tuner`,
+:868-930): the scan tier in rounds of GS_AUTOTUNE_ROUND chunks, as the
+engines tune, the resident tier one super-batch a round, as the JAX
+driver's; both re-key when a bucket
+grows and ride the checkpoint as "autotune" and "autotune_resident". Triangles
 go through `TriangleWindowKernel.count_windows` on the matching stream
 tier ("device", "native", "host"), one flush per call. The host keeps
 mirrors of the carried state in the JAX driver's layouts (degrees int64
@@ -42,12 +56,13 @@ boundaries and rides the checkpoint (`slide`, `pane_ring_src`,
 `pane_ring_dst`).
 
 Not ported yet, each raising NotImplementedError where an argument asks
-for it: the mesh and sharded branches (ROADMAP step 1.10); the resident
-tier, the autotuners and the evidence routing of the snapshot tier and
-the egress (step 1.7: here `snapshot_tier` and `egress` are plain
-arguments); demotion, the write-ahead log, sanitize, latency,
-provenance, metrics, telemetry and tracing (step 1.8; so is the
-`GS_SLIDE` knob, which the JAX driver reads where `slide` is None).
+for it: the mesh and sharded branches (ROADMAP step 1.10); the evidence
+routing of the snapshot tier and the egress (after step 1.1: `egress`
+is a plain argument and `auto` resolves to the scan tier); demotion (a
+resident call that fails raises, it never runs the scan tier), the
+write-ahead log, sanitize, latency, provenance, metrics, telemetry and
+tracing (step 1.8; so is the `GS_SLIDE` knob, which the JAX driver reads
+where `slide` is None).
 """
 
 from __future__ import annotations
@@ -63,9 +78,11 @@ import torch
 from .. import native
 from ..core.platform import resolve_device
 from ..io.sources import iter_edge_chunks
+from ..ops import autotune
 from ..ops import delta_egress
 from ..ops import host_snapshot
 from ..ops import ingress_pipeline
+from ..ops import resident_engine
 from ..ops import segment as seg_ops
 from ..ops import triangles as tri_ops
 from ..ops import window_snapshot as snap_ops
@@ -73,9 +90,18 @@ from ..ops.staging import ChunkStager, HostCopy
 from ..utils import checkpoint
 from ..utils.interning import make_interner, parallel_intern_arrays
 
-SNAPSHOT_TIERS = ("scan", "native", "host")
-_TRIANGLE_TIER = {"scan": "device", "native": "native", "host": "host"}
+SNAPSHOT_TIERS = ("resident", "scan", "native", "host")
+_TRIANGLE_TIER = {"resident": "device", "scan": "device",
+                  "native": "native", "host": "host"}
 _CARRIED = ("degrees", "cc", "bipartite")
+
+
+def resolve_snapshot_tier() -> str:
+    """The snapshot tier of a driver given no `snapshot_tier=`:
+    "resident" under the GS_RESIDENT=on pin, else "scan" (the JAX
+    driver's :224-250, whose committed-evidence routing the port reads
+    none of until step 1.1 measures its own)."""
+    return "resident" if resident_engine.resolve_resident() else "scan"
 
 
 def _snapshot_view(a: np.ndarray, row_size: int = 0) -> np.ndarray:
@@ -130,7 +156,8 @@ class StreamingAnalyticsDriver:
     `egress` ("full" by default, or "delta") the scan tier's copy back,
     `egress_cap` the delta rows' width (ops/delta_egress.egress_cap).
     `slide`, a power of two dividing the edge bucket, makes the
-    count-based windows slide: one WindowResult every `slide` edges."""
+    count-based windows slide: one WindowResult every `slide` edges.
+    With no `snapshot_tier`, `resolve_snapshot_tier()` picks it."""
 
     ANALYTICS = ("degrees", "cc", "bipartite", "triangles")
     _SCAN_CHUNK = 64                    # windows per snapshot call
@@ -159,10 +186,8 @@ class StreamingAnalyticsDriver:
         if tracing:
             raise NotImplementedError(
                 "tracing is not ported yet (ROADMAP step 1.8)")
-        if snapshot_tier == "resident":
-            raise NotImplementedError(
-                "the resident tier is not ported yet (ROADMAP step 1.7)")
-        tier = "scan" if snapshot_tier is None else snapshot_tier
+        tier = (resolve_snapshot_tier() if snapshot_tier is None
+                else snapshot_tier)
         if tier not in SNAPSHOT_TIERS:
             raise ValueError(f"unknown snapshot_tier: {snapshot_tier!r}")
         if tier == "native" and not native.available():
@@ -201,6 +226,18 @@ class StreamingAnalyticsDriver:
         self._ckpt_policy = None   # utils.checkpoint.CheckpointPolicy
         self._pending_ckpt = []    # staged (windows_done, state): _stage_ckpt
         self._emitted = None       # not None inside stream_file
+        # the online tuners of the scan and resident tiers (built at
+        # first use; None with GS_AUTOTUNE=0)
+        self._scan_tuner = None
+        self._resident_tuner = None
+        self._warmed_snaps = set()  # (vb, egress, cap, windows) warmed
+        # the resident tier's device carry, staging ring and CUDA graphs,
+        # kept across calls at one (vertex bucket, window width)
+        self._res_key = None
+        self._res_carry = None
+        self._res_stager = None
+        self._res_graphs = resident_engine.SuperBatchGraphs(
+            "driver_resident")
         self.reset()
 
     def reset(self) -> None:
@@ -221,10 +258,28 @@ class StreamingAnalyticsDriver:
             self._ckpt_policy.mark(0)
 
     def _ensure_buckets(self, num_vertices: int, window_edges: int) -> None:
+        grew = False
         while num_vertices > self.vb:
             self.vb *= 2
+            grew = True
         while window_edges > self.eb:
             self.eb *= 2
+            grew = True
+        if not grew:
+            return
+        # growth changes the economics the tuners measured and their
+        # cache identity: re-key them (the incumbent survives as the
+        # prior; the new key's persisted best re-seeds it)
+        if self._scan_tuner is not None:
+            cap = self._SCAN_CHUNK
+            self._scan_tuner.rekey(self._scan_tuner_key(),
+                                   space={"wb": autotune.rungs(cap)},
+                                   initial={"wb": cap})
+        if self._resident_tuner is not None:
+            cap = self._resident_chunk()
+            self._resident_tuner.rekey(self._resident_tuner_key(),
+                                       space={"wb": autotune.rungs(cap)},
+                                       initial={"wb": cap})
 
     # ------------------------------------------------------------------
     def run_file(self, path: str) -> List[WindowResult]:
@@ -387,17 +442,17 @@ class StreamingAnalyticsDriver:
         the snapshot tier, appending a WindowResult per window."""
         num_w = len(interned)
 
-        def finalize(at, outs, mirrors):
-            chunk = interned[at:at + self._SCAN_CHUNK]
+        def finalize(at, take, outs, mirrors):
+            chunk = interned[at:at + take]
             self._finalize_chunk(chunk, outs, mirrors, results)
             self._boundary(chunk, closes_partial
                            and at + len(chunk) >= num_w)
 
         if not any(a in self.analytics for a in _CARRIED):
             for at in self._chunks(num_w):
-                finalize(at, {}, (None, None, None))
+                finalize(at, self._SCAN_CHUNK, {}, (None, None, None))
             return
-        if self.snapshot_tier == "scan":
+        if self.snapshot_tier in ("scan", "resident"):
             self._scan_device(interned, finalize)
             return
         fold = (native.snapshot_windows if self.snapshot_tier == "native"
@@ -409,8 +464,8 @@ class StreamingAnalyticsDriver:
                      if self.emit_deltas else None)
             outs = self._host_fold(fold, interned[at:at + self._SCAN_CHUNK],
                                    carry, prevs)
-            finalize(at, outs, tuple(None if a is None else a.copy()
-                                     for a in carry))
+            finalize(at, self._SCAN_CHUNK, outs,
+                     tuple(None if a is None else a.copy() for a in carry))
 
     def _snapshot_program(self, egress: str) -> snap_ops.WindowSnapshot:
         """The snapshot program at the current vertex bucket on `egress`,
@@ -429,6 +484,12 @@ class StreamingAnalyticsDriver:
     def _device_carry(self) -> tuple:
         """The snapshot program's carry on the device (the engines'
         layout), built from the mirrors."""
+        return tuple(None if t is None else t.to(self.device)
+                     for t in self._device_carry_host())
+
+    def _device_carry_host(self) -> tuple:
+        """The snapshot program's carry from the mirrors, as CPU
+        tensors."""
         vb = self.vb
         if "bipartite" in self.analytics and len(self._bip) != 2 * vb:
             self._bip = self._grow_cover(self._bip, vb)
@@ -436,72 +497,233 @@ class StreamingAnalyticsDriver:
             vb, self._degrees if "degrees" in self.analytics else None,
             self._cc if "cc" in self.analytics else None,
             self._bip if "bipartite" in self.analytics else None,
-            self.device)
+            "cpu")
 
     def _scan_device(self, interned, finalize) -> None:
-        """The scan tier: the snapshot program over each chunk through
-        the ingress pipeline (ops/ingress_pipeline.run_pipeline): the
-        chunk's [W, eb] stack is built and copied to the device on a
-        worker, the program is launched in chunk order against the
-        device carry (built from the mirrors here), the copies back are
-        enqueued behind it, and the finalize reads them one chunk
-        behind."""
-        vb, width, dev = self.vb, self._cut_size(), self.device
-        carry = self._device_carry()
-        snap = self._snapshot_program(self.egress)
-        delta = self.egress == "delta"
+        """The scan and resident tiers: one chunk loop through the
+        ingress pipeline (ops/ingress_pipeline.run_pipeline) over an
+        autotune.RoundPlan. Each chunk's [W, eb] stack is built and
+        copied to a staging slot on a worker; the snapshot program runs
+        in chunk order against the device carry; the copies back are
+        enqueued behind it and the finalize reads them one chunk behind.
 
-        def prep(at):
-            chunk = interned[at:at + self._SCAN_CHUNK]
-            return at, seg_ops.stack_window_rows(
-                [(s, d) for _w, s, d, _n in chunk], len(chunk), width, vb)
+        - scan: chunks of _SCAN_CHUNK windows (W the chunk's windows),
+          rounds of GS_AUTOTUNE_ROUND chunks under the scan tuner, the
+          carry built from the mirrors each call, a look-ahead of
+          INFLIGHT chunks;
+        - resident: super-batches of GS_RESIDENT_SPB windows (W up to a
+          power of two, the rest all padding), one super-batch a round
+          under the resident tuner, as the JAX driver's, each launch
+          replayed as the CUDA graph of (W, staging slot) over a device
+          carry kept across calls, its graphs captured as the round is
+          decided, a look-ahead of GS_RESIDENT_SLOTS super-batches.
+
+        GS_AUTOTUNE=0 runs the static arm; forced_sync freezes the
+        tuner."""
+        resident = self.snapshot_tier == "resident"
+        vb, width = self.vb, self._cut_size()
+        snap = self._snapshot_program(self.egress)
+        if resident:
+            carry, stager = self._resident_state()
+            cap, tuner = self._resident_chunk(), self._ensure_resident_tuner()
+            round_len, inflight = 1, resident_engine.ring_slots()
+        else:
+            carry, stager = self._device_carry(), self._ring
+            cap, tuner = self._SCAN_CHUNK, self._ensure_scan_tuner()
+            round_len, inflight = None, self.INFLIGHT
+        live = tuple(t for t in carry if t is not None)
+        graphs = self._res_graphs
+
+        def fold(*tensors):     # the launch a resident graph captures
+            it = iter(tensors[:len(live)])
+            return snap(tuple(None if t is None else next(it)
+                              for t in carry), *tensors[len(live):])
+
+        def rows(take: int) -> int:
+            return seg_ops.bucket_size(take) if resident else take
+
+        def on_round(arm, windows):
+            wb = arm["wb"]
+            if tuner is not None:
+                self._warm_snapshot(snap, rows(min(wb, windows)))
+            if resident and self.device.type == "cuda":
+                widths = {rows(min(wb, windows))}
+                if windows % wb:
+                    widths.add(rows(windows % wb))
+                for w in widths:
+                    for slot in range(stager.slot_count):
+                        graphs.capture(
+                            (w, slot), live + stager.slot_tensors(
+                                slot, _stack_specs(w, width)), fold,
+                            warm=lambda w=w: self._warm_snapshot(snap, w))
+
+        plan = autotune.RoundPlan(len(interned), {"wb": cap}, tuner,
+                                  round_len=round_len, on_round=on_round)
+
+        def prep(ch):
+            chunk = interned[ch.at:ch.hi]
+            return ch, seg_ops.stack_window_rows(
+                [(s, d) for _w, s, d, _n in chunk], rows(len(chunk)),
+                width, vb)
 
         def h2d(payload):
-            at, arrays = payload
-            return at, self._ring.put(arrays, at // self._SCAN_CHUNK)
+            ch, arrays = payload
+            return ch, stager.put(arrays, ch.seq)
 
         def dispatch(dev_payload):
-            at, staged = dev_payload
-            outs = snap(carry, *self._ring.take(staged))
-            self._ring.done(staged)
-            wire = {k: v for k, v in outs.items()
-                    if k.endswith(("_idx", "_val"))}
-            copies = {k: HostCopy(v) for k, v in outs.items()
-                      if k not in wire}
-            mirrors = tuple(None if t is None else HostCopy(
-                t.clone() if t.device.type == "cpu" else t) for t in carry)
-            done = None
-            if delta and dev.type == "cuda":
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(dev))
-            return at, copies, wire, done, mirrors
+            ch, staged = dev_payload
+            tensors = stager.take(staged)
+            if resident:
+                w = tensors[0].shape[0]
+                outs = graphs.run(
+                    (w, stager.slot_index(staged)), live + tensors, fold,
+                    warm=lambda: self._warm_snapshot(snap, w))
+            else:
+                outs = snap(carry, *tensors)
+            stager.done(staged)
+            return ch, self._enqueue_outs(ch.at, ch.hi - ch.at, outs, carry)
 
         def fin(raw):
-            at, copies, wire, done, mirrors = raw
-            # copied out of the pinned buffers, which then serve the
-            # next chunks
-            outs = {k: c.numpy().copy() for k, c in copies.items()}
-            if delta and self._delta_overflowed(outs, snap.cap):
-                # a window changed more slots than the cap: the chunk's
-                # full rows again, from the chunk-start mirrors
-                outs = self._refold_chunk_outs(
-                    interned[at:at + self._SCAN_CHUNK])
-            elif delta:
-                outs.update(self._fetch_wire(outs, wire, done))
-            deg, lab, cov = (None if m is None else m.numpy()
-                             for m in mirrors)
-            finalize(at, outs, (
-                None if deg is None else deg[:vb].copy(),
-                None if lab is None else lab[:vb].copy(),
-                None if cov is None else snap_ops.driver_cover(cov, vb)))
+            ch, out = raw
+            self._finish_chunk(out, interned, snap, finalize)
+            plan.done(ch, sum(len(s) for _w, s, _d, _n
+                              in interned[ch.at:ch.hi]))
 
         try:
-            ingress_pipeline.run_pipeline(
-                self._chunks(len(interned)), prep, h2d, dispatch, fin,
-                inflight=self.INFLIGHT)
+            ingress_pipeline.run_pipeline(plan, prep, h2d, dispatch, fin,
+                                          inflight=inflight)
         except BaseException:
-            self._ring.release_all()
+            stager.release_all()
             raise
+        plan.close()
+
+    def _enqueue_outs(self, at: int, take: int, outs: dict, carry):
+        """After a chunk's snapshot launch, on its stream: the copies back
+        of its outs (the delta wire's rows wait for the finalize, which
+        copies their used prefix) and of the carry (the mirrors)."""
+        wire = {k: v for k, v in outs.items()
+                if k.endswith(("_idx", "_val"))}
+        copies = {k: HostCopy(v) for k, v in outs.items() if k not in wire}
+        mirrors = tuple(None if t is None else HostCopy(
+            t.clone() if t.device.type == "cpu" else t) for t in carry)
+        done = None
+        if wire and self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        return at, take, copies, wire, done, mirrors
+
+    def _finish_chunk(self, raw, interned, snap, finalize) -> None:
+        """A chunk's finalize, one chunk behind its launch: its outs and
+        mirrors read back, a delta chunk past its cap folded again on
+        full rows."""
+        at, take, copies, wire, done, mirrors = raw
+        vb = self.vb
+        # copied out of the pinned buffers, which then serve the next
+        # chunks
+        outs = {k: c.numpy().copy() for k, c in copies.items()}
+        if wire and self._delta_overflowed(outs, snap.cap):
+            # a window changed more slots than the cap: the chunk's full
+            # rows again, from the chunk-start mirrors
+            outs = self._refold_chunk_outs(interned[at:at + take])
+        elif wire:
+            outs.update(self._fetch_wire(outs, wire, done))
+        deg, lab, cov = (None if m is None else m.numpy() for m in mirrors)
+        finalize(at, take, outs, (
+            None if deg is None else deg[:vb].copy(),
+            None if lab is None else lab[:vb].copy(),
+            None if cov is None else snap_ops.driver_cover(cov, vb)))
+
+    # ------------------------------------------------------------------
+    # the online tuners of the scan and resident tiers (ops/autotune.py)
+    # ------------------------------------------------------------------
+    def _scan_tuner_key(self) -> str:
+        return ("snapshot_scan:eb=%d:vb=%d:%s"
+                % (self.eb, self.vb, "+".join(self.analytics)))
+
+    def _resident_tuner_key(self) -> str:
+        return ("resident_scan:eb=%d:vb=%d:%s"
+                % (self.eb, self.vb, "+".join(self.analytics)))
+
+    def _resident_chunk(self) -> int:
+        """Windows a resident super-batch (GS_RESIDENT_SPB, a power of
+        two)."""
+        return resident_engine.resident_spb(self.eb)
+
+    def _ensure_scan_tuner(self):
+        """The scan tier's windows-per-call tuner: rungs {16, 32, 64}
+        under _SCAN_CHUNK. None with GS_AUTOTUNE=0 (the static chunks
+        then run, with the same results)."""
+        if not autotune.enabled():
+            return None
+        if self._scan_tuner is None:
+            cap = self._SCAN_CHUNK
+            self._scan_tuner = autotune.DispatchTuner(
+                self._scan_tuner_key(), {"wb": autotune.rungs(cap)}, {"wb": cap},
+                backend=self.device.type)
+        return self._scan_tuner
+
+    def _ensure_resident_tuner(self):
+        """The resident tier's windows-per-super-batch tuner: rungs under
+        the super-batch, keyed as its own family so scan-tier rates never
+        seed it. None with GS_AUTOTUNE=0."""
+        if not autotune.enabled():
+            return None
+        if self._resident_tuner is None:
+            cap = self._resident_chunk()
+            self._resident_tuner = autotune.DispatchTuner(
+                self._resident_tuner_key(), {"wb": autotune.rungs(cap)},
+                {"wb": cap}, backend=self.device.type)
+        return self._resident_tuner
+
+    def _warm_snapshot(self, snap, windows: int) -> None:
+        """Launch the snapshot program once on an all-padding stack of
+        `windows` windows against a throwaway carry, and wait (the
+        kernel built, its scratch made, outside any timed round or graph
+        capture; the carried state is not touched). A no-op on the
+        CPU."""
+        key = (self.vb, snap.egress, snap.cap, windows)
+        if self.device.type != "cuda" or key in self._warmed_snaps:
+            return
+        vb, dev = self.vb, self.device
+        carry = snap_ops.engine_carry(
+            vb, np.zeros(0, np.int64) if "degrees" in self.analytics
+            else None, np.zeros(0, np.int32) if "cc" in self.analytics
+            else None, self._grow_cover(np.zeros(0, np.int32), vb)
+            if "bipartite" in self.analytics else None, dev)
+        pad = torch.full((windows, self._cut_size()), vb,
+                         dtype=torch.int32, device=dev)
+        snap(carry, pad, pad, torch.zeros(pad.shape, dtype=torch.bool,
+                                          device=dev))
+        torch.cuda.synchronize(dev)
+        self._warmed_snaps.add(key)
+
+    # ------------------------------------------------------------------
+    # the resident tier (ops/resident_engine.py)
+    # ------------------------------------------------------------------
+    def _resident_state(self):
+        """The resident tier's device carry (kept across calls: the
+        graphs bind it), loaded from the mirrors, and its staging ring,
+        reserved at a whole super-batch; both made anew, and the graphs
+        dropped, when the vertex bucket or the window width changes."""
+        vb, width, dev = self.vb, self._cut_size(), self.device
+        key = (vb, width, self._resident_chunk())
+        if self._res_key != key:
+            self._res_key = key
+            self._res_carry = None
+            self._res_graphs.clear()
+            self._res_stager = ChunkStager(
+                dev, slots=resident_engine.ring_slots() + 1)
+            self._res_stager.reserve(ChunkStager.nbytes(
+                _stack_specs(key[2], width)))
+        host = self._device_carry_host()
+        if self._res_carry is None:
+            self._res_carry = tuple(None if a is None else a.to(dev)
+                                    for a in host)
+        else:
+            for t, a in zip(self._res_carry, host):
+                if t is not None:
+                    t.copy_(a)
+        return self._res_carry, self._res_stager
 
     def _fetch_wire(self, outs: dict, wire: dict, done) -> dict:
         """The used prefix of each delta row ([W, max count]), copied
@@ -902,6 +1124,11 @@ class StreamingAnalyticsDriver:
             state["slide"] = self.slide
             state["pane_ring_src"] = [s.copy() for s, _d in self._pane_ring]
             state["pane_ring_dst"] = [d.copy() for _s, d in self._pane_ring]
+        # the tuners' learned state, as the JAX driver keys it
+        if self._scan_tuner is not None:
+            state["autotune"] = self._scan_tuner.state_dict()
+        if self._resident_tuner is not None:
+            state["autotune_resident"] = self._resident_tuner.state_dict()
         return state
 
     def load_state_dict(self, state: dict) -> None:
@@ -949,3 +1176,17 @@ class StreamingAnalyticsDriver:
         self._cc = np.array(state["cc"])
         self._bip = np.array(state["bip"])
         self._ensure_buckets(len(state["vertex_ids"]), 1)
+        # either package's tuner state (inert with GS_AUTOTUNE=0)
+        for key, ensure in (("autotune", self._ensure_scan_tuner),
+                            ("autotune_resident",
+                             self._ensure_resident_tuner)):
+            if state.get(key) is not None:
+                tuner = ensure()
+                if tuner is not None:
+                    tuner.load_state_dict(state[key])
+
+
+def _stack_specs(windows: int, width: int) -> list:
+    """(shape, dtype) of a [windows, width] standard-wire stack."""
+    return [((windows, width), np.int32), ((windows, width), np.int32),
+            ((windows, width), np.bool_)]

@@ -28,12 +28,12 @@ per tenant row on a card).
 
 The JAX package's GS_TENANT_* knobs are constructor arguments here, at
 the knobs' defaults. Not ported yet (ROADMAP.md): the resident cohort
-tier and the tenants-per-dispatch autotuner arm (step 8); the bulkhead
-(quarantine, probation, the poison gate, demotion on a failed prep),
-the reorder buffer, sanitize, WAL, checkpoint files, latency,
-provenance, metrics and telemetry (step 10); the ingest ring (step 5);
-the serving front end `core/serve.py` (step 11). Slabs are prepared
-inline on the pumping thread.
+tier and the tenants-per-dispatch autotuner arm (step 1.7's second
+half, with the ingest ring of step 1.3); the bulkhead (quarantine,
+probation, the poison gate, demotion on a failed prep), the reorder
+buffer, sanitize, WAL, checkpoint files, latency, provenance, metrics
+and telemetry (step 1.8); the serving front end `core/serve.py` (step
+1.9). Slabs are prepared inline on the pumping thread.
 """
 
 from __future__ import annotations

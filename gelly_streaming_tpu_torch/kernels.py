@@ -17,7 +17,10 @@ ctypes and called with tensor pointers and PyTorch's current stream.
 compact-wire forms of the counter and the summary kernel and the
 summary library's union-find entry apart), the
 launches its wrapper made: each wrapper adds one where it launches its
-kernel and nowhere else.
+kernel and nowhere else. A CUDA graph of the resident tier
+(ops/resident_engine.SuperBatchGraphs) runs its captured launches
+without the wrappers: each replay adds the launches its capture made to
+`LAUNCHES`, and one to its family's count in `REPLAYS`.
 """
 
 from __future__ import annotations
@@ -90,6 +93,9 @@ KERNELS = ("intersect", "window_counter", "window_counter_compact",
            "window_snapshot", "cohort_summary", "gnn_round",
            "dense_triangles", "cell_reduce")
 LAUNCHES = {name: 0 for name in KERNELS}
+# CUDA graph replays of the resident tier, per graph family
+GRAPH_FAMILIES = ("resident_summary", "gnn_resident", "driver_resident")
+REPLAYS = {name: 0 for name in GRAPH_FAMILIES}
 
 _LIBS: dict = {}
 
@@ -97,6 +103,8 @@ _LIBS: dict = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for name in REPLAYS:
+        REPLAYS[name] = 0
 
 
 def _nvcc() -> str:

@@ -33,10 +33,13 @@ checkpoint of either package loads into the other.
 `build_gnn_cohort_scan` runs the same rounds for the rows of a tenant
 slab (core/tenancy.GnnTenantCohort).
 
-Not ported yet (ROADMAP.md): `GnnResidentEngine` (step 8), the finalize
-hooks (cost model, metrics, latency, provenance; step 10) and the
-GS_GNN_* knobs: the engines take feature_dim and activation as
-arguments.
+`GnnResidentEngine` (the JAX package's :475-526) runs the same rounds
+at GS_RESIDENT_SPB windows a dispatch, each super-batch one replayed
+CUDA graph of the GNN round over the slab (ops/resident_engine.py).
+
+Not ported yet (ROADMAP.md step 1.8): the finalize hooks (cost model,
+metrics, latency, provenance) and the GS_GNN_* knobs: the engines take
+feature_dim and activation as arguments.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import numpy as np
 import torch
 
 from ..core.platform import resolve_device
+from . import resident_engine
 from . import segment as seg_ops
 from .gnn_round import (ACTIVATIONS, AGG_EXACT_LOG2, UNIT_CAP, GnnRound,
                         agg_shift, gnn_round_plain, slab_summaries)
@@ -53,7 +57,7 @@ from .scan_analytics import SummaryEngineBase, _to_host
 from .staging import ChunkStager, HostCopy
 
 __all__ = ["AGG_EXACT_LOG2", "GnnEngineBase", "GnnHostEngine",
-           "GnnSummaryEngine", "MATMUL_EXACT_F", "Q_BITS", "UNIT_CAP",
+           "GnnResidentEngine", "GnnSummaryEngine", "MATMUL_EXACT_F", "Q_BITS", "UNIT_CAP",
            "agg_shift", "build_gnn_cohort_scan", "default_features",
            "default_weights",
            "gnn_round_plain", "snap_features", "snap_weights",
@@ -226,8 +230,8 @@ class GnnEngineBase(SummaryEngineBase):
     def load_features(self, feats) -> None:
         """Seed the feature slab from real values (snapped), at a window
         boundary."""
-        self._carry = (self._to_carry(snap_features(feats, self.vb,
-                                                    self.F)),)
+        self._adopt_carry((self._to_carry(snap_features(feats, self.vb,
+                                                        self.F)),))
 
     def load_feature_units(self, slab) -> None:
         """Adopt a [vb+1, F] slab of lattice units as it is."""
@@ -235,7 +239,7 @@ class GnnEngineBase(SummaryEngineBase):
         if slab.shape != (self.vb + 1, self.F):
             raise ValueError("unit slab must be [vb+1=%d, F=%d]; got %s"
                              % (self.vb + 1, self.F, slab.shape))
-        self._carry = (self._to_carry(slab),)
+        self._adopt_carry((self._to_carry(slab),))
 
     # -- carry / checkpoint -------------------------------------------
     def _init_carry(self):
@@ -311,7 +315,7 @@ class GnnSummaryEngine(GnnEngineBase):
         self._configure(edge_bucket, vertex_bucket, feature_dim,
                         activation)
         self.device = resolve_device(device)
-        self._ring = ChunkStager(self.device, slots=self.INFLIGHT + 1)
+        self._ring = ChunkStager(self.device, slots=self._ring_slots())
         self._round = GnnRound(self.vb, self.F, self.device)
         self._weights_changed()
         self.reset()
@@ -323,12 +327,100 @@ class GnnSummaryEngine(GnnEngineBase):
         self._wdev = torch.from_numpy(self._w_units).to(self.device)
         self._bdev = torch.from_numpy(self._b_units).to(self.device)
 
-    def _dispatch_async(self, staged):
+    def _dispatch_async(self, staged, wire: str = "standard"):
         src, dst, v = self._ring.take(staged)
         sums = torch.empty(4, src.shape[0], dtype=torch.int32,
                            device=self.device)
         self._round(self._carry[0], self._wdev, self._bdev, src, dst, v,
                     self.act, sums)
+        self._ring.done(staged)
+        return HostCopy(sums)
+
+
+class GnnResidentEngine(GnnSummaryEngine):
+    """The resident tier of the GNN engine: GnnSummaryEngine at
+    `superbatch` windows a dispatch (default GS_RESIDENT_SPB), each
+    super-batch one replayed CUDA graph of the GNN round over the slab,
+    the weights and one staging slot (ops/resident_engine
+    .SuperBatchGraphs), GS_RESIDENT_SLOTS super-batches prepped and
+    copied ahead. The slab is updated in place; `state_dict` copies it
+    and leaves it live. Summaries, slab and checkpoints equal
+    GnnSummaryEngine's bit for bit."""
+
+    METRICS_TIER = "gnn_resident"
+    _adopt_carry = resident_engine.adopt_carry_in_place
+
+    def __init__(self, edge_bucket: int, vertex_bucket: int,
+                 feature_dim: int = 16, activation: str = "relu",
+                 device=None, superbatch: int = None):
+        super().__init__(edge_bucket, vertex_bucket, feature_dim,
+                         activation, device)
+        self.MAX_WINDOWS = seg_ops.bucket_size(
+            superbatch if superbatch else
+            resident_engine.resident_spb(self.eb))
+        self._graphs = resident_engine.SuperBatchGraphs("gnn_resident")
+        self._warmed = set()
+        # buffers the graphs bind, made now so they never move: the
+        # round's aggregate scratch and every staging slot
+        if self.device.type == "cuda":
+            self._round.scratch = torch.empty_like(self._carry[0])
+        self._ring.reserve(self._ring.nbytes(self._specs(self.MAX_WINDOWS)))
+
+    @property
+    def INGEST_SLOTS(self):
+        return resident_engine.ring_slots()
+
+    def _specs(self, w: int) -> list:
+        return [((w, self.eb), np.int32), ((w, self.eb), np.int32),
+                ((w, self.eb), np.bool_)]
+
+    def _weights_changed(self) -> None:
+        # into the tensors the graphs bind, where they exist
+        if getattr(self, "_wdev", None) is None:
+            super()._weights_changed()
+            return
+        self._wdev.copy_(torch.from_numpy(self._w_units))
+        self._bdev.copy_(torch.from_numpy(self._b_units))
+
+    def _fold(self, h, W, b, src, dst, valid) -> torch.Tensor:
+        sums = torch.empty(4, src.shape[0], dtype=torch.int32,
+                           device=src.device)
+        self._round(h, W, b, src, dst, valid, self.act, sums)
+        return sums
+
+    def _warm(self, w: int) -> None:
+        """One all-padding super-batch of w windows on a throwaway slab,
+        waited for (a no-op on the CPU)."""
+        if self.device.type != "cuda" or w in self._warmed:
+            return
+        dev = self.device
+        pad = torch.full((w, self.eb), self.vb, dtype=torch.int32,
+                         device=dev)
+        self._fold(torch.zeros_like(self._carry[0]), self._wdev, self._bdev,
+                   pad, pad, torch.zeros(w, self.eb, dtype=torch.bool,
+                                         device=dev))
+        torch.cuda.synchronize(dev)
+        self._warmed.add(w)
+
+    def _static(self, tensors) -> tuple:
+        return (self._carry[0], self._wdev, self._bdev) + tuple(tensors)
+
+    def _prepare_round(self, widths, wire: str) -> None:
+        if self.device.type != "cuda":
+            return
+        for w in widths:
+            for slot in range(self._ring.slot_count):
+                tensors = self._ring.slot_tensors(slot, self._specs(w))
+                self._graphs.capture((w, slot), self._static(tensors),
+                                     self._fold,
+                                     warm=lambda w=w: self._warm(w))
+
+    def _dispatch_async(self, staged, wire: str = "standard"):
+        tensors = self._ring.take(staged)
+        w = tensors[0].shape[0]
+        sums = self._graphs.run((w, self._ring.slot_index(staged)),
+                                self._static(tensors), self._fold,
+                                warm=lambda: self._warm(w))
         self._ring.done(staged)
         return HostCopy(sums)
 
@@ -366,7 +458,7 @@ class GnnHostEngine(GnnEngineBase):
     def _materialize(self, raw) -> np.ndarray:
         return raw
 
-    def _dispatch_async(self, args) -> np.ndarray:
+    def _dispatch_async(self, args, wire: str = "standard") -> np.ndarray:
         s, d, valid = args
         vb, F = self.vb, self.F
         sh = agg_shift(self.eb)

@@ -32,7 +32,7 @@ When a prep fails, the chunk already dispatched is drained (its finalize
 runs) before the error re-raises as a PrepError carrying the worker's
 traceback.
 
-Not ported yet (ROADMAP.md step 10, with the utils/ hooks): the stage
+Not ported yet (ROADMAP.md step 1.8, with the utils/ hooks): the stage
 guard (GS_STAGE_TIMEOUT_S / GS_STAGE_RETRIES: per-stage deadlines and
 retries), the telemetry spans, the fault-injection points and the
 metrics gauges.
@@ -40,6 +40,7 @@ metrics gauges.
 
 from __future__ import annotations
 
+import itertools
 import os
 import threading
 import time
@@ -196,7 +197,9 @@ def run_pipeline(items: Iterable, prep: Callable, h2d: Callable,
                  timers: Optional[StageTimers] = None,
                  inflight: Optional[int] = None,
                  workers: Optional[int] = None) -> None:
-    """Run `items` (ordered chunk descriptors) through the three stages:
+    """Run `items` (ordered chunk descriptors, drawn one at a time as the
+    look-ahead admits them: a lazy iterable may decide item k while the
+    items before it are in flight) through the three stages:
 
       prep(item)     -> host payload (pure; any worker; consumed in item
                         order)
@@ -213,9 +216,11 @@ def run_pipeline(items: Iterable, prep: Callable, h2d: Callable,
     (default min(4, cpus - 1)). A prep or h2d failure surfaces as
     PrepError after the already-dispatched chunk is drained; preps not
     yet started are cancelled and those running are waited for."""
-    items = list(items)
+    it = iter(items)
+    head = list(itertools.islice(it, 2))    # one item: nothing to overlap
     limit = inflight_limit() if inflight is None else int(inflight)
-    pool = prep_pool(workers) if len(items) > 1 else None
+    pool = prep_pool(workers) if len(head) > 1 else None
+    it = itertools.chain(head, it)
     pending = None          # raw outputs of the chunk one behind dispatch
     futures: deque = deque()
 
@@ -236,21 +241,19 @@ def run_pipeline(items: Iterable, prep: Callable, h2d: Callable,
 
     try:
         if pool is None:
-            for item in items:
+            for item in it:
                 _consume(_prep_then_h2d(prep, h2d, item, timers))
         else:
             width = worker_count() if workers is None else int(workers)
-            lookahead = max(1, min(len(items), width + 1, limit))
-            futures.extend(pool.submit(_prep_then_h2d, prep, h2d, it,
+            lookahead = max(1, min(width + 1, limit))
+            futures.extend(pool.submit(_prep_then_h2d, prep, h2d, item,
                                        timers)
-                           for it in items[:lookahead])
-            nxt = lookahead
+                           for item in itertools.islice(it, lookahead))
             while futures:
                 dev = futures.popleft().result()
-                if nxt < len(items):
+                for item in itertools.islice(it, 1):
                     futures.append(pool.submit(_prep_then_h2d, prep, h2d,
-                                               items[nxt], timers))
-                    nxt += 1
+                                               item, timers))
                 _consume(dev)
     except Exception:
         # drain the chunk already dispatched before the failure surfaces,

@@ -26,12 +26,29 @@ A window whose hubs outrun the K bucket is recounted exactly by a
 `state_dict()` has the JAX engine's keys and carry layout, so a
 checkpoint of either package loads into the other.
 
-ops/cohort_summary.py lifts the same body over a leading tenant axis
-for the multi-tenant cohort (core/tenancy.py).
+A call of more than MAX_WINDOWS windows runs under the online dispatch
+tuner (ops/autotune.py, GS_AUTOTUNE on by default; the JAX engine's
+`_ensure_tuner`, `_warm_arm`, `_process_tuned`, :755-845 there, and its
+engaging rule :549-555): measurement rounds of GS_AUTOTUNE_ROUND chunks,
+each at the tuner's (windows-per-dispatch, wire) arm. The JAX engine
+runs each round as a pipeline of its own beside its static loop; here
+both are one chunk loop (`_run_chunks` over an autotune.RoundPlan), each
+chunk's stack built from the raw edges on the pool, the arm free to
+change between chunks without draining. Summaries are the same at every
+arm.
+`forced_sync` freezes the tuner, an explicit `ingress=` pins the wire,
+and the tuner's state rides `state_dict` as "autotune". One difference:
+the JAX `_warm_arm` folds its all-padding chunk into the live carry,
+which joins the cover's two sentinels (slot 2vb+1 then reads vb; no
+summary reads it); the port warms on a throwaway carry, so a tuned
+carry equals the static path's bit for bit.
 
-Not ported yet (ROADMAP.md): the finalize hooks (checkpoint files, WAL,
-latency, provenance, metrics, sanitize, faults; step 10) and the online
-autotuner (step 8).
+ops/cohort_summary.py lifts the same body over a leading tenant axis
+for the multi-tenant cohort (core/tenancy.py); ops/resident_engine.py
+replays its super-batches as CUDA graphs.
+
+Not ported yet (ROADMAP.md step 1.8): the finalize hooks (checkpoint
+files, WAL, latency, provenance, metrics, sanitize, faults).
 """
 
 from __future__ import annotations
@@ -42,6 +59,7 @@ import numpy as np
 import torch
 
 from ..core.platform import resolve_device
+from . import autotune
 from . import compact_ingress
 from . import ingress_pipeline
 from . import segment as seg_ops
@@ -70,18 +88,29 @@ class SummaryEngineBase:
 
     MAX_WINDOWS = 64
     INFLIGHT = ingress_pipeline.DEFAULT_INFLIGHT   # pipeline look-ahead
+    # prepped and copied chunks ahead of dispatch; None = INFLIGHT (the
+    # resident engine reads GS_RESIDENT_SLOTS)
+    INGEST_SLOTS = None
     ingress = "standard"
     _ring = None        # the staging ring of an engine on a torch device
+    # the online dispatch tuner (ops/autotune.py): engines that opt in,
+    # whether the wire is one of its knobs, and its cache-key family
+    AUTOTUNE = False
+    TUNABLE_INGRESS = False
+    TUNER_FAMILY = "fused_scan"
+    _pinned_ingress = False
+    _tuner = None
 
     def reset(self) -> None:
         self._closed_partial = False
         self.windows_done = 0   # resume cursor
-        self._carry = self._init_carry()
+        self._adopt_carry(self._init_carry())
 
     def state_dict(self) -> dict:
         """The resumable state: the carry as host arrays plus the
-        windows_done cursor, under the JAX engine's keys."""
-        return {
+        windows_done cursor, under the JAX engine's keys; a live tuner's
+        state rides along as "autotune"."""
+        state = {
             "edge_bucket": self.eb,
             "vertex_bucket": self.vb,
             "windows_done": int(self.windows_done),
@@ -89,12 +118,16 @@ class SummaryEngineBase:
             "wal_offset": int(self.windows_done) * self.eb,
             "carry": tuple(_to_host(x) for x in self._carry),
         }
+        if self._tuner is not None:
+            state["autotune"] = self._tuner.state_dict()
+        return state
 
     def load_state_dict(self, state: dict) -> None:
         """Adopt a state of this package's or the JAX package's engines
-        (an `autotune` entry is ignored). Raises ValueError on other
-        buckets, an inconsistent cursor, or a carry that is not the
-        engines' layout."""
+        (its "autotune" entry into this engine's tuner, where the engine
+        tunes and GS_AUTOTUNE is on). Raises ValueError on other buckets,
+        an inconsistent cursor, or a carry that is not the engines'
+        layout."""
         if state["edge_bucket"] != self.eb \
                 or state["vertex_bucket"] != self.vb:
             raise ValueError(
@@ -115,7 +148,10 @@ class SummaryEngineBase:
         self._check_carry(carry)
         self.windows_done = int(state["windows_done"])
         self._closed_partial = bool(state["closed_partial"])
-        self._carry = tuple(self._to_carry(a) for a in carry)
+        self._adopt_carry(tuple(self._to_carry(a) for a in carry))
+        if state.get("autotune") is not None and self.AUTOTUNE \
+                and autotune.enabled():
+            self._ensure_tuner().load_state_dict(state["autotune"])
 
     def resume_offset(self) -> int:
         """Edges already folded into the carry: a resumed caller feeds
@@ -124,6 +160,11 @@ class SummaryEngineBase:
 
     def _init_carry(self) -> tuple:
         raise NotImplementedError
+
+    def _adopt_carry(self, carry: tuple) -> None:
+        """Make `carry` the engine's carry (the resident engines copy it
+        into the buffers their graphs bind)."""
+        self._carry = tuple(carry)
 
     def _to_carry(self, a):
         raise NotImplementedError
@@ -134,7 +175,7 @@ class SummaryEngineBase:
     def _h2d(self, args, ordinal: int):
         return self._ring.put(args, ordinal)
 
-    def _dispatch_async(self, staged):
+    def _dispatch_async(self, staged, wire: str):
         raise NotImplementedError
 
     def _materialize(self, raw) -> np.ndarray:
@@ -170,63 +211,120 @@ class SummaryEngineBase:
         self._validate(src, dst)
         self._closed_partial = n % self.eb != 0
         out: list = []
-        self._process_static(src, dst, -(-n // self.eb), out)
+        num_w = -(-n // self.eb)
+        # long calls run under the tuner, which picks each round's
+        # (windows per dispatch, wire); GS_AUTOTUNE=0 or a short call
+        # runs the static arm, with the same summaries
+        tuner = (self._ensure_tuner() if self.AUTOTUNE and autotune.enabled()
+                 and num_w > self.MAX_WINDOWS else None)
+        self._run_chunks(src, dst, num_w, tuner, out)
         return out
 
-    def _build_stack(self, src, dst):
-        """The whole call's window stack on the engine's wire: (s16, d16,
-        nvalid) compact, (s, d, valid) standard."""
-        if self.ingress == "compact":
-            return compact_ingress.window_stack(src, dst, self.eb)[1:]
-        return seg_ops.window_stack(src, dst, self.eb, sentinel=self.vb)[1:]
+    def _run_chunks(self, src, dst, num_w: int, tuner, out: list) -> None:
+        """The one chunk loop: windows [0, num_w) through the ingress
+        pipeline over an autotune.RoundPlan (the static arm
+        (MAX_WINDOWS, ingress), or the tuner's arm a round, warmed
+        first). Each chunk's stack is built from the raw edges in its
+        prep on the pool (a ragged tail pads its window axis to a power
+        of two with empty windows, which fold as no-ops apart from the
+        cover's sentinel join, as in the JAX engine) and copied to its
+        staging slot; dispatches go in chunk order on this thread; each
+        chunk's outputs are read and its windows counted into
+        `windows_done` one chunk behind."""
 
-    def _process_static(self, src, dst, num_w: int, out: list) -> None:
-        """One pipeline over the whole call at (MAX_WINDOWS, ingress)."""
-        self._run_window_rounds(src, dst, num_w, self._build_stack(src, dst),
-                                out)
+        def on_round(arm, windows):
+            if tuner is not None:
+                self._warm_arm(arm)
+            self._prepare_round(_round_widths(windows, arm["wb"]),
+                                arm["ingress"])
 
-    def _run_window_rounds(self, src, dst, num_w: int, data,
-                           out: list) -> None:
-        """Windows [0, num_w) of `data` (the whole call's stack on the
-        engine's wire) through the ingress pipeline: chunk prep (a ragged tail
-        pads its window axis to a power of two with empty windows, which
-        fold as no-ops apart from the cover's sentinel join, as in the
-        JAX engine) and h2d on the pool, dispatches in chunk order on
-        this thread, each chunk's outputs read and its windows counted
-        into `windows_done` one chunk behind."""
-        wb = self.MAX_WINDOWS
+        plan = autotune.RoundPlan(
+            num_w, {"wb": self.MAX_WINDOWS, "ingress": self.ingress}, tuner,
+            on_round=on_round)
+        eb = self.eb
 
-        def prep(at):
-            hi = min(at + wb, num_w)
-            if self.ingress == "compact":
+        def prep(ch):
+            wb, wire = ch.arm["wb"], ch.arm["ingress"]
+            lo, hi_e = ch.at * eb, min(ch.hi * eb, len(src))
+            if wire == "compact":
+                m, *stack = compact_ingress.window_stack(
+                    src[lo:hi_e], dst[lo:hi_e], eb)
                 sc, dc, vc, real = compact_ingress.pad_chunk(
-                    *data, at, hi, wb, self.eb)
+                    *stack, 0, m, wb, eb)
             else:
+                m, *stack = seg_ops.window_stack(
+                    src[lo:hi_e], dst[lo:hi_e], eb, sentinel=self.vb)
                 sc, dc, vc, real = seg_ops.pad_window_chunk(
-                    *data, at, hi, wb, self.eb, self.vb)
-            return at, real, (sc, dc, vc)
+                    *stack, 0, m, wb, eb, self.vb)
+            return ch, real, (sc, dc, vc)
 
         def h2d(payload):
-            at, real, args = payload
-            return at, real, self._h2d(args, at // wb)
+            ch, real, args = payload
+            return ch, real, self._h2d(args, ch.seq)
 
         def dispatch(dev_payload):
-            at, real, dev = dev_payload
-            return at, real, self._dispatch_async(dev)
+            ch, real, dev = dev_payload
+            return ch, real, self._dispatch_async(dev, ch.arm["ingress"])
 
         def finalize(item):
-            at, real, raw = item
-            self._finalize_summaries(at, self._materialize(raw)[:, :real],
+            ch, real, raw = item
+            self._finalize_summaries(ch.at, self._materialize(raw)[:, :real],
                                      src, dst, out)
+            plan.done(ch, (ch.hi - ch.at) * eb)
 
+        slots = self.INGEST_SLOTS
         try:
             ingress_pipeline.run_pipeline(
-                range(0, num_w, wb), prep, h2d, dispatch, finalize,
-                timers=self.stage_timers, inflight=self.INFLIGHT)
+                plan, prep, h2d, dispatch, finalize,
+                timers=self.stage_timers,
+                inflight=self.INFLIGHT if slots is None else slots)
         except BaseException:
             if self._ring is not None:
                 self._ring.release_all()
             raise
+        plan.close()
+
+    def _ring_slots(self) -> int:
+        """Staging slots of the engine's ring: one more than the
+        look-ahead, so chunk i + look-ahead + 1 waits for chunk i."""
+        slots = self.INGEST_SLOTS
+        return (self.INFLIGHT if slots is None else slots) + 1
+
+    def _prepare_round(self, widths, wire: str) -> None:
+        """Hook as a round of chunks of `widths` windows on `wire` is
+        decided, before its first chunk is prepped (the resident engines
+        capture their graphs here)."""
+
+    # -- online autotuning (ops/autotune.py) ---------------------------
+
+    def _ensure_tuner(self) -> autotune.DispatchTuner:
+        """The engine's tuner: wb rungs {MAX/4, MAX/2, MAX} and, where
+        the wire is tunable and not pinned, both wires (compact where
+        the vertex bucket fits uint16)."""
+        if self._tuner is None:
+            wbm = self.MAX_WINDOWS
+            wbs = autotune.rungs(wbm)
+            ing = [self.ingress]
+            if self.TUNABLE_INGRESS and not self._pinned_ingress:
+                ing = ["standard"]
+                if compact_ingress.supports(self.vb):
+                    ing.append("compact")
+            init = {"wb": wbm, "ingress": (self.ingress if self.ingress
+                                           in ing else "standard")}
+            self._tuner = autotune.DispatchTuner(
+                "%s:eb=%d:vb=%d" % (self.TUNER_FAMILY, self.eb, self.vb),
+                {"wb": wbs, "ingress": ing}, init,
+                backend=self._tuner_backend())
+        return self._tuner
+
+    def _tuner_backend(self) -> str:
+        return getattr(getattr(self, "device", None), "type", "cpu")
+
+    def _warm_arm(self, arm: dict) -> None:
+        """Before an arm's first timed round: one all-padding chunk at
+        its shape through the kernels, on a throwaway carry (the live
+        carry is not touched), waited for. A no-op on the CPU, where
+        there is nothing to build."""
 
 
 class StreamSummaryEngine(SummaryEngineBase):
@@ -240,6 +338,9 @@ class StreamSummaryEngine(SummaryEngineBase):
     "standard" is the standard wire; "compact" the compact one, which
     raises ValueError for vertex_bucket > 65536."""
 
+    AUTOTUNE = True
+    TUNABLE_INGRESS = True
+
     def __init__(self, edge_bucket: int, vertex_bucket: int,
                  k_bucket: int = 0, device=None, ingress: str = None):
         self.device = resolve_device(device)
@@ -248,9 +349,13 @@ class StreamSummaryEngine(SummaryEngineBase):
         self.kb = seg_ops.bucket_size(
             k_bucket if k_bucket else default_kb(self.eb))
         self.ingress = resolve_ingress(ingress, self.vb)
+        # an explicit wire pins it for the tuner too
+        self._pinned_ingress = ingress is not None
+        self._tuner = None
+        self._warmed = set()
         self.stage_timers = ingress_pipeline.StageTimers()
         self._summary = WindowSummary(self.vb, self.kb, self.device)
-        self._ring = ChunkStager(self.device, slots=self.INFLIGHT + 1)
+        self._ring = ChunkStager(self.device, slots=self._ring_slots())
         self._tri_fallback = TriangleWindowKernel(
             self.eb, self.vb, k_bucket=4 * self.kb, device=self.device)
         self.reset()
@@ -284,11 +389,40 @@ class StreamSummaryEngine(SummaryEngineBase):
         else:
             _validate_ids(src, dst, self.vb)
 
-    def _dispatch_async(self, staged):
-        outs = self._summary(self._carry, *self._ring.take(staged),
-                             self.ingress)
+    def _dispatch_async(self, staged, wire: str):
+        out = self._launch(self._ring.take(staged), wire,
+                           self._ring.slot_index(staged))
         self._ring.done(staged)
-        return HostCopy(torch.stack([x.to(torch.int32) for x in outs]))
+        return HostCopy(out)
+
+    def _launch(self, tensors, wire: str, slot: int) -> torch.Tensor:
+        """Fold one staged chunk into the carry: its [5, W] int32 outputs
+        (`slot`, the chunk's staging slot, names the resident engine's
+        graph)."""
+        return self._fold(self._carry, tensors, wire)
+
+    def _fold(self, carry, tensors, wire: str) -> torch.Tensor:
+        """The summary call on one chunk, its five [W] outputs as one
+        [5, W] int32 tensor."""
+        return torch.stack([x.to(torch.int32) for x in
+                            self._summary(carry, *tensors, wire)])
+
+    def _warm_arm(self, arm: dict) -> None:
+        key = (arm["wb"], arm["ingress"])
+        if self.device.type != "cuda" or key in self._warmed:
+            return
+        w, eb, dev = arm["wb"], self.eb, self.device
+        if arm["ingress"] == "compact":
+            z16 = torch.zeros(w, eb, dtype=torch.uint16, device=dev)
+            stack = (z16, z16.clone(),
+                     torch.zeros(w, dtype=torch.int32, device=dev))
+        else:
+            pad = torch.full((w, eb), self.vb, dtype=torch.int32, device=dev)
+            stack = (pad, pad.clone(),
+                     torch.zeros(w, eb, dtype=torch.bool, device=dev))
+        self._summary(fresh_carry(self.vb, dev), *stack, arm["ingress"])
+        torch.cuda.synchronize(dev)
+        self._warmed.add(key)
 
     def _redo(self, src, dst) -> int:
         """Exact triangle count of one window."""
@@ -443,6 +577,15 @@ def check_summary_carry(carry, vb: int) -> None:
     if np.any(root[mirror] != root[mirror[root]]):
         raise ValueError("carry cover's sets must be closed under the "
                          "mirror v <-> v+vb+1")
+
+
+def _round_widths(num_w: int, wb: int) -> set:
+    """The window counts of the chunks of a run of num_w windows in
+    chunks of wb (a ragged tail padded as pad_window_chunk pads it)."""
+    widths = {wb} if num_w >= wb else set()
+    if num_w % wb:
+        widths.add(min(seg_ops.bucket_size(num_w % wb), wb))
+    return widths
 
 
 def _to_host(x) -> np.ndarray:

@@ -83,6 +83,64 @@ class ChunkStager:
         self._copy = (torch.cuda.Stream(self.device)
                       if self.device.type == "cuda" else None)
 
+    @property
+    def slot_count(self) -> int:
+        return len(self._slots)
+
+    @staticmethod
+    def _layout(specs) -> tuple:
+        """Byte offsets of a chunk's arrays, given as (shape, dtype)
+        specs, written back to back (each aligned to 16 bytes), and the
+        total."""
+        offsets, total = [], 0
+        for shape, dtype in specs:
+            offsets.append(total)
+            n = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+            total += -(-n // _ALIGN) * _ALIGN
+        return offsets, total
+
+    @classmethod
+    def nbytes(cls, specs) -> int:
+        """The slot bytes a chunk of arrays of (shape, dtype) `specs`
+        takes."""
+        return cls._layout(specs)[1]
+
+    def reserve(self, nbytes: int) -> None:
+        """On a card, give every slot buffers of at least `nbytes` now: a
+        chunk of at most that size never reallocates them, so a CUDA
+        graph captured over a slot's device buffer (ops/resident_engine)
+        keeps reading that slot. Call it before the slots are in use."""
+        if self.device.type != "cuda":
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(self._copy):
+            for slot in self._slots:
+                if slot.host is None or slot.host.numel() < nbytes:
+                    slot.host = torch.empty(nbytes, dtype=torch.uint8,
+                                            pin_memory=True)
+                    slot.dev = torch.empty(nbytes, dtype=torch.uint8,
+                                           device=self.device)
+                    slot.copied = torch.cuda.Event()
+                    slot.consumed = torch.cuda.Event()
+
+    def slot_index(self, staged: Staged) -> int:
+        """The ring position of a staged chunk's slot (-1 on the CPU)."""
+        return -1 if staged.slot is None else self._slots.index(staged.slot)
+
+    def slot_tensors(self, index: int, specs) -> tuple:
+        """The device tensors a chunk of (shape, dtype) `specs` staged
+        into slot `index` occupies (a reserved slot's buffer): the views
+        `take` hands out for such a chunk."""
+        slot = self._slots[index]
+        offsets, total = self._layout(specs)
+        if slot.dev is None or slot.dev.numel() < total:
+            raise ValueError("slot %d holds no buffer of %d bytes"
+                             % (index, total))
+        return tuple(
+            slot.dev[off:off + int(np.prod(shape, dtype=np.int64))
+                     * np.dtype(dt).itemsize]
+            .view(_TORCH_DTYPES[np.dtype(dt)]).view(shape)
+            for (shape, dt), off in zip(specs, offsets))
+
     def put(self, arrays, ordinal: int) -> Staged:
         arrays = [np.ascontiguousarray(a) for a in arrays]
         if self.device.type == "cpu":
@@ -95,10 +153,7 @@ class ChunkStager:
         if slot.consumed is not None:     # its copy and kernels are over
             slot.copied.synchronize()
             slot.consumed.synchronize()
-        offsets, total = [], 0
-        for a in arrays:
-            offsets.append(total)
-            total += -(-a.nbytes // _ALIGN) * _ALIGN
+        offsets, total = self._layout([(a.shape, a.dtype) for a in arrays])
         with torch.cuda.device(self.device), torch.cuda.stream(self._copy):
             if slot.host is None or slot.host.numel() < total:
                 slot.host = torch.empty(total, dtype=torch.uint8,

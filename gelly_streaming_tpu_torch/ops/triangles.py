@@ -23,9 +23,22 @@ above), "host" (the numpy counter, ops/host_triangles.py) or "native"
 (the C++ counter of native/ingest.cpp, one call per slice of
 windows on the ingress pool). All three give the same counts for ids
 below the vertex bucket. A pinned "native" raises where the library
-cannot load; it never becomes "host". Not ported: the online autotuner
-(ROADMAP step 1.7); K comes from the analytic rule and the wire from
-the constructor, not from evidence files.
+cannot load; it never becomes "host". K comes from the analytic rule and
+the wire from the constructor, not from evidence files.
+
+A device-tier `count_stream` of more than MAX_STREAM_WINDOWS windows runs
+under the online dispatch tuner (ops/autotune.py, GS_AUTOTUNE on by
+default; the JAX kernel's `_tuner_space`, `_ensure_tuner`, `_warm_arm`
+and `_run_stack_tuned`, triangles.py:1040-1140 there, engaged as at
+:1240-1248): rounds of GS_AUTOTUNE_ROUND chunks, each at the tuner's arm
+of wb rungs {16, 32, 64}, the first three K rungs of the escalation
+ladder and both wires where vb ≤ 65536. The JAX kernel runs each round
+as a pipeline of its own; here the tuned and the static call are one
+chunk loop (`_run_stack_loop` over an autotune.RoundPlan) whose arm may
+change between chunks without draining. Counts are the same at every
+arm (the overflow recount keeps them exact at any K). A pinned
+`k_bucket=` or `ingress=` freezes its dimension; `forced_sync` freezes
+the tuner.
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ import torch
 
 from .. import native
 from ..core.platform import resolve_device
+from . import autotune
 from . import compact_ingress
 from . import host_triangles
 from . import ingress_pipeline
@@ -228,6 +242,11 @@ class TriangleWindowKernel:
             k_bucket if k_bucket else default_kb(self.eb))
         self.kb_max = seg_ops.bucket_size(2 * math.isqrt(self.eb))
         self.ingress = resolve_ingress(ingress, self.vb)
+        # an explicit K or wire freezes that dimension for the tuner
+        self._pinned_kb = bool(k_bucket)
+        self._pinned_ingress = ingress is not None
+        self.tuner = None
+        self._warmed = set()
         # per-stage wall time of every pipelined stream run through here
         self.stage_timers = ingress_pipeline.StageTimers()
         self._counters = {}
@@ -281,76 +300,127 @@ class TriangleWindowKernel:
         return triangle_count_sparse(src, dst, self.vb, self.device)
 
     def _run_stack_loop(self, num_w: int, make_chunk, get_window,
-                        wire: str) -> list:
+                        tuner=None) -> list:
         """The one pipelined chunk loop of both wires
-        (ingress_pipeline.run_pipeline): prep `make_chunk(at, hi)` ->
-        (host stacks of windows [at:hi] on `wire`, n real windows; a
-        ragged last chunk pads its window axis to a power of two) and its
-        h2d into ring slot at / MAX_STREAM_WINDOWS run on a worker; the
-        dispatch launches the counter at kb and enqueues the copy back of
-        (count, overflow); the finalize, one chunk behind, reads it and
-        recounts exactly each window w whose overflow is > 0, from its
-        edges `get_window(w)`. ingress_pipeline.forced_sync gives the
-        same counts."""
+        (ingress_pipeline.run_pipeline over an autotune.RoundPlan: the
+        static arm (MAX_STREAM_WINDOWS, kb, ingress), or the tuner's arm
+        a round): prep `make_chunk(at, hi, wb, wire)` -> (host stacks of
+        windows [at:hi] on `wire`, n real windows; a ragged last chunk
+        pads its window axis to a power of two) and its h2d into ring
+        slot seq run on a worker; the dispatch launches the counter at
+        the chunk's K and enqueues the copy back of (count, overflow);
+        the finalize, one chunk behind, reads it and recounts exactly
+        each window w whose overflow is > 0, from its edges
+        `get_window(w)`, up the ladder past that K.
+        ingress_pipeline.forced_sync gives the same counts."""
         counts: list = []
-        wmax = self.MAX_STREAM_WINDOWS
+        plan = autotune.RoundPlan(
+            num_w, {"wb": self.MAX_STREAM_WINDOWS, "kb": self.kb,
+                    "ingress": self.ingress}, tuner,
+            on_round=None if tuner is None
+            else lambda arm, _windows: self._warm_arm(arm))
 
-        def prep(at):
-            args, n = make_chunk(at, min(at + wmax, num_w))
-            return at, n, args
+        def prep(ch):
+            args, n = make_chunk(ch.at, ch.hi, ch.arm["wb"],
+                                 ch.arm["ingress"])
+            return ch, n, args
 
         def h2d(payload):
-            at, n, args = payload
-            return at, n, self._ring.put(args, at // wmax)
+            ch, n, args = payload
+            return ch, n, self._ring.put(args, ch.seq)
 
         def dispatch(dev_payload):
-            at, n, staged = dev_payload
-            c, o = self._counter(self.kb)(*self._ring.take(staged),
-                                          wire=wire)
+            ch, n, staged = dev_payload
+            c, o = self._counter(ch.arm["kb"])(*self._ring.take(staged),
+                                               wire=ch.arm["ingress"])
             self._ring.done(staged)
-            return at, n, HostCopy(torch.stack((c, o)))
+            return ch, n, HostCopy(torch.stack((c, o)))
 
         def finalize(raw):
-            at, n, res = raw
+            ch, n, res = raw
             res = res.numpy()
             c, o = res[0, :n].copy(), res[1, :n]
             for w in np.nonzero(o)[0]:  # rare hub overflow: exact redo
-                c[w] = self.count(*get_window(at + int(w)), min_k=self.kb)
+                c[w] = self.count(*get_window(ch.at + int(w)),
+                                  min_k=ch.arm["kb"])
             counts.extend(int(x) for x in c)
+            plan.done(ch, (ch.hi - ch.at) * self.eb)
 
         try:
             ingress_pipeline.run_pipeline(
-                range(0, num_w, wmax), prep, h2d, dispatch, finalize,
+                plan, prep, h2d, dispatch, finalize,
                 timers=self.stage_timers, inflight=self.INFLIGHT)
         except BaseException:
             self._ring.release_all()
             raise
+        plan.close()
         return counts
 
     def _run_stack(self, s, d, valid, get_window) -> list:
-        """Standard-wire window stack through _run_stack_loop."""
+        """A standard-wire window stack through _run_stack_loop."""
 
-        def make_chunk(at, hi):
+        def make_chunk(at, hi, wb, _wire):
             sc, dc, vc, n = seg_ops.pad_window_chunk(
-                s, d, valid, at, hi, self.MAX_STREAM_WINDOWS, self.eb,
-                self.vb)
+                s, d, valid, at, hi, wb, self.eb, self.vb)
             return (sc, dc, vc), n
 
-        return self._run_stack_loop(s.shape[0], make_chunk, get_window,
-                                    "standard")
+        return self._run_stack_loop(s.shape[0], make_chunk, get_window)
 
     def _run_stack_compact(self, num_w, s16, d16, nvalid,
                            get_window) -> list:
         """Compact-wire stacks (ops/compact_ingress) through the same
         _run_stack_loop."""
 
-        def make_chunk(at, hi):
+        def make_chunk(at, hi, wb, _wire):
             sc, dc, nv, n = compact_ingress.pad_chunk(
-                s16, d16, nvalid, at, hi, self.MAX_STREAM_WINDOWS, self.eb)
+                s16, d16, nvalid, at, hi, wb, self.eb)
             return (sc, dc, nv), n
 
-        return self._run_stack_loop(num_w, make_chunk, get_window,
-                                    "compact")
+        return self._run_stack_loop(num_w, make_chunk, get_window)
+
+    # ---- online autotuning (ops/autotune.py) -------------------------
+
+    def _tuner_space(self) -> dict:
+        """The arm space: wb rungs under MAX_STREAM_WINDOWS, the first
+        three K rungs of the escalation ladder, and both wires (compact
+        where the vertex bucket fits uint16); a pinned K or wire is a
+        single value."""
+        wbs = autotune.rungs(self.MAX_STREAM_WINDOWS)
+        kbs = [self.kb] if self._pinned_kb else self._escalation_ladder()[:3]
+        ing = [self.ingress]
+        if not self._pinned_ingress:
+            ing = ["standard"]
+            if compact_ingress.supports(self.vb):
+                ing.append("compact")
+        return {"wb": wbs, "kb": sorted(set(kbs)), "ingress": ing}
+
+    def _ensure_tuner(self) -> autotune.DispatchTuner:
+        if self.tuner is None:
+            self.tuner = autotune.DispatchTuner(
+                "triangle_stream:eb=%d:vb=%d" % (self.eb, self.vb),
+                self._tuner_space(),
+                {"wb": self.MAX_STREAM_WINDOWS, "kb": self.kb,
+                 "ingress": self.ingress}, backend=self.device.type)
+        return self.tuner
+
+    def _warm_arm(self, arm: dict) -> None:
+        """Before an arm's first timed round: its counter launched once
+        on an all-padding chunk at its shape, waited for (the scratch
+        sized, the kernel built). A no-op on the CPU."""
+        key = (arm["wb"], arm["kb"], arm["ingress"])
+        if self.device.type != "cuda" or key in self._warmed:
+            return
+        w, eb, dev = arm["wb"], self.eb, self.device
+        if arm["ingress"] == "compact":
+            z16 = torch.zeros(w, eb, dtype=torch.uint16, device=dev)
+            stack = (z16, z16, torch.zeros(w, dtype=torch.int32, device=dev))
+        else:
+            pad = torch.full((w, eb), self.vb, dtype=torch.int32, device=dev)
+            stack = (pad, pad, torch.zeros(w, eb, dtype=torch.bool,
+                                           device=dev))
+        self._counter(arm["kb"])(*stack, wire=arm["ingress"])
+        torch.cuda.synchronize(dev)
+        self._warmed.add(key)
 
     def count_stream(self, src: np.ndarray, dst: np.ndarray) -> list:
         """Exact counts of every tumbling `edge_bucket`-sized window of
@@ -365,15 +435,32 @@ class TriangleWindowKernel:
         if self.stream_tier == "host":
             return host_triangles.count_stream(src, dst, eb)
 
+        n = len(src)
+        num_w = -(-n // eb)
+        # long streams run under the tuner (the same counts);
+        # GS_AUTOTUNE=0 or a short stream runs the static arm
+        tuner = (self._ensure_tuner() if autotune.enabled()
+                 and num_w > self.MAX_STREAM_WINDOWS else None)
+
         def get_window(w):
             return src[w * eb:(w + 1) * eb], dst[w * eb:(w + 1) * eb]
 
-        if self.ingress == "compact":
-            num_w, s16, d16, nv = compact_ingress.window_stack(src, dst, eb)
-            return self._run_stack_compact(num_w, s16, d16, nv, get_window)
-        _num_w, s, d, valid = seg_ops.window_stack(src, dst, eb,
-                                                   sentinel=self.vb)
-        return self._run_stack(s, d, valid, get_window)
+        def make_chunk(at, hi, wb, wire):
+            # windows [at, hi) stacked from the raw edges, on the worker
+            lo, hi_e = at * eb, min(hi * eb, n)
+            if wire == "compact":
+                m, s16, d16, nv = compact_ingress.window_stack(
+                    src[lo:hi_e], dst[lo:hi_e], eb)
+                sc, dc, nvc, m = compact_ingress.pad_chunk(
+                    s16, d16, nv, 0, m, wb, eb)
+                return (sc, dc, nvc), m
+            m, s, d, valid = seg_ops.window_stack(
+                src[lo:hi_e], dst[lo:hi_e], eb, sentinel=self.vb)
+            sc, dc, vc, m = seg_ops.pad_window_chunk(
+                s, d, valid, 0, m, wb, eb, self.vb)
+            return (sc, dc, vc), m
+
+        return self._run_stack_loop(num_w, make_chunk, get_window, tuner)
 
     def count_windows(self, windows) -> list:
         """Exact counts of a list of (src, dst) window batches of varying

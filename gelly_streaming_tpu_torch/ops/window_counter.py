@@ -166,6 +166,18 @@ class WindowCounter:
         self.device = torch.device(device)
         self.scratch = None
 
+    def reserve(self, windows: int, eb: int) -> None:
+        """On a card, allocate the scratch of a call of `windows` windows
+        of eb slots now (a call of at most that many windows then never
+        reallocates it: a CUDA graph that captured the counter keeps its
+        address). Nothing on the CPU."""
+        if self.device.type != "cuda":
+            return
+        sc = self.scratch
+        if sc is None or windows > sc.windows or eb != sc.eb:
+            self.scratch = None               # free before allocating
+            self.scratch = CounterScratch(windows, eb, self.vb, self.device)
+
     def __call__(self, src, dst, valid, wire: str = "standard",
                  out=None):
         """`out`, if given, is (count, overflow): contiguous int32 [W]
@@ -192,10 +204,7 @@ class WindowCounter:
                 t.copy_(g)
             return out
         _check(src, dst, valid, self.vb, self.kb, wire)
-        sc = self.scratch
-        if sc is None or w > sc.windows or eb != sc.eb:
-            self.scratch = None               # free before allocating
-            self.scratch = CounterScratch(w, eb, self.vb, src.device)
+        self.reserve(w, eb)
         count, overflow = out or (
             torch.empty(w, dtype=torch.int32, device=src.device)
             for _ in range(2))

@@ -35,7 +35,7 @@ host. `cohort_step` folds N tenants' next windows in one launch.
 
 Ids outside [0, vb] are refused with ValueError on every tier. Not
 ported: the telemetry spans (ROADMAP step 1.8) and the evidence routing
-of tiers, wires and egress (step 1.7).
+of tiers, wires and egress (after step 1.1).
 """
 
 from __future__ import annotations

@@ -337,9 +337,13 @@ def test_refusals(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             StreamingAnalyticsDriver(window_ms=10)
     for kw in (dict(mesh=object()), dict(tenant="t"),
-               dict(tracing=True), dict(snapshot_tier="resident")):
+               dict(tracing=True)):
         with pytest.raises(NotImplementedError):
             StreamingAnalyticsDriver(window_ms=10, device="cpu", **kw)
+    # the resident tier is ported (tests/test_torch_resident.py)
+    assert StreamingAnalyticsDriver(
+        window_ms=10, device="cpu",
+        snapshot_tier="resident").snapshot_tier == "resident"
     for slide in (24, 2 * 4096):
         with pytest.raises(ValueError, match="power of two dividing"):
             StreamingAnalyticsDriver(window_ms=10, device="cpu",

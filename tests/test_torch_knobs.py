@@ -1,0 +1,77 @@
+"""The port's knob registry (gelly_streaming_tpu_torch/utils/knobs.py)
+against the JAX package's: the seven knobs of the dispatch autotuner and
+the resident tier with the same kinds, defaults, bounds and choices, and
+the same parsing (live reads, clamping, typed refusals)."""
+
+import pytest
+import torch
+
+from gelly_streaming_tpu.utils import knobs as jax_knobs
+from gelly_streaming_tpu_torch.utils import knobs
+
+SLICE_KNOBS = ("GS_AUTOTUNE", "GS_AUTOTUNE_ROUND", "GS_AUTOTUNE_EXPLORE",
+               "GS_TUNE_CACHE", "GS_RESIDENT", "GS_RESIDENT_SPB",
+               "GS_RESIDENT_SLOTS")
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread(monkeypatch):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    for name in SLICE_KNOBS:
+        monkeypatch.delenv(name, raising=False)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_registry_is_the_slice_knobs():
+    assert tuple(knobs.REGISTRY) == SLICE_KNOBS
+
+
+@pytest.mark.parametrize("name", SLICE_KNOBS)
+def test_knob_matches_jax(name):
+    mine, theirs = knobs.REGISTRY[name], jax_knobs.REGISTRY[name]
+    for field in ("kind", "default", "lo", "hi", "choices"):
+        assert getattr(mine, field) == getattr(theirs, field), field
+
+
+@pytest.mark.parametrize("name,raw", [
+    ("GS_AUTOTUNE", None), ("GS_AUTOTUNE", "0"), ("GS_AUTOTUNE", "yes"),
+    ("GS_AUTOTUNE_ROUND", None), ("GS_AUTOTUNE_ROUND", "0"),
+    ("GS_AUTOTUNE_ROUND", "7"), ("GS_AUTOTUNE_EXPLORE", "1"),
+    ("GS_AUTOTUNE_EXPLORE", "5"), ("GS_TUNE_CACHE", None),
+    ("GS_TUNE_CACHE", "0"), ("GS_TUNE_CACHE", "/some/dir"),
+    ("GS_RESIDENT", None), ("GS_RESIDENT", "on"), ("GS_RESIDENT", "auto"),
+    ("GS_RESIDENT_SPB", None), ("GS_RESIDENT_SPB", "100"),
+    ("GS_RESIDENT_SPB", "-3"), ("GS_RESIDENT_SLOTS", "0"),
+    ("GS_RESIDENT_SLOTS", ""), ("GS_RESIDENT_SLOTS", "4")])
+def test_reads_match_jax(monkeypatch, name, raw):
+    if raw is not None:
+        monkeypatch.setenv(name, raw)
+    get = {"int": "get_int", "bool": "get_bool", "str": "get_str",
+           "path": "get_path"}[knobs.REGISTRY[name].kind]
+    assert getattr(knobs, get)(name) == getattr(jax_knobs, get)(name)
+
+
+@pytest.mark.parametrize("name,raw", [
+    ("GS_AUTOTUNE", "maybe"), ("GS_AUTOTUNE_ROUND", "3O"),
+    ("GS_RESIDENT", "always"), ("GS_RESIDENT_SLOTS", "two")])
+def test_malformed_values_raise(monkeypatch, name, raw):
+    monkeypatch.setenv(name, raw)
+    get = {"int": knobs.get_int, "bool": knobs.get_bool,
+           "str": knobs.get_str}[knobs.REGISTRY[name].kind]
+    with pytest.raises(knobs.KnobError, match=name) as err:
+        get(name)
+    assert err.value.knob.name == name and err.value.value == raw
+
+
+def test_reads_are_live_and_unregistered_knobs_refused(monkeypatch):
+    assert knobs.get_int("GS_RESIDENT_SPB") == 256
+    monkeypatch.setenv("GS_RESIDENT_SPB", "64")
+    assert knobs.get_int("GS_RESIDENT_SPB") == 64
+    with pytest.raises(AssertionError, match="unregistered"):
+        knobs.get_int("GS_PIPELINE_WORKERS")
+    with pytest.raises(AssertionError):
+        knobs.get_bool("GS_RESIDENT_SPB")       # the wrong kind
+    with pytest.raises(AssertionError, match="duplicate"):
+        knobs.register("GS_AUTOTUNE", "bool", True, help="again")
