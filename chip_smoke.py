@@ -4,7 +4,7 @@ NVIDIA GPU.
 
 Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and the
 native host runtime (gelly_streaming_tpu_torch/native, g++) and runs
-twenty-six phases, with the dispatch tuner's cache (GS_TUNE_CACHE) in a
+twenty-eight phases, with the dispatch tuner's cache (GS_TUNE_CACHE) in a
 fresh temporary directory. The first twenty-two run with GS_AUTOTUNE=0,
 so their numbers stay comparable across runs. Eight hold a kernel against its plain PyTorch version on
 the card: intersect (ascending and shuffled rows), counter (count and
@@ -80,7 +80,20 @@ snapshot_tier="resident") (phase driver_resident), each super-batch a
 replayed CUDA graph (replays counted), every result, carry and slab
 equal to the scan twin's, a resume at a super-batch boundary exact,
 edges/s and the idle share (device busy from CUDA events around each
-dispatch) beside the twin in turns. Each path reports
+dispatch) beside the twin in turns. Two drive the host hooks
+(gelly_streaming_tpu_torch/utils/): hooks_engine runs count_stream and
+the summary engine on both wires, the GNN engine at F=64 and the
+resident engine over the same stream disarmed, with each hook armed
+alone and with all (every result and carry, the launches and the host
+syncs equal to the disarmed pass; edges/s, the journal's bytes, its
+fsync), kills a journal-armed summary and resident engine inside a call
+and recovers them from checkpoint + journal bit-exactly, retries
+injected prep and h2d faults (a hung h2d past its deadline among them)
+to equal results, and passes a fatal fault and an error of the launch
+wrapper through unretried and unwrapped; costmodel_health arms the cost
+observatory and the metrics registry, reads /healthz on an ephemeral
+local port while the engines stream, and holds each kernel's cost-model
+bound equal to its bound on the kernels line. Each path reports
 its rate, its launches and
 where its time goes. Beside the dense and GNN kernels it times one
 PyTorch call for the same product as a yardstick (torch.mm, torch._int_mm;
@@ -118,15 +131,6 @@ CLIQUE = 200                       # a window that overflows kb=128
 STAR_HUBS = 4                      # hubs of the star fixture's windows
 LATE_ODD = 40                      # the late-odd fixture's first odd window
 CO_LATE_ODD = 5                    # the cohort's late-odd row's first odd window
-# Published peaks of one H100 SXM (NVIDIA's data sheet, at the 700 W
-# limit): HBM bytes/s, and the float32 rate outside the tensor cores,
-# taken as the rate of 32-bit scalar operations (compares, adds); the
-# dense tensor-core rates at fp16 (exact for the GNN lattice's products)
-# and at int8 (exact for 0/1 adjacency products).
-PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
-PEAK_FP16_TC_S = 989e12
-PEAK_INT8_TC_S = 1979e12
 GNN_F = 64                         # the GNN stream's feature width
 DENSE_V = 4096                     # the dense path's largest window
 # the cohorts: 64 tenants (the default admission cap) at eb=4096, most at
@@ -217,13 +221,15 @@ def device_ms(fn, reps: int) -> float:
     return sum(ms for ms, _n in by_name.values()) / reps
 
 
-def bound(nbytes: float, ops: float, ops_rate: float = PEAK_OPS_S):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over `ops_rate` (default the scalar rate)."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / ops_rate
-    if t_bytes >= t_ops:
-        return 1e3 * t_bytes, "bytes"
-    return 1e3 * t_ops, "operations"
+def bound(nbytes: float, ops: float, kind: str = "scalar"):
+    """(bound_ms, bound_by): the larger of bytes over the H100's memory
+    rate and operations over its peak rate for `kind` ("scalar", the
+    32-bit scalar rate; "fp16_tc", "int8_tc", the dense tensor-core
+    rates): the cost observatory's one table and roofline
+    (gelly_streaming_tpu_torch/utils/costmodel.py `PEAKS`, `bound`)."""
+    from gelly_streaming_tpu_torch.utils import costmodel
+
+    return costmodel.bound(nbytes, ops, kind)
 
 
 def row_work(src, dst, valid, vb: int, kb: int) -> tuple:
@@ -480,8 +486,9 @@ def phase_counter(dev) -> dict:
     ms = cuda_ms(lambda: counter(st, dt, vt), 20)
     plain_ms = cuda_ms(lambda: wc.count_windows_plain(st, dt, vt, VB, KB), 2)
     edges, steps = row_work(st, dt, vt, VB, KB)
-    nbytes = CHUNK * EB * 9 + CHUNK * 8     # the slab in, two ints out
-    b_ms, b_by = bound(nbytes, CHUNK * EB + steps)
+    # the slab in, two ints out (utils/costmodel.counter_work)
+    b_ms, b_by = bound(*cm_work("counter", CHUNK, EB, "standard",
+                                compares=steps))
     print(json.dumps({"counter": {
         "scratch_bytes": scratch_bytes, "blocks": counter.scratch.blocks,
         "device_launches_per_call": per_call,
@@ -831,8 +838,8 @@ def phase_summary(dev) -> dict:
         tuple(c.clone() for c in carry), st, dt, vt, VB, KB), 1)
     slots = int(vt.sum())
     edges, compares = row_work(st, dt, vt, VB, KB)
-    b_ms, b_by = bound(*summary_work(CHUNK * EB * 9, CHUNK * EB, slots, 1,
-                                     CHUNK, VB, compares))
+    b_ms, b_by = bound(*cm_work("summary", CHUNK, EB, VB, "standard",
+                                slots=slots, compares=compares))
     print("phase summary: ok  kernel %.3f ms/chunk (summary kernel alone "
           "%.3f, %s tier; counter alone %.3f; carry clone %.3f)  plain "
           "%.1f ms/chunk  (%d windows, %d valid slots, %d distinct edges, "
@@ -852,18 +859,15 @@ def summary_tier(vb: int, dev) -> str:
     return "shared" if 16 * (vb + 1) <= optin else "L2"
 
 
-def summary_work(slab_bytes: int, total_slots: int, slots: int,
-                 rows: int, windows: int, vb: int, compares: int) -> tuple:
-    """(bytes, operations) a summary call needs, its triangle stage
-    included, over `rows` carry rows of `windows` windows each: the slab
-    read once, each carry row (16(vb+1) bytes) read and written once, 20
-    bytes out per window; per valid slot 2 degree adds and 3 unions; per
-    carry slot one pass of 3 root walks in the whole call (the
-    summaries are read incrementally, so no pass per window); the
-    triangle stage's one operation per slot and its row compares."""
-    nbytes = slab_bytes + rows * (2 * 16 * (vb + 1) + 20 * windows)
-    ops = 5 * slots + 3 * rows * (vb + 1) + total_slots + compares
-    return nbytes, ops
+def cm_work(kind: str, *args, **kw) -> tuple:
+    """(bytes, operations, kind) of one call of the counter, summary or
+    GNN kernel: the cost observatory's counts
+    (gelly_streaming_tpu_torch/utils/costmodel.py `counter_work`,
+    `summary_work`, `gnn_work`), with the data-dependent operations
+    (valid slots, row compares) this run's data needs."""
+    from gelly_streaming_tpu_torch.utils import costmodel
+
+    return getattr(costmodel, kind + "_work")(*args, **kw)
 
 
 def phase_summary_stream(dev):
@@ -1177,10 +1181,10 @@ def phase_compact(dev) -> dict:
             lambda: buf.copy_(host, non_blocking=True), 20)}
     slots = int(v[CHUNK:].sum())
     edges, compares = row_work(*st, VB, KB)
-    slab = CHUNK * EB * 4 + CHUNK * 4     # JAX slab_bytes: eb·4 + 4 a window
-    counter_bound = bound(slab + CHUNK * 8, CHUNK * EB + compares)
-    summary_bound = bound(*summary_work(slab, CHUNK * EB, slots, 1, CHUNK,
-                                        VB, compares))
+    counter_bound = bound(*cm_work("counter", CHUNK, EB, "compact",
+                                   compares=compares))
+    summary_bound = bound(*cm_work("summary", CHUNK, EB, VB, "compact",
+                                   slots=slots, compares=compares))
     print(json.dumps({"compact": {
         "times_ms": times, "h2d": h2d, "counter_plain_ms": counter_plain_ms,
         "summary_plain_ms": summary_plain_ms,
@@ -1336,10 +1340,8 @@ def phase_gnn(dev) -> dict:
     # each input read once, each output written once: the edge slab, the
     # feature slab in and out (16.8 MB: it and the aggregate stay in L2
     # across the chunk's windows), W and b, the [4, W] sums
-    nbytes = CHUNK * 9 * EB + 2 * 4 * (VB + 1) * F + 4 * F * (F + 1) \
-        + 16 * CHUNK
-    ops = CHUNK * 2 * (VB + 1) * F * F
-    b_ms, b_by = bound(nbytes, ops, PEAK_FP16_TC_S)
+    # (utils/costmodel.gnn_work)
+    b_ms, b_by = bound(*cm_work("gnn", CHUNK, EB, VB, F))
     prof = profile_run(lambda: rnd(h, Wt, bt, st, dt, vt, act, sums))
     per_window = {k: {"launches": n, "us_per_launch":
                       1e3 * prof["device_ms_by_name"][k] / n}
@@ -1356,7 +1358,7 @@ def phase_gnn(dev) -> dict:
                        for w in range(CHUNK)])
     yard["update_bound_us"] = 1e3 * bound(
         4 * F * (2 * (VB + 1) + reached), 2 * (VB + 1) * F * F,
-        PEAK_FP16_TC_S)[0]
+        "fp16_tc")[0]
     print(json.dumps({"gnn_kernels_us_per_window": per_window,
                       "gnn_yardsticks": yard}))
     print("phase gnn: ok  kernel %.3f ms/chunk  plain %.3f ms/chunk  "
@@ -1587,7 +1589,7 @@ def phase_dense(dev):
         g = v // dt.TILE
         b_ms, b_by = bound(v * v + v * v // 128 * 4,
                            2 * dt.TILE ** 2 * v * g * (g + 1) // 2,
-                           PEAK_INT8_TC_S)
+                           "int8_tc")
         # the kernel alone, as triangle_count_dense calls it, and through
         # the wrapper with its symmetry check (A against A.T, a sync)
         times[v] = {"ms": cuda_ms(lambda: dt._symmetric_partials(a8), 20),
@@ -1750,8 +1752,9 @@ def phase_cohort(dev) -> dict:
         flat = [x.view(nb * wb, eb) for x in (st, dt, vt)]
         slots = int(vt.sum())
         edges, compares = row_work(*flat, vb, CO_KB)
-        b_ms, b_by = bound(*summary_work(nb * wb * eb * 9, nb * wb * eb,
-                                         slots, nb, wb, vb, compares))
+        b_ms, b_by = bound(*cm_work("summary", wb, eb, vb, "standard",
+                                    slots=slots, compares=compares,
+                                    rows=nb))
         tier = summary_tier(vb, dev)
         rows.append({"dispatch": name, "nb": nb, "wb": wb, "vb": vb,
                      "tier": tier, "ms": ms - clone_ms,
@@ -4178,6 +4181,478 @@ def profile_run(run, setup=lambda: None, retry: bool = True) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# the host hooks (utils/telemetry, metrics, latency, provenance,
+# sanitize, wal, costmodel): armed against disarmed, recovery, faults
+# ----------------------------------------------------------------------
+HOOKS = ("telemetry", "metrics", "latency", "provenance", "sanitize",
+         "wal", "costmodel")
+STREAM_HOOKS = ("telemetry", "metrics", "costmodel")  # count_stream's
+HOOK_TIMEOUT_S = 0.5               # the stage deadline of the fault drill
+HOOK_HANG_S = 1.5                  # its hung h2d
+
+
+class SyncCount:
+    """Counts the host's waits on the card while active, on every
+    thread: torch.cuda.synchronize, Event.synchronize, Stream.synchronize
+    and .cpu(), .item(), .tolist() of a CUDA tensor."""
+
+    def __enter__(self):
+        self.calls = []
+        self._saved = []
+
+        def wrap(owner, name, cuda_only=False):
+            real = getattr(owner, name)
+
+            def counted(*a, **k):
+                if not cuda_only or a[0].is_cuda:
+                    self.calls.append(name)
+                return real(*a, **k)
+
+            setattr(owner, name, counted)
+            self._saved.append((owner, name, real))
+
+        wrap(torch.cuda, "synchronize")
+        wrap(torch.cuda.Event, "synchronize")
+        wrap(torch.cuda.Stream, "synchronize")
+        for name in ("cpu", "item", "tolist"):
+            wrap(torch.Tensor, name, cuda_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self._saved):
+            setattr(owner, name, real)
+        return False
+
+    @property
+    def n(self) -> int:
+        return len(self.calls)
+
+
+def reset_hooks() -> None:
+    from gelly_streaming_tpu_torch.utils import (costmodel, latency,
+                                                 metrics, provenance,
+                                                 sanitize, telemetry)
+
+    for m in (telemetry, metrics, latency, provenance, sanitize,
+              costmodel):
+        m.reset()
+
+
+def hook_knobs(hooks, tmp: str) -> dict:
+    """The GS_* knobs that arm `hooks` (the journal is armed by
+    enable_wal), every other hook knob off."""
+    env = {"GS_TELEMETRY": 0, "GS_METRICS": 0, "GS_LATENCY": 0,
+           "GS_PROVENANCE": 0, "GS_SANITIZE": "off", "GS_COSTMODEL": 0,
+           "GS_AUTOTUNE": 0}
+    dirs = {"telemetry": ("GS_TRACE_DIR", "trace"),
+            "provenance": ("GS_PROVENANCE_DIR", "prov"),
+            "sanitize": ("GS_DLQ_DIR", "dlq")}
+    for h in hooks:
+        if h in ("telemetry", "metrics", "latency", "provenance",
+                 "costmodel"):
+            env["GS_" + h.upper()] = 1
+        if h == "sanitize":
+            env["GS_SANITIZE"] = "on"
+        if h in dirs:
+            env[dirs[h][0]] = os.path.join(tmp, dirs[h][1])
+    return env
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path)) if os.path.isdir(path) else 0
+
+
+def hook_engines(dev) -> dict:
+    """name -> (engine, its journal-armed twin or None, run(engine) ->
+    (results, carry as host arrays)): the slice's engines over the
+    bench stream, each warmed (kernels built, rings filled, the
+    resident graphs captured)."""
+    from gelly_streaming_tpu_torch import (GnnSummaryEngine,
+                                           StreamSummaryEngine,
+                                           TriangleWindowKernel,
+                                           make_stream)
+    from gelly_streaming_tpu_torch.ops import gnn_window as gw
+    from gelly_streaming_tpu_torch.ops.resident_engine import (
+        ResidentSummaryEngine)
+
+    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    W, b = gnn_weights(GNN_F, -12, -3)
+    slab = gw.default_features(VB, GNN_F, seed=0)
+
+    def tri_run(k):
+        return k.count_stream(src, dst), ()
+
+    def eng_run(e):
+        e.reset()
+        if isinstance(e, GnnSummaryEngine):
+            e.load_feature_units(slab)
+        out = e.process(src, dst)
+        return out, tuple(np.asarray(c) for c in e.state_dict()["carry"])
+
+    def gnn():
+        e = GnnSummaryEngine(EB, VB, feature_dim=GNN_F)
+        e.set_weights(W / 32, b / 32)
+        return e
+
+    made = {
+        "count_stream": (TriangleWindowKernel(EB, VB), None, tri_run),
+        "count_stream_compact": (TriangleWindowKernel(EB, VB,
+                                                      ingress="compact"),
+                                 None, tri_run),
+        "summary": (StreamSummaryEngine(EB, VB),
+                    StreamSummaryEngine(EB, VB), eng_run),
+        "summary_compact": (StreamSummaryEngine(EB, VB, ingress="compact"),
+                            StreamSummaryEngine(EB, VB, ingress="compact"),
+                            eng_run),
+        "gnn": (gnn(), gnn(), eng_run),
+        "resident": (ResidentSummaryEngine(EB, VB),
+                     ResidentSummaryEngine(EB, VB), eng_run)}
+    with knob_env(**hook_knobs((), "")):
+        for eng, twin, run in made.values():
+            for e in (eng, twin):
+                if e is not None:
+                    require(e.device.type == "cuda", "engine not on card")
+                    run(e)
+    torch.cuda.synchronize()
+    return made
+
+
+def hooks_pass(eng, twin, run, hooks, tmp: str) -> dict:
+    """One pass with `hooks` armed (the journal on the twin, into a
+    fresh directory): results, carry, launches, host syncs, wall."""
+    from gelly_streaming_tpu_torch import kernels
+
+    reset_hooks()
+    with knob_env(**hook_knobs(hooks, tmp)):
+        e = eng
+        if "wal" in hooks:
+            e = twin
+            wal_dir = os.path.join(tmp, "wal%d" % len(os.listdir(tmp)))
+            require(e.enable_wal(wal_dir), "enable_wal refused")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with SyncCount() as syncs:
+            out, carry = run(e)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = {"out": out, "carry": carry, "wall": wall,
+               "launches": dict(kernels.LAUNCHES), "syncs": syncs.n}
+        if "wal" in hooks:
+            e._wal.close()
+            res["journal_bytes"] = dir_bytes(wal_dir)
+        if "metrics" in hooks:
+            from gelly_streaming_tpu_torch.utils import metrics
+
+            h = metrics.histogram("gs_wal_fsync_seconds")
+            res["fsync_s"] = None if h is None else h["sum"]
+            res["fsyncs"] = None if h is None else h["count"]
+    return res
+
+
+def phase_hooks_engine(dev, counts, summaries, state, gnn_out) -> dict:
+    """The host hooks on the slice's engines over the bench stream:
+    count_stream and the summary engine on both wires, the GNN engine at
+    F=64 and the resident summary engine, each disarmed, with each hook
+    armed alone, and with every hook armed, each configuration twice in
+    mirrored turns: every window's results and the final carry bit-equal
+    to the disarmed pass (and to phases stream, summary_stream,
+    gnn_stream), the same kernel launches and the same host syncs;
+    edges/s of the better pass of each, the journal's bytes and its
+    fsync seconds. Then the drills on the summary engine (and the
+    resident engine): a kill by a fatal fault inside a call, recovered
+    from checkpoint + journal bit-exactly; retried prep and h2d faults
+    (a hung h2d retried on another thread into its staging slot) with
+    equal results; a fatal fault passed through; and an error raised
+    by the launch wrapper before any launch, passed through unretried
+    with no StageFailed and no plain fallback."""
+    import tempfile
+
+    from gelly_streaming_tpu_torch import forced_sync, kernels
+    from gelly_streaming_tpu_torch.ops import window_summary as ws
+    from gelly_streaming_tpu_torch.utils import faults, resilience
+
+    t_phase = time.perf_counter()
+    made = hook_engines(dev)
+    want = {"count_stream": counts, "count_stream_compact": counts,
+            "summary": summaries,
+            "summary_compact": summaries, "gnn": gnn_out,
+            "resident": summaries}
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (eng, twin, run) in made.items():
+            hooks = STREAM_HOOKS if name.startswith("count_stream") \
+                else HOOKS
+            # every configuration twice, in mirrored turns (disarmed,
+            # each hook, all, all, ..., disarmed): the best wall of two
+            passes = [("disarmed", ())] + [(h, (h,)) for h in hooks] \
+                + [("all", hooks)]
+            runs = {}
+            for i, (label, armed) in enumerate(passes + passes[::-1]):
+                sub = os.path.join(tmp, "%s_%s_%d" % (name, label, i))
+                os.makedirs(sub)
+                runs.setdefault(label, []).append(
+                    hooks_pass(eng, twin, run, armed, sub))
+            rows = {label: min(rs, key=lambda r: r["wall"])
+                    for label, rs in runs.items()}
+            base = rows["disarmed"]
+            require(base["out"] == want[name], "hooks %s: the disarmed "
+                    "pass differs from the main path's" % name)
+            if name in ("summary", "summary_compact", "resident"):
+                same_carry("hooks " + name, base["carry"], state["carry"])
+            for label, r in ((lab, r) for lab, rs in runs.items()
+                             for r in rs):
+                require(r["out"] == base["out"], "hooks %s %s: results "
+                        "differ from the disarmed pass" % (name, label))
+                require(all(np.array_equal(a, b) for a, b in
+                            zip(r["carry"], base["carry"])),
+                        "hooks %s %s: carry differs" % (name, label))
+                require(r["launches"] == base["launches"],
+                        "hooks %s %s: launches %s, disarmed %s"
+                        % (name, label, r["launches"], base["launches"]))
+                require(r["syncs"] == base["syncs"], "hooks %s %s: %d host "
+                        "syncs, disarmed %d" % (name, label, r["syncs"],
+                                                base["syncs"]))
+            report[name] = {
+                label: {"edges_per_s": STREAM_EDGES / r["wall"],
+                        "walls_s": [x["wall"] for x in runs[label]],
+                        "launches": sum(r["launches"].values()),
+                        "syncs": r["syncs"],
+                        **{k: r[k] for k in ("journal_bytes", "fsync_s",
+                                             "fsyncs") if k in r}}
+                for label, r in rows.items()}
+            print("phase hooks_engine %s: ok  armed == disarmed on %d "
+                  "windows, launches %d, host syncs %d in every pass; "
+                  "edges/s %s"
+                  % (name, len(base["out"]), sum(base["launches"].values()),
+                     base["syncs"], ", ".join(
+                         "%s %.0f" % (k, v["edges_per_s"])
+                         for k, v in report[name].items())))
+        print(json.dumps({"hooks_engine": report,
+                          "device": torch.cuda.get_device_name(0)}))
+
+        # a kill inside a call, recovered from checkpoint + journal
+        from gelly_streaming_tpu_torch import StreamSummaryEngine, make_stream
+        from gelly_streaming_tpu_torch.ops.resident_engine import (
+            ResidentSummaryEngine)
+
+        src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+        cut = 128 * EB
+        recovery = {}
+        for name, make in (
+                ("summary", lambda: StreamSummaryEngine(EB, VB)),
+                ("resident", lambda: ResidentSummaryEngine(
+                    EB, VB, superbatch=CHUNK))):
+            sub = os.path.join(tmp, "kill_" + name)
+            ckpt = os.path.join(sub, "ckpt")
+            with knob_env(**hook_knobs((), "")):
+                eng = make()
+                require(eng.enable_wal(os.path.join(sub, "wal")), "wal")
+                eng.enable_auto_checkpoint(ckpt, every_n_windows=CHUNK)
+                require(eng.process(src[:cut], dst[:cut])
+                        == summaries[:128], "kill %s: head" % name)
+                with faults.inject(faults.FaultSpec(
+                        site="prep", on_call=3, fatal=True)) as plan:
+                    try:
+                        eng.process(src[cut:], dst[cut:])
+                        raise SmokeFailure("kill %s: no kill" % name)
+                    except faults.InjectedFault as e:
+                        require(e.fatal, "kill %s: not the fatal fault"
+                                % name)
+                eng._wal.close()
+                t0 = time.perf_counter()
+                rec = make()
+                rec.enable_wal(os.path.join(sub, "wal"))
+                got = rec.resume_and_replay(ckpt)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            require(got == summaries[128:], "kill %s: recovered windows "
+                    "differ" % name)
+            same_carry("kill " + name, rec.state_dict()["carry"],
+                       state["carry"])
+            recovery[name] = {"seconds": secs, "replayed_windows": len(got),
+                              "fired": plan.fired,
+                              "journal_bytes": dir_bytes(
+                                  os.path.join(sub, "wal"))}
+            print("phase hooks_engine recovery %s: ok  killed inside the "
+                  "second call (%s), %d windows recovered from checkpoint "
+                  "+ journal in %.3f s, bit-equal"
+                  % (name, plan.fired, len(got), secs))
+
+        # retried host faults: prep raises, h2d raises, h2d hangs past the
+        # deadline (its retry stages the chunk from another thread)
+        eng, _twin, run = made["summary"]
+        res_eng, _rt, _r = made["resident"]
+        drills = {}
+        with knob_env(**hook_knobs((), ""), GS_STAGE_RETRIES=3,
+                      GS_STAGE_TIMEOUT_S=HOOK_TIMEOUT_S,
+                      GS_STAGE_BACKOFF_S=0.01):
+            # pooled on the summary engine's 5 chunks; in order
+            # (forced_sync, the retries still on threads of their own)
+            # on the resident engine's 2 super-batches, so each fault
+            # meets a call
+            for name, e, sync, calls in (
+                    ("summary", eng, False, (2, 3, 5)),
+                    ("resident", res_eng, True, (2, 2, 3))):
+                with (forced_sync() if sync else knob_env()), \
+                        faults.inject(
+                            faults.FaultSpec(site="prep", on_call=calls[0]),
+                            faults.FaultSpec(site="h2d", on_call=calls[1]),
+                            faults.FaultSpec(site="h2d", on_call=calls[2],
+                                             action="hang",
+                                             seconds=HOOK_HANG_S)) as plan:
+                    out, carry = run(e)
+                require(out == summaries, "retried faults %s: results "
+                        "differ" % name)
+                same_carry("retried faults " + name, carry, state["carry"])
+                require(len(plan.fired) == 3, "retried faults %s: fired %s"
+                        % (name, plan.fired))
+                drills[name] = plan.fired
+            # a fatal fault passes through unretried; the engine goes on
+            with faults.inject(faults.FaultSpec(site="h2d", on_call=2,
+                                                fatal=True)) as plan:
+                try:
+                    run(eng)
+                    raise SmokeFailure("fatal fault: nothing raised")
+                except faults.InjectedFault as e:
+                    require(type(e) is faults.InjectedFault and e.fatal,
+                            "fatal fault: %r" % e)
+            require([f for f in plan.fired if f[0] == "h2d"]
+                    == [("h2d", 2, "raise")], "fatal fault retried: %s"
+                    % plan.fired)
+            require(run(eng)[0] == summaries, "after the fatal fault")
+            # an error of the launch wrapper, before any launch
+            real_library, real_plain = kernels.library, \
+                ws.summarize_windows_plain
+            calls = {"library": 0, "plain": 0}
+
+            def broken(name):
+                if name == "window_summary":
+                    calls["library"] += 1
+                    raise kernels.KernelError(
+                        "injected: the window_summary wrapper failed "
+                        "before its launch")
+                return real_library(name)
+
+            def plain(*a, **k):
+                calls["plain"] += 1
+                return real_plain(*a, **k)
+
+            kernels.library, ws.summarize_windows_plain = broken, plain
+            kernels.reset_launches()
+            try:
+                run(eng)
+                raise SmokeFailure("launch error: nothing raised")
+            except kernels.KernelError as e:
+                require(not isinstance(e, resilience.StageError)
+                        and e.__cause__ is None,
+                        "launch error wrapped: %r" % e)
+            finally:
+                kernels.library, ws.summarize_windows_plain = \
+                    real_library, real_plain
+            require(calls == {"library": 1, "plain": 0}
+                    and kernels.LAUNCHES["window_summary"] == 0,
+                    "launch error: %s, launches %s" % (calls,
+                                                       kernels.LAUNCHES))
+            require(run(eng)[0] == summaries, "after the launch error")
+    print("phase hooks_engine drills: ok  retried faults %s bit-equal; a "
+          "fatal h2d fault passed through unretried; a launch-wrapper "
+          "error raised once, unwrapped, no plain fallback, no launch; "
+          "%.1f s" % (drills, time.perf_counter() - t_phase))
+    return {"passes": report, "recovery": recovery, "drills": drills,
+            "engines": made}
+
+
+def phase_costmodel_health(dev, made: dict, bounds: dict) -> dict:
+    """The cost observatory and /healthz over the slice's engines: with
+    GS_COSTMODEL and GS_METRICS armed and the health server on an
+    ephemeral local port, each engine of phase hooks_engine makes one
+    pass over the bench stream while a thread reads /healthz; then one
+    cost-model row per kernel on the path (and per resident replay),
+    whose bound must equal the kernels line's bound at the same shape
+    (`bounds`, PERF.md §6's column)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from gelly_streaming_tpu_torch import kernels
+    from gelly_streaming_tpu_torch.utils import costmodel, healthz
+
+    reset_hooks()
+    seen = []
+    stop = threading.Event()
+    with knob_env(**hook_knobs(("costmodel", "metrics"), "")):
+        srv = healthz.start(port=0)
+        url = "http://127.0.0.1:%d/healthz" % srv.port
+
+        def poll():
+            while not stop.is_set():
+                try:
+                    with urllib.request.urlopen(url, timeout=5) as r:
+                        code, body = r.status, json.loads(r.read())
+                except urllib.error.HTTPError as e:   # 503: degraded
+                    code, body = e.code, json.loads(e.read())
+                seen.append((code, body["status"],
+                             body["windows_finalized"]))
+                stop.wait(0.005)
+
+        poller = threading.Thread(target=poll, daemon=True)
+        poller.start()
+        total = 0
+        try:
+            for name, (eng, _twin, run) in made.items():
+                total += len(run(eng)[0])
+        finally:
+            stop.set()
+            poller.join()
+            final = json.loads(urllib.request.urlopen(url).read())
+            healthz.stop()
+        rows = costmodel.report()
+    mid = [s for s in seen if 0 < s[2] < total]
+    require(mid and all(c == 200 and st == "ok" for c, st, _w in seen),
+            "healthz: %d reads, %d mid-stream, %s" % (len(seen), len(mid),
+                                                      seen[-3:]))
+    require(final["windows_finalized"] == total, "healthz: %d windows, "
+            "want %d" % (final["windows_finalized"], total))
+    picked = {}
+    for r in rows:
+        full = ("[%d," % CHUNK) in r["sig"] or r["program"] in \
+            kernels.GRAPH_FAMILIES
+        if full and r["dispatches"]:
+            picked.setdefault(r["program"], r)
+    for prog, want in bounds.items():
+        r = picked.get(prog)
+        require(r is not None, "costmodel: no row of %s (%s)"
+                % (prog, sorted(picked)))
+        require(r["card"] == costmodel.H100 and abs(
+            r["bound_ms"] - want["bound_ms"]) <= 1e-12 * want["bound_ms"]
+            and r["bound_by"] == want["bound_by"],
+            "costmodel %s: bound %s %s, kernels line %s %s"
+            % (prog, r["bound_ms"], r["bound_by"], want["bound_ms"],
+               want["bound_by"]))
+    out = []
+    for prog, r in sorted(picked.items()):
+        out.append({k: r.get(k) for k in (
+            "program", "sig", "dispatches", "measured_mean_s",
+            "bytes_accessed", "flops", "kind", "bound_ms", "bound_by",
+            "roofline_frac", "card")})
+        print("costmodel %s %s: %d launches, mean %.4f ms, bound %.4f ms "
+              "(%s), bound/mean %.4f"
+              % (prog, r["sig"], r["dispatches"],
+                 1e3 * r["measured_mean_s"], r["bound_ms"], r["bound_by"],
+                 r["roofline_frac"]))
+    print(json.dumps({"costmodel_health": {
+        "rows": out, "healthz_reads": len(seen), "healthz_mid_stream":
+        len(mid), "windows": total,
+        "device": torch.cuda.get_device_name(0)}}))
+    print("phase costmodel_health: ok  %d rows, bounds equal to the "
+          "kernels line's for %s; /healthz read %d times (%d mid-stream), "
+          "all ok" % (len(out), sorted(bounds), len(seen), len(mid)))
+    return {"rows": out}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4249,6 +4724,13 @@ def run_phases() -> int:
     phase_resident(dev, summaries, state)
     phase_gnn_resident(dev, gnn_out, gnn_slab)
     phase_driver_resident(dev, driver_got)
+    hooks = phase_hooks_engine(dev, counts, summaries, state, gnn_out)
+    phase_costmodel_health(dev, hooks["engines"], {
+        "window_counter": counter,
+        "window_counter_compact": compact["counter"],
+        "window_summary": summary,
+        "window_summary_compact": compact["summary"],
+        "gnn_round": gnn})
 
     rows = []
     pw = "gelly_streaming_tpu/ops/pallas_window.py:"

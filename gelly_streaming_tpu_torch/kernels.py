@@ -13,6 +13,10 @@ found again. The build happens at first use, under
 starts one nvcc per source, all at once. The libraries are loaded with
 ctypes and called with tensor pointers and PyTorch's current stream.
 
+A failed build, a missing nvcc and an error code returned by a C entry
+point raise `KernelError`: utils/resilience never retries it, wraps it or
+demotes on it.
+
 `LAUNCHES` counts, per kernel (`KERNELS`: each library's, and the
 compact-wire forms of the counter and the summary kernel and the
 summary library's union-find entry apart), the
@@ -100,6 +104,11 @@ REPLAYS = {name: 0 for name in GRAPH_FAMILIES}
 _LIBS: dict = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel library failed to build, or a C entry point returned a
+    CUDA error."""
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -113,7 +122,7 @@ def _nvcc() -> str:
                  os.path.join(cuda_home, "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+    raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on "
                        "PATH); the CUDA kernels build only where the "
                        "CUDA toolkit is installed")
 
@@ -157,7 +166,7 @@ def build(names=None) -> dict:
             failed.append(name)
             tmp.unlink(missing_ok=True)
     if failed:
-        raise RuntimeError("nvcc failed for %s:\n%s" % (
+        raise KernelError("nvcc failed for %s:\n%s" % (
             ", ".join(failed), "\n".join(logs[n] for n in failed)))
     return logs
 
@@ -178,11 +187,11 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def check(name: str, code: int) -> None:
-    """Raise when a C entry point of library `name` returned a CUDA
-    error."""
+    """Raise KernelError when a C entry point of library `name` returned
+    a CUDA error."""
     if code:
         msg = library(name).gs_error_string(code).decode()
-        raise RuntimeError("%s kernel: CUDA error %d (%s)"
+        raise KernelError("%s kernel: CUDA error %d (%s)"
                            % (name, code, msg))
 
 

@@ -36,9 +36,9 @@ pipeline never drains between rounds. With no tuner (GS_AUTOTUNE=0, a
 short call) or under `forced_sync` it is the static configuration's
 chunk sequence.
 
-`DispatchTuner.timeline` keeps the decisions; the JAX tuner also sends
-each one to its flight recorder (`telemetry.event`), which waits for the
-port's telemetry (ROADMAP step 1.8).
+`DispatchTuner.timeline` keeps the decisions, and each is an
+`autotune.<action>` flight-recorder event (utils/telemetry.py), as in
+the JAX tuner; a tuned call's rounds record the engines' round spans.
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ import time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 from ..utils import knobs
+from ..utils import telemetry
 from . import ingress_pipeline
 
 __all__ = ["Chunk", "DispatchTuner", "RoundPlan", "cache_path", "enabled",
@@ -223,6 +224,12 @@ class DispatchTuner:
             "edges_per_s": None if rate is None else round(rate)})
         if len(self.timeline) > _TIMELINE_CAP:
             del self.timeline[:len(self.timeline) - _TIMELINE_CAP]
+        # every decision is a flight-recorder event, a promotion a
+        # durable one (a mid-stream change of configuration)
+        telemetry.event("autotune." + action, durable=action == "promote",
+                        key=self.key, round=self._round,
+                        arm=json.dumps(arm, sort_keys=True),
+                        edges_per_s=None if rate is None else round(rate))
 
     def next_round(self, in_flight: int = 0) -> dict:
         """The arm of the next round: the incumbent, except on every
@@ -368,6 +375,11 @@ class RoundPlan:
       when it is the whole call (a long call's ragged tail would drag
       the arm's rate).
     - `close()` after the run persists the tuner's best.
+    - `span`, if given, names the flight-recorder span each round of a
+      tuned call records as it closes (the JAX engines' round span:
+      "triangles.round", "fused_scan.round"), with the round's first
+      window (`base` + its offset in the call), its arm and its edges;
+      a static call records none, as in the JAX engines.
 
     With no tuner the call is one round at `arm`, the static
     configuration; under forced_sync the tuner freezes: every round runs
@@ -376,7 +388,8 @@ class RoundPlan:
     def __init__(self, num_w: int, arm: dict,
                  tuner: Optional[DispatchTuner] = None,
                  round_len: Optional[int] = None,
-                 on_round: Optional[Callable] = None):
+                 on_round: Optional[Callable] = None,
+                 span: Optional[str] = None, base: int = 0):
         self.num_w = int(num_w)
         self.static = dict(arm)
         self.tuner = tuner
@@ -384,7 +397,9 @@ class RoundPlan:
         self.round_len = (round_chunks() if round_len is None
                           else max(1, int(round_len)))
         self.on_round = on_round
-        self._open = {}         # round -> [arm, windows, edges, chunks left]
+        self.span = span if tuner is not None else None
+        self.base = int(base)
+        self._open = {}   # round -> [arm, windows, edges, chunks left, at]
         self._to_record = 0     # open rounds whose record() is to come
         self._mark = None       # when the last round closed
         self._excluded = 0.0    # on_round seconds since then
@@ -410,7 +425,7 @@ class RoundPlan:
             span = (self.num_w - at if self.tuner is None
                     else min(self.num_w - at, self.round_len * wb))
             chunks = -(-span // wb)
-            self._open[r] = [arm, span, 0, chunks]
+            self._open[r] = [arm, span, 0, chunks, at]
             self._to_record += self._recorded(arm, span)
             if self.on_round is not None:
                 t0 = time.perf_counter()
@@ -432,10 +447,14 @@ class RoundPlan:
         now = time.perf_counter()
         elapsed = now - self._mark - self._excluded
         self._mark, self._excluded = now, 0.0
-        arm, span, edges_r, _ = entry
+        arm, span, edges_r, _, at = entry
         if self._recorded(arm, span):
             self._to_record -= 1
             self.tuner.record(arm, edges_r, elapsed)
+        if self.span is not None:
+            telemetry.record_span(self.span, now - elapsed, elapsed,
+                                  window=self.base + at, edges=edges_r,
+                                  **arm)
 
     def close(self) -> None:
         if not self.frozen:

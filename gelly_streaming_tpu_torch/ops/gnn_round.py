@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils import costmodel
 
 UNIT_CAP = 511                # max lattice units per slot (< 2^9)
 AGG_EXACT_LOG2 = 15           # eb ≤ 2^15 sums exactly at full width
@@ -134,12 +135,16 @@ class GnnRound:
         if tuple(h.shape) != (self.vb + 1, self.F):
             raise ValueError("GNN round at vb+1=%d, F=%d given a %s slab"
                              % (self.vb + 1, self.F, tuple(h.shape)))
-        if src.device.type == "cpu":
-            gnn_rounds_plain(h, W, b, src, dst, valid, act, sums)
-            return
-        if self.scratch is None:
-            self.scratch = torch.empty_like(h)
-        gnn_rounds(h, W, b, src, dst, valid, act, sums, self.scratch)
+        with costmodel.launch(
+                "gnn_round", (h, src),
+                lambda: costmodel.gnn_work(src.shape[0], src.shape[1],
+                                           self.vb, self.F), src.device):
+            if src.device.type == "cpu":
+                gnn_rounds_plain(h, W, b, src, dst, valid, act, sums)
+                return
+            if self.scratch is None:
+                self.scratch = torch.empty_like(h)
+            gnn_rounds(h, W, b, src, dst, valid, act, sums, self.scratch)
 
 
 def gnn_rounds(h, W, b, src, dst, valid, act: str, sums: torch.Tensor,
@@ -199,3 +204,17 @@ def _check(h, W, b, src, dst, valid, sums, scratch) -> None:
             and 1 <= feat <= 256):
         raise ValueError("unsupported shape: W=%d eb=%d vb+1=%d F=%d"
                          % (w, eb, rows, feat))
+
+
+def register_cost_model(eb: int, vb: int, feat: int, windows: int,
+                        device) -> None:
+    """State the cost of a `GnnRound` call of `windows` windows at (eb,
+    vb, F) on `device` to the cost observatory before its first launch
+    (armed only; the JAX package's `register_gnn_cost_model`): the row
+    its launches then join."""
+    nbytes, ops, kind = costmodel.gnn_work(windows, eb, vb, feat)
+    costmodel.record_analytic(
+        "gnn_round",
+        costmodel.shape_sig((torch.float32, (vb + 1, feat)),
+                            (torch.int32, (windows, eb))),
+        ops, nbytes, kind=kind, card=costmodel.card_of(device))

@@ -37,9 +37,14 @@ slab (core/tenancy.GnnTenantCohort).
 at GS_RESIDENT_SPB windows a dispatch, each super-batch one replayed
 CUDA graph of the GNN round over the slab (ops/resident_engine.py).
 
-Not ported yet (ROADMAP.md step 1.8): the finalize hooks (cost model,
-metrics, latency, provenance) and the GS_GNN_* knobs: the engines take
-feature_dim and activation as arguments.
+Host hooks: SummaryEngineBase's, with the JAX engines' tier and program
+names in the health marks and provenance records ("gnn_scan",
+"gnn_resident", "host"; "gnn_round"). The engines read GS_GNN_F and
+GS_GNN_ACT where feature_dim or activation is None (the JAX package's
+:286-288); the round's dispatch goes through `metrics.wrap_dispatch`
+("gnn_scan", "gnn_resident"), and a device engine states its round's
+cost to the observatory at construction (`gnn_round.register_cost_model`,
+the JAX `register_gnn_cost_model`).
 """
 
 from __future__ import annotations
@@ -48,10 +53,13 @@ import numpy as np
 import torch
 
 from ..core.platform import resolve_device
+from ..utils import knobs
+from ..utils import metrics
 from . import resident_engine
 from . import segment as seg_ops
 from .gnn_round import (ACTIVATIONS, AGG_EXACT_LOG2, UNIT_CAP, GnnRound,
-                        agg_shift, gnn_round_plain, slab_summaries)
+                        agg_shift, gnn_round_plain, register_cost_model,
+                        slab_summaries)
 from . import ingress_pipeline
 from .scan_analytics import SummaryEngineBase, _to_host
 from .staging import ChunkStager, HostCopy
@@ -195,12 +203,17 @@ class GnnEngineBase(SummaryEngineBase):
     Subclasses set device (or none) and provide `_dispatch_async`, whose
     outputs are a chunk's [4, W] summaries."""
 
+    METRICS_TIER = "gnn_scan"
+    PROGRAM = "gnn_round"
+
     def _configure(self, edge_bucket: int, vertex_bucket: int,
-                   feature_dim: int, activation: str) -> None:
+                   feature_dim, activation) -> None:
         self.eb = seg_ops.bucket_size(edge_bucket)
         self.vb = seg_ops.bucket_size(vertex_bucket)
-        self.F = int(feature_dim)
-        self.act = str(activation)
+        self.F = int(feature_dim if feature_dim is not None
+                     else knobs.get_int("GS_GNN_F"))
+        self.act = str(activation if activation is not None
+                       else knobs.get_str("GS_GNN_ACT"))
         if self.act not in ACTIVATIONS:
             raise ValueError(
                 "unknown GNN activation %r (exact-parity choices: %s)"
@@ -307,16 +320,20 @@ class GnnSummaryEngine(GnnEngineBase):
     owns the kernel's aggregate scratch).
 
     `device=None` means the CUDA card and raises when there is none;
-    `device="cpu"` runs the plain PyTorch path."""
+    `device="cpu"` runs the plain PyTorch path. `feature_dim` and
+    `activation` None read GS_GNN_F and GS_GNN_ACT."""
 
     def __init__(self, edge_bucket: int, vertex_bucket: int,
-                 feature_dim: int = 16, activation: str = "relu",
+                 feature_dim: int = None, activation: str = None,
                  device=None):
         self._configure(edge_bucket, vertex_bucket, feature_dim,
                         activation)
         self.device = resolve_device(device)
         self._ring = ChunkStager(self.device, slots=self._ring_slots())
         self._round = GnnRound(self.vb, self.F, self.device)
+        self._run = metrics.wrap_dispatch("gnn_scan", self._round)
+        register_cost_model(self.eb, self.vb, self.F, self.MAX_WINDOWS,
+                            self.device)
         self._weights_changed()
         self.reset()
 
@@ -331,8 +348,8 @@ class GnnSummaryEngine(GnnEngineBase):
         src, dst, v = self._ring.take(staged)
         sums = torch.empty(4, src.shape[0], dtype=torch.int32,
                            device=self.device)
-        self._round(self._carry[0], self._wdev, self._bdev, src, dst, v,
-                    self.act, sums)
+        self._run(self._carry[0], self._wdev, self._bdev, src, dst, v,
+                  self.act, sums)
         self._ring.done(staged)
         return HostCopy(sums)
 
@@ -351,7 +368,7 @@ class GnnResidentEngine(GnnSummaryEngine):
     _adopt_carry = resident_engine.adopt_carry_in_place
 
     def __init__(self, edge_bucket: int, vertex_bucket: int,
-                 feature_dim: int = 16, activation: str = "relu",
+                 feature_dim: int = None, activation: str = None,
                  device=None, superbatch: int = None):
         super().__init__(edge_bucket, vertex_bucket, feature_dim,
                          activation, device)
@@ -359,6 +376,8 @@ class GnnResidentEngine(GnnSummaryEngine):
             superbatch if superbatch else
             resident_engine.resident_spb(self.eb))
         self._graphs = resident_engine.SuperBatchGraphs("gnn_resident")
+        self._run_resident = metrics.wrap_dispatch("gnn_resident",
+                                                   self._replay)
         self._warmed = set()
         # buffers the graphs bind, made now so they never move: the
         # round's aggregate scratch and every staging slot
@@ -417,12 +436,18 @@ class GnnResidentEngine(GnnSummaryEngine):
 
     def _dispatch_async(self, staged, wire: str = "standard"):
         tensors = self._ring.take(staged)
-        w = tensors[0].shape[0]
-        sums = self._graphs.run((w, self._ring.slot_index(staged)),
-                                self._static(tensors), self._fold,
-                                warm=lambda: self._warm(w))
+        sums = self._run_resident(*self._static(tensors),
+                                  slot=self._ring.slot_index(staged))
         self._ring.done(staged)
         return HostCopy(sums)
+
+    def _replay(self, *static, slot: int):
+        """The super-batch's graph over the slab, the weights and the
+        stack in staging slot `slot`, replayed (captured at its first
+        use)."""
+        w = static[-1].shape[0]
+        return self._graphs.run((w, slot), static, self._fold,
+                                warm=lambda: self._warm(w))
 
 
 class GnnHostEngine(GnnEngineBase):
@@ -433,8 +458,10 @@ class GnnHostEngine(GnnEngineBase):
     JAX package is not installed. Loads a GnnSummaryEngine checkpoint of
     equal buckets and feature width."""
 
+    METRICS_TIER = "host"
+
     def __init__(self, edge_bucket: int, vertex_bucket: int,
-                 feature_dim: int = 16, activation: str = "relu"):
+                 feature_dim: int = None, activation: str = None):
         self._configure(edge_bucket, vertex_bucket, feature_dim,
                         activation)
         self.reset()

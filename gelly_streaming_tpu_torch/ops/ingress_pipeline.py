@@ -32,10 +32,35 @@ When a prep fails, the chunk already dispatched is drained (its finalize
 runs) before the error re-raises as a PrepError carrying the worker's
 traceback.
 
-Not ported yet (ROADMAP.md step 1.8, with the utils/ hooks): the stage
-guard (GS_STAGE_TIMEOUT_S / GS_STAGE_RETRIES: per-stage deadlines and
-retries), the telemetry spans, the fault-injection points and the
-metrics gauges.
+The stage guard (the JAX twin's `_guarded_prep_h2d`, :355-440 there):
+with GS_STAGE_TIMEOUT_S or GS_STAGE_RETRIES set, each chunk's prep and
+h2d run under a per-stage deadline and a bounded retry with
+deterministic backoff, and fail as a typed StageTimeout / StageFailed
+naming the chunk and stage. Only these host stages are guarded: dispatch
+and finalize run on the caller's thread, unguarded, as they launch and
+wait on the card. Three rules hold whether the guard is armed or not:
+- A fatal injected fault (faults.InjectedFault(fatal=True)) and a
+  device error (resilience.is_device_error: a kernel's build or launch,
+  a CUDA call) pass through as they were raised: never retried, never
+  wrapped in a PrepError or a StageFailed.
+- A retried h2d runs on another thread, but writes the chunk's own
+  staging slot on the stager's copy stream and records the event the
+  dispatch waits on (ops/staging.ChunkStager.put sets the device and
+  the stream itself, not the thread's current ones).
+- An attempt the deadline abandoned never writes a slot after a later
+  attempt of its chunk began: each chunk's attempts hold a gate, and an
+  attempt reaches its h2d only while it is the chunk's live attempt
+  (a later attempt waits for one already inside its h2d, and
+  ChunkStager.put hands the later attempt the slot the earlier one
+  filled).
+
+Hooks (each a no-op disarmed): the `prep` and `h2d` fault sites
+(utils/faults.py) on the worker before each stage; the flight recorder's
+`ingress.chunk` span with `ingress.prep`, `ingress.h2d`,
+`ingress.dispatch` (tagged with the launch's program and signature when
+the cost observatory is armed) and `ingress.finalize` children, which
+also feed the metrics registry's stage histograms; the
+`gs_inflight_chunks` and `gs_inflight_oldest_s` gauges.
 """
 
 from __future__ import annotations
@@ -47,15 +72,24 @@ import time
 import traceback
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor, wait
+from concurrent.futures import TimeoutError as _FutureTimeout
 from typing import Callable, Iterable, List, Optional
 
-__all__ = ["DEFAULT_INFLIGHT", "PrepError", "StageTimers", "forced_sync",
+from ..utils import faults
+from ..utils import metrics
+from ..utils import resilience
+from ..utils import telemetry
+from ..utils.resilience import StageFailed, StageTimeout
+
+__all__ = ["DEFAULT_INFLIGHT", "PrepError", "StageFailed", "StageTimeout",
+           "StageTimers", "forced_sync",
            "forced_sync_active", "inflight_limit", "map_ordered",
            "prep_pool", "reset_pool", "run_pipeline", "submit_prep",
            "worker_count"]
 
 _MAX_DEFAULT_WORKERS = 4
 DEFAULT_INFLIGHT = 3
+_POLL_S = 0.02   # the guard's wait tick, when a deadline is set
 
 
 class StageTimers:
@@ -163,33 +197,216 @@ def reset_pool() -> None:
         _POOLS.clear()
 
 
-def _timed_prep(prep: Callable, item, timers: Optional[StageTimers]):
-    """Worker-side prep: timed, a failure wrapped in a PrepError with the
-    worker's traceback (Exception only: an interrupt passes through)."""
+def _mark(cell: Optional[dict], stage: str) -> None:
+    """Record which stage a worker task is in, and since when, so the
+    guard can hold each stage to its own deadline and name the hung
+    one."""
+    if cell is not None:
+        cell["since"] = time.perf_counter()
+        cell["stage"] = stage
+
+
+def _span_cell(cell: Optional[dict], item):
+    """(parent span id, chunk correlation id) of a worker stage: the
+    chunk's span handle rides the cell (thread-local nesting cannot
+    cross the pool)."""
+    ctx = cell.get("tctx") if cell else None
+    if ctx is not None:
+        return ctx["sid"], ctx["chunk"]
+    return None, telemetry.chunk_key(item)
+
+
+def _passes_through(exc: BaseException) -> bool:
+    """A fatal injected fault or a device error: raised as it is, never
+    wrapped or retried."""
+    return (isinstance(exc, faults.InjectedFault) and exc.fatal) \
+        or resilience.is_device_error(exc)
+
+
+class _Abandoned(Exception):
+    """An attempt the guard gave up on reached its h2d after a later
+    attempt of its chunk began: it writes nothing."""
+
+
+def _timed_prep(prep: Callable, item, timers: Optional[StageTimers],
+                cell: Optional[dict] = None):
+    """Worker-side prep: the `prep` fault site, then prep, timed; a
+    failure wrapped in a PrepError with the worker's traceback
+    (Exception only: interrupts, fatal faults and device errors pass
+    through)."""
+    _mark(cell, "prep")
     t0 = time.perf_counter()
     try:
+        faults.fire("prep")
         out = prep(item)
     except Exception as e:
+        if _passes_through(e):
+            raise
         raise PrepError("ingress prep stage failed for chunk %r:\n%s"
                         % (item, traceback.format_exc())) from e
+    dt = time.perf_counter() - t0
     if timers is not None:
-        timers.add("prep", time.perf_counter() - t0)
+        timers.add("prep", dt)
+    if cell.get("spans") if cell else telemetry.active():
+        par, ck = _span_cell(cell, item)
+        telemetry.record_span("ingress.prep", t0, dt, parent=par,
+                              chunk=ck)
     return out
 
 
 def _prep_then_h2d(prep: Callable, h2d: Callable, item,
-                   timers: Optional[StageTimers]):
-    """One worker task: prep, then h2d of one chunk, each timed."""
-    payload = _timed_prep(prep, item, timers)
+                   timers: Optional[StageTimers],
+                   cell: Optional[dict] = None):
+    """One worker task: prep, then h2d of one chunk, each timed. Under
+    the guard (a `gate` in the cell) the h2d runs only while this
+    attempt is its chunk's live one, holding the chunk's gate."""
+    payload = _timed_prep(prep, item, timers, cell)
+    _mark(cell, "h2d")
     t0 = time.perf_counter()
     try:
-        dev = h2d(payload)
+        faults.fire("h2d")
+        gate = cell.get("gate") if cell else None
+        if gate is None:
+            dev = h2d(payload)
+        else:
+            with gate["lock"]:
+                if gate["live"] != cell["attempt"]:
+                    raise _Abandoned()
+                dev = h2d(payload)
     except Exception as e:
+        if _passes_through(e) or isinstance(e, _Abandoned):
+            raise
         raise PrepError("ingress h2d stage failed for chunk %r:\n%s"
                         % (item, traceback.format_exc())) from e
+    dt = time.perf_counter() - t0
     if timers is not None:
-        timers.add("h2d", time.perf_counter() - t0)
+        timers.add("h2d", dt)
+    if cell.get("spans") if cell else telemetry.active():
+        par, ck = _span_cell(cell, item)
+        telemetry.record_span("ingress.h2d", t0, dt, parent=par,
+                              chunk=ck)
+    _mark(cell, "done")
     return dev
+
+
+def _await_attempt(wait_tick: Callable, outcome: Callable, cell: dict,
+                   timeout: float, queued_since: float):
+    """The wait loop of one guarded prep+h2d attempt. `wait_tick(t)`
+    blocks up to t seconds and returns True once the attempt finished;
+    `outcome()` then returns its value or raises. Holds each stage to
+    `timeout` through the worker-updated cell; a task no worker picked
+    up yet counts its queue wait (since `queued_since`). Returns
+    (True, value, None), (False, exception, stage), or (False, None,
+    stage) when a deadline expired (the attempt's thread is
+    abandoned)."""
+    while True:
+        if wait_tick(_POLL_S if timeout > 0 else None):
+            try:
+                return True, outcome(), None
+            except BaseException as e:  # the caller raises or retries it
+                return False, e, cell.get("stage")
+        stage = cell.get("stage", "queued")
+        since = cell.get("since", queued_since)
+        if (timeout > 0 and stage in ("queued", "prep", "h2d")
+                and time.perf_counter() - since > timeout):
+            return False, None, stage
+
+
+def _future_wait(fut, t: Optional[float]) -> bool:
+    """Event.wait-shaped adapter over a Future: True once done."""
+    try:
+        fut.exception(timeout=t)
+    except _FutureTimeout:
+        return fut.done()
+    except BaseException:  # wait only: outcome() re-raises the error
+        pass
+    return True
+
+
+def _guarded_prep_h2d(prep: Callable, h2d: Callable, item,
+                      timers: Optional[StageTimers], cell0: dict,
+                      first_future=None):
+    """One chunk's prep+h2d under the stage guard: a per-stage deadline
+    (GS_STAGE_TIMEOUT_S) and bounded retry with deterministic backoff
+    (GS_STAGE_RETRIES, GS_STAGE_BACKOFF_S). `cell0` is the chunk's
+    cell, its gate in it (run_pipeline's `_cell`); attempt 1 is
+    `first_future` (already on the pool) when given; a retry with a
+    deadline runs on a thread of its own, so a hung pool worker is left
+    behind. Every attempt shares the chunk's gate (see _prep_then_h2d):
+    an attempt given up on is retired before the next starts. Fatal
+    faults, device errors and interrupts pass through unretried."""
+    retries = resilience.stage_retries()
+    timeout = resilience.stage_timeout_s()
+    attempts: List[dict] = []
+    last_stage = "prep"
+    gate = cell0["gate"]
+    for attempt in range(retries + 1):
+        t0 = time.perf_counter()
+        if attempt == 0 and first_future is not None:
+            cell = cell0
+            ok, res, stage = _await_attempt(
+                lambda t: _future_wait(first_future, t),
+                first_future.result, cell, timeout,
+                cell.get("submitted", t0))
+        else:
+            cell = cell0 if attempt == 0 else {
+                "tctx": cell0.get("tctx"), "spans": cell0.get("spans"),
+                "gate": gate, "attempt": attempt}
+            if timeout > 0:
+                box, done = {}, threading.Event()
+
+                def _runner(cell=cell, box=box, done=done):
+                    try:
+                        box["value"] = _prep_then_h2d(prep, h2d, item,
+                                                      timers, cell)
+                    except BaseException as e:  # re-raised by _outcome
+                        box["error"] = e
+                    finally:
+                        done.set()
+
+                threading.Thread(target=_runner, daemon=True,
+                                 name="gs-ingress-retry").start()
+
+                def _outcome(box=box):
+                    if "error" in box:
+                        raise box["error"]
+                    return box["value"]
+
+                ok, res, stage = _await_attempt(done.wait, _outcome, cell,
+                                                timeout, t0)
+            else:
+                try:
+                    return _prep_then_h2d(prep, h2d, item, timers, cell)
+                except Exception as e:
+                    ok, res, stage = False, e, cell.get("stage")
+        if ok:
+            return res
+        if res is not None and (not isinstance(res, Exception)
+                                or _passes_through(res)):
+            raise res
+        # retire this attempt before another may start
+        gate["live"] = attempt + 1
+        last_stage = stage or last_stage
+        attempts.append({
+            "stage": last_stage,
+            "outcome": "timeout" if res is None else type(res).__name__,
+            "elapsed_s": round(time.perf_counter() - t0, 6)})
+        if attempt >= retries:
+            if res is None:
+                raise StageTimeout(
+                    "%s stage of chunk %r exceeded its %.3gs deadline "
+                    "(GS_STAGE_TIMEOUT_S) on %d attempt(s)"
+                    % (last_stage, item, timeout, len(attempts)),
+                    last_stage, item, attempts)
+            raise StageFailed(
+                "%s stage of chunk %r failed after %d attempt(s): %s"
+                % (last_stage, item, len(attempts), res),
+                last_stage, item, attempts) from res
+        telemetry.event("stage_retry", stage=last_stage,
+                        chunk=telemetry.chunk_key(item),
+                        attempt=attempt + 1,
+                        outcome=attempts[-1]["outcome"])
+        time.sleep(resilience.backoff_s(attempt))
 
 
 def run_pipeline(items: Iterable, prep: Callable, h2d: Callable,
@@ -214,65 +431,121 @@ def run_pipeline(items: Iterable, prep: Callable, h2d: Callable,
     bounds host and device memory: a caller whose h2d writes into a ring
     of slots holds `inflight + 1` of them. `workers` is the pool's width
     (default min(4, cpus - 1)). A prep or h2d failure surfaces as
-    PrepError after the already-dispatched chunk is drained; preps not
-    yet started are cancelled and those running are waited for."""
+    PrepError, or with the stage guard armed as StageTimeout /
+    StageFailed once the attempts are spent (a fatal fault or a device
+    error as itself), after the already-dispatched chunk is drained;
+    preps not yet started are cancelled and those running are waited
+    for."""
     it = iter(items)
     head = list(itertools.islice(it, 2))    # one item: nothing to overlap
     limit = inflight_limit() if inflight is None else int(inflight)
     pool = prep_pool(workers) if len(head) > 1 else None
     it = itertools.chain(head, it)
-    pending = None          # raw outputs of the chunk one behind dispatch
+    pending = None          # (item, raw, span handle) one behind dispatch
     futures: deque = deque()
+    guard = resilience.guard_active()
+    gauges = metrics.enabled()
+    spans = telemetry.active()    # read once a call: nothing else when off
 
-    def _finalize(raw):
+    def _finalize(item, raw, tctx):
         t0 = time.perf_counter()
         finalize(raw)
+        dt = time.perf_counter() - t0
         if timers is not None:
-            timers.add("compute", time.perf_counter() - t0)
+            timers.add("compute", dt)
             timers.chunks += 1
+        if spans:
+            par, ck = _span_cell({"tctx": tctx}, item)
+            telemetry.record_span("ingress.finalize", t0, dt, parent=par,
+                                  chunk=ck)
+            telemetry.close_chunk(tctx)
 
-    def _consume(dev):
+    def _consume(item, dev, tctx):
         nonlocal pending
+        if spans:
+            telemetry.pop_dispatch_tags()   # drop a stale tag
+        t0 = time.perf_counter()
         raw = dispatch(dev)
+        if spans:
+            par, ck = _span_cell({"tctx": tctx}, item)
+            telemetry.record_span("ingress.dispatch", t0,
+                                  time.perf_counter() - t0, parent=par,
+                                  chunk=ck,
+                                  **telemetry.pop_dispatch_tags())
         if pending is not None:
             done, pending = pending, None
-            _finalize(done)
-        pending = raw
+            _finalize(*done)
+        pending = (item, raw, tctx)
+
+    def _cell(item) -> dict:
+        # the chunk's span handle (None disarmed); under the guard, when
+        # it was submitted (the queue deadline) and its attempts' gate,
+        # there before any attempt runs
+        cell = {"submitted": time.perf_counter(), "spans": spans,
+                "tctx": (telemetry.chunk_ctx(telemetry.chunk_key(item))
+                         if spans else None)}
+        if guard:
+            cell.update(gate={"lock": threading.Lock(), "live": 0},
+                        attempt=0)
+        return cell
+
+    def _submit(item):
+        cell = _cell(item)
+        return item, cell, pool.submit(_prep_then_h2d, prep, h2d, item,
+                                       timers, cell)
 
     try:
         if pool is None:
             for item in it:
-                _consume(_prep_then_h2d(prep, h2d, item, timers))
+                cell = _cell(item)
+                dev = (_guarded_prep_h2d(prep, h2d, item, timers, cell)
+                       if guard
+                       else _prep_then_h2d(prep, h2d, item, timers, cell))
+                _consume(item, dev, cell["tctx"])
         else:
             width = worker_count() if workers is None else int(workers)
             lookahead = max(1, min(width + 1, limit))
-            futures.extend(pool.submit(_prep_then_h2d, prep, h2d, item,
-                                       timers)
+            futures.extend(_submit(item)
                            for item in itertools.islice(it, lookahead))
             while futures:
-                dev = futures.popleft().result()
-                for item in itertools.islice(it, 1):
-                    futures.append(pool.submit(_prep_then_h2d, prep, h2d,
-                                               item, timers))
-                _consume(dev)
+                item, cell, fut = futures.popleft()
+                dev = (_guarded_prep_h2d(prep, h2d, item, timers, cell,
+                                         first_future=fut) if guard
+                       else fut.result())
+                for nxt in itertools.islice(it, 1):
+                    futures.append(_submit(nxt))
+                if gauges:
+                    # prepped and copied chunks waiting on dispatch, and
+                    # how long the oldest has waited
+                    metrics.gauge_set("gs_inflight_chunks", len(futures))
+                    metrics.gauge_set(
+                        "gs_inflight_oldest_s",
+                        time.perf_counter() - futures[0][1]["submitted"]
+                        if futures else 0.0)
+                _consume(item, dev, cell["tctx"])
     except Exception:
         # drain the chunk already dispatched before the failure surfaces,
         # so its outputs (and any recount) are not abandoned mid-stream
         if pending is not None:
             done, pending = pending, None
             try:
-                _finalize(done)
-            except Exception:
-                pass        # the original failure is the one to report
+                _finalize(*done)
+            except Exception as drain_err:
+                # the original failure is the one to report
+                telemetry.event(
+                    "drain_failed", durable=True,
+                    component="ingress_pipeline",
+                    error="%s: %s" % (type(drain_err).__name__,
+                                      drain_err))
         raise
     finally:
         # cancel what has not started and wait for what has, so no worker
         # still runs a stage of this call once it returns or raises
-        for f in futures:
+        for _item, _cell, f in futures:
             f.cancel()
-        wait(futures)
+        wait([f for _item, _cell, f in futures])
     if pending is not None:
-        _finalize(pending)
+        _finalize(*pending)
 
 
 def submit_prep(fn: Callable, item, timers: Optional[StageTimers] = None,

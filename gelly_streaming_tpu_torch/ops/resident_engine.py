@@ -42,10 +42,18 @@ summaries, carry and checkpoints are those of the scan engine, bit for
 bit. `GnnResidentEngine` (ops/gnn_window.py) and the driver's
 `snapshot_tier="resident"` (core/driver.py) use the same graphs.
 
+Host hooks (the JAX engine's :305, :468, :500): the engines' hooks are
+SummaryEngineBase's, run at each super-batch's finalize as in the scan
+twin, and a journal replay into a resident engine gives the scan twin's
+carries. Each super-batch dispatch is one launch of its graph family in
+the cost observatory (utils/costmodel.py, its work what the capture
+launched) and goes through `metrics.wrap_dispatch` ("resident_fused",
+"resident_fused_compact", "gnn_resident": the shape watch); `IngestRing`
+sets the `gs_inflight_chunks` gauge.
+
 Left out, with ROADMAP step 1.7's second half: the cohort's resident tier
 (`resolve_resident_cohort` answers False until it comes). With step 1.1:
 the evidence routing of `resolve_resident` (its `auto` is the scan tier).
-`IngestRing` sets no gauge: the port has no metrics plane yet (step 1.8).
 """
 
 from __future__ import annotations
@@ -58,7 +66,9 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils import costmodel
 from ..utils import knobs
+from ..utils import metrics
 from . import autotune
 from . import compact_ingress
 from . import ingress_pipeline
@@ -196,13 +206,18 @@ class IngestRing:
         if fut is None:
             return False
         self._q.append((key, fut, item))
+        self._gauge()
         return True
+
+    def _gauge(self) -> None:
+        metrics.gauge_set("gs_inflight_chunks", len(self._q))
 
     def pop(self, key):
         """(future, item) of the ring's head if it is `key`, else None
         (the ring is FIFO: the carry folds super-batches in order)."""
         if self._q and self._q[0][0] == key:
             _k, fut, item = self._q.popleft()
+            self._gauge()
             return fut, item
         return None
 
@@ -276,7 +291,7 @@ class Mailbox:
 # SuperBatchGraphs
 # ----------------------------------------------------------------------
 class _Graph:
-    __slots__ = ("graph", "ptrs", "out", "launches")
+    __slots__ = ("graph", "ptrs", "out", "launches", "work", "sig")
 
 
 class SuperBatchGraphs:
@@ -312,7 +327,9 @@ class SuperBatchGraphs:
         ptrs = _ptrs(tensors)
         if g is None or g.ptrs != ptrs:
             g = self._capture(key, tensors, fn, warm)
-        g.graph.replay()
+        with costmodel.replay(self.family, g.sig, g.work,
+                              tensors[0].device):
+            g.graph.replay()
         for name, n in g.launches.items():
             kernels.LAUNCHES[name] += n
         kernels.REPLAYS[self.family] += 1
@@ -334,7 +351,7 @@ class SuperBatchGraphs:
         before = dict(kernels.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         torch.cuda.synchronize(dev)
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.stream(self._stream), costmodel.collect() as coll:
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 out = fn(*tensors)
@@ -346,6 +363,7 @@ class SuperBatchGraphs:
         g = _Graph()
         g.graph, g.ptrs, g.out = graph, _ptrs(tensors), out
         g.launches = {k: n for k, n in launches.items() if n}
+        g.work, g.sig = tuple(coll.work), costmodel.tensor_sig(tensors)
         self._graphs[key] = g
         self.captures += 1
         return g
@@ -404,6 +422,12 @@ class ResidentSummaryEngine(StreamSummaryEngine):
         self.MAX_WINDOWS = seg_ops.bucket_size(
             superbatch if superbatch else resident_spb(self.eb))
         self._graphs = SuperBatchGraphs("resident_summary")
+        self._runs = {
+            wire: metrics.wrap_dispatch(
+                name, lambda *carry_stack, slot, wire=wire:
+                self._replay(carry_stack, wire, slot))
+            for wire, name in (("standard", "resident_fused"),
+                               ("compact", "resident_fused_compact"))}
         self._reserve()
 
     @property
@@ -425,9 +449,14 @@ class ResidentSummaryEngine(StreamSummaryEngine):
         return ResidentState(*self._carry)
 
     def _launch(self, tensors, wire: str, slot: int):
-        key = (tensors[0].shape[0], wire, slot)
+        return self._runs[wire](*self._carry, *tensors, slot=slot)
+
+    def _replay(self, carry_stack, wire: str, slot: int):
+        """The super-batch's graph over the carry and the stack in
+        staging slot `slot`, replayed (captured at its first use)."""
+        key = (carry_stack[-1].shape[0], wire, slot)
         return self._graphs.run(
-            key, self._carry + tuple(tensors), self._graph_fn(wire),
+            key, carry_stack, self._graph_fn(wire),
             warm=lambda: self._warm_arm({"wb": key[0], "ingress": wire}))
 
     def _graph_fn(self, wire: str):
@@ -464,7 +493,8 @@ class ResidentSummaryEngine(StreamSummaryEngine):
         if new_vb <= self.vb:
             return
         grown = ResidentState.grow(self.resident_state(), self.vb, new_vb)
-        cursor, closed = self.windows_done, self._closed_partial
+        cursor, closed, fed = (self.windows_done, self._closed_partial,
+                               self._fed_edges)
         tuner = getattr(self, "_tuner", None)
         timers = self.stage_timers
         pin = self.ingress if self._pinned_ingress else None
@@ -477,6 +507,7 @@ class ResidentSummaryEngine(StreamSummaryEngine):
                                 for a in grown))
         self.windows_done = cursor
         self._closed_partial = closed
+        self._fed_edges = fed
         self.stage_timers = timers
         if tuner is not None:
             wbs = autotune.rungs(self.MAX_WINDOWS)

@@ -47,8 +47,21 @@ ops/cohort_summary.py lifts the same body over a leading tenant axis
 for the multi-tenant cohort (core/tenancy.py); ops/resident_engine.py
 replays its super-batches as CUDA graphs.
 
-Not ported yet (ROADMAP.md step 1.8): the finalize hooks (checkpoint
-files, WAL, latency, provenance, metrics, sanitize, faults).
+Host hooks (the JAX engine's :373-437, :488-534, :572, :614-647,
+:664-717, :831, :1030-1047), each a no-op disarmed, their knobs read
+once a call: at admission the `admit` fault site, the sanitizer
+(GS_SANITIZE; rejects to the dead-letter journal), the journal append
+before the fold (`enable_wal`) with the admission stamp in its ts
+column, and `latency.on_admit`; per chunk the latency stage stamps
+(prep, h2d, dispatch) and a due auto-checkpoint staged at the dispatch
+boundary; at each chunk's finalize one latency record and one
+provenance record a window and `metrics.mark_window`; per tuned round
+the `fused_scan.round` span. `enable_auto_checkpoint`, `try_resume`
+(a durable `resume` event), `enable_wal`, `seal_wal` and
+`resume_and_replay` (checkpoint, then the journal's suffix) are the
+JAX engine's; a journal of either package replays into either.
+The hooks read what finalize has already copied back: none waits on the
+device.
 """
 
 from __future__ import annotations
@@ -59,6 +72,14 @@ import numpy as np
 import torch
 
 from ..core.platform import resolve_device
+from ..utils import checkpoint
+from ..utils import faults
+from ..utils import latency
+from ..utils import metrics
+from ..utils import provenance
+from ..utils import sanitize as sanitize_mod
+from ..utils import telemetry
+from ..utils import wal as wal_mod
 from . import autotune
 from . import compact_ingress
 from . import ingress_pipeline
@@ -87,6 +108,10 @@ class SummaryEngineBase:
     below and ops/gnn_window.py are the two."""
 
     MAX_WINDOWS = 64
+    # the tier and program names of the health marks and provenance
+    # records (the JAX engines')
+    METRICS_TIER = "fused_scan"
+    PROGRAM = "fused_scan"
     INFLIGHT = ingress_pipeline.DEFAULT_INFLIGHT   # pipeline look-ahead
     # prepped and copied chunks ahead of dispatch; None = INFLIGHT (the
     # resident engine reads GS_RESIDENT_SLOTS)
@@ -104,6 +129,26 @@ class SummaryEngineBase:
     def reset(self) -> None:
         self._closed_partial = False
         self.windows_done = 0   # resume cursor
+        # cumulative fed edges, rejects included: the dead-letter
+        # journal's source offsets
+        self._fed_edges = 0
+        if not hasattr(self, "_wal"):
+            # the hooks' configuration survives reset()
+            self._ckpt_path = None
+            self._ckpt_policy = None
+            self._wal = None
+            self._wal_dir = None
+            self._wal_tenant = "engine"
+            self._wal_retention = wal_mod.RetentionCursor()
+            # the latency lane of this engine's windows (None: the
+            # journal tenant), whether process() stamps admission, and
+            # whether window records wait for latency.delivered()
+            self._lat_lane = None
+            self._lat_admit = True
+            self._lat_defer = False
+        elif self._ckpt_policy is not None:
+            # the rewound cursor re-anchors the cadence
+            self._ckpt_policy.mark(0)
         self._adopt_carry(self._init_carry())
 
     def state_dict(self) -> dict:
@@ -158,6 +203,116 @@ class SummaryEngineBase:
         `src[offset:], dst[offset:]`."""
         return self.windows_done * self.eb
 
+    # -- checkpoints and the journal -----------------------------------
+
+    def enable_auto_checkpoint(self, path: str, every_n_windows: int = 16,
+                               every_seconds: float = 0.0,
+                               policy=None) -> None:
+        """Snapshot on a CheckpointPolicy cadence, evaluated at chunk
+        dispatch boundaries (where the carry covers exactly the windows
+        dispatched) and written to `path` only when process() returns:
+        a call's windows are delivered together, so a checkpoint never
+        covers windows the caller was not handed."""
+        if policy is None:
+            policy = checkpoint.CheckpointPolicy(
+                every_n_windows=max(0, every_n_windows),
+                every_seconds=every_seconds)
+        if not policy.enabled():
+            raise ValueError("checkpoint policy has no trigger enabled")
+        self._ckpt_path = path
+        self._ckpt_policy = policy
+
+    def try_resume(self, path: str) -> bool:
+        """Restore from the newest intact checkpoint generation (the
+        previous one when the newest is damaged); False when nothing
+        usable exists. After True, feed the stream from
+        `resume_offset()` edges in."""
+        import warnings
+
+        try:
+            got = checkpoint.load_latest(path)
+        except checkpoint.CheckpointCorrupt as e:
+            warnings.warn(f"{e}; no intact generation — starting fresh")
+            return False
+        if got is None:
+            return False
+        state, used = got
+        if used != path:
+            warnings.warn(
+                f"checkpoint {path!r} is corrupt; resumed from the "
+                f"rotated previous generation {used!r}")
+        self.load_state_dict(state)
+        telemetry.event("resume", durable=True, component="engine",
+                        path=used, windows_done=self.windows_done)
+        return True
+
+    def enable_wal(self, directory: str, tenant: str = "engine") -> bool:
+        """Journal every process() call's edges under `directory` before
+        they fold (utils/wal.py): after a kill, `resume_and_replay()`
+        restores the newest checkpoint and feeds the journal's suffix
+        again, reproducing the lost windows bit for bit. False (a no-op)
+        under GS_WAL=0."""
+        if not wal_mod.enabled():
+            return False
+        self._wal_dir = directory
+        self._wal_tenant = str(tenant)
+        self._wal = wal_mod.WriteAheadLog(directory)
+        return True
+
+    def seal_wal(self) -> None:
+        """Close the journal durably (the clean-drain marker)."""
+        if self._wal is not None:
+            self._wal.seal()
+
+    def resume_and_replay(self, ckpt_path: str) -> list:
+        """Recovery of a journal-armed engine: `try_resume` the newest
+        checkpoint, then process the journal's records past its
+        `resume_offset()`. Returns the replayed windows' summaries:
+        those the lost process computed or accepted but never delivered,
+        equal to the uninterrupted run's."""
+        self.try_resume(ckpt_path)
+        if self._wal_dir is None:
+            return []
+        off = self.resume_offset()
+        parts_s, parts_d = [], []
+        for tid, _start, src, dst, ts in wal_mod.replay(
+                self._wal_dir, {self._wal_tenant: off}):
+            if tid != self._wal_tenant:
+                continue
+            parts_s.append(src)
+            parts_d.append(dst)
+            # the journaled admission stamps re-seed the latency marks
+            latency.on_replay(self._lat_lane or self._wal_tenant,
+                              len(src), ts)
+        edges = sum(len(p) for p in parts_s)
+        telemetry.event("wal_replayed", durable=True, component="engine",
+                        dir=self._wal_dir, edges=edges)
+        metrics.counter_inc("gs_wal_replayed_edges_total", edges)
+        if not edges:
+            return []
+        # the replayed edges are in the journal already, and their
+        # admission marks were re-seeded above
+        live, self._wal = self._wal, None
+        admit_prev, self._lat_admit = self._lat_admit, False
+        try:
+            return self.process(np.concatenate(parts_s),
+                                np.concatenate(parts_d))
+        finally:
+            self._wal = live
+            self._lat_admit = admit_prev
+
+    def _stage_ckpt_at(self, base: int, at: int, staged: list) -> None:
+        """Stage a due checkpoint at a chunk's dispatch boundary: the
+        carry there covers exactly windows base + at. Written when
+        process() returns."""
+        if (self._ckpt_path is not None and at
+                and self._ckpt_policy.due(base + at)):
+            self._ckpt_policy.mark(base + at)
+            snap = self.state_dict()
+            snap["windows_done"] = base + at
+            snap["closed_partial"] = False
+            staged.append(snap)
+
     def _init_carry(self) -> tuple:
         raise NotImplementedError
 
@@ -197,7 +352,28 @@ class SummaryEngineBase:
         A call whose length is not a multiple of `edge_bucket` closes
         its partial trailing window (count-based tumbling windows), so it
         must be the stream's last call: feed mid-stream chunks in
-        edge_bucket multiples. Ids must lie in [0, vertex_bucket)."""
+        edge_bucket multiples. Ids must lie in [0, vertex_bucket) (with
+        GS_SANITIZE armed, the others are rejected to the dead-letter
+        journal instead)."""
+        lat = latency.enabled()
+        t_admit = latency.clock() if lat else 0.0
+        metrics.on_stream_start(type(self).__name__)
+        got = faults.fire("admit", (self._wal_tenant, src, dst))
+        if got is not None:
+            _t, src, dst = got
+        if sanitize_mod.enabled():
+            try:
+                rep = sanitize_mod.sanitize(
+                    src, dst, self.vb, tenant=self._wal_tenant,
+                    origin="engine", offset=self._fed_edges,
+                    dlq=sanitize_mod.resolve_dlq())
+            except sanitize_mod.BatchRejected as e:
+                self._fed_edges += e.size
+                raise
+            self._fed_edges += rep.accepted + rep.rejected
+            src, dst = rep.src, rep.dst
+        else:
+            self._fed_edges += len(np.atleast_1d(np.asarray(src)))
         src = np.asarray(src, np.int32)
         dst = np.asarray(dst, np.int32)
         n = len(src)
@@ -209,18 +385,43 @@ class SummaryEngineBase:
                 "(length not a multiple of edge_bucket); reset() before "
                 "feeding more of the stream")
         self._validate(src, dst)
+        if self._wal is not None:
+            # journal before the fold; the admission stamp rides the ts
+            # column, so replayed windows keep their admission time
+            self._wal.append(
+                self._wal_tenant, src, dst,
+                np.full(n, latency.admit_ns(t_admit), np.int64)
+                if lat else None)
+            faults.fire("wal_enqueue", self._wal_tenant)
+        if lat and self._lat_admit:
+            latency.on_admit(self._lat_lane or self._wal_tenant, n,
+                             t0=t_admit)
         self._closed_partial = n % self.eb != 0
         out: list = []
+        staged: list = []       # checkpoints due mid-call
         num_w = -(-n // self.eb)
         # long calls run under the tuner, which picks each round's
         # (windows per dispatch, wire); GS_AUTOTUNE=0 or a short call
         # runs the static arm, with the same summaries
         tuner = (self._ensure_tuner() if self.AUTOTUNE and autotune.enabled()
                  and num_w > self.MAX_WINDOWS else None)
-        self._run_chunks(src, dst, num_w, tuner, out)
+        self._run_chunks(src, dst, num_w, tuner, out, staged)
+        if self._ckpt_path is not None:
+            if self._ckpt_policy.due(self.windows_done):
+                self._ckpt_policy.mark(self.windows_done)
+                staged.append(self.state_dict())
+            # only the last two can survive save's rotation
+            for snap in staged[-2:]:
+                checkpoint.save(self._ckpt_path, snap)
+                # journal retention (GS_WAL_RETAIN): what the snapshot's
+                # replay cursor covers
+                self._wal_retention.flushed(
+                    self._wal, self._wal_tenant,
+                    int(snap["windows_done"]) * self.eb)
         return out
 
-    def _run_chunks(self, src, dst, num_w: int, tuner, out: list) -> None:
+    def _run_chunks(self, src, dst, num_w: int, tuner, out: list,
+                    staged: list) -> None:
         """The one chunk loop: windows [0, num_w) through the ingress
         pipeline over an autotune.RoundPlan (the static arm
         (MAX_WINDOWS, ingress), or the tuner's arm a round, warmed
@@ -229,8 +430,9 @@ class SummaryEngineBase:
         of two with empty windows, which fold as no-ops apart from the
         cover's sentinel join, as in the JAX engine) and copied to its
         staging slot; dispatches go in chunk order on this thread; each
-        chunk's outputs are read and its windows counted into
-        `windows_done` one chunk behind."""
+        chunk's outputs are read, its windows counted into
+        `windows_done` and its hooks run one chunk behind. A checkpoint
+        due at a chunk's dispatch goes to `staged`."""
 
         def on_round(arm, windows):
             if tuner is not None:
@@ -238,12 +440,20 @@ class SummaryEngineBase:
             self._prepare_round(_round_widths(windows, arm["wb"]),
                                 arm["ingress"])
 
+        base = self.windows_done
         plan = autotune.RoundPlan(
             num_w, {"wb": self.MAX_WINDOWS, "ingress": self.ingress}, tuner,
-            on_round=on_round)
+            on_round=on_round, span="fused_scan.round", base=base)
         eb = self.eb
+        # the hooks' knobs, read once a call
+        lat = latency.enabled()
+        prov = provenance.armed()
+        marks = metrics.enabled()
+        lane = self._lat_lane or self._wal_tenant
 
         def prep(ch):
+            st = {} if lat else None
+            latency.stamp(st, "start")
             wb, wire = ch.arm["wb"], ch.arm["ingress"]
             lo, hi_e = ch.at * eb, min(ch.hi * eb, len(src))
             if wire == "compact":
@@ -256,20 +466,47 @@ class SummaryEngineBase:
                     src[lo:hi_e], dst[lo:hi_e], eb, sentinel=self.vb)
                 sc, dc, vc, real = seg_ops.pad_window_chunk(
                     *stack, 0, m, wb, eb, self.vb)
-            return ch, real, (sc, dc, vc)
+            latency.stamp(st, "prep")
+            return ch, real, (sc, dc, vc), st
 
         def h2d(payload):
-            ch, real, args = payload
-            return ch, real, self._h2d(args, ch.seq)
+            ch, real, args, st = payload
+            dev = self._h2d(args, ch.seq)
+            latency.stamp(st, "h2d")
+            return ch, real, dev, st
 
         def dispatch(dev_payload):
-            ch, real, dev = dev_payload
-            return ch, real, self._dispatch_async(dev, ch.arm["ingress"])
+            ch, real, dev, st = dev_payload
+            self._stage_ckpt_at(base, ch.at, staged)
+            raw = self._dispatch_async(dev, ch.arm["ingress"])
+            latency.stamp(st, "dispatch")
+            return ch, real, raw, st
 
         def finalize(item):
-            ch, real, raw = item
+            ch, real, raw, st = item
+            done0 = self.windows_done
             self._finalize_summaries(ch.at, self._materialize(raw)[:, :real],
                                      src, dst, out)
+            lo_c = ch.at * eb
+            if lat or prov:
+                for w in range(real):
+                    lo_w = lo_c + w * eb
+                    n_w = min(lo_w + eb, len(src)) - lo_w
+                    if lat:
+                        latency.on_window(lane, edges=n_w, st=st,
+                                          ordinal=done0 + w,
+                                          defer=self._lat_defer)
+                    if prov:
+                        lo = (done0 + w) * eb
+                        provenance.emit(
+                            tenant=lane, window=done0 + w, wal_lo=lo,
+                            wal_hi=lo + n_w, tier=self.METRICS_TIER,
+                            program=self.PROGRAM,
+                            summary=out[len(out) - real + w])
+            if marks:
+                metrics.mark_window(
+                    real, min(lo_c + real * eb, len(src)) - lo_c,
+                    engine=type(self).__name__, tier=self.METRICS_TIER)
             plan.done(ch, (ch.hi - ch.at) * eb)
 
         slots = self.INGEST_SLOTS
@@ -358,6 +595,13 @@ class StreamSummaryEngine(SummaryEngineBase):
         self._ring = ChunkStager(self.device, slots=self._ring_slots())
         self._tri_fallback = TriangleWindowKernel(
             self.eb, self.vb, k_bucket=4 * self.kb, device=self.device)
+        # the dispatch of each wire, under the metrics' shape watch
+        self._runs = {
+            wire: metrics.wrap_dispatch(
+                name, lambda carry, *stack, wire=wire:
+                self._fold(carry, stack, wire))
+            for wire, name in (("standard", "fused_scan"),
+                               ("compact", "fused_scan_compact"))}
         self.reset()
 
     def _init_carry(self):
@@ -399,7 +643,7 @@ class StreamSummaryEngine(SummaryEngineBase):
         """Fold one staged chunk into the carry: its [5, W] int32 outputs
         (`slot`, the chunk's staging slot, names the resident engine's
         graph)."""
-        return self._fold(self._carry, tensors, wire)
+        return self._runs[wire](self._carry, *tensors)
 
     def _fold(self, carry, tensors, wire: str) -> torch.Tensor:
         """The summary call on one chunk, its five [W] outputs as one
@@ -496,17 +740,33 @@ class SlidingSummaryEngine:
         """Fold the stream's slide-sized panes; one summary per pane.
         Mid-stream calls must be multiples of `slide`; a ragged call
         closes the stream with a final partial emission."""
+        if sanitize_mod.enabled():
+            # sanitized here, so the pane slabs below slice the arrays
+            # the inner engine folds (its own pass finds them clean);
+            # before the int32 cast, which would wrap an id past 2^31
+            # into a small one (the JAX engine casts first)
+            rep = sanitize_mod.sanitize(
+                src, dst, self.vb, tenant=self.inner._wal_tenant,
+                origin="engine", offset=self.inner._fed_edges,
+                dlq=sanitize_mod.resolve_dlq())
+            src, dst = rep.src, rep.dst
         src = np.asarray(src, np.int32)
         dst = np.asarray(dst, np.int32)
         summaries = self.inner.process(src, dst)
         wp, s = self.panes_per_window, self.slide
         out = []
+        spans = telemetry.active()
         for i, pane_sum in enumerate(summaries):
             lo, hi = i * s, min((i + 1) * s, len(src))
             pane = (src[lo:hi], dst[lo:hi])
             slab = self._ring + [pane]
+            t0 = telemetry.clock()
             tri = self._tri.count(np.concatenate([p[0] for p in slab]),
                                   np.concatenate([p[1] for p in slab]))
+            if spans:
+                telemetry.record_span(
+                    "sliding.emit", t0, telemetry.clock() - t0,
+                    panes=len(slab), edges=sum(len(p[0]) for p in slab))
             row = dict(pane_sum)
             row["triangles"] = int(tri)
             out.append(row)

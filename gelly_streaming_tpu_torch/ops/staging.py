@@ -36,6 +36,8 @@ class _Slot:
         self.copied = None
         self.consumed = None
         self.busy = False
+        self.owner = None     # the ordinal of the chunk holding it
+        self.staged = None    # that chunk's Staged, once written
 
 
 class Staged:
@@ -63,7 +65,14 @@ class ChunkStager:
     A slot is written again only after its previous chunk is done and its
     "copied" and "consumed" events have passed, so neither the pinned
     buffer under an unfinished copy nor the device buffer under
-    unfinished kernels is overwritten. A pipelined caller whose
+    unfinished kernels is overwritten. `put` sets the stager's device
+    and copy stream itself, so any thread may call it (the ingress
+    guard's retries run on threads of their own). A second `put` of the
+    ordinal a slot holds, before that chunk is done (a retried h2d of
+    the same chunk: the guard runs its attempts' puts one at a time,
+    ops/ingress_pipeline), returns the chunk's Staged where the first
+    one wrote it, and writes the slot again where the first one failed.
+    A pipelined caller whose
     look-ahead is `inflight` holds `inflight + 1` slots: chunk
     i + inflight + 1 is staged only after chunk i was dispatched.
 
@@ -147,9 +156,12 @@ class ChunkStager:
             return Staged(None, tuple(torch.from_numpy(a) for a in arrays))
         slot = self._slots[ordinal % len(self._slots)]
         with self._cond:
-            while slot.busy:        # the previous chunk not dispatched yet
+            # wait while another chunk holds the slot (not dispatched yet)
+            while slot.busy and slot.owner != ordinal:
                 self._cond.wait()
-            slot.busy = True
+            if slot.busy and slot.staged is not None:
+                return slot.staged      # this chunk's, written before
+            slot.busy, slot.owner, slot.staged = True, ordinal, None
         if slot.consumed is not None:     # its copy and kernels are over
             slot.copied.synchronize()
             slot.consumed.synchronize()
@@ -170,7 +182,10 @@ class ChunkStager:
         tensors = tuple(
             slot.dev[off:off + a.nbytes].view(_TORCH_DTYPES[a.dtype])
             .view(a.shape) for a, off in zip(arrays, offsets))
-        return Staged(slot, tensors)
+        staged = Staged(slot, tensors)
+        with self._cond:
+            slot.staged = staged
+        return staged
 
     def take(self, staged: Staged) -> tuple:
         if staged.slot is not None:
@@ -187,7 +202,7 @@ class ChunkStager:
             return
         slot.consumed.record(torch.cuda.current_stream(self.device))
         with self._cond:
-            slot.busy = False
+            slot.busy, slot.owner, slot.staged = False, None, None
             self._cond.notify_all()
 
     def release_all(self) -> None:
@@ -196,7 +211,7 @@ class ChunkStager:
         no longer holds its slot."""
         with self._cond:
             for slot in self._slots:
-                slot.busy = False
+                slot.busy, slot.owner, slot.staged = False, None, None
             self._cond.notify_all()
 
     def __call__(self, *arrays) -> tuple:

@@ -39,6 +39,12 @@ change between chunks without draining. Counts are the same at every
 arm (the overflow recount keeps them exact at any K). A pinned
 `k_bucket=` or `ingress=` freezes its dimension; `forced_sync` freezes
 the tuner.
+
+Hooks: `count_stream` marks its windows for the health plane
+(`metrics.mark_window`, engine "triangle_stream", its tier) and a tuned
+call records a `triangles.round` span a round (the JAX kernel's
+:1134, :1214-1231); each counter call is a launch of the cost
+observatory (ops/window_counter.py).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ import torch
 
 from .. import native
 from ..core.platform import resolve_device
+from ..utils import metrics
 from . import autotune
 from . import compact_ingress
 from . import host_triangles
@@ -318,7 +325,8 @@ class TriangleWindowKernel:
             num_w, {"wb": self.MAX_STREAM_WINDOWS, "kb": self.kb,
                     "ingress": self.ingress}, tuner,
             on_round=None if tuner is None
-            else lambda arm, _windows: self._warm_arm(arm))
+            else lambda arm, _windows: self._warm_arm(arm),
+            span="triangles.round")
 
         def prep(ch):
             args, n = make_chunk(ch.at, ch.hi, ch.arm["wb"],
@@ -431,9 +439,23 @@ class TriangleWindowKernel:
             return []
         eb = self.eb
         if self.stream_tier == "native":
-            return _native_count_stream_parallel(src, dst, eb)
-        if self.stream_tier == "host":
-            return host_triangles.count_stream(src, dst, eb)
+            counts = _native_count_stream_parallel(src, dst, eb)
+        elif self.stream_tier == "host":
+            counts = host_triangles.count_stream(src, dst, eb)
+        else:
+            counts = self._count_stream_device(src, dst)
+        # the health mark lives at this entry only: the chunk loop under
+        # it also serves count_windows (the driver's flush), whose
+        # windows their owner marks
+        metrics.mark_window(len(counts), len(src),
+                            engine="triangle_stream",
+                            tier=self.stream_tier)
+        return counts
+
+    def _count_stream_device(self, src: np.ndarray,
+                             dst: np.ndarray) -> list:
+        """The device tier of count_stream."""
+        eb = self.eb
 
         n = len(src)
         num_w = -(-n // eb)

@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from .. import kernels
+from ..utils import costmodel
 from . import intersect
 from .compact_ingress import widen_stack
 
@@ -159,7 +160,8 @@ class WindowCounter:
     reuses it otherwise. Each call is one launch of the counter kernel
     (csrc/window_counter.cu, one entry per wire) on the current stream,
     with no synchronisation. On the CPU it runs `count_windows_plain`
-    (after `widen_stack` on the compact wire)."""
+    (after `widen_stack` on the compact wire). A call is one launch of
+    the cost observatory (utils/costmodel.py, `counter_work`)."""
 
     def __init__(self, vb: int, kb: int, device: torch.device):
         self.vb, self.kb = vb, kb
@@ -194,22 +196,28 @@ class WindowCounter:
                     or tuple(t.shape) != (w,) or not t.is_contiguous():
                 raise ValueError("out must be two contiguous int32 [%d] "
                                  "tensors on %s" % (w, src.device))
-        if src.device.type == "cpu":
-            if wire == "compact":
-                src, dst, valid = widen_stack(src, dst, valid, eb, self.vb)
-            got = count_windows_plain(src, dst, valid, self.vb, self.kb)
-            if out is None:
-                return got
-            for t, g in zip(out, got):
-                t.copy_(g)
-            return out
-        _check(src, dst, valid, self.vb, self.kb, wire)
-        self.reserve(w, eb)
-        count, overflow = out or (
-            torch.empty(w, dtype=torch.int32, device=src.device)
-            for _ in range(2))
-        launch(src, dst, valid, self.vb, self.kb, self.scratch, count,
-               overflow, wire)
+        with costmodel.launch(
+                "window_counter_compact" if wire == "compact"
+                else "window_counter", (src,),
+                lambda: costmodel.counter_work(w, eb, wire), src.device):
+            if src.device.type == "cpu":
+                if wire == "compact":
+                    src, dst, valid = widen_stack(src, dst, valid, eb,
+                                                  self.vb)
+                got = count_windows_plain(src, dst, valid, self.vb,
+                                          self.kb)
+                if out is None:
+                    return got
+                for t, g in zip(out, got):
+                    t.copy_(g)
+                return out
+            _check(src, dst, valid, self.vb, self.kb, wire)
+            self.reserve(w, eb)
+            count, overflow = out or (
+                torch.empty(w, dtype=torch.int32, device=src.device)
+                for _ in range(2))
+            launch(src, dst, valid, self.vb, self.kb, self.scratch, count,
+                   overflow, wire)
         return count, overflow
 
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils import costmodel
 from . import unionfind
 from .compact_ingress import widen_stack
 from .window_counter import (WIRES, WindowCounter, check_wire,
@@ -105,16 +106,21 @@ class WindowSummary:
         if wire not in WIRES:
             raise ValueError("unknown wire %r (choices: %s)"
                              % (wire, WIRES))
-        if src.device.type == "cpu":
-            if wire == "compact":
-                src, dst, valid = widen_stack(src, dst, valid, src.shape[1],
-                                              self.vb)
-            return summarize_windows_plain(carry, src, dst, valid,
-                                           self.vb, self.kb)
-        sums = torch.empty(3, src.shape[0], dtype=torch.int32,
-                           device=src.device)
-        summarize(carry, src, dst, valid, self.vb, sums, wire)
-        tri, overflow = self.counter(src, dst, valid, wire)
+        w, eb = src.shape
+        with costmodel.launch(
+                "window_summary_compact" if wire == "compact"
+                else "window_summary", (carry[0], src),
+                lambda: costmodel.summary_work(w, eb, self.vb, wire),
+                src.device):
+            if src.device.type == "cpu":
+                if wire == "compact":
+                    src, dst, valid = widen_stack(src, dst, valid, eb,
+                                                  self.vb)
+                return summarize_windows_plain(carry, src, dst, valid,
+                                               self.vb, self.kb)
+            sums = torch.empty(3, w, dtype=torch.int32, device=src.device)
+            summarize(carry, src, dst, valid, self.vb, sums, wire)
+            tri, overflow = self.counter(src, dst, valid, wire)
         return sums[0], sums[1], sums[2] != 0, tri, overflow
 
 

@@ -13,6 +13,10 @@ other. The contract:
   they are;
 - `load_latest` tries the newest generation, then the previous one, and
   returns None where neither exists.
+A completed save stamps a durable `checkpoint_saved` flight-recorder
+event and fires the `ckpt_save` fault site (utils/faults.py) after the
+rename; a restore fires `ckpt_restore` first and stamps
+`checkpoint_restored` or a durable `checkpoint_corrupt`.
 `CheckpointPolicy` is the cadence (every N windows and/or every T
 seconds, with an injectable clock) the driver asks at its window and
 chunk boundaries.
@@ -27,6 +31,9 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
+
+from . import faults
+from . import telemetry
 
 _ARRAY_KEY = "__arrays__"
 
@@ -118,6 +125,9 @@ def save(path: str, tree: Any) -> None:
                 os.unlink(written)
             except OSError:
                 pass
+    telemetry.event("checkpoint_saved", durable=True, path=path)
+    # damage to a completed checkpoint, injected after the rename
+    faults.fire("ckpt_save", path)
 
 
 def restore(path: str) -> Any:
@@ -125,16 +135,21 @@ def restore(path: str) -> Any:
     import zipfile
     import zlib
 
+    faults.fire("ckpt_restore", path)
     try:
         with np.load(path, allow_pickle=False) as data:
             spec = json.loads(bytes(data[_ARRAY_KEY + "spec"]).decode())
             arrays = {k: data[k] for k in data.files
                       if k != _ARRAY_KEY + "spec"}
-        return _unflatten(spec, arrays)
+        tree = _unflatten(spec, arrays)
     except (zipfile.BadZipFile, zlib.error, ValueError, KeyError,
             EOFError, json.JSONDecodeError, TypeError, IndexError) as e:
         # what np.load and the spec decode raise on damaged archives
+        telemetry.event("checkpoint_corrupt", durable=True, path=path,
+                        cause=type(e).__name__)
         raise CheckpointCorrupt(path, e) from e
+    telemetry.event("checkpoint_restored", path=path)
+    return tree
 
 
 def load_latest(path: str):

@@ -2,16 +2,21 @@
 knobs are declared, parsed and documented.
 
 Port of the JAX package's `utils/knobs.py`: the registry API as it is
-(`Knob`, `KnobError`, `register`, `get_int`, `get_bool`, `get_str`,
-`get_path`; :46-180 there; `get_float` and the README table's
-`render_table` come with the float knobs of step 1.8), with
-only the knobs the port reads so far registered, under the JAX names,
-defaults and bounds (:228-262): the dispatch autotuner's
-(`ops/autotune.py`) and the resident tier's (`ops/resident_engine.py`).
-The rest of the registry comes with the host hooks (ROADMAP step 1.8).
+(`Knob`, `KnobError`, `register`, `get_int`, `get_float`, `get_bool`,
+`get_str`, `get_path`, `render_table`; :46-180 and :631-649 there), with
+the knobs the port reads registered under the JAX names, kinds, defaults
+and bounds (:180-625 there): the stage guard's and the demotion
+registry's (`utils/resilience.py`), the dispatch autotuner's
+(`ops/autotune.py`), the resident tier's (`ops/resident_engine.py`), the
+host hooks' (`utils/telemetry.py`, `metrics.py`, `healthz.py`,
+`wal.py`, `latency.py`, `sanitize.py`, `costmodel.py`, `provenance.py`)
+and the GNN engine's width and activation (`ops/gnn_window.py`). The
+cost model's peaks are not knobs here: they come from the card's row of
+`utils/costmodel.PEAKS`.
 
 - Reads are live: `os.environ` is consulted on every call, never
-  cached, so a test or a tool can flip a knob mid-process.
+  cached, so a test or a tool can flip a knob mid-process. The engines
+  read the hook knobs once a call, not once a window.
 - A malformed value raises `KnobError` naming the knob, the text and the
   expected kind, at the read site.
 - Unset and empty both mean the default.
@@ -26,7 +31,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 __all__ = ["Knob", "KnobError", "REGISTRY", "register", "get_int",
-           "get_bool", "get_str", "get_path"]
+           "get_float", "get_bool", "get_str", "get_path", "render_table"]
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
@@ -46,8 +51,8 @@ class KnobError(ValueError):
 
 @dataclass(frozen=True)
 class Knob:
-    """One declared environment knob. `kind` is one of 'int', 'bool',
-    'str', 'path'; `lo`/`hi` clamp parsed numbers; `choices`
+    """One declared environment knob. `kind` is one of 'int', 'float',
+    'bool', 'str', 'path'; `lo`/`hi` clamp parsed numbers; `choices`
     restricts str knobs; `default_text` says how the default reads
     where it is computed; `help` is the knob's meaning."""
 
@@ -66,7 +71,7 @@ REGISTRY: Dict[str, Knob] = {}
 
 def register(name: str, kind: str, default, help: str, **kw) -> Knob:
     assert name.startswith("GS_"), name
-    assert kind in ("int", "bool", "str", "path"), kind
+    assert kind in ("int", "float", "bool", "str", "path"), kind
     assert name not in REGISTRY, "duplicate knob %s" % name
     knob = Knob(name, kind, default, help, **kw)
     REGISTRY[name] = knob
@@ -108,6 +113,19 @@ def get_int(name: str) -> Optional[int]:
     return _clamp(knob, num)
 
 
+def get_float(name: str) -> Optional[float]:
+    knob = _knob(name, "float")
+    raw = _raw(name)
+    if raw is None:
+        return knob.default if knob.default is None \
+            else _clamp(knob, float(knob.default))
+    try:
+        num = float(raw)
+    except ValueError:
+        raise KnobError(knob, raw, "not a number") from None
+    return _clamp(knob, num)
+
+
 def get_bool(name: str) -> bool:
     knob = _knob(name, "bool")
     raw = _raw(name)
@@ -145,6 +163,27 @@ def get_path(name: str) -> Optional[str]:
 # the registry
 # ----------------------------------------------------------------------
 
+# stage guard and tier demotion (utils/resilience.py)
+register("GS_STAGE_TIMEOUT_S", "float", 0.0, lo=0.0,
+         help="per-stage deadline of the ingress pipeline's host stages "
+              "(prep, h2d): a hung stage surfaces as a typed "
+              "`StageTimeout` naming the chunk; 0 = off",
+         default_text="0 (off)")
+register("GS_STAGE_RETRIES", "int", 0, lo=0,
+         help="bounded retry of the host stages (prep, h2d); exhaustion "
+              "raises `StageFailed` with per-attempt timings. A kernel "
+              "or CUDA error is never retried")
+register("GS_STAGE_BACKOFF_S", "float", 0.05, lo=0.0,
+         help="deterministic (jitterless) exponential backoff base "
+              "between attempts")
+register("GS_TIER_DEMOTE", "bool", True,
+         help="`0` pins the resolved tier: a persistent host-stage "
+              "failure raises instead of demoting (read by the demotion "
+              "registry; the driver's ladder uses it)")
+register("GS_MESH_DEMOTE", "bool", True,
+         help="`0` pins a sharded session to the mesh (the "
+              "`sharded→scan` rung); subordinate to `GS_TIER_DEMOTE`")
+
 # dispatch autotuner (ops/autotune.py)
 register("GS_AUTOTUNE", "bool", True,
          help="`0` disables the online dispatch tuner "
@@ -181,3 +220,172 @@ register("GS_RESIDENT_SLOTS", "int", 2, lo=1,
               "prepped and copied ahead of dispatch (2 = slot N+1 fills "
               "while N computes)")
 
+# flight recorder (utils/telemetry.py)
+register("GS_TELEMETRY", "bool", False,
+         help="arm the flight recorder (`utils/telemetry.py`): spans, "
+              "events, counters and gauges with a per-run trace id and "
+              "per-chunk correlation; off, every hook is a guarded "
+              "no-op and results are bit-identical",
+         default_text="0 (off)")
+register("GS_TRACE_DIR", "path", None,
+         help="directory of the crash-safe JSONL run ledger "
+              "(`trace_<id>.jsonl`); durable events (faults, stage "
+              "errors, checkpoints, resumes) are appended and fsync'd "
+              "at once, buffered spans flush at exit, SIGTERM or a "
+              "fatal fault",
+         default_text="unset")
+register("GS_TRACE_RING", "int", 4096, lo=16,
+         help="in-memory ring-buffer capacity (records)")
+register("GS_TRACE_DURABLE", "bool", True,
+         help="`0` drops the per-durable-event fsync (the append "
+              "still happens)")
+
+# live health plane (utils/metrics.py + utils/healthz.py)
+register("GS_METRICS", "bool", False,
+         help="arm the streaming metrics registry (`utils/metrics.py`): "
+              "stage latency histograms, window and edge throughput, "
+              "retry, fault and checkpoint counters, fed from the "
+              "flight-recorder hooks; off, every hook is a guarded no-op",
+         default_text="0 (off)")
+register("GS_METRICS_PORT", "int", 0, lo=0, hi=65535,
+         help="serve `/metrics` (Prometheus text) and `/healthz` (JSON) "
+              "from a daemon thread on this 127.0.0.1 port "
+              "(`utils/healthz.py`); 0 = no server",
+         default_text="0 (off)")
+register("GS_METRICS_SERIES", "int", 64, lo=1,
+         help="label-set cardinality bound per metric name: beyond it "
+              "new label sets collapse into one `overflow` series")
+register("GS_METRICS_COMPILE_BASE", "int", 8, lo=1,
+         help="base allowance of new dispatch shapes per wrapped "
+              "dispatch in the shape watch: `base + log2(max/min "
+              "observed size) + 1` before a durable `recompile_storm` "
+              "event fires")
+register("GS_HEALTH_STALE_S", "float", 30.0, lo=0.0,
+         help="staleness deadline: with the metrics plane armed, no "
+              "window finalizing for this many seconds flips `/healthz` "
+              "to `degraded`; 0 disables the watchdog",
+         default_text="30")
+
+# write-ahead edge journal (utils/wal.py)
+register("GS_WAL", "bool", True,
+         help="`0` is the journal kill switch: every `enable_wal()` "
+              "call degrades to a no-op; 1 (default) lets callers that "
+              "enable a journal get one")
+register("GS_WAL_FSYNC_S", "float", 0.0, lo=0.0,
+         help="fsync batching interval of the edge journal: 0 (default) "
+              "fsyncs every append, >0 at most one fsync per interval",
+         default_text="0 (every append)")
+register("GS_WAL_RETAIN", "bool", False,
+         help="`1` arms journal retention: every checkpoint flush "
+              "truncates the segments the older of the two kept "
+              "checkpoint generations covers",
+         default_text="0 (off)")
+register("GS_WAL_SEGMENT_BYTES", "int", 1 << 26, lo=4096,
+         help="segment-rotation size of the journal (and of the "
+              "dead-letter and provenance ledgers); records never split "
+              "across segments",
+         default_text="67108864 (64 MiB)")
+
+# end-to-end latency plane (utils/latency.py)
+register("GS_LATENCY", "bool", False,
+         help="arm the ingest→deliver latency plane "
+              "(`utils/latency.py`): admission stamps (carried through "
+              "the journal's ts column), per-window stage waterfalls, "
+              "per-lane percentiles, the oldest-unfinalized-edge age "
+              "and the SLO burn; off, every hook is a guarded no-op",
+         default_text="0 (off)")
+register("GS_LAT_MARKS", "int", 4096, lo=16,
+         help="per-lane admission-mark memory bound")
+register("GS_LAT_PENDING", "int", 1024, lo=16,
+         help="bounded finalized-but-undelivered window records")
+register("GS_SLO_P99_S", "float", 0.0, lo=0.0,
+         help="delivered-window end-to-end latency target (seconds); "
+              "0 disables the SLO module",
+         default_text="0 (off)")
+register("GS_SLO_BUDGET", "float", 0.01, lo=1e-6, hi=1.0,
+         help="error budget: the allowed fraction of windows over the "
+              "GS_SLO_P99_S target")
+register("GS_SLO_WINDOW_S", "float", 60.0, lo=1.0,
+         help="sliding window (seconds) of the SLO burn rate")
+register("GS_SLO_BURN", "float", 2.0, lo=0.1,
+         help="burn rate at or above which `/healthz`'s `latency` "
+              "section flips `degraded` (a durable `slo_burn` event)")
+
+# admission sanitizer and dead-letter journal (utils/sanitize.py)
+register("GS_SANITIZE", "str", "off", choices=("off", "on", "strict"),
+         help="admission sanitizer (`utils/sanitize.py`) at every "
+              "engine's admission, before the journal: `off` (default) "
+              "bit-identical, `on` rejects structurally invalid records "
+              "with typed reasons, `strict` adds the self-loop and "
+              "duplicate-flood policies",
+         default_text="off")
+register("GS_DLQ_DIR", "path", None,
+         help="dead-letter journal directory: rejected records are "
+              "appended as CRC-framed segment records; unset/`0` = "
+              "rejections are counted and dropped",
+         default_text="unset")
+register("GS_DLQ_RETAIN", "int", 0, lo=0,
+         help="closed dead-letter segments kept after rotation; 0 "
+              "keeps every segment",
+         default_text="0 (keep all)")
+register("GS_MAX_BATCH_EDGES", "int", 0, lo=0,
+         help="admission batch-size bound: a longer process() batch is "
+              "refused whole with a typed `BatchRejected`; 0 = "
+              "unbounded",
+         default_text="0 (unbounded)")
+
+# per-launch cost observatory (utils/costmodel.py)
+register("GS_COSTMODEL", "bool", False,
+         help="arm the per-launch cost observatory "
+              "(`utils/costmodel.py`): each kernel launch on the engine "
+              "paths is timed with CUDA events (the host clock on the "
+              "CPU) and joined with its bytes and operations against "
+              "the card's peaks; off, every hook is a guarded no-op",
+         default_text="0 (off)")
+
+# windowed GNN workload (ops/gnn_window.py)
+register("GS_GNN_F", "int", 16, lo=1, hi=256,
+         help="feature width F of the GNN engines' per-vertex slab "
+              "(`ops/gnn_window.py`), read at construction when "
+              "feature_dim is not given")
+register("GS_GNN_ACT", "str", "relu", choices=("relu", "abs",
+                                               "identity"),
+         help="activation of the GNN dense update (exact elementwise "
+              "ops only), read at construction when activation is not "
+              "given")
+
+# per-window provenance ledger (utils/provenance.py)
+register("GS_PROVENANCE", "bool", False,
+         help="arm the per-window provenance ledger "
+              "(`utils/provenance.py`): every finalize appends a "
+              "CRC-framed record (tenant, window, journal span, tier, "
+              "program, knob fingerprint, summary sha256); off, every "
+              "emit() is a no-op")
+register("GS_PROVENANCE_DIR", "path", None,
+         help="directory of the ledger's `prov_<n>.seg` segments; "
+              "unset disarms emit() even with GS_PROVENANCE=1")
+register("GS_PROVENANCE_RETAIN", "int", 0, lo=0,
+         help="closed ledger segments kept behind the open one; 0 = "
+              "keep everything")
+
+
+# ----------------------------------------------------------------------
+# docs rendering (the README's port knob table)
+# ----------------------------------------------------------------------
+def _default_cell(knob: Knob) -> str:
+    if knob.default_text is not None:
+        return knob.default_text
+    if knob.kind == "bool":
+        return "1" if knob.default else "0"
+    return str(knob.default)
+
+
+def render_table() -> str:
+    """The README's table of the port's `GS_*` knobs, one row per
+    registered knob in registration order."""
+    lines = ["| knob | default | meaning |", "|---|---|---|"]
+    for knob in REGISTRY.values():
+        lines.append("| `%s` | %s | %s |"
+                     % (knob.name, _default_cell(knob),
+                        " ".join(knob.help.split())))
+    return "\n".join(lines)

@@ -1,7 +1,8 @@
 """The port's knob registry (gelly_streaming_tpu_torch/utils/knobs.py)
-against the JAX package's: the seven knobs of the dispatch autotuner and
-the resident tier with the same kinds, defaults, bounds and choices, and
-the same parsing (live reads, clamping, typed refusals)."""
+against the JAX package's: every knob the port reads (the stage guard
+and demotion registry, the dispatch autotuner, the resident tier, the
+host hooks, the GNN engines) with the same kinds, defaults, bounds and
+choices, and the same parsing (live reads, clamping, typed refusals)."""
 
 import pytest
 import torch
@@ -9,9 +10,20 @@ import torch
 from gelly_streaming_tpu.utils import knobs as jax_knobs
 from gelly_streaming_tpu_torch.utils import knobs
 
-SLICE_KNOBS = ("GS_AUTOTUNE", "GS_AUTOTUNE_ROUND", "GS_AUTOTUNE_EXPLORE",
-               "GS_TUNE_CACHE", "GS_RESIDENT", "GS_RESIDENT_SPB",
-               "GS_RESIDENT_SLOTS")
+SLICE_KNOBS = (
+    "GS_STAGE_TIMEOUT_S", "GS_STAGE_RETRIES", "GS_STAGE_BACKOFF_S",
+    "GS_TIER_DEMOTE", "GS_MESH_DEMOTE",
+    "GS_AUTOTUNE", "GS_AUTOTUNE_ROUND", "GS_AUTOTUNE_EXPLORE",
+    "GS_TUNE_CACHE", "GS_RESIDENT", "GS_RESIDENT_SPB", "GS_RESIDENT_SLOTS",
+    "GS_TELEMETRY", "GS_TRACE_DIR", "GS_TRACE_RING", "GS_TRACE_DURABLE",
+    "GS_METRICS", "GS_METRICS_PORT", "GS_METRICS_SERIES",
+    "GS_METRICS_COMPILE_BASE", "GS_HEALTH_STALE_S",
+    "GS_WAL", "GS_WAL_FSYNC_S", "GS_WAL_RETAIN", "GS_WAL_SEGMENT_BYTES",
+    "GS_LATENCY", "GS_LAT_MARKS", "GS_LAT_PENDING", "GS_SLO_P99_S",
+    "GS_SLO_BUDGET", "GS_SLO_WINDOW_S", "GS_SLO_BURN",
+    "GS_SANITIZE", "GS_DLQ_DIR", "GS_DLQ_RETAIN", "GS_MAX_BATCH_EDGES",
+    "GS_COSTMODEL", "GS_GNN_F", "GS_GNN_ACT",
+    "GS_PROVENANCE", "GS_PROVENANCE_DIR", "GS_PROVENANCE_RETAIN")
 
 
 @pytest.fixture(autouse=True)
@@ -75,3 +87,12 @@ def test_reads_are_live_and_unregistered_knobs_refused(monkeypatch):
         knobs.get_bool("GS_RESIDENT_SPB")       # the wrong kind
     with pytest.raises(AssertionError, match="duplicate"):
         knobs.register("GS_AUTOTUNE", "bool", True, help="again")
+
+
+def test_render_table_is_in_the_readme():
+    """The README's table of the port's knobs is `render_table()`'s."""
+    import os
+
+    readme = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "README.md")
+    assert knobs.render_table() in open(readme).read()
