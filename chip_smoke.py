@@ -4,7 +4,7 @@ NVIDIA GPU.
 
 Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and the
 native host runtime (gelly_streaming_tpu_torch/native, g++) and runs
-twenty-eight phases, with the dispatch tuner's cache (GS_TUNE_CACHE) in a
+thirty-one phases, with the dispatch tuner's cache (GS_TUNE_CACHE) in a
 fresh temporary directory. The first twenty-two run with GS_AUTOTUNE=0,
 so their numbers stay comparable across runs. Eight hold a kernel against its plain PyTorch version on
 the card: intersect (ascending and shuffled rows), counter (count and
@@ -93,7 +93,26 @@ to equal results, and passes a fatal fault and an error of the launch
 wrapper through unretried and unwrapped; costmodel_health arms the cost
 observatory and the metrics registry, reads /healthz on an ephemeral
 local port while the engines stream, and holds each kernel's cost-model
-bound equal to its bound on the kernels line. Each path reports
+bound equal to its bound on the kernels line. Three drive the driver's
+hooks, its demotion ladder and tracing: hooks_driver runs the driver
+over the same stream (the scan tier fed as in phase driver, then the
+resident tier) disarmed, with each hook alone (telemetry, metrics,
+latency, costmodel, provenance, the journal, the sanitizer,
+tracing=True) and with all (every window, the launches and the host
+syncs equal to the disarmed pass; edges/s), kills a journal-armed driver
+inside a call and recovers it by resume_and_replay bit-exactly, holds
+the cost observatory's snapshot row to the kernels line's bound and
+reads /healthz mid-stream; demotion drives the ladder on a 2M-edge
+prefix, which never leaves the card (injected host faults at dispatch:
+resident to scan, native to host, none off scan; a failed h2d copy
+raised; probation and re-promotion; a prep fault retried; a resident
+prep failure demoted to scan; a KernelError raised unwrapped with
+nothing demoted; GS_TIER_DEMOTE=0); api_tracing traces the record
+API's reduce_on_edges over phase api's 1M edges beside its untraced
+rate, arms the reduce stream's spans, and reports the device_trace
+(torch.profiler) capture of a driver call taken first in the process.
+Every main-path phase ends with no demotion in the drivers' logs or the
+process's. Each path reports
 its rate, its launches and
 where its time goes. Beside the dense and GNN kernels it times one
 PyTorch call for the same product as a yardstick (torch.mm, torch._int_mm;
@@ -149,6 +168,20 @@ class SmokeFailure(Exception):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+_BENCH_STREAM = []
+
+
+def bench_stream() -> tuple:
+    """make_stream(STREAM_EDGES, VB, seed=SEED), the north-star stream,
+    made once a run (seconds of numpy each time); each caller gets its
+    own copies."""
+    if not _BENCH_STREAM:
+        from gelly_streaming_tpu_torch import make_stream
+
+        _BENCH_STREAM.extend(make_stream(STREAM_EDGES, VB, seed=SEED))
+    return tuple(a.copy() for a in _BENCH_STREAM)
 
 
 def card() -> str:
@@ -509,12 +542,12 @@ def phase_stream(dev):
     counted; one run under forced_sync, equal and timed. Returns the
     launches and the counts."""
     from gelly_streaming_tpu_torch import (TriangleWindowKernel, forced_sync,
-                                           kernels, make_stream)
+                                           kernels)
     from gelly_streaming_tpu_torch.ops import host_triangles
     from gelly_streaming_tpu_torch.ops import segment as seg
     from gelly_streaming_tpu_torch.ops import window_counter as wc
 
-    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    src, dst = bench_stream()
     kern = TriangleWindowKernel(EB, VB)        # device=None: the card
     require(kern.device.type == "cuda", "kernel not on the card")
     require(kern.kb == KB, "kb %d, want %d" % (kern.kb, KB))
@@ -616,9 +649,9 @@ def phase_stream_compact(dev, want: list) -> dict:
     count (checked there against plain), launches of the compact counter
     counted; one forced_sync run, equal and timed."""
     from gelly_streaming_tpu_torch import (TriangleWindowKernel, forced_sync,
-                                           kernels, make_stream)
+                                           kernels)
 
-    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    src, dst = bench_stream()
     kern = TriangleWindowKernel(EB, VB, ingress="compact")   # the card
     require(kern.device.type == "cuda" and kern.ingress == "compact",
             "compact kernel not on the card")
@@ -880,13 +913,13 @@ def phase_summary_stream(dev):
     forced_sync, equal and timed. Returns the launches, the summaries
     and the final state_dict."""
     from gelly_streaming_tpu_torch import (StreamSummaryEngine, forced_sync,
-                                           kernels, make_stream)
+                                           kernels)
     from gelly_streaming_tpu_torch.ops import host_summary, host_triangles
     from gelly_streaming_tpu_torch.ops import scan_analytics as sa
     from gelly_streaming_tpu_torch.ops import segment as seg
     from gelly_streaming_tpu_torch.ops import window_summary as ws
 
-    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    src, dst = bench_stream()
     eng = StreamSummaryEngine(EB, VB)          # device=None: the card
     require(eng.device.type == "cuda", "engine not on the card")
     require(eng.kb == KB, "kb %d, want %d" % (eng.kb, KB))
@@ -985,9 +1018,9 @@ def phase_summary_stream_compact(dev, want: list, want_state: dict) -> dict:
     compact summary kernel and the compact counter counted; one
     forced_sync run, equal and timed."""
     from gelly_streaming_tpu_torch import (StreamSummaryEngine, forced_sync,
-                                           kernels, make_stream)
+                                           kernels)
 
-    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    src, dst = bench_stream()
     eng = StreamSummaryEngine(EB, VB, ingress="compact")   # the card
     require(eng.device.type == "cuda" and eng.ingress == "compact",
             "compact engine not on the card")
@@ -1378,11 +1411,11 @@ def phase_gnn_stream(dev) -> dict:
     plain one, the kernel's launches counted; one run under forced_sync,
     equal and timed."""
     from gelly_streaming_tpu_torch import (GnnHostEngine, GnnSummaryEngine,
-                                           forced_sync, kernels, make_stream)
+                                           forced_sync, kernels)
     from gelly_streaming_tpu_torch.ops import gnn_round as gr
     from gelly_streaming_tpu_torch.ops import gnn_window as gw
 
-    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    src, dst = bench_stream()
     W, b = gnn_weights(GNN_F, -12, -3)
     slab = gw.default_features(VB, GNN_F, seed=0)
     eng = GnnSummaryEngine(EB, VB, feature_dim=GNN_F)   # device=None
@@ -2254,10 +2287,9 @@ def phase_driver(dev, counts: list) -> dict:
     launches."""
     import tempfile
 
-    from gelly_streaming_tpu_torch import (StreamingAnalyticsDriver,
-                                           kernels, make_stream)
+    from gelly_streaming_tpu_torch import StreamingAnalyticsDriver, kernels
 
-    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    src, dst = bench_stream()
     num_w = STREAM_EDGES // EB
     require(sum(DRIVER_FEED) == num_w, "feed %s" % (DRIVER_FEED,))
 
@@ -2292,6 +2324,7 @@ def phase_driver(dev, counts: list) -> dict:
             "driver triangles differ from count_stream's")
     require(got[-1].degrees.sum() == 2 * STREAM_EDGES
             and len(got[-1].vertex_ids) == VB, "driver: last window")
+    no_demotions("phase driver", drv)
 
     runs, refolds = {}, {}
     chunks = -(-num_w // StreamingAnalyticsDriver._SCAN_CHUNK)
@@ -2872,7 +2905,7 @@ def phase_reduce_stream(dev) -> dict:
                     "repeat_seconds": repeats, "launches": launches}
 
     # the large-vb tier: the north-star stream, sum over "all"
-    bsrc, bdst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    bsrc, bdst = bench_stream()
     bval = red_values(bsrc, bdst)
     eng = WindowedEdgeReduce(VB, RED_BIG_EB, "sum", "all")
     got, wall, launches, repeats = timed(eng, bsrc, bdst, bval, reps=1)
@@ -2998,7 +3031,6 @@ def phase_api(dev) -> dict:
     golden_s = time.perf_counter() - t0
     src, dst = P.make_stream(API_EDGES, VB, seed=SEED)
     ts = np.arange(API_EDGES) // API_EDGES_PER_MS
-    weight = 1 + (src + 3 * dst) % 97
     res = {"goldens_seconds": golden_s}
 
     # reduce_on_edges over 512 ms tumbling windows, direction ALL
@@ -3011,26 +3043,11 @@ def phase_api(dev) -> dict:
     env.execute()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    records = env._results[out.node.id]
-    n_win = -(-API_EDGES // (API_WINDOW_MS * API_EDGES_PER_MS))
+    n_win = check_api_reduce("api", env._results[out.node.id], src, dst,
+                             ts)
     require(launches["cell_reduce"] == n_win,
             "api: %d cell_reduce launches for %d windows"
             % (launches["cell_reduce"], n_win))
-    win = ts // API_WINDOW_MS
-    got = {}
-    for (vid, value), wmax in records:
-        got.setdefault(wmax, []).append((vid, value))
-    require(len(got) == n_win, "api: %d windows" % len(got))
-    for w in range(n_win):
-        m = win == w
-        ids = np.concatenate([src[m], dst[m]])
-        sums = np.bincount(ids, np.concatenate([weight[m], weight[m]]),
-                           minlength=VB)
-        have = np.flatnonzero(np.bincount(ids, minlength=VB))
-        rows = sorted(got[w * API_WINDOW_MS + API_WINDOW_MS - 1])
-        require([r[0] for r in rows] == have.tolist()
-                and [r[1] for r in rows] == sums[have].astype(np.int64)
-                .tolist(), "api reduce window %d differs" % w)
     res["reduce"] = {"edges": API_EDGES, "windows": n_win,
                      "seconds": wall, "edges_per_s": API_EDGES / wall,
                      "launches": launches["cell_reduce"]}
@@ -3115,7 +3132,32 @@ def phase_api(dev) -> dict:
              {s: round(res["triangles_%dms" % s]["edges_per_s"], 1)
               for s in API_TRI_MS}, routes,
              res["degrees"]["edges_per_s"]))
-    return {"cell_reduce": launches["cell_reduce"]}
+    return {"cell_reduce": launches["cell_reduce"],
+            "edges_per_s": res["reduce"]["edges_per_s"]}
+
+
+def check_api_reduce(label: str, records, src, dst, ts) -> int:
+    """Every window of the record API's slice(API_WINDOW_MS, ALL)
+    .reduce_on_edges(sum) job (`records`, the sink's (value, ts) pairs)
+    equal to numpy's sums of the edges' weights; returns the windows."""
+    weight = 1 + (src + 3 * dst) % 97
+    n_win = -(-API_EDGES // (API_WINDOW_MS * API_EDGES_PER_MS))
+    win = ts // API_WINDOW_MS
+    got = {}
+    for (vid, value), wmax in records:
+        got.setdefault(wmax, []).append((vid, value))
+    require(len(got) == n_win, "%s: %d windows" % (label, len(got)))
+    for w in range(n_win):
+        m = win == w
+        ids = np.concatenate([src[m], dst[m]])
+        sums = np.bincount(ids, np.concatenate([weight[m], weight[m]]),
+                           minlength=VB)
+        have = np.flatnonzero(np.bincount(ids, minlength=VB))
+        rows = sorted(got[w * API_WINDOW_MS + API_WINDOW_MS - 1])
+        require([r[0] for r in rows] == have.tolist()
+                and [r[1] for r in rows] == sums[have].astype(np.int64)
+                .tolist(), "%s reduce window %d differs" % (label, w))
+    return n_win
 
 
 # ----------------------------------------------------------------------
@@ -3504,10 +3546,9 @@ def phase_driver_slide(dev) -> dict:
     import tempfile
 
     from gelly_streaming_tpu_torch import (StreamingAnalyticsDriver,
-                                           TriangleWindowKernel, kernels,
-                                           make_stream)
+                                           TriangleWindowKernel, kernels)
 
-    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    src, dst = bench_stream()
     src, dst = src[:SLIDE_EDGES], dst[:SLIDE_EDGES]
     num_e = SLIDE_EDGES // SLIDE
 
@@ -3529,6 +3570,7 @@ def phase_driver_slide(dev) -> dict:
         require(launches[name] > 0, "kernel %s was not launched on the "
                 "sliding driver's path" % name)
     require(len(got) == num_e, "%d emissions, want %d" % (len(got), num_e))
+    no_demotions("phase driver_slide", drv)
 
     trailing = [(src[max(0, (i + 1) * SLIDE - EB):(i + 1) * SLIDE]
                  .astype(np.int32),
@@ -3633,10 +3675,9 @@ def phase_autotune(dev, counts: list, summaries: list, state: dict) -> dict:
     finishes the stream equal. No promotion is required: they depend on
     timing."""
     from gelly_streaming_tpu_torch import (StreamSummaryEngine,
-                                           TriangleWindowKernel, kernels,
-                                           make_stream)
+                                           TriangleWindowKernel, kernels)
 
-    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    src, dst = bench_stream()
     num_w = STREAM_EDGES // EB
     report = {}
     with knob_env(GS_AUTOTUNE=0):
@@ -3859,11 +3900,11 @@ def phase_resident(dev, summaries: list, state: dict) -> dict:
     idle share (event_busy), beside StreamSummaryEngine on the same wire
     in turns (scan, resident, resident, scan)."""
     from gelly_streaming_tpu_torch import (StreamSummaryEngine, forced_sync,
-                                           kernels, make_stream)
+                                           kernels)
     from gelly_streaming_tpu_torch.ops.resident_engine import (
         ResidentSummaryEngine)
 
-    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    src, dst = bench_stream()
     report = {}
     for pin in (None, "standard"):
         with knob_env(GS_AUTOTUNE=0):
@@ -3953,12 +3994,11 @@ def phase_gnn_resident(dev, want: list, want_slab: np.ndarray) -> dict:
     stream from phase gnn_stream's slab and weights: summaries and final
     slab equal to phase gnn_stream's, the super-batches replayed as CUDA
     graphs; edges/s and the idle share beside GnnSummaryEngine in turns."""
-    from gelly_streaming_tpu_torch import (GnnResidentEngine,
-                                           GnnSummaryEngine, forced_sync,
-                                           kernels, make_stream)
+    from gelly_streaming_tpu_torch import (GnnResidentEngine, GnnSummaryEngine,
+                                           forced_sync, kernels)
     from gelly_streaming_tpu_torch.ops import gnn_window as gw
 
-    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    src, dst = bench_stream()
     W, b = gnn_weights(GNN_F, -12, -3)
     slab = gw.default_features(VB, GNN_F, seed=0)
     eng = GnnResidentEngine(EB, VB, feature_dim=GNN_F)   # device=None
@@ -4027,10 +4067,9 @@ def phase_driver_resident(dev, want: list) -> dict:
     replays and the idle share beside the scan tier's one call in turns."""
     import tempfile
 
-    from gelly_streaming_tpu_torch import (StreamingAnalyticsDriver,
-                                           kernels, make_stream)
+    from gelly_streaming_tpu_torch import StreamingAnalyticsDriver, kernels
 
-    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    src, dst = bench_stream()
 
     def driver(**kw):
         return StreamingAnalyticsDriver(window_ms=1, edge_bucket=EB,
@@ -4053,6 +4092,7 @@ def phase_driver_resident(dev, want: list) -> dict:
                 "driver resident: %d replays, launches %s"
                 % (replays, launches))
         same_results("driver resident", want, got)
+        no_demotions("phase driver_resident", res)
         del got
         walls = {"scan": [], "resident": []}
         for label in ("scan", "resident", "resident", "scan"):
@@ -4271,13 +4311,12 @@ def hook_engines(dev) -> dict:
     resident graphs captured)."""
     from gelly_streaming_tpu_torch import (GnnSummaryEngine,
                                            StreamSummaryEngine,
-                                           TriangleWindowKernel,
-                                           make_stream)
+                                           TriangleWindowKernel)
     from gelly_streaming_tpu_torch.ops import gnn_window as gw
     from gelly_streaming_tpu_torch.ops.resident_engine import (
         ResidentSummaryEngine)
 
-    src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+    src, dst = bench_stream()
     W, b = gnn_weights(GNN_F, -12, -3)
     slab = gw.default_features(VB, GNN_F, seed=0)
 
@@ -4434,11 +4473,11 @@ def phase_hooks_engine(dev, counts, summaries, state, gnn_out) -> dict:
                           "device": torch.cuda.get_device_name(0)}))
 
         # a kill inside a call, recovered from checkpoint + journal
-        from gelly_streaming_tpu_torch import StreamSummaryEngine, make_stream
+        from gelly_streaming_tpu_torch import StreamSummaryEngine
         from gelly_streaming_tpu_torch.ops.resident_engine import (
             ResidentSummaryEngine)
 
-        src, dst = make_stream(STREAM_EDGES, VB, seed=SEED)
+        src, dst = bench_stream()
         cut = 128 * EB
         recovery = {}
         for name, make in (
@@ -4573,42 +4612,13 @@ def phase_costmodel_health(dev, made: dict, bounds: dict) -> dict:
     cost-model row per kernel on the path (and per resident replay),
     whose bound must equal the kernels line's bound at the same shape
     (`bounds`, PERF.md §6's column)."""
-    import threading
-    import urllib.error
-    import urllib.request
-
     from gelly_streaming_tpu_torch import kernels
-    from gelly_streaming_tpu_torch.utils import costmodel, healthz
+    from gelly_streaming_tpu_torch.utils import costmodel
 
     reset_hooks()
-    seen = []
-    stop = threading.Event()
     with knob_env(**hook_knobs(("costmodel", "metrics"), "")):
-        srv = healthz.start(port=0)
-        url = "http://127.0.0.1:%d/healthz" % srv.port
-
-        def poll():
-            while not stop.is_set():
-                try:
-                    with urllib.request.urlopen(url, timeout=5) as r:
-                        code, body = r.status, json.loads(r.read())
-                except urllib.error.HTTPError as e:   # 503: degraded
-                    code, body = e.code, json.loads(e.read())
-                seen.append((code, body["status"],
-                             body["windows_finalized"]))
-                stop.wait(0.005)
-
-        poller = threading.Thread(target=poll, daemon=True)
-        poller.start()
-        total = 0
-        try:
-            for name, (eng, _twin, run) in made.items():
-                total += len(run(eng)[0])
-        finally:
-            stop.set()
-            poller.join()
-            final = json.loads(urllib.request.urlopen(url).read())
-            healthz.stop()
+        seen, final, total = poll_healthz(lambda: sum(
+            len(run(eng)[0]) for eng, _twin, run in made.values()))
         rows = costmodel.report()
     mid = [s for s in seen if 0 < s[2] < total]
     require(mid and all(c == 200 and st == "ok" for c, st, _w in seen),
@@ -4653,6 +4663,559 @@ def phase_costmodel_health(dev, made: dict, bounds: dict) -> dict:
     return {"rows": out}
 
 
+# ----------------------------------------------------------------------
+# the driver's hooks, its demotion ladder and tracing
+# ----------------------------------------------------------------------
+DRIVER_HOOKS = ("telemetry", "metrics", "latency", "costmodel",
+                "provenance", "wal", "sanitize", "tracing")
+# hooks_driver's passes run twice on the scan tier: those whose share
+# of the disarmed rate stands out of the hosts' noise
+MIRRORED = ("disarmed", "all", "wal", "provenance", "sanitize")
+DEMOTE_EDGES = 2_097_152            # phase demotion's prefix: 64 windows
+DRIVER_KILL = 64                    # the kill drill's checkpoint window
+DRIVER_KILL_CALL = 100              # and its first call, killed inside
+
+
+def no_demotions(label: str, *drivers) -> None:
+    """(b): a main path demotes nothing, in the drivers' logs or the
+    process's."""
+    from gelly_streaming_tpu_torch.utils import resilience
+
+    logs = [d.demotion_log() for d in drivers]
+    require(not any(logs) and not resilience.demotion_events(),
+            "%s demoted: %s %s" % (label, logs,
+                                   resilience.demotion_events()))
+
+
+def poll_healthz(run) -> tuple:
+    """Serve /healthz on an ephemeral local port while run() streams,
+    reading it from a thread: (reads as (code, status, windows), the
+    final body, run()'s value)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from gelly_streaming_tpu_torch.utils import healthz
+
+    seen = []
+    stop = threading.Event()
+    srv = healthz.start(port=0)
+    url = "http://127.0.0.1:%d/healthz" % srv.port
+
+    def poll():
+        while not stop.is_set():
+            try:
+                with urllib.request.urlopen(url, timeout=5) as r:
+                    code, body = r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:   # 503: degraded
+                code, body = e.code, json.loads(e.read())
+            seen.append((code, body["status"], body["windows_finalized"]))
+            stop.wait(0.005)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    try:
+        value = run()
+    finally:
+        stop.set()
+        poller.join()
+        final = json.loads(urllib.request.urlopen(url).read())
+        healthz.stop()
+    return seen, final, value
+
+
+def driver_hooks_pass(make, feed, hooks, tmp: str, want: list) -> dict:
+    """One driver pass with `hooks` armed (the journal by enable_wal,
+    tracing by the constructor): every window equal to `want`; the
+    launches, host syncs and wall; the journal's bytes and the cost
+    observatory's rows where armed."""
+    from gelly_streaming_tpu_torch import kernels
+    from gelly_streaming_tpu_torch.utils import costmodel, metrics
+
+    reset_hooks()
+    with knob_env(**hook_knobs(hooks, tmp)):
+        drv = make(tracing="tracing" in hooks)
+        if "wal" in hooks:
+            wal_dir = os.path.join(tmp, "wal")
+            require(drv.enable_wal(wal_dir), "enable_wal refused")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with SyncCount() as syncs:
+            out = feed(drv)
+        torch.cuda.synchronize()
+        res = {"wall": time.perf_counter() - t0,
+               "launches": dict(kernels.LAUNCHES), "syncs": syncs.n}
+        same_results("hooks_driver %s" % (hooks,), want, out)
+        if "latency" in hooks:
+            require(all(r.latency is not None for r in out),
+                    "hooks_driver: a window without its latency record")
+        del out
+        no_demotions("hooks_driver %s" % (hooks,), drv)
+        if "tracing" in hooks:
+            res["steps"] = {r["op"]: r["calls"] for r in drv.trace_report()}
+        if "wal" in hooks:
+            drv._wal.close()
+            res["journal_bytes"] = dir_bytes(wal_dir)
+        if "metrics" in hooks:
+            h = metrics.histogram("gs_wal_fsync_seconds")
+            res["fsync_s"] = None if h is None else h["sum"]
+        if "costmodel" in hooks:
+            res["cost_rows"] = costmodel.report()
+    return res
+
+
+def phase_hooks_driver(dev, want: list, snapshot: dict) -> dict:
+    """The host hooks on the driver's main path: the scan tier fed as in
+    phase driver (DRIVER_FEED calls, the vertex bucket growing from 4096
+    to 65536), then the resident tier in one call, each disarmed, with
+    each hook alone (DRIVER_HOOKS) and with all; on the scan tier the
+    passes in MIRRORED run again in a mirrored turn. Every window of
+    every pass equal to phase driver's (`want`), the same launches and
+    host syncs as the disarmed pass, no demotion; edges/s of the better
+    pass (the one pass where a hook ran once). Then a kill inside a
+    call (a checkpoint at window 64, a fatal `finalize` fault in the
+    call's second chunk) recovered by resume_and_replay bit-exactly; the
+    cost observatory's row S beside the kernels line's bound
+    (`snapshot`); /healthz read while the driver streams."""
+    import tempfile
+
+    from gelly_streaming_tpu_torch import StreamingAnalyticsDriver
+    from gelly_streaming_tpu_torch.utils import faults
+    from gelly_streaming_tpu_torch.utils.tracing import StepTimer
+
+    t_phase = time.perf_counter()
+    src, dst = bench_stream()
+
+    def scan_feed(drv):
+        got, at = [], 0
+        for n in DRIVER_FEED:
+            got += drv.run_arrays(src[at * EB:(at + n) * EB],
+                                  dst[at * EB:(at + n) * EB])
+            at += n
+        return got
+
+    # the resident tier keeps one driver (its CUDA graphs captured once),
+    # reset and its timer set a pass; the scan tier's vertex bucket
+    # grows from a fresh driver's each pass
+    res_drv = StreamingAnalyticsDriver(window_ms=1, edge_bucket=EB,
+                                       vertex_bucket=VB,
+                                       snapshot_tier="resident")
+
+    def resident(tracing=False):
+        res_drv.reset()
+        res_drv.timer = StepTimer() if tracing else None
+        res_drv._wal = res_drv._wal_dir = None
+        return res_drv
+
+    tiers = {
+        "scan": (lambda tracing=False: StreamingAnalyticsDriver(
+            window_ms=1, edge_bucket=EB, tracing=tracing), scan_feed, True),
+        "resident": (resident, lambda drv: drv.run_arrays(src, dst),
+                     False)}
+    passes = [("disarmed", ())] + [(h, (h,)) for h in DRIVER_HOOKS] \
+        + [("all", DRIVER_HOOKS)]
+    mirror = [p for p in passes[::-1] if p[0] in MIRRORED]
+    report, rows_s = {}, []
+    with tempfile.TemporaryDirectory() as tmp, \
+            knob_env(**hook_knobs((), "")):
+        res_drv.run_arrays(src, dst)      # its graphs captured here
+        for tier, (make, feed, mirrored) in tiers.items():
+            runs = {}
+            for i, (label, hooks) in enumerate(
+                    passes + mirror if mirrored else passes):
+                sub = os.path.join(tmp, "%s_%s_%d" % (tier, label, i))
+                os.makedirs(sub)
+                r = driver_hooks_pass(make, feed, hooks, sub, want)
+                rows_s += [c for c in r.pop("cost_rows", ())
+                           if c["program"] == "window_snapshot"
+                           and "[%d,%d]" % (CHUNK, EB) in c["sig"]
+                           and str(VB + 1) in c["sig"]]
+                runs.setdefault(label, []).append(r)
+            base = runs["disarmed"][0]
+            for label, rs in runs.items():
+                for r in rs:
+                    require(r["launches"] == base["launches"],
+                            "hooks_driver %s %s: launches %s, disarmed %s"
+                            % (tier, label, r["launches"],
+                               base["launches"]))
+                    require(r["syncs"] == base["syncs"], "hooks_driver %s "
+                            "%s: %d host syncs, disarmed %d"
+                            % (tier, label, r["syncs"], base["syncs"]))
+            for name in ("window_snapshot", "window_counter"):
+                require(base["launches"][name] > 0, "hooks_driver %s: no "
+                        "%s launch" % (tier, name))
+            best = {label: min(rs, key=lambda r: r["wall"])
+                    for label, rs in runs.items()}
+            base_wall = best["disarmed"]["wall"]
+            report[tier] = {
+                label: {"edges_per_s": STREAM_EDGES / r["wall"],
+                        "share": base_wall / r["wall"],
+                        "walls_s": [x["wall"] for x in runs[label]],
+                        **{k: r[k] for k in ("journal_bytes", "fsync_s",
+                                             "steps") if k in r}}
+                for label, r in best.items()}
+            print("phase hooks_driver %s: ok  armed == disarmed on %d "
+                  "windows, launches %s, host syncs %d in every pass; M "
+                  "edges/s %s" % (tier, len(want), {
+                      k: v for k, v in base["launches"].items() if v},
+                      base["syncs"], ", ".join(
+                          "%s %.2f" % (k, v["edges_per_s"] / 1e6)
+                          for k, v in report[tier].items())))
+
+        # a kill inside a call, recovered from checkpoint + journal
+        sub = os.path.join(tmp, "kill")
+        ckpt, wal_dir = os.path.join(sub, "ckpt"), os.path.join(sub, "wal")
+        make = tiers["scan"][0]
+        cut = DRIVER_KILL_CALL * EB
+        drv = make()
+        require(drv.enable_wal(wal_dir), "kill: enable_wal")
+        drv.enable_auto_checkpoint(ckpt, every_n_windows=DRIVER_KILL)
+        with faults.inject(faults.FaultSpec(site="finalize", on_call=2,
+                                            fatal=True)) as plan:
+            try:
+                drv.run_arrays(src[:cut], dst[:cut])
+                raise SmokeFailure("kill: no kill")
+            except faults.InjectedFault as e:
+                require(e.fatal, "kill: not the fatal fault")
+        drv._wal.close()
+        journal = dir_bytes(wal_dir)
+        t0 = time.perf_counter()
+        rec = make()
+        rec.enable_wal(wal_dir)
+        lost = rec.resume_and_replay(ckpt)
+        torch.cuda.synchronize()
+        recovery_s = time.perf_counter() - t0
+        same_results("kill: recovered", want[DRIVER_KILL:DRIVER_KILL_CALL],
+                     lost, offset=DRIVER_KILL)
+        rest = rec.run_arrays(src[cut:], dst[cut:])
+        same_results("kill: the rest", want[DRIVER_KILL_CALL:], rest,
+                     offset=DRIVER_KILL_CALL)
+        no_demotions("kill", drv, rec)
+        del lost, rest
+        kill = {"fired": plan.fired, "recovered_windows":
+                DRIVER_KILL_CALL - DRIVER_KILL, "recovery_s": recovery_s,
+                "journal_mb_per_m_edges": journal / (cut / 1e6) / 1e6}
+        print("phase hooks_driver kill: ok  killed at %s, windows %d-%d "
+              "recovered from checkpoint + journal in %.3f s, the rest "
+              "equal; journal %.2f MB a million edges, its fsyncs %s s a "
+              "pass (all armed: scan, resident)"
+              % (plan.fired, DRIVER_KILL, DRIVER_KILL_CALL - 1, recovery_s,
+                 kill["journal_mb_per_m_edges"],
+                 [report[t]["all"]["fsync_s"] for t in tiers]))
+
+        # /healthz while the driver streams (metrics armed)
+        reset_hooks()
+        with knob_env(**hook_knobs(("metrics",), "")):
+            seen, final, got = poll_healthz(lambda: scan_feed(make()))
+        mid = [s for s in seen if 0 < s[2] < len(want)]
+        require(mid and all(c == 200 and st == "ok" for c, st, _w in seen),
+                "hooks_driver healthz: %d reads, %d mid-stream, %s"
+                % (len(seen), len(mid), seen[-3:]))
+        require(final["windows_finalized"] == len(want),
+                "hooks_driver healthz: %d windows"
+                % final["windows_finalized"])
+        del got
+    require(rows_s, "hooks_driver: no cost row of the snapshot kernel")
+    for r in rows_s:
+        require(abs(r["bound_ms"] - snapshot["bound_ms"])
+                <= 1e-12 * snapshot["bound_ms"]
+                and r["bound_by"] == snapshot["bound_by"],
+                "costmodel window_snapshot: bound %s %s, kernels line %s %s"
+                % (r["bound_ms"], r["bound_by"], snapshot["bound_ms"],
+                   snapshot["bound_by"]))
+    row_s = {"sig": rows_s[0]["sig"], "bound_ms": rows_s[0]["bound_ms"],
+             "bound_by": rows_s[0]["bound_by"],
+             "mean_ms": [1e3 * r["measured_mean_s"] for r in rows_s],
+             "launches": [r["dispatches"] for r in rows_s]}
+    out = {"passes": report, "kill": kill, "row_s": row_s,
+           "healthz_reads": len(seen), "healthz_mid_stream": len(mid),
+           "device": torch.cuda.get_device_name(0)}
+    print(json.dumps({"hooks_driver": out}))
+    print("phase hooks_driver: ok  costmodel window_snapshot %s: bound "
+          "%.4f ms (%s) equal to the kernels line's, mean %s ms a call; "
+          "/healthz read %d times (%d mid-stream), all ok; %.1f s"
+          % (row_s["sig"], row_s["bound_ms"], row_s["bound_by"],
+             ["%.4f" % m for m in row_s["mean_ms"]], len(seen), len(mid),
+             time.perf_counter() - t_phase))
+    return out
+
+
+def phase_demotion(dev, want: list) -> dict:
+    """The demotion ladder on the card, over the first DEMOTE_EDGES edges
+    of the north-star stream (64 windows; `want`, phase driver's): it
+    never leaves the card. A host fault at `dispatch` demotes a resident
+    driver to scan, bit-equal, triangles included; persistent ones on a
+    scan driver raise StageFailed with nothing demoted; a failed h2d copy
+    raises with nothing demoted; a driver pinned to native walks to host,
+    bit-equal; GS_TIER_RETRY_WINDOWS=4 re-promotes to resident at the
+    next call; a transient prep fault is retried with no demotion; a
+    resident call whose prep fails demotes to scan; a kernels.KernelError
+    of the snapshot wrapper's library raises unwrapped with nothing
+    demoted, on the scan and the resident tier; GS_TIER_DEMOTE=0 raises
+    StageFailed."""
+    from gelly_streaming_tpu_torch import (StreamingAnalyticsDriver,
+                                           forced_sync, kernels)
+    from gelly_streaming_tpu_torch.utils import faults, resilience
+
+    t_phase = time.perf_counter()
+    src, dst = bench_stream()
+    src, dst = src[:DEMOTE_EDGES], dst[:DEMOTE_EDGES]
+    want = want[:DEMOTE_EDGES // EB]
+
+    def driver(**kw):
+        return StreamingAnalyticsDriver(window_ms=1, edge_bucket=EB,
+                                        vertex_bucket=VB, **kw)
+
+    def walk(drv):
+        return [(e["from"], e["to"]) for e in drv.demotion_log()]
+
+    def raises(label, drv, stage, specs):
+        """drv's call under `specs` raises StageFailed of `stage`, with
+        nothing demoted and no window finalized."""
+        resilience.reset_demotions()
+        with faults.inject(*specs):
+            try:
+                drv.run_arrays(src, dst)
+                raise SmokeFailure("demotion %s: no StageFailed" % label)
+            except resilience.StageFailed as e:
+                require(e.stage == stage, "demotion %s: StageFailed of %s"
+                        % (label, e.stage))
+        no_demotions("demotion " + label, drv)
+        require(drv.windows_done == 0, "demotion %s: the cursor moved"
+                % label)
+
+    cases = {}
+    with knob_env(GS_AUTOTUNE=0, GS_STAGE_BACKOFF_S=0.01):
+        for tier, to in (("resident", "scan"), ("native", "host")):
+            resilience.reset_demotions()
+            drv = driver(snapshot_tier=tier)
+            with faults.inject(faults.FaultSpec(site="dispatch",
+                                                on_call=1)) as plan:
+                t0 = time.perf_counter()
+                same_results("demotion %s" % tier, want,
+                             drv.run_arrays(src, dst))
+                cases[tier] = {"seconds": time.perf_counter() - t0,
+                               "walk": walk(drv), "fired": plan.fired}
+            require(walk(drv) == [(tier, to)]
+                    and len(resilience.demotion_events()) == 1,
+                    "demotion %s: %s" % (tier, walk(drv)))
+
+        raises("scan", driver(), "dispatch", [faults.FaultSpec(
+            site="dispatch", on_call=1, times=2)])
+        cases["scan"] = "StageFailed, nothing demoted"
+        with knob_env(GS_STAGE_RETRIES=1):
+            raises("h2d", driver(snapshot_tier="resident"), "h2d",
+                   [faults.FaultSpec(site="h2d", on_call=1, times=2)])
+        cases["h2d"] = "StageFailed, nothing demoted"
+        resilience.reset_demotions()
+
+        with knob_env(GS_TIER_RETRY_WINDOWS=4):
+            drv = driver(snapshot_tier="resident")
+            with faults.inject(faults.FaultSpec(site="dispatch",
+                                                on_call=1)):
+                got = drv.run_arrays(src[:32 * EB], dst[:32 * EB])
+            got += drv.run_arrays(src[32 * EB:], dst[32 * EB:])
+            same_results("demotion probation", want, got)
+            require(walk(drv) == [("resident", "scan"),
+                                  ("scan", "resident")]
+                    and drv._demoted_tier is None,
+                    "demotion probation: %s" % walk(drv))
+            cases["probation"] = walk(drv)
+
+        with knob_env(GS_STAGE_RETRIES=1):
+            def counted(tier, specs):
+                d = driver(snapshot_tier=tier)
+                with forced_sync(), faults.inject(*specs) as p:
+                    out = d.run_arrays(src, dst)
+                return d, p, out
+
+            for tier, times, want_walk in (("scan", 1, []),
+                                           ("resident", 2,
+                                            [("resident", "scan")])):
+                _d, clean, _o = counted(tier, [])
+                last = clean.calls["prep"] - 1   # the snapshot's last prep
+                d, p, out = counted(tier, [faults.FaultSpec(
+                    site="prep", on_call=last, times=times)])
+                same_results("demotion prep %s" % tier, want, out)
+                require(walk(d) == want_walk, "demotion prep %s: %s"
+                        % (tier, walk(d)))
+                cases["prep_" + tier] = {"walk": walk(d),
+                                         "fired": p.fired}
+
+        real = kernels.library
+        for tier in ("scan", "resident"):
+            calls = []
+
+            def broken(name):
+                if name == "window_snapshot":
+                    calls.append(name)
+                    raise kernels.KernelError(
+                        "injected: the window_snapshot library failed")
+                return real(name)
+
+            resilience.reset_demotions()
+            drv = driver(snapshot_tier=tier)
+            kernels.library = broken
+            try:
+                drv.run_arrays(src, dst)
+                raise SmokeFailure("demotion %s: the KernelError did not "
+                                   "raise" % tier)
+            except kernels.KernelError as e:
+                require(not isinstance(e, resilience.StageError)
+                        and e.__cause__ is None and len(calls) == 1,
+                        "demotion %s: KernelError wrapped or retried: %r "
+                        "%s" % (tier, e, calls))
+            finally:
+                kernels.library = real
+            no_demotions("demotion KernelError %s" % tier, drv)
+            require(drv.windows_done == 0, "demotion: KernelError moved "
+                    "the cursor")
+        cases["kernel_error"] = "raised unwrapped, nothing demoted"
+
+        with knob_env(GS_TIER_DEMOTE=0):
+            raises("GS_TIER_DEMOTE=0", driver(snapshot_tier="resident"),
+                   "dispatch", [faults.FaultSpec(site="dispatch",
+                                                 on_call=1)])
+        cases["pinned"] = "StageFailed"
+    resilience.reset_demotions()
+    print(json.dumps({"demotion": dict(
+        cases, device=torch.cuda.get_device_name(0))}))
+    print("phase demotion: ok  a dispatch fault walked %s bit-equal "
+          "(triangles too) in %.2f s, and %s in %.2f s; persistent faults "
+          "on scan and a failed h2d copy raised StageFailed, nothing "
+          "demoted; probation %s; a transient prep fault retried, none "
+          "demoted; resident prep failure %s; a KernelError raised "
+          "unwrapped on scan and resident, nothing demoted; "
+          "GS_TIER_DEMOTE=0 raised StageFailed; %.1f s"
+          % (cases["resident"]["walk"], cases["resident"]["seconds"],
+             cases["native"]["walk"], cases["native"]["seconds"],
+             cases["probation"], cases["prep_resident"]["walk"],
+             time.perf_counter() - t_phase))
+    return cases
+
+
+def device_trace_capture(dev) -> dict:
+    """One device_trace capture of a driver call over DEMOTE_EDGES edges
+    with the flight recorder armed, taken before any other profiler
+    session of the process: on the H100, torch.profiler records none of
+    the card's kernels in a process after a long profiler session (phase
+    api's profiled record API; `gelly_streaming_tpu_torch/utils/
+    trace_probe.py --smoke`). It must hold the snapshot and counter
+    kernels' events and stamp the durable `device_trace_captured`
+    event; phase api_tracing holds its windows to phase driver's
+    (`digests`, provenance.result_digest a window)."""
+    import tempfile
+
+    from gelly_streaming_tpu_torch import StreamingAnalyticsDriver
+    from gelly_streaming_tpu_torch.utils import (provenance, telemetry,
+                                                 tracing)
+
+    src, dst = bench_stream()
+    drv = StreamingAnalyticsDriver(window_ms=1, edge_bucket=EB,
+                                   vertex_bucket=VB)
+    reset_hooks()
+    with tempfile.TemporaryDirectory() as tmp, \
+            knob_env(**hook_knobs(("telemetry",), tmp)):
+        drv.run_arrays(src[:2 * EB], dst[:2 * EB])      # warm-up
+        drv.reset()
+        with tracing.device_trace(os.path.join(tmp, "device_trace")) as cap:
+            got = drv.run_arrays(src[:DEMOTE_EDGES], dst[:DEMOTE_EDGES])
+            torch.cuda.synchronize()
+        events = [r for r in telemetry.records()
+                  if r.get("name") == "device_trace_captured"]
+        require(cap.path and os.path.isfile(cap.path) and events,
+                "device_trace: no capture written")
+        named = {k: sum(n for name, n in cap.kernels.items() if k in name)
+                 for k in ("snapshot_grid_kernel", "counter_kernel")}
+        require(cap.kernel_events > 0 and all(named.values()),
+                "device_trace: the capture holds %d kernel events, the "
+                "driver's kernels %s" % (cap.kernel_events, named))
+        out = {"kernel_events": cap.kernel_events, "driver_kernels": named,
+               "bytes": os.path.getsize(cap.path),
+               "digests": [provenance.result_digest(r) for r in got]}
+    reset_hooks()
+    no_demotions("device_trace", drv)
+    print("device_trace: %d kernel events (%s), %d bytes"
+          % (out["kernel_events"], named, out["bytes"]))
+    return out
+
+
+def phase_api_tracing(dev, api: dict, want_driver: list,
+                      capture: dict) -> dict:
+    """Tracing on the graph API and the reduce stream: the record API's
+    slice(512 ms, ALL).reduce_on_edges over phase api's API_EDGES
+    timestamped edges with env.enable_tracing(), every window equal to
+    numpy, its steps and its rate beside phase api's untraced rate
+    (`api`); WindowedEdgeReduce over the reduce-leg stream with the
+    flight recorder armed, equal to bench.py's port, its spans counted;
+    the device_trace capture of a driver call (`capture`, taken first in
+    the process by device_trace_capture), its windows equal to phase
+    driver's (`want_driver`)."""
+    import tempfile
+
+    import gelly_streaming_tpu_torch as P
+    from gelly_streaming_tpu_torch import WindowedEdgeReduce, make_stream
+    from gelly_streaming_tpu_torch.utils import provenance, telemetry
+
+    out = {}
+    src, dst = P.make_stream(API_EDGES, VB, seed=SEED)
+    ts = np.arange(API_EDGES) // API_EDGES_PER_MS
+    env, graph = api_graph(P, src, dst, ts)
+    sink = graph.slice(P.Time.milliseconds_of(API_WINDOW_MS),
+                       P.EdgeDirection.ALL).reduce_on_edges(
+        P.TorchEdgesReduce(name="sum")).collect()
+    env.enable_tracing()
+    t0 = time.perf_counter()
+    env.execute()
+    wall = time.perf_counter() - t0
+    check_api_reduce("api_tracing", env._results[sink.node.id], src, dst,
+                     ts)
+    steps = env.trace_report()
+    require(steps and sum(r["calls"] for r in steps) >= len(steps),
+            "api_tracing: no steps")
+    out["record_api"] = {
+        "edges_per_s": API_EDGES / wall,
+        "untraced_edges_per_s": api["edges_per_s"],
+        "steps": [{k: r[k] for k in ("op", "total_s", "calls", "records")}
+                  for r in steps]}
+
+    reset_hooks()
+    with tempfile.TemporaryDirectory() as tmp, \
+            knob_env(**hook_knobs(("telemetry",), tmp)):
+        rsrc, rdst = make_stream(RED_EDGES, RED_VB)
+        val = red_values(rsrc, rdst)
+        eng = WindowedEdgeReduce(RED_VB, RED_EB, "sum", "out")
+        same_rows("api_tracing reduce", eng.process_stream(rsrc, rdst, val),
+                  np_port_with_counts(rsrc, val, RED_EB, RED_VB))
+        spans = {}
+        for r in telemetry.records():
+            if r.get("t") == "span":
+                spans[r["name"]] = spans.get(r["name"], 0) + 1
+        require(spans.get("reduce.stream") == 1
+                and spans.get("ingress.dispatch"),
+                "api_tracing reduce spans: %s" % spans)
+        out["reduce_spans"] = spans
+    reset_hooks()
+
+    want = [provenance.result_digest(r)
+            for r in want_driver[:len(capture["digests"])]]
+    require(capture["digests"] == want, "api_tracing: the captured driver "
+            "call's windows differ from phase driver's")
+    out["device_trace"] = {k: v for k, v in capture.items()
+                           if k != "digests"}
+    out["device"] = torch.cuda.get_device_name(0)
+    print(json.dumps({"api_tracing": out}))
+    print("phase api_tracing: ok  record API traced %.1f edges/s "
+          "(untraced %.1f, phase api), %d steps; reduce stream spans %s; "
+          "device_trace of a driver call (the process's first profiler "
+          "session): %d kernel events (%s), %d bytes"
+          % (out["record_api"]["edges_per_s"], api["edges_per_s"],
+             len(steps), spans, capture["kernel_events"],
+             capture["driver_kernels"], capture["bytes"]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4695,6 +5258,7 @@ def run_phases() -> int:
     print("phases intersect .. driver_slide: GS_AUTOTUNE=0 (the static "
           "configuration); autotune, resident, gnn_resident and "
           "driver_resident set it themselves")
+    capture = device_trace_capture(dev)
     rng = np.random.default_rng(SEED)
     inter = phase_intersect(dev, rng)
     counter = phase_counter(dev)
@@ -4705,32 +5269,57 @@ def run_phases() -> int:
     snapshot = phase_snapshot(dev)
     cells = phase_cell_reduce(dev)
     launches, counts = phase_stream(dev)
+    no_demotions("phase stream")
     compact_launches = phase_stream_compact(dev, counts)
+    no_demotions("phase stream_compact")
     summary_launches, summaries, state = phase_summary_stream(dev)
+    no_demotions("phase summary_stream")
     summary_compact_launches = phase_summary_stream_compact(dev, summaries,
                                                             state)
+    no_demotions("phase summary_stream_compact")
     gnn_launches, gnn_out, gnn_slab, gnn_scan = phase_gnn_stream(dev)
+    no_demotions("phase gnn_stream")
     dense, dense_launches, sparse_launches = phase_dense(dev)
+    no_demotions("phase dense")
     cohort_launches = phase_cohort_stream(dev)
+    no_demotions("phase cohort_stream")
     phase_gnn_cohort(dev)
+    no_demotions("phase gnn_cohort")
     driver_launches, driver_got, driver_scan = phase_driver(dev, counts)
+    no_demotions("phase driver")
     phase_driver_file(dev)
+    no_demotions("phase driver_file")
     reduce_launches = phase_reduce_stream(dev)
+    no_demotions("phase reduce_stream")
     api_launches = phase_api(dev)
+    no_demotions("phase api")
     require(api_launches["cell_reduce"] > 0, "api: no cell_reduce launch")
     union_find = phase_models(dev)
+    no_demotions("phase models")
     phase_driver_slide(dev)
+    no_demotions("phase driver_slide")
     phase_autotune(dev, counts, summaries, state)
+    no_demotions("phase autotune")
     phase_resident(dev, summaries, state)
+    no_demotions("phase resident")
     phase_gnn_resident(dev, gnn_out, gnn_slab)
+    no_demotions("phase gnn_resident")
     phase_driver_resident(dev, driver_got)
+    no_demotions("phase driver_resident")
     hooks = phase_hooks_engine(dev, counts, summaries, state, gnn_out)
+    no_demotions("phase hooks_engine")
     phase_costmodel_health(dev, hooks["engines"], {
         "window_counter": counter,
         "window_counter_compact": compact["counter"],
         "window_summary": summary,
         "window_summary_compact": compact["summary"],
         "gnn_round": gnn})
+    no_demotions("phase costmodel_health")
+    del hooks
+    phase_hooks_driver(dev, driver_got, snapshot)
+    phase_demotion(dev, driver_got)
+    phase_api_tracing(dev, api_launches, driver_got, capture)
+    no_demotions("phase api_tracing")
 
     rows = []
     pw = "gelly_streaming_tpu/ops/pallas_window.py:"

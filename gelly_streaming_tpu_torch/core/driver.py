@@ -55,20 +55,54 @@ pane ring) and its own. The ring moves with the mirrors at chunk
 boundaries and rides the checkpoint (`slide`, `pane_ring_src`,
 `pane_ring_dst`).
 
-Not ported yet, each raising NotImplementedError where an argument asks
-for it: the mesh and sharded branches (ROADMAP step 1.10); the evidence
-routing of the snapshot tier and the egress (after step 1.1: `egress`
-is a plain argument and `auto` resolves to the scan tier); demotion (a
-resident call that fails raises, it never runs the scan tier), the
-write-ahead log, sanitize, latency, provenance, metrics, telemetry and
-tracing (step 1.8; so is the `GS_SLIDE` knob, which the JAX driver reads
-where `slide` is None).
+Hooks (the JAX driver's :659-779, :1079-1187, :1338-1391, :2445-2500;
+each a no-op disarmed): `run_arrays` admits a batch through the
+metrics stream mark, the latency stamp, the `admit` fault site, the
+armed sanitizer (utils/sanitize.py, external ids: vb=None) and the
+journal (`enable_wal`, utils/wal.py: appended after validation and
+before any window is cut; `stream_file` never journals and is refused
+on a journal-armed driver); each chunk's finalize fills
+`WindowResult.latency`, emits one provenance record a window (its
+`digest` the JAX driver's `result_digest`) and marks the metrics
+registry; a flushed checkpoint advances the journal's retention cursor.
+`tenant=` labels the marks, lanes, journal records and demotion events;
+`tracing=True` times the JAX driver's steps into a StepTimer
+(`trace_report`, the same step names, calls and records as the JAX
+driver for the same job; where the JAX driver takes its per-window path
+and the port runs the windows as one chunk, the per-window rows share
+the chunk's seconds and are marked "apportioned").
+
+The demotion ladder (resident -> scan -> native -> host; resident is
+never a target, native is skipped where the library cannot load) never
+leaves the card: a driver pinned to a tier on the card (resident, scan)
+walks only resident -> scan, and one pinned to native walks native ->
+host. A chunk is the unit of consistency, so a failure re-enters the
+call from the mirrors of the last finalized chunk on the next rung, the
+chunk in flight drained first. Three things demote: a StageTimeout or
+StageFailed of the pipeline's guarded host stages (queued, prep; never
+h2d, a copy to the card); and a host-side failure at the `dispatch` or
+`finalize` fault site (fired inline on the caller's thread before the
+launch) whose cause is a RuntimeError, OSError or MemoryError. A kernel
+or CUDA error (`resilience.is_device_error`) never demotes: it raises to
+the caller as it was raised. A failure with no rung below raises its
+typed StageTimeout or StageFailed. GS_TIER_RETRY_WINDOWS windows of
+probation re-promote; GS_TIER_DEMOTE=0 pins the tier and raises the
+typed error. The triangle flush walks the same ladder
+(TriangleWindowKernel on the native and host stream tiers), recounting
+only the windows not finalized. `demotion_log()` lists the driver's
+demotions and re-promotions.
+
+Not ported yet, raising NotImplementedError where an argument asks for
+it: the mesh and sharded branches (ROADMAP step 1.10). The evidence
+routing of the snapshot tier and the egress waits for step 1.1: `egress`
+is a plain argument and `auto` resolves to the scan tier.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 import warnings
 from typing import List, Optional, Sequence
 
@@ -88,12 +122,25 @@ from ..ops import triangles as tri_ops
 from ..ops import window_snapshot as snap_ops
 from ..ops.staging import ChunkStager, HostCopy
 from ..utils import checkpoint
+from ..utils import faults
+from ..utils import knobs
+from ..utils import latency
+from ..utils import metrics
+from ..utils import provenance
+from ..utils import resilience
+from ..utils import sanitize as sanitize_mod
+from ..utils import telemetry
+from ..utils import wal as wal_mod
 from ..utils.interning import make_interner, parallel_intern_arrays
+from ..utils.tracing import StepTimer
 
 SNAPSHOT_TIERS = ("resident", "scan", "native", "host")
 _TRIANGLE_TIER = {"resident": "device", "scan": "device",
                   "native": "native", "host": "host"}
 _CARRIED = ("degrees", "cc", "bipartite")
+# the tiers on the card: a driver pinned to one of them demotes only to
+# the next of them (the ladder below them is SNAPSHOT_TIERS, top down)
+_DEVICE_TIERS = ("resident", "scan")
 
 
 def resolve_snapshot_tier() -> str:
@@ -142,7 +189,9 @@ class WindowResult:
     delta_degrees: Optional[tuple] = None       # (int32 ids, int64 vals)
     delta_cc: Optional[tuple] = None            # (int32 ids, int32 vals)
     delta_bipartite: Optional[tuple] = None     # (int32 ids, bool vals)
-    # the JAX driver's latency record: always None here (step 1.8)
+    # the latency plane's ingest-to-deliver record, {"e2e_s", "stages",
+    # "replayed"}, joined to the admission stamp of its last edge; None
+    # disarmed
     latency: Optional[dict] = None
 
 
@@ -156,8 +205,10 @@ class StreamingAnalyticsDriver:
     `egress` ("full" by default, or "delta") the scan tier's copy back,
     `egress_cap` the delta rows' width (ops/delta_egress.egress_cap).
     `slide`, a power of two dividing the edge bucket, makes the
-    count-based windows slide: one WindowResult every `slide` edges.
-    With no `snapshot_tier`, `resolve_snapshot_tier()` picks it."""
+    count-based windows slide: one WindowResult every `slide` edges
+    (GS_SLIDE where it is None). With no `snapshot_tier`,
+    `resolve_snapshot_tier()` picks it. `tenant` labels the driver's
+    hook records; `tracing=True` keeps a StepTimer (`trace_report`)."""
 
     ANALYTICS = ("degrees", "cc", "bipartite", "triangles")
     _SCAN_CHUNK = 64                    # windows per snapshot call
@@ -178,14 +229,9 @@ class StreamingAnalyticsDriver:
         unknown = set(analytics) - set(self.ANALYTICS)
         if unknown:
             raise ValueError(f"unknown analytics: {sorted(unknown)}")
-        for name, value, step in (("mesh", mesh, "1.10"),
-                                  ("tenant", tenant, "1.8")):
-            if value is not None:
-                raise NotImplementedError(
-                    "%s= is not ported yet (ROADMAP step %s)" % (name, step))
-        if tracing:
+        if mesh is not None:
             raise NotImplementedError(
-                "tracing is not ported yet (ROADMAP step 1.8)")
+                "mesh= is not ported yet (ROADMAP step 1.10)")
         tier = (resolve_snapshot_tier() if snapshot_tier is None
                 else snapshot_tier)
         if tier not in SNAPSHOT_TIERS:
@@ -198,6 +244,9 @@ class StreamingAnalyticsDriver:
         if egress not in delta_egress.EGRESS:
             raise ValueError(f"unknown egress: {egress!r}")
         self.device = resolve_device(device)
+        # the stream this driver serves, in its hook records
+        self.tenant = None if tenant is None else str(tenant)
+        self.timer = StepTimer() if tracing else None
         self.window_ms = window_ms
         self.analytics = tuple(analytics)
         self.snapshot_tier = tier
@@ -206,6 +255,8 @@ class StreamingAnalyticsDriver:
         self.emit_deltas = bool(emit_deltas)
         self.vb = seg_ops.bucket_size(vertex_bucket)
         self.eb = seg_ops.bucket_size(edge_bucket)
+        if slide is None:
+            slide = knobs.get_int("GS_SLIDE")
         slide = int(slide) if slide else None
         if slide is not None and (seg_ops.bucket_size(slide) != slide
                                   or self.eb % slide != 0):
@@ -216,8 +267,9 @@ class StreamingAnalyticsDriver:
         # its own checkpoints (the JAX driver keeps eb and refuses them)
         self.slide = slide if slide != self.eb else None
         self._wp = (self.eb // slide) if slide else 1  # panes a window
-        self._tri_kernel = None
+        self._tri_kernels = {}     # stream tier -> TriangleWindowKernel
         self._tri_pending = None   # the call's triangle windows (transient)
+        self._per_window = False   # the call takes the JAX per-window path
         self._snaps = {}           # (vb, egress, cap) -> WindowSnapshot
         self._ring = ChunkStager(self.device, slots=self.INFLIGHT + 1)
         self._copy = (torch.cuda.Stream(self.device)
@@ -226,6 +278,18 @@ class StreamingAnalyticsDriver:
         self._ckpt_policy = None   # utils.checkpoint.CheckpointPolicy
         self._pending_ckpt = []    # staged (windows_done, state): _stage_ckpt
         self._emitted = None       # not None inside stream_file
+        # the journal (enable_wal), its retention at checkpoint flushes,
+        # stream_file's depth (a file is its own journal) and the edges
+        # fed, sanitizer rejects included (the dead letters' offsets)
+        self._wal = None
+        self._wal_dir = None
+        self._wal_retention = wal_mod.RetentionCursor()
+        self._fed_edges = 0
+        # the demotion ladder: the demoted tier (None: the pinned one),
+        # windows_done when it demoted, the driver's events
+        self._demoted_tier = None
+        self._demoted_at = 0
+        self._demotions = []
         # the online tuners of the scan and resident tiers (built at
         # first use; None with GS_AUTOTUNE=0)
         self._scan_tuner = None
@@ -298,7 +362,17 @@ class StreamingAnalyticsDriver:
         resume=True (after try_resume) skips the `edges_done` edges the
         restored checkpoint has folded. Auto-checkpoints taken meanwhile
         are written only once every window they cover has been yielded
-        (_stage_ckpt), so a crash re-emits windows, never drops them."""
+        (_stage_ckpt), so a crash re-emits windows, never drops them.
+        The file is its own journal: a journal-armed driver refuses."""
+        if self._wal is not None:
+            # wal_offset is edges_done, and a file's edges are never
+            # journaled: mixing the two sources would let recovery skip
+            # journaled edges
+            raise ValueError(
+                "stream_file() on a journal-armed driver would skew the "
+                "wal_offset/edges_done contract: use run_arrays "
+                "(journaled live feed) or file streaming, not both on "
+                "one driver")
         to_skip = self.edges_done if resume else 0
         pend = (np.zeros(0, np.int64),) * 3
         timestamped = None
@@ -348,7 +422,39 @@ class StreamingAnalyticsDriver:
                    ) -> List[WindowResult]:
         """Process a (possibly partial) stream. With no timestamps the
         windows are count-based, `edge_bucket` edges each, continuing
-        from earlier calls. `_starts`: stream_file's window starts."""
+        from earlier calls. `_starts`: stream_file's window starts.
+
+        Admission, in the JAX driver's order: the metrics stream mark,
+        the latency stamp, the `admit` fault site, the armed sanitizer
+        (its keep-mask filters the aligned ts / _starts columns), then,
+        after the batch is validated and before any window is cut, the
+        journal and the latency plane's admission mark."""
+        lane = self.tenant or "driver"
+        metrics.on_stream_start("driver", tenant=self.tenant)
+        lat_t0 = latency.clock() if latency.enabled() else None
+        got = faults.fire("admit", (lane, src, dst))
+        if got is not None:
+            _t, src, dst = got
+        if sanitize_mod.enabled():
+            try:
+                # vb=None: external int64 ids, which the interner
+                # densifies, so only the representability and policy
+                # checks apply
+                rep = sanitize_mod.sanitize(
+                    src, dst, None, tenant=lane, origin="driver",
+                    offset=self._fed_edges, dlq=sanitize_mod.resolve_dlq())
+            except sanitize_mod.BatchRejected as e:
+                self._fed_edges += e.size
+                raise
+            self._fed_edges += rep.accepted + rep.rejected
+            src, dst = rep.src, rep.dst
+            if rep.rejected:
+                if ts is not None and len(np.atleast_1d(ts)):
+                    ts = np.asarray(ts)[rep.keep]
+                if _starts is not None:
+                    _starts = np.asarray(_starts)[rep.keep]
+        else:
+            self._fed_edges += len(np.atleast_1d(np.asarray(src)))
         src = np.asarray(src, np.int64)
         dst = np.asarray(dst, np.int64)
         if _starts is not None or (
@@ -377,12 +483,16 @@ class StreamingAnalyticsDriver:
             slices = np.split(np.arange(len(src)), bounds)
             windows = [(int(starts[idx[0]]), src[idx], dst[idx])
                        for idx in slices if len(idx)]
+            self._admitted(src, dst, lat_t0,
+                           np.asarray(ts, np.int64) if ts is not None
+                           and len(np.atleast_1d(ts)) else None)
             return self._dispatch_windows(windows)
         if self._closed_partial:
             raise ValueError(
                 "a previous count-based run closed a partial window "
                 "(length not a multiple of edge_bucket); chunked "
                 "count-based feeding must use edge_bucket multiples")
+        self._admitted(src, dst, lat_t0)
         windows = []
         at = self.edges_done
         cut = self._cut_size()
@@ -391,6 +501,18 @@ class StreamingAnalyticsDriver:
             windows.append((at, src[idx], dst[idx]))
             at += idx.stop - idx.start
         return self._dispatch_windows(windows, count_based=True)
+
+    def _admitted(self, src, dst, lat_t0, ts=None) -> None:
+        """A validated batch, before its windows are cut: the journal
+        append (the live feed's durability boundary; stream_file's
+        edges never: the file is its own journal), then the latency
+        plane's admission mark."""
+        lane = self.tenant or "driver"
+        if self._wal is not None and len(src) and self._emitted is None:
+            self._wal.append(lane, src, dst, ts)
+            faults.fire("wal_enqueue", lane)
+        if lat_t0 is not None:
+            latency.on_admit(lane, len(src), t0=lat_t0)
 
     def _cut_size(self) -> int:
         """Edges a count-based window: a pane (`slide`) under sliding
@@ -401,9 +523,13 @@ class StreamingAnalyticsDriver:
                           ) -> List[WindowResult]:
         """Every call's windows through the chunked path, with one
         batched triangle flush; a short count-based last window closes
-        the stream (`_closed_partial`, set at its chunk's boundary)."""
+        the stream (`_closed_partial`, set at its chunk's boundary). A
+        call of one window, or of sliding panes, is the JAX driver's
+        per-window path: the same work here, traced under its step
+        names (`_per_window`)."""
         if not windows:
             return []
+        self._per_window = len(windows) == 1 or self._wp > 1
         with self._batched_triangles():
             return self._run_batched(
                 windows, closes_partial=(
@@ -413,59 +539,196 @@ class StreamingAnalyticsDriver:
     # the chunked path: a chunk of up to _SCAN_CHUNK windows a call of
     # the snapshot tier; mirrors, cursors and checkpoints move together
     # at each chunk boundary, so an exception leaves the driver at the
-    # last finished chunk
+    # last finished chunk, from which the demotion ladder re-enters
     # ------------------------------------------------------------------
     def _run_batched(self, windows,
                      closes_partial: bool = False) -> List[WindowResult]:
         # intern the whole call first (on the pool, the slots of a
         # sequential loop), so the buckets grow once; sizes[] gives each
         # window's vertex count for slicing its snapshots
-        flat = []
-        for _wstart, src, dst in windows:
-            flat.append(src)
-            flat.append(dst)
-        dense, sizes = parallel_intern_arrays(self.interner, flat)
+        parts = [("intern", 2 * len(s)) for _w, s, _d in windows]
+        with self._traced("intern", sum(n for _i, n in parts), parts):
+            flat = []
+            for _wstart, src, dst in windows:
+                flat.append(src)
+                flat.append(dst)
+            dense, sizes = parallel_intern_arrays(self.interner, flat)
         interned = [(windows[i][0], dense[2 * i], dense[2 * i + 1],
                      sizes[2 * i + 1]) for i in range(len(windows))]
         self._ensure_buckets(len(self.interner),
                              max(len(s) for _w, s, _d, _n in interned))
+        # the demotion ladder: a failure leaves the driver at its last
+        # finalized chunk; a demotion re-enters there on the next rung
         results: List[WindowResult] = []
-        self._scan_interned(interned, results, closes_partial)
-        return results
+        while True:
+            tier = self._effective_tier()
+            try:
+                self._scan_interned(interned[len(results):], results,
+                                    closes_partial, tier)
+                return results
+            except resilience.StageError as e:
+                if not self._maybe_demote(tier, e):
+                    raise
 
     def _chunks(self, num_w: int) -> list:
         return list(range(0, num_w, self._SCAN_CHUNK))
 
-    def _scan_interned(self, interned, results, closes_partial: bool
-                       ) -> None:
+    def _scan_interned(self, interned, results, closes_partial: bool,
+                       tier: str) -> None:
         """The carried analytics of `interned` [(wstart, s, d, nv)] on
-        the snapshot tier, appending a WindowResult per window."""
+        `tier`, appending a WindowResult per window. The carry is built
+        from the mirrors at entry, which makes the call re-enterable
+        after a demotion."""
         num_w = len(interned)
 
-        def finalize(at, take, outs, mirrors):
+        def finalize(at, take, outs, mirrors, st=None):
             chunk = interned[at:at + take]
+            n0 = len(results)
             self._finalize_chunk(chunk, outs, mirrors, results)
-            self._boundary(chunk, closes_partial
+            self._boundary(chunk, results[n0:], tier, st, closes_partial
                            and at + len(chunk) >= num_w)
 
         if not any(a in self.analytics for a in _CARRIED):
             for at in self._chunks(num_w):
                 finalize(at, self._SCAN_CHUNK, {}, (None, None, None))
             return
-        if self.snapshot_tier in ("scan", "resident"):
-            self._scan_device(interned, finalize)
+        if tier in ("scan", "resident"):
+            self._scan_device(interned, finalize, tier == "resident")
             return
-        fold = (native.snapshot_windows if self.snapshot_tier == "native"
+        fold = (native.snapshot_windows if tier == "native"
                 else host_snapshot.snapshot_windows)
         # copies of the mirrors, carried across this call's chunks
         carry = self._chunk_start_state()
         for at in self._chunks(num_w):
+            chunk = interned[at:at + self._SCAN_CHUNK]
             prevs = (tuple(None if a is None else a.copy() for a in carry)
                      if self.emit_deltas else None)
-            outs = self._host_fold(fold, interned[at:at + self._SCAN_CHUNK],
-                                   carry, prevs)
+
+            def fold_chunk(chunk=chunk, prevs=prevs):
+                faults.fire("dispatch")
+                return self._host_fold(fold, chunk, carry, prevs)
+
+            with self._chunk_step("snapshot_scan", chunk):
+                # guarded inline, never retried: the fold moves the
+                # chunk-local copies in place; a failure demotes and the
+                # call re-enters with fresh copies of the mirrors
+                outs = resilience.call_guarded("dispatch", at, fold_chunk,
+                                               retries=0, timeout=0)
             finalize(at, self._SCAN_CHUNK, outs,
                      tuple(None if a is None else a.copy() for a in carry))
+
+    # ------------------------------------------------------------------
+    # the demotion ladder (the JAX driver's _effective_tier,
+    # _maybe_demote, demotion_log; :1079-1187, :1256)
+    # ------------------------------------------------------------------
+    def _effective_tier(self) -> str:
+        """The tier the next chunk runs on: the demoted one, or after
+        GS_TIER_RETRY_WINDOWS windows of probation there, the pinned
+        tier again (a repeat failure demotes again and restarts
+        probation)."""
+        if self._demoted_tier is None:
+            return self.snapshot_tier
+        n = resilience.tier_retry_windows()
+        if not (n and self.windows_done - self._demoted_at >= n):
+            return self._demoted_tier
+        event = resilience.record_demotion(
+            "snapshot", self._demoted_tier, self.snapshot_tier,
+            self.windows_done, "re-promotion probe after %d probation "
+            "windows" % (self.windows_done - self._demoted_at),
+            tenant=self.tenant)
+        self._demotions.append(event)
+        if self.timer:
+            self.timer.event("tier_repromotion", event)
+        self._demoted_tier = None
+        return self.snapshot_tier
+
+    def _maybe_demote(self, tier: str, err: BaseException) -> bool:
+        """Demote from `tier` to the next rung of the ladder on `err`;
+        False when `err` is not a failure a tier change can cure or no
+        rung is left. A device error (`resilience.is_device_error`: a
+        kernel's build or launch, a CUDA call) never demotes, whatever
+        its cause chain says, nor does a failed or stalled h2d copy. A
+        StageTimeout or StageFailed of the guarded host stages (queued,
+        prep) demotes, and a StageFailed of the dispatch or finalize
+        fault site demotes when its cause is a RuntimeError, OSError or
+        MemoryError (a semantic error, ValueError or TypeError, is a bug
+        to surface). The rungs below a tier on the card are on the card
+        only: resident -> scan. GS_TIER_DEMOTE=0 pins the tier."""
+        if resilience.is_device_error(err) \
+                or not resilience.tier_demotion_enabled() \
+                or getattr(err, "stage", None) == "h2d":
+            return False
+        if getattr(err, "stage", None) not in ("queued", "prep") and not (
+                isinstance(err, resilience.StageFailed) and isinstance(
+                    err.__cause__, (RuntimeError, OSError, MemoryError))):
+            return False
+        ladder = (_DEVICE_TIERS if self.snapshot_tier in _DEVICE_TIERS
+                  else SNAPSHOT_TIERS)
+        for nxt in ladder[ladder.index(tier) + 1:]:
+            if nxt == "native" and not native.available():
+                continue
+            event = resilience.record_demotion(
+                "snapshot", tier, nxt, self.windows_done,
+                "%s: %s" % (type(err).__name__, err), tenant=self.tenant)
+            self._demotions.append(event)
+            if self.timer:
+                self.timer.event("tier_demotion", event)
+            self._demoted_tier = nxt
+            self._demoted_at = self.windows_done
+            return True
+        return False
+
+    def demotion_log(self) -> List[dict]:
+        """This driver's demotions and re-promotions (the process-wide
+        log is `resilience.demotion_events()`)."""
+        return list(self._demotions)
+
+    def _fire_site(self, site: str, at: int, retries=None) -> None:
+        """The host-side fault site `site` of the chunk at `at`, on the
+        caller's thread before its launch: inline (timeout=0, never on
+        a watchdog thread), an injected failure typed as StageFailed.
+        A no-op without a fault plan."""
+        if faults.active() is not None:
+            resilience.call_guarded(site, at, lambda: faults.fire(site),
+                                    retries=retries, timeout=0)
+
+    # ------------------------------------------------------------------
+    # tracing (utils/tracing.StepTimer; the JAX driver's _step :2076)
+    # ------------------------------------------------------------------
+    def _step(self, name: str, num_records: int):
+        """A traced step: through the StepTimer with tracing=True, else
+        a telemetry span (a no-op disarmed)."""
+        if self.timer:
+            return self.timer.step(name, num_records)
+        return telemetry.span("step." + name, records=num_records)
+
+    @contextlib.contextmanager
+    def _traced(self, name: str, records: int, parts, closes: bool = True):
+        """A traced interval: on the JAX driver's batched path one step
+        `name` of `records`; on its per-window path (`_per_window`) the
+        steps `parts` [(step, records)], one a window, which the stage
+        that `closes` the work records with the interval's seconds
+        shared evenly: the port ran those steps as one, so a share is
+        apportioned, not measured, and the report marks its row so."""
+        if not self._per_window:
+            with self._step(name, records):
+                yield
+            return
+        t0 = time.perf_counter()
+        yield
+        if closes and self.timer and parts:
+            dt = (time.perf_counter() - t0) / len(parts)
+            for step, n in parts:
+                self.timer.add(step, dt, n, apportioned=len(parts) > 1)
+
+    def _chunk_step(self, name: str, chunk, closes: bool = True):
+        """Trace a chunk's snapshot work: one `name` step a chunk, or on
+        the per-window path one step a window and carried analytic."""
+        names = [a for a in self.analytics if a in _CARRIED]
+        return self._traced(
+            name, sum(len(s) for _w, s, _d, _n in chunk),
+            [(a, len(s)) for _w, s, _d, _n in chunk for a in names],
+            closes)
 
     def _snapshot_program(self, egress: str) -> snap_ops.WindowSnapshot:
         """The snapshot program at the current vertex bucket on `egress`,
@@ -499,7 +762,7 @@ class StreamingAnalyticsDriver:
             self._bip if "bipartite" in self.analytics else None,
             "cpu")
 
-    def _scan_device(self, interned, finalize) -> None:
+    def _scan_device(self, interned, finalize, resident: bool) -> None:
         """The scan and resident tiers: one chunk loop through the
         ingress pipeline (ops/ingress_pipeline.run_pipeline) over an
         autotune.RoundPlan. Each chunk's [W, eb] stack is built and
@@ -519,8 +782,12 @@ class StreamingAnalyticsDriver:
           decided, a look-ahead of GS_RESIDENT_SLOTS super-batches.
 
         GS_AUTOTUNE=0 runs the static arm; forced_sync freezes the
-        tuner."""
-        resident = self.snapshot_tier == "resident"
+        tuner.
+
+        The `dispatch` fault site fires before each launch and the
+        `finalize` site before each finalize reads its outs, both on
+        the caller's thread (`_fire_site`); the launch itself is never
+        guarded."""
         vb, width = self.vb, self._cut_size()
         snap = self._snapshot_program(self.egress)
         if resident:
@@ -572,20 +839,29 @@ class StreamingAnalyticsDriver:
 
         def dispatch(dev_payload):
             ch, staged = dev_payload
-            tensors = stager.take(staged)
-            if resident:
-                w = tensors[0].shape[0]
-                outs = graphs.run(
-                    (w, stager.slot_index(staged)), live + tensors, fold,
-                    warm=lambda: self._warm_snapshot(snap, w))
-            else:
-                outs = snap(carry, *tensors)
-            stager.done(staged)
-            return ch, self._enqueue_outs(ch.at, ch.hi - ch.at, outs, carry)
+            with self._chunk_step("snapshot_scan", interned[ch.at:ch.hi],
+                                  closes=False):
+                # the resident graph consumes its carry: its site is
+                # never retried, as the JAX driver's resident dispatch
+                self._fire_site("dispatch", ch.at,
+                                retries=0 if resident else None)
+                tensors = stager.take(staged)
+                if resident:
+                    w = tensors[0].shape[0]
+                    outs = graphs.run(
+                        (w, stager.slot_index(staged)), live + tensors,
+                        fold, warm=lambda: self._warm_snapshot(snap, w))
+                else:
+                    outs = snap(carry, *tensors)
+                stager.done(staged)
+                return ch, self._enqueue_outs(ch.at, ch.hi - ch.at, outs,
+                                              carry)
 
         def fin(raw):
             ch, out = raw
-            self._finish_chunk(out, interned, snap, finalize)
+            with self._chunk_step("snapshot_wait", interned[ch.at:ch.hi]):
+                self._fire_site("finalize", ch.at, retries=0)
+                self._finish_chunk(out, interned, snap, finalize)
             plan.done(ch, sum(len(s) for _w, s, _d, _n
                               in interned[ch.at:ch.hi]))
 
@@ -628,10 +904,14 @@ class StreamingAnalyticsDriver:
         elif wire:
             outs.update(self._fetch_wire(outs, wire, done))
         deg, lab, cov = (None if m is None else m.numpy() for m in mirrors)
+        # the dispatch boundary of the chunk's latency records closes
+        # with its outs read (the per-window path has none)
+        st = ({"dispatch": latency.clock()}
+              if latency.enabled() and not self._per_window else None)
         finalize(at, take, outs, (
             None if deg is None else deg[:vb].copy(),
             None if lab is None else lab[:vb].copy(),
-            None if cov is None else snap_ops.driver_cover(cov, vb)))
+            None if cov is None else snap_ops.driver_cover(cov, vb)), st)
 
     # ------------------------------------------------------------------
     # the online tuners of the scan and resident tiers (ops/autotune.py)
@@ -934,11 +1214,35 @@ class StreamingAnalyticsDriver:
             self._pend_triangles(res, *slabs[i])
             results.append(res)
 
-    def _boundary(self, chunk, closes_partial: bool) -> None:
-        """Cursors, the partial flag and the checkpoint move together,
-        after the mirrors."""
+    def _boundary(self, chunk, res_chunk, tier: str, st,
+                  closes_partial: bool) -> None:
+        """After the mirrors, the chunk's hooks and then the cursors, the
+        partial flag and the checkpoint, together (the JAX driver's
+        `_boundary`, :1338-1391): a latency record on each of the
+        chunk's WindowResults (`res_chunk`), a provenance record a
+        window (wal_lo / wal_hi follow edges_done), the metrics mark."""
+        lane = self.tenant or "driver"
+        if latency.enabled():
+            for i, res in enumerate(res_chunk):
+                rec = latency.on_window(lane, edges=res.num_edges, st=st,
+                                        ordinal=self.windows_done + i)
+                if rec is not None:
+                    res.latency = {"e2e_s": rec["e2e_s"],
+                                   "stages": dict(rec["stages"]),
+                                   "replayed": rec["replayed"]}
+        if provenance.armed():
+            lo = self.edges_done
+            for i, res in enumerate(res_chunk):
+                provenance.emit(
+                    tenant=lane, window=self.windows_done + i, wal_lo=lo,
+                    wal_hi=lo + res.num_edges, tier=tier, program="driver",
+                    digest=provenance.result_digest(res))
+                lo += res.num_edges
+        edges = sum(len(s) for _w, s, _d, _n in chunk)
         self.windows_done += len(chunk)
-        self.edges_done += sum(len(s) for _w, s, _d, _n in chunk)
+        self.edges_done += edges
+        metrics.mark_window(len(chunk), edges, engine="driver", tier=tier,
+                            tenant=self.tenant)
         if closes_partial:
             self._closed_partial = True
         if self._ckpt_due():
@@ -966,25 +1270,41 @@ class StreamingAnalyticsDriver:
             yield
             pending = self._tri_pending
             if pending:
-                counts = self._flush_triangle_windows(
-                    [(s, d) for _r, s, d in pending])
+                with self._step("triangles",
+                                sum(len(s) for _r, s, _d in pending)):
+                    counts = self._flush_triangle_windows(
+                        [(s, d) for _r, s, d in pending])
                 for (res, _s, _d), c in zip(pending, counts):
                     res.triangles = c
         finally:
             self._tri_pending = None
 
     def _flush_triangle_windows(self, windows) -> list:
-        return self._tri_kern().count_windows(windows)
+        """Count the flush's windows down the snapshot tier's ladder: a
+        demotable failure of one rung demotes, and the next rung counts
+        only the windows the failed one had not finalized (its
+        `drained_counts`)."""
+        done: list = []
+        while True:
+            kern = self._tri_kern()
+            tier = self._demoted_tier or self.snapshot_tier
+            try:
+                return done + kern.count_windows(windows[len(done):])
+            except resilience.StageError as e:
+                if not self._maybe_demote(tier, e):
+                    raise
+                done += list(kern.drained_counts or [])
 
     def _tri_kern(self) -> tri_ops.TriangleWindowKernel:
-        """The triangle kernel at the current buckets, on the stream
-        tier of the snapshot tier."""
-        k = self._tri_kernel
+        """The triangle kernel at the current buckets on the stream tier
+        of the current snapshot tier (the device kernel on the scan and
+        resident tiers, the native or host counter on theirs)."""
+        tier = _TRIANGLE_TIER[self._demoted_tier or self.snapshot_tier]
+        k = self._tri_kernels.get(tier)
         if k is None or (k.eb, k.vb) != (self.eb, self.vb):
-            k = self._tri_kernel = tri_ops.TriangleWindowKernel(
+            k = self._tri_kernels[tier] = tri_ops.TriangleWindowKernel(
                 edge_bucket=self.eb, vertex_bucket=self.vb,
-                device=self.device,
-                stream_tier=_TRIANGLE_TIER[self.snapshot_tier])
+                device=self.device, stream_tier=tier)
         return k
 
     # ------------------------------------------------------------------
@@ -1059,9 +1379,18 @@ class StreamingAnalyticsDriver:
         self._ckpt_policy.mark(self.windows_done)
         snap = (self.windows_done, self.state_dict())
         if self._emitted is None:
-            checkpoint.save(self._ckpt_path, snap[1])
+            self._save_ckpt(snap[1])
         else:
             self._pending_ckpt.append(snap)
+
+    def _save_ckpt(self, state: dict) -> None:
+        """Write a checkpoint, then let the journal's retention cursor
+        drop what only older generations needed (it moves only at a
+        flushed checkpoint's wal_offset)."""
+        with self._step("checkpoint", 0):
+            checkpoint.save(self._ckpt_path, state)
+        self._wal_retention.flushed(self._wal, self.tenant or "driver",
+                                    int(state["wal_offset"]))
 
     def _emit(self, results):
         """Yield a batch's results one by one, saving each staged
@@ -1074,7 +1403,7 @@ class StreamingAnalyticsDriver:
                    and self._pending_ckpt[0][0] <= self._emitted):
                 flushed = self._pending_ckpt.pop(0)
             if flushed is not None:
-                checkpoint.save(self._ckpt_path, flushed[1])
+                self._save_ckpt(flushed[1])
 
     def try_resume(self, path: str) -> bool:
         """Restore from `path` (or its previous generation, when `path`
@@ -1095,7 +1424,63 @@ class StreamingAnalyticsDriver:
                 f"checkpoint {path!r} is corrupt; resumed from the "
                 f"rotated previous generation {used!r}")
         self.load_state_dict(state)
+        telemetry.event("resume", durable=True, component="driver",
+                        path=used, windows_done=self.windows_done)
         return True
+
+    # ------------------------------------------------------------------
+    # the journal (utils/wal.py; the JAX driver's :2445-2500)
+    # ------------------------------------------------------------------
+    def enable_wal(self, directory: str) -> bool:
+        """Journal every live run_arrays() batch under `directory`
+        (utils/wal.py, the format both packages read) after validation
+        and before any window is cut. After a kill,
+        `resume_and_replay(ckpt)` restores the newest checkpoint and
+        feeds the journal past its `wal_offset` again, giving the lost
+        windows bit-exactly. A journal-armed driver refuses
+        stream_file(). False (a no-op) under GS_WAL=0."""
+        if not wal_mod.enabled():
+            return False
+        self._wal_dir = directory
+        self._wal = wal_mod.WriteAheadLog(directory)
+        return True
+
+    def seal_wal(self) -> None:
+        """Durably close the journal (the clean-drain marker)."""
+        if self._wal is not None:
+            self._wal.seal()
+
+    def resume_and_replay(self, ckpt_path: str) -> List[WindowResult]:
+        """Kill recovery of a journal-armed driver: try_resume the
+        newest checkpoint generation, then feed the journal's suffix
+        past its `wal_offset` through run_arrays() (not journaled
+        again). Returns the replayed WindowResults."""
+        self.try_resume(ckpt_path)
+        if self._wal_dir is None:
+            return []
+        tenant = self.tenant or "driver"
+        parts = [(src, dst, ts) for tid, _start, src, dst, ts in
+                 wal_mod.replay(self._wal_dir, {tenant: self.edges_done})
+                 if tid == tenant]
+        edges = sum(len(p[0]) for p in parts)
+        telemetry.event("wal_replayed", durable=True, component="driver",
+                        dir=self._wal_dir, edges=edges)
+        metrics.counter_inc("gs_wal_replayed_edges_total", edges)
+        if not edges:
+            return []
+        src = np.concatenate([p[0] for p in parts])
+        dst = np.concatenate([p[1] for p in parts])
+        ts = (np.concatenate([p[2] for p in parts])
+              if all(p[2] is not None for p in parts) else None)
+        live, self._wal = self._wal, None
+        try:
+            return self.run_arrays(src, dst, ts)
+        finally:
+            self._wal = live
+
+    def trace_report(self) -> List[dict]:
+        """The StepTimer's report with tracing=True, else []."""
+        return self.timer.report() if self.timer else []
 
     def state_dict(self) -> dict:
         """The JAX driver's checkpoint keys and layouts (single-chip), as

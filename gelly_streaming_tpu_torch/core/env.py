@@ -7,8 +7,8 @@ context, sources, time characteristic, parallelism, execute(). The
 environment also names the device its neighborhood and triangle kernels
 run on: `device=None` means the CUDA card, resolved at the first device
 kernel a job builds (a job of host UDFs needs none); `device="cpu"` runs
-the kernels' plain versions. `enable_tracing` and `trace_report` raise
-NotImplementedError until the port's tracing (ROADMAP step 1.8).
+the kernels' plain versions. `enable_tracing()` times each operator
+into a StepTimer (utils/tracing.py), read by `trace_report()`.
 """
 
 from __future__ import annotations
@@ -99,13 +99,21 @@ class StreamEnvironment:
         """Records collected by a `.collect()` sink (values only)."""
         return [v for (v, _ts) in self._results.get(stream.node.id, [])]
 
+    # ------------------------------------------------------------------
+    # tracing (utils/tracing.py; absent in the reference, SURVEY.md
+    # §5.1/§5.5)
+    # ------------------------------------------------------------------
     def enable_tracing(self) -> "StreamEnvironment":
-        raise NotImplementedError("per-operator tracing is not ported yet "
-                                  "(ROADMAP step 1.8)")
+        """Time every operator of the job (exclusive of its parents) and
+        count its records, into `trace_report()`."""
+        from ..utils.tracing import StepTimer
+
+        self.timer = StepTimer()
+        return self
 
     def trace_report(self) -> List[dict]:
-        raise NotImplementedError("per-operator tracing is not ported yet "
-                                  "(ROADMAP step 1.8)")
+        timer = getattr(self, "timer", None)
+        return timer.report() if timer else []
 
 
 class JobExecutionResult:

@@ -4,9 +4,11 @@ Port of the JAX package's `core/runtime.py`. Executes the plan built
 by the DataStream layer: pushes timestamped records through operators,
 groups tumbling windows, runs fixpoint iteration, and hands columnar
 window batches to device kernels ("window_batch" nodes, the hot path;
-with slide= and a kernel's pane path, one batch for all windows). Not
-ported: the per-operator timing of `enable_tracing` and the metrics
-marks (ROADMAP step 1.8).
+with slide= and a kernel's pane path, one batch for all windows). With
+`env.enable_tracing()` each operator's exclusive time and records go to
+the environment's StepTimer and an `op.<kind>` telemetry span; the
+metrics registry gets a stream mark a job and a window mark a grouped
+window batch.
 
 Semantics notes (parity with the reference's runtime behavior):
 - Finite sources → every window fires at end-of-stream, in ascending
@@ -26,6 +28,7 @@ import copy
 from collections import defaultdict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ..utils import metrics
 from .plan import OpNode
 from .types import csv_line, text_line
 
@@ -58,9 +61,11 @@ class Executor:
     def __init__(self, env):
         self.env = env
         self.memo: Dict[int, List[Record]] = {}
+        self._timing_stack: List[float] = []
 
     # ------------------------------------------------------------------
     def run(self) -> Dict[int, List[Record]]:
+        metrics.on_stream_start("runtime")
         # Run iteration loops first: their fixpoint evaluation memoizes
         # every body node's accumulated output, so no sink path can later
         # re-execute a stateful body operator with already-mutated state.
@@ -129,7 +134,26 @@ class Executor:
         if node.kind == "iterate" and overrides is None:
             self._run_iteration(node)
             return self.memo[node.id]
-        records = self._apply(node, overrides, cache)
+        timer = getattr(self.env, "timer", None)
+        if timer is None:
+            records = self._apply(node, overrides, cache)
+        else:
+            # exclusive per-operator time: the parents evaluated inside
+            # _apply record their own
+            from ..utils import telemetry
+
+            t0 = telemetry.clock()
+            self._timing_stack.append(0.0)
+            records = self._apply(node, overrides, cache)
+            elapsed = telemetry.clock() - t0
+            child_time = self._timing_stack.pop()
+            if self._timing_stack:
+                self._timing_stack[-1] += elapsed
+            timer.add(f"{node.kind}#{node.id}", elapsed - child_time,
+                      len(records))
+            telemetry.record_span(f"op.{node.kind}", t0,
+                                  elapsed - child_time, node=node.id,
+                                  records=len(records))
         memo[node.id] = records
         return records
 
@@ -345,7 +369,11 @@ class Executor:
             panes: Dict[int, List[Any]] = defaultdict(list)
             for v, ts in records:
                 panes[ts - ts % slide].append(v)
-            return pane_kernel(panes, size, slide)
+            out = pane_kernel(panes, size, slide)
+            if metrics.enabled():  # its argument is a pass over `out`
+                metrics.mark_window(len({ts for _, ts in out}),
+                                    len(records), engine="runtime")
+            return out
         groups: Dict[int, List[Any]] = defaultdict(list)
         for v, ts in records:
             for wstart in self._window_starts(ts, size, slide):
@@ -353,6 +381,7 @@ class Executor:
         out: List[Record] = []
         for wstart in sorted(groups):
             out.extend(kernel(groups[wstart], wstart + size - 1))
+        metrics.mark_window(len(groups), len(records), engine="runtime")
         return out
 
     # ------------------------------------------------------------------

@@ -32,7 +32,7 @@ tier and the tenants-per-dispatch autotuner arm (step 1.7's second
 half, with the ingest ring of step 1.3); the bulkhead (quarantine,
 probation, the poison gate, demotion on a failed prep), the reorder
 buffer, sanitize, WAL, checkpoint files, latency, provenance, metrics
-and telemetry (step 1.8); the serving front end `core/serve.py` (step
+and telemetry (step 1.8c); the serving front end `core/serve.py` (step
 1.9). Slabs are prepared inline on the pumping thread.
 """
 

@@ -257,6 +257,9 @@ class TriangleWindowKernel:
         # per-stage wall time of every pipelined stream run through here
         self.stage_timers = ingress_pipeline.StageTimers()
         self._counters = {}
+        # the counts a failed call had finalized (its first windows, in
+        # order): where a demoting caller counts on from
+        self.drained_counts = None
         self._stage = ChunkStager(self.device)         # count(): one slot
         self._ring = ChunkStager(self.device, slots=self.INFLIGHT + 1)
 
@@ -321,6 +324,7 @@ class TriangleWindowKernel:
         `get_window(w)`, up the ladder past that K.
         ingress_pipeline.forced_sync gives the same counts."""
         counts: list = []
+        self.drained_counts = counts     # grows as chunks finalize
         plan = autotune.RoundPlan(
             num_w, {"wb": self.MAX_STREAM_WINDOWS, "kb": self.kb,
                     "ingress": self.ingress}, tuner,
@@ -486,7 +490,10 @@ class TriangleWindowKernel:
 
     def count_windows(self, windows) -> list:
         """Exact counts of a list of (src, dst) window batches of varying
-        lengths (each ≤ edge_bucket), stacked and counted in chunks."""
+        lengths (each ≤ edge_bucket), stacked and counted in chunks. If
+        it raises, `drained_counts` holds the counts of the windows it
+        had finalized, in order (None: none)."""
+        self.drained_counts = None
         if not windows:
             return []
         if self.stream_tier == "native":

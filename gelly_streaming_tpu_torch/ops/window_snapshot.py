@@ -28,7 +28,8 @@ and cover canonical (each slot at the smallest slot of its set).
 `WindowSnapshot` launches the CUDA kernel of csrc/window_snapshot.cu
 (one launch a call, over the summary body's tiers) on CUDA tensors and
 runs `snapshot_windows_plain`, the plain PyTorch version, on CPU ones;
-it never falls back from one to the other.
+it never falls back from one to the other. Each call is one launch of
+the cost observatory (utils/costmodel.py `snapshot_work`).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils import costmodel
 from . import unionfind
 from .delta_egress import EGRESS, compact_changed
 
@@ -191,6 +193,19 @@ class WindowSnapshot:
 
     def __call__(self, carry, src, dst, valid) -> dict:
         self._check(carry, src, dst, valid)
+        w, eb = src.shape
+        delta = self.egress == "delta"
+        with costmodel.launch(
+                "window_snapshot" + ("_delta" if delta else "_masks"
+                                     if self.deltas else ""),
+                [t for t in carry if t is not None][:1] + [src],
+                lambda: costmodel.snapshot_work(
+                    w, eb, self.vb, self.egress, self.cap,
+                    [bool(self.flags >> k & 1) for k in range(3)],
+                    masks=self.deltas and not delta), src.device):
+            return self._launch(carry, src, dst, valid)
+
+    def _launch(self, carry, src, dst, valid) -> dict:
         if src.device.type == "cpu":
             return snapshot_windows_plain(carry, src, dst, valid, self.vb,
                                           self.deltas, self.egress,

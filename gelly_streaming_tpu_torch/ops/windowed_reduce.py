@@ -33,9 +33,11 @@ edge once into its slide-sized pane (this engine at edge_bucket=slide,
 same tier) and compose the last size/slide panes per emission on the
 host. `cohort_step` folds N tenants' next windows in one launch.
 
-Ids outside [0, vb] are refused with ValueError on every tier. Not
-ported: the telemetry spans (ROADMAP step 1.8) and the evidence routing
-of tiers, wires and egress (after step 1.1).
+Ids outside [0, vb] are refused with ValueError on every tier. Each
+call is one `reduce.stream` telemetry span, its tier an attribute
+(`reduce.sliding` around a sliding call's panes), and the device tier's
+chunks add their per-stage wall time to `stage_timers`. Not ported: the
+evidence routing of tiers, wires and egress (after step 1.1).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import torch
 
 from .. import native
 from ..core.platform import resolve_device
+from ..utils import telemetry
 from . import compact_ingress
 from . import ingress_pipeline
 from . import segment as seg_ops
@@ -225,19 +228,31 @@ class WindowedEdgeReduce:
             raise ValueError("src/dst/val length mismatch")
         if len(src0) == 0:
             return []
+        n = len(src0)
         if self.slide is not None:
-            panes = self._pane_eng().process_stream(src0, dst0, val)
-            return self._compose_panes(panes)
-        if self.tier == "native":
-            if not np.issubdtype(val.dtype, np.signedinteger):
-                raise ValueError("the native tier folds signed integer "
-                                 "values, not %s" % val.dtype)
-            return self._native_process_stream(src0, dst0, val)
-        src64 = src0.astype(np.int64, copy=False)
-        dst64 = dst0.astype(np.int64, copy=False)
-        if self.tier == "host":
-            return self._host_process_stream(src64, dst64, val)
-        return self._device_process_stream(src64, dst64, val)
+            # each edge folds into its pane once (the engine at
+            # edge_bucket=slide, the same tier), panes compose per
+            # emission on the host
+            with telemetry.span("reduce.sliding", monoid=self.name,
+                                edges=n, slide=self.slide,
+                                panes_per_window=self.panes_per_window):
+                panes = self._pane_eng().process_stream(src0, dst0, val)
+                return self._compose_panes(panes)
+        if self.tier == "native" \
+                and not np.issubdtype(val.dtype, np.signedinteger):
+            raise ValueError("the native tier folds signed integer "
+                             "values, not %s" % val.dtype)
+        # the device tier's chunk and stage spans (the ingress pipeline)
+        # nest under this one
+        with telemetry.span("reduce.stream", tier=self.tier,
+                            monoid=self.name or "fn", edges=n):
+            if self.tier == "native":
+                return self._native_process_stream(src0, dst0, val)
+            src64 = src0.astype(np.int64, copy=False)
+            dst64 = dst0.astype(np.int64, copy=False)
+            if self.tier == "host":
+                return self._host_process_stream(src64, dst64, val)
+            return self._device_process_stream(src64, dst64, val)
 
     # ---- native tier ---------------------------------------------------
 

@@ -9,7 +9,11 @@ dispatch spans of the run ledger. Here every row is an analytic model:
 - The launch wrappers on the engine paths — `WindowCounter.__call__`
   (ops/window_counter.py, row 2 of PERF.md §6), `WindowSummary.__call__`
   (ops/window_summary.py, row 3: the summary kernel and its counter, one
-  call), `GnnRound.__call__` (ops/gnn_round.py, row 5) — open a
+  call), `GnnRound.__call__` (ops/gnn_round.py, row 5),
+  `WindowSnapshot.__call__` (ops/window_snapshot.py, row S: the
+  driver's snapshot kernel, as "window_snapshot" on full rows,
+  "window_snapshot_masks" with the changed-slot masks and
+  "window_snapshot_delta" on the delta wire) — open a
   `launch(program, tensors, work)` scope around their launches. Armed,
   the scope records a CUDA event on the current stream before and after
   them (the host clock on the CPU, where the plain versions run
@@ -18,12 +22,13 @@ dispatch spans of the run ledger. Here every row is an analytic model:
   (ops/resident_engine.SuperBatchGraphs) is one launch of its graph
   family, its work the sum of what its capture launched.
 - The bytes and operations of a call come from `counter_work`,
-  `summary_work` and `gnn_work`: the counts chip_smoke.py's `kernels`
+  `summary_work`, `gnn_work` and `snapshot_work`: the counts chip_smoke.py's `kernels`
   line computes its bound from (each input read once, each output
   written once; the operations its data needs). A launch wrapper knows
   only the shapes, so it counts the data-dependent operations (valid
   slots, row compares) as 0: its operations are a lower bound, its bytes
-  exact. The counter and summary rows are bound by their bytes and the
+  exact. The counter, summary and snapshot rows are bound by their
+  bytes and the
   GNN round's operations depend on its shape alone, so each row's bound
   equals the kernels line's at the same shape (chip_smoke.py's phase
   costmodel_health checks it).
@@ -128,6 +133,36 @@ def gnn_work(windows: int, eb: int, vb: int,
     nbytes = (windows * 9 * eb + 2 * 4 * (vb + 1) * feat
               + 4 * feat * (feat + 1) + 16 * windows)
     return nbytes, windows * 2 * (vb + 1) * feat * feat, "fp16_tc"
+
+
+def snapshot_work(windows: int, eb: int, vb: int, egress: str = "full",
+                  cap: int = 0, fields=(True, True, True),
+                  masks: bool = False, slots: int = 0
+                  ) -> Tuple[int, int, str]:
+    """(bytes, operations, kind) of one call of the driver's snapshot
+    kernel over `windows` windows of `eb` slots, with the analytics
+    `fields` (degrees, labels, the cover's odd flag) on: the slab read
+    once; each carry on (4(vb+1) bytes of degrees, 4(vb+1) of labels,
+    8(vb+1) of cover) read and written once; and per window, on full
+    rows, each field's row of vb slots (4, 4 and 1 bytes a slot) and
+    with `masks` its changed-slot mask (1 byte a slot), or on the delta
+    wire each field's count (4 bytes) and its index and value rows at
+    `cap` (4 + 4, 4 + 4 and 4 + 1 bytes an entry: the rows the kernel
+    may fill, since how many it fills is known only after the call).
+    Operations: per valid slot (`slots`, known from the data) 2 degree
+    adds and 3 unions, per slot and window 3 root walks."""
+    width = (4, 4, 1)
+    carry = (4, 4, 8)
+    nbytes = slab_bytes(windows, eb) + sum(
+        2 * c * (vb + 1) for c, on in zip(carry, fields) if on)
+    for w, on in zip(width, fields):
+        if not on:
+            continue
+        if egress == "delta":
+            nbytes += windows * (4 + cap * (4 + w))
+        else:
+            nbytes += windows * vb * (w + (1 if masks else 0))
+    return nbytes, 5 * slots + 3 * vb * windows, "scalar"
 
 
 # ----------------------------------------------------------------------

@@ -20,7 +20,7 @@ Sites the port fires (each a no-op without a plan: one list test):
 
     prep          ops/ingress_pipeline, a worker's prep of a chunk
     h2d           ops/ingress_pipeline, a worker's h2d of a chunk
-    admit         the engines' admission (SummaryEngineBase.process),
+    admit         the engines' and the driver's admission,
                   before the sanitizer and the journal see the batch;
                   payload=(tenant, src, dst), so a `call` spec can
                   poison the arrays
@@ -28,9 +28,12 @@ Sites the port fires (each a no-op without a plan: one list test):
     ckpt_save     utils/checkpoint.save, after the atomic replace,
                   payload=the final path
     ckpt_restore  utils/checkpoint.restore, before the load
+    dispatch      core/driver.py, before a chunk's snapshot launch (or
+                  inside its native / host fold), on the caller's thread
+    finalize      core/driver.py, before a chunk's finalize reads its
+                  outs
 
-The driver's `dispatch` and `finalize` sites and the mesh sites come
-with their owners (ROADMAP steps 1.8b and 1.10).
+The mesh sites come with their owner (ROADMAP step 1.10).
 
 Actions:
     raise          raise InjectedFault (or `exc` if given). fatal=True

@@ -10,7 +10,8 @@ registry's (`utils/resilience.py`), the dispatch autotuner's
 (`ops/autotune.py`), the resident tier's (`ops/resident_engine.py`), the
 host hooks' (`utils/telemetry.py`, `metrics.py`, `healthz.py`,
 `wal.py`, `latency.py`, `sanitize.py`, `costmodel.py`, `provenance.py`)
-and the GNN engine's width and activation (`ops/gnn_window.py`). The
+the GNN engine's width and activation (`ops/gnn_window.py`) and the
+driver's probation and slide (`core/driver.py`). The
 cost model's peaks are not knobs here: they come from the card's row of
 `utils/costmodel.PEAKS`.
 
@@ -176,10 +177,15 @@ register("GS_STAGE_RETRIES", "int", 0, lo=0,
 register("GS_STAGE_BACKOFF_S", "float", 0.05, lo=0.0,
          help="deterministic (jitterless) exponential backoff base "
               "between attempts")
+register("GS_TIER_RETRY_WINDOWS", "int", 0, lo=0,
+         help="probation length before a demoted snapshot tier of the "
+              "driver re-probes the faster one; 0 = never",
+         default_text="0 (never)")
 register("GS_TIER_DEMOTE", "bool", True,
-         help="`0` pins the resolved tier: a persistent host-stage "
-              "failure raises instead of demoting (read by the demotion "
-              "registry; the driver's ladder uses it)")
+         help="`0` pins the resolved tier: a persistent host-side "
+              "failure raises a typed `StageFailed` instead of demoting "
+              "the driver's snapshot tier (a kernel or CUDA error never "
+              "demotes)")
 register("GS_MESH_DEMOTE", "bool", True,
          help="`0` pins a sharded session to the mesh (the "
               "`sharded→scan` rung); subordinate to `GS_TIER_DEMOTE`")
@@ -367,6 +373,12 @@ register("GS_PROVENANCE_DIR", "path", None,
 register("GS_PROVENANCE_RETAIN", "int", 0, lo=0,
          help="closed ledger segments kept behind the open one; 0 = "
               "keep everything")
+
+# the driver's sliding windows (core/driver.py)
+register("GS_SLIDE", "int", 0, lo=0,
+         help="the driver's `slide=` where it is None: an emission every "
+              "this many edges, each edge folded into its pane once; a "
+              "power of two dividing the window size; 0 = tumbling")
 
 
 # ----------------------------------------------------------------------

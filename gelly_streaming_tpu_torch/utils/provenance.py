@@ -14,7 +14,9 @@ records back to back:
 The engines emit one record a finalized window at the journal's cursor
 arithmetic (`wal_lo` = windows_done × eb), under the JAX engines' tier
 and program names, with `digest` the sha256 of the summary's canonical
-JSON: on equal input the port's records equal the JAX package's in
+JSON; the columnar driver emits one a window with `wal_lo` / `wal_hi`
+at its edges_done cursor and `digest` its `result_digest`. On equal
+input the port's records equal the JAX package's in
 every field but `knobs`, the fingerprint of the registry of the process
 that computed the window (each package registers its own knobs).
 Records carry no wall-clock field, so a kill, a resume and a journal
@@ -94,6 +96,26 @@ def summary_digest(summary) -> str:
     blob = json.dumps(summary, sort_keys=True,
                       separators=(",", ":"), default=_jsonable)
     return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def result_digest(res) -> str:
+    """sha256 hex of a driver WindowResult's analytic content, as the
+    JAX package computes it: window_start, num_edges, the raw bytes of
+    the degree, label and odd-flag snapshots (an absent one hashes as a
+    presence marker) and the triangle count ("-" while the call's
+    triangle flush is still pending, as at every finalize)."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    h.update(b"%d|%d" % (int(res.window_start), int(res.num_edges)))
+    for name in ("degrees", "cc_labels", "bipartite_odd"):
+        a = getattr(res, name, None)
+        h.update(b"|" + name.encode() + b":")
+        if a is not None:
+            h.update(np.ascontiguousarray(a).tobytes())
+    t = getattr(res, "triangles", None)
+    h.update(b"|tri:" + (b"-" if t is None else b"%d" % int(t)))
+    return h.hexdigest()
 
 
 def _jsonable(x):

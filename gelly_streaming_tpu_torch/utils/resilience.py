@@ -13,11 +13,16 @@ Port of the JAX package's `utils/resilience.py`:
   inert and callers run their inline path: no thread, no overhead.
   The ingress pipeline guards its host stages, prep and h2d, with its
   own cell-aware twin (ops/ingress_pipeline._guarded_prep_h2d); the
-  device stages (dispatch, finalize) are not guarded in the port.
+  device stages (dispatch, finalize) are not guarded in the port: the
+  driver fires its `dispatch` and `finalize` fault sites inline
+  (timeout=0) on the caller's thread before the launch, never around
+  it.
 - The demotion registry (`record_demotion`, `demotion_events`,
   `tier_demotion_enabled`, `mesh_demotion_enabled`): a process-global
-  log of tier demotions, served on `/healthz`. Its owner, the driver's
-  demotion ladder, comes with ROADMAP step 1.8b.
+  log of tier demotions, served on `/healthz`, and the probation knob
+  (`tier_retry_windows`). Its owner is the driver's demotion ladder
+  (core/driver.py `_maybe_demote`), which never demotes on a device
+  error.
 
 The rule of the port (`is_device_error`): an error raised by a kernel's
 build or launch (`kernels.KernelError`) or by a CUDA call (PyTorch's
@@ -262,6 +267,15 @@ def reset_demotions() -> None:
     """Test hook: clear the process-global demotion log."""
     with _DEMOTIONS_LOCK:
         _DEMOTIONS.clear()
+
+
+def tier_retry_windows() -> int:
+    """Probation before re-promotion after a tier demotion
+    (GS_TIER_RETRY_WINDOWS): once this many windows have finalized on
+    the demoted tier, the driver runs the higher tier again; a repeat
+    failure demotes again and restarts probation. 0 (the default): a
+    demotion lasts for the driver's life."""
+    return knobs.get_int("GS_TIER_RETRY_WINDOWS")
 
 
 def tier_demotion_enabled() -> bool:

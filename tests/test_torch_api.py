@@ -417,8 +417,9 @@ def test_read_edge_file(tmp_path):
 
 def test_environment_contracts(monkeypatch):
     env = _penv()
-    with pytest.raises(NotImplementedError):
-        env.enable_tracing()
+    # tracing is ported (tests/test_torch_tracing.py)
+    assert env.trace_report() == []
+    assert env.enable_tracing() is env and env.trace_report() == []
     # a host-UDF job needs no card; a device UDF resolves None to the card
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     env = P.StreamEnvironment(clock=P.ManualClock(0))

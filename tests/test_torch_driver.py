@@ -336,10 +336,13 @@ def test_refusals(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             StreamingAnalyticsDriver(window_ms=10)
-    for kw in (dict(mesh=object()), dict(tenant="t"),
-               dict(tracing=True)):
-        with pytest.raises(NotImplementedError):
-            StreamingAnalyticsDriver(window_ms=10, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="1.10"):
+        StreamingAnalyticsDriver(window_ms=10, device="cpu", mesh=object())
+    # tenant= and tracing= are ported (tests/test_torch_hooks_driver.py)
+    drv = StreamingAnalyticsDriver(window_ms=10, device="cpu", tenant=7,
+                                   tracing=True)
+    assert drv.tenant == "7" and drv.trace_report() == []
+    assert drv.demotion_log() == []
     # the resident tier is ported (tests/test_torch_resident.py)
     assert StreamingAnalyticsDriver(
         window_ms=10, device="cpu",

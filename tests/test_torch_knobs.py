@@ -1,8 +1,9 @@
 """The port's knob registry (gelly_streaming_tpu_torch/utils/knobs.py)
 against the JAX package's: every knob the port reads (the stage guard
 and demotion registry, the dispatch autotuner, the resident tier, the
-host hooks, the GNN engines) with the same kinds, defaults, bounds and
-choices, and the same parsing (live reads, clamping, typed refusals)."""
+host hooks, the GNN engines, the driver's probation and slide) with the
+same kinds, defaults, bounds and choices, and the same parsing (live
+reads, clamping, typed refusals)."""
 
 import pytest
 import torch
@@ -12,7 +13,7 @@ from gelly_streaming_tpu_torch.utils import knobs
 
 SLICE_KNOBS = (
     "GS_STAGE_TIMEOUT_S", "GS_STAGE_RETRIES", "GS_STAGE_BACKOFF_S",
-    "GS_TIER_DEMOTE", "GS_MESH_DEMOTE",
+    "GS_TIER_RETRY_WINDOWS", "GS_TIER_DEMOTE", "GS_MESH_DEMOTE",
     "GS_AUTOTUNE", "GS_AUTOTUNE_ROUND", "GS_AUTOTUNE_EXPLORE",
     "GS_TUNE_CACHE", "GS_RESIDENT", "GS_RESIDENT_SPB", "GS_RESIDENT_SLOTS",
     "GS_TELEMETRY", "GS_TRACE_DIR", "GS_TRACE_RING", "GS_TRACE_DURABLE",
@@ -23,7 +24,8 @@ SLICE_KNOBS = (
     "GS_SLO_BUDGET", "GS_SLO_WINDOW_S", "GS_SLO_BURN",
     "GS_SANITIZE", "GS_DLQ_DIR", "GS_DLQ_RETAIN", "GS_MAX_BATCH_EDGES",
     "GS_COSTMODEL", "GS_GNN_F", "GS_GNN_ACT",
-    "GS_PROVENANCE", "GS_PROVENANCE_DIR", "GS_PROVENANCE_RETAIN")
+    "GS_PROVENANCE", "GS_PROVENANCE_DIR", "GS_PROVENANCE_RETAIN",
+    "GS_SLIDE")
 
 
 @pytest.fixture(autouse=True)
