@@ -4,7 +4,7 @@ NVIDIA GPU.
 
 Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and the
 native host runtime (gelly_streaming_tpu_torch/native, g++) and runs
-thirty-one phases, with the dispatch tuner's cache (GS_TUNE_CACHE) in a
+thirty-two phases, with the dispatch tuner's cache (GS_TUNE_CACHE) in a
 fresh temporary directory. The first twenty-two run with GS_AUTOTUNE=0,
 so their numbers stay comparable across runs. Eight hold a kernel against its plain PyTorch version on
 the card: intersect (ascending and shuffled rows), counter (count and
@@ -93,8 +93,8 @@ to equal results, and passes a fatal fault and an error of the launch
 wrapper through unretried and unwrapped; costmodel_health arms the cost
 observatory and the metrics registry, reads /healthz on an ephemeral
 local port while the engines stream, and holds each kernel's cost-model
-bound equal to its bound on the kernels line. Three drive the driver's
-hooks, its demotion ladder and tracing: hooks_driver runs the driver
+bound equal to its bound on the kernels line. Four drive the driver's
+and the cohort's hooks, the driver's demotion ladder and tracing: hooks_driver runs the driver
 over the same stream (the scan tier fed as in phase driver, then the
 resident tier) disarmed, with each hook alone (telemetry, metrics,
 latency, costmodel, provenance, the journal, the sanitizer,
@@ -107,8 +107,18 @@ prefix, which never leaves the card (injected host faults at dispatch:
 resident to scan, native to host, none off scan; a failed h2d copy
 raised; probation and re-promotion; a prep fault retried; a resident
 prep failure demoted to scan; a KernelError raised unwrapped with
-nothing demoted; GS_TIER_DEMOTE=0); api_tracing traces the record
-API's reduce_on_edges over phase api's 1M edges beside its untraced
+nothing demoted; GS_TIER_DEMOTE=0); hooks_cohort serves phase
+cohort_stream's 64 tenants disarmed, with the journal, the sanitizer
+and provenance alone and with every hook armed (checkpoints every 16
+windows among them), each equal to the disarmed pass with its launches
+and host syncs, then quarantines exactly a tenant with a dispatch fault
+and one with a poisoned output row (every tenant exact, one re-admitted
+after its probation), raises a KernelError of the cohort launch
+unwrapped with nothing quarantined, recovers a kill after pump 3 from
+checkpoints + journal bit-exactly, holds the cost observatory's cohort
+row to phase cohort's bound, reorders 4 tenants' shuffled stamps within
+GS_OOO_BOUND, and runs GnnTenantCohort all armed equal to phase
+gnn_cohort; api_tracing traces the record API's reduce_on_edges over phase api's 1M edges beside its untraced
 rate, arms the reduce stream's spans, and reports the device_trace
 (torch.profiler) capture of a driver call taken first in the process.
 Every main-path phase ends with no demotion in the drivers' logs or the
@@ -1826,18 +1836,25 @@ def cohort_streams() -> dict:
     return out
 
 
-def serve_cohort(streams: dict, demote: str = None):
+def serve_cohort(streams: dict, demote: str = None, co=None,
+                 cursor: dict = None, stop_after: int = None):
     """Drive a TenantCohort(CO_EB, CO_VB) on the card as a server would:
     admit every tenant at its vertex bucket; then, until every stream is
     in, feed each tenant CO_FEED edges at a time until its queue pushes
     back (TenantBackpressure) and pump(); `demote` goes to its own engine
-    after the second pump; every tenant is closed at the end. Returns
-    (summaries per tenant, the cohort, host-clock seconds by stage)."""
+    after the second pump; every tenant is closed at the end. `co` is a
+    cohort to serve instead of a new one (admitting the tenants it does
+    not know), `cursor` the edges of each stream already accepted (moved
+    on in place), and `stop_after` a number of pumps after which the
+    serving stops, nothing closed (a kill). Returns (summaries per
+    tenant, the cohort, host-clock seconds by stage)."""
     from gelly_streaming_tpu_torch import TenantBackpressure, TenantCohort
 
-    co = TenantCohort(CO_EB, CO_VB)            # device=None: the card
+    if co is None:
+        co = TenantCohort(CO_EB, CO_VB)        # device=None: the card
     for tid, (_s, _d, vb) in streams.items():
-        co.admit(tid, vertex_bucket=vb)
+        if tid not in co.tenants:
+            co.admit(tid, vertex_bucket=vb)
     secs = {"feed": 0.0, "prep": 0.0, "pump": 0.0, "close": 0.0}
     prep = co._prep_slab
 
@@ -1849,7 +1866,8 @@ def serve_cohort(streams: dict, demote: str = None):
 
     co._prep_slab = timed_prep
     out = {tid: [] for tid in streams}
-    cursor = dict.fromkeys(streams, 0)
+    if cursor is None:
+        cursor = dict.fromkeys(streams, 0)
     pumps = 0
     start = time.perf_counter()
     while any(cursor[tid] < len(s) for tid, (s, _d, _v) in streams.items()):
@@ -1870,6 +1888,10 @@ def serve_cohort(streams: dict, demote: str = None):
         secs["pump"] += time.perf_counter() - t1
         if pumps == 2 and demote:
             co.demote(demote)
+        if pumps == stop_after:
+            secs["wall"] = time.perf_counter() - start
+            secs["pumps"] = pumps
+            return out, co, secs
     t0 = time.perf_counter()
     for tid in streams:
         out[tid].extend(co.close(tid))
@@ -1886,9 +1908,12 @@ def phase_cohort_stream(dev) -> dict:
     the second pump. Every tenant's summaries equal the port's
     StreamSummaryEngine on the card over its stream, its degrees and
     labels equal that engine's; the first four windows of tenants 0 and
-    56 equal the numpy summary oracle; the cohort kernel was launched."""
+    56 equal the numpy summary oracle; the cohort kernel was launched;
+    the one demotion recorded is t03's, by the operator (and is cleared
+    for the phase's no_demotions check)."""
     from gelly_streaming_tpu_torch import StreamSummaryEngine, kernels
     from gelly_streaming_tpu_torch.ops import host_summary
+    from gelly_streaming_tpu_torch.utils import resilience
 
     streams = cohort_streams()
     total = sum(len(s) for s, _d, _v in streams.values())
@@ -1902,6 +1927,11 @@ def phase_cohort_stream(dev) -> dict:
     require(launches["cohort_summary"] > 0,
             "kernel cohort_summary was not launched on the cohort path")
     require(co.tenant_tier("t03") == "single", "t03 was not demoted")
+    require([(e["component"], e["from"], e["to"], e["reason"])
+             for e in resilience.demotion_events()]
+            == [("tenant:t03", "cohort", "single", "operator")],
+            "cohort_stream demotions: %s" % resilience.demotion_events())
+    resilience.reset_demotions()
 
     engines = {}
     windows = 0
@@ -1940,7 +1970,7 @@ def phase_cohort_stream(dev) -> dict:
     print(json.dumps({"cohort_profile": prof}))
     print("phase cohort_stream: ok  %d tenants  %d windows  %.1f tenant "
           "edges/s  %d pumps" % (len(streams), windows, rate, secs["pumps"]))
-    return launches
+    return launches, streams, out
 
 
 def phase_gnn_cohort(dev) -> dict:
@@ -1950,36 +1980,13 @@ def phase_gnn_cohort(dev) -> dict:
     weights of phase gnn_stream. Every tenant's summaries and final slab
     equal a GnnSummaryEngine's on the card over the same stream; the GNN
     kernel was launched."""
-    from gelly_streaming_tpu_torch import (GnnSummaryEngine, GnnTenantCohort,
-                                           kernels, make_stream)
-    from gelly_streaming_tpu_torch.ops import gnn_window as gw
+    from gelly_streaming_tpu_torch import GnnSummaryEngine, kernels
 
-    W, b = gnn_weights(GNN_F, -12, -3)
-    streams = {"g%02d" % i: make_stream(GNN_CO_WINDOWS * CO_EB, CO_VB,
-                                        seed=300 + i)
-               for i in range(CO_TENANTS)}
-    slabs = [gw.default_features(CO_VB, GNN_F, seed=i)
-             for i in range(CO_TENANTS)]
+    W, b, streams, slabs = gnn_cohort_inputs()
     total = GNN_CO_WINDOWS * CO_EB * CO_TENANTS
 
     def serve():
-        """Admit the tenants with their slabs, then two rounds of feeds
-        of 8 windows and a pump; returns (summaries, the cohort, the
-        seconds of the feed and pump rounds)."""
-        co = GnnTenantCohort(CO_EB, CO_VB, feature_dim=GNN_F)  # the card
-        co.set_weights(W / 32, b / 32)
-        for tid, slab in zip(streams, slabs):
-            co.admit(tid, feature_units=slab)
-        torch.cuda.synchronize()
-        out = {tid: [] for tid in streams}
-        half = GNN_CO_WINDOWS // 2 * CO_EB
-        t0 = time.perf_counter()
-        for lo, hi in ((0, half), (half, None)):
-            for tid, (s, d) in streams.items():
-                co.feed(tid, s[lo:hi], d[lo:hi])
-            for tid, res in co.pump().items():
-                out[tid].extend(res)
-        return out, co, time.perf_counter() - t0
+        return serve_gnn_cohort(W, b, streams, slabs)
 
     kernels.reset_launches()
     out, co, wall = serve()
@@ -2020,7 +2027,47 @@ def phase_gnn_cohort(dev) -> dict:
     print(json.dumps({"gnn_cohort_profile": prof}))
     print("phase gnn_cohort: ok  %d tenants  %.1f edges/s  %.4g "
           "edge-features/s" % (CO_TENANTS, rate, rate * GNN_F))
-    return launches
+    return launches, out
+
+
+def gnn_cohort_inputs() -> tuple:
+    """(W, b, streams, slabs) of the GNN cohort: the fixed snapped
+    weights of phase gnn_stream, 64 tenant streams of GNN_CO_WINDOWS
+    windows (make_stream(..., seed=300+i)) and their
+    default_features(8192, 64, seed=i) slabs."""
+    from gelly_streaming_tpu_torch import make_stream
+    from gelly_streaming_tpu_torch.ops import gnn_window as gw
+
+    W, b = gnn_weights(GNN_F, -12, -3)
+    streams = {"g%02d" % i: make_stream(GNN_CO_WINDOWS * CO_EB, CO_VB,
+                                        seed=300 + i)
+               for i in range(CO_TENANTS)}
+    slabs = [gw.default_features(CO_VB, GNN_F, seed=i)
+             for i in range(CO_TENANTS)]
+    return W, b, streams, slabs
+
+
+def serve_gnn_cohort(W, b, streams: dict, slabs: list) -> tuple:
+    """GnnTenantCohort(4096, 8192, feature_dim=64) on the card: admit
+    the tenants with their slabs, then two rounds of feeds of 8 windows
+    and a pump; returns (summaries, the cohort, the seconds of the feed
+    and pump rounds)."""
+    from gelly_streaming_tpu_torch import GnnTenantCohort
+
+    co = GnnTenantCohort(CO_EB, CO_VB, feature_dim=GNN_F)  # the card
+    co.set_weights(W / 32, b / 32)
+    for tid, slab in zip(streams, slabs):
+        co.admit(tid, feature_units=slab)
+    torch.cuda.synchronize()
+    out = {tid: [] for tid in streams}
+    half = GNN_CO_WINDOWS // 2 * CO_EB
+    t0 = time.perf_counter()
+    for lo, hi in ((0, half), (half, None)):
+        for tid, (s, d) in streams.items():
+            co.feed(tid, s[lo:hi], d[lo:hi])
+        for tid, res in co.pump().items():
+            out[tid].extend(res)
+    return out, co, time.perf_counter() - t0
 
 
 SNAP_SMALL_VB = 8192               # the snapshot's shared-memory tier
@@ -5095,6 +5142,362 @@ def phase_demotion(dev, want: list) -> dict:
     return cases
 
 
+COHORT_HOOKS = ("telemetry", "metrics", "latency", "costmodel", "provenance",
+                "wal", "sanitize", "checkpoint")
+COHORT_CKPT_EVERY = 16             # hooks_cohort's auto-checkpoint cadence
+COHORT_KILL_PUMP = 3               # its kill: after this many pumps
+OOO_TENANTS, OOO_WINDOWS = 4, 4    # its reorder-buffer drill
+OOO_BOUND = 100_000                # ns; stamps 1000 ns apart, ±40,000 jitter
+
+
+def cohort_hooks_pass(streams: dict, hooks, tmp: str, want: dict) -> dict:
+    """One pass of serve_cohort with `hooks` armed (the journal by
+    enable_wal, checkpoints by enable_auto_checkpoint every
+    COHORT_CKPT_EVERY windows): every tenant's windows equal to `want`;
+    the launches, host syncs, wall; the journal's bytes and its fsync
+    seconds where armed; the cost observatory's cohort rows."""
+    from gelly_streaming_tpu_torch import TenantCohort, kernels
+    from gelly_streaming_tpu_torch.utils import costmodel, metrics
+
+    reset_hooks()
+    with knob_env(**hook_knobs(hooks, tmp)):
+        co = TenantCohort(CO_EB, CO_VB)
+        if "wal" in hooks:
+            require(co.enable_wal(os.path.join(tmp, "wal")),
+                    "enable_wal refused")
+        if "checkpoint" in hooks:
+            co.enable_auto_checkpoint(os.path.join(tmp, "ckpt"),
+                                      every_n_windows=COHORT_CKPT_EVERY)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with SyncCount() as syncs:
+            out, co, _secs = serve_cohort(streams, co=co)
+        torch.cuda.synchronize()
+        res = {"wall": time.perf_counter() - t0,
+               "launches": dict(kernels.LAUNCHES), "syncs": syncs.n}
+        for tid, rows in want.items():
+            require(out[tid] == rows, "hooks_cohort %s: tenant %s differs "
+                    "from the disarmed run" % (hooks, tid))
+        no_demotions("hooks_cohort %s" % (hooks,))
+        if "wal" in hooks:
+            co._wal.close()
+            res["journal_bytes"] = dir_bytes(os.path.join(tmp, "wal"))
+        if "metrics" in hooks:
+            h = metrics.histogram("gs_wal_fsync_seconds")
+            res["fsync_s"] = None if h is None else h["sum"]
+        if "costmodel" in hooks:
+            res["cost_rows"] = [r for r in costmodel.report()
+                                if r["program"] == "cohort_summary"]
+        if "checkpoint" in hooks:
+            res["checkpoints"] = len(os.listdir(os.path.join(tmp, "ckpt")))
+    return res
+
+
+def poison_rows(co, hostile: str) -> None:
+    """Wrap co's dispatch so the group's CohortSummary outputs come back
+    with max_degree -1 in `hostile`'s slab row (the wrapper of the port
+    test test_poison_output_quarantines_by_row)."""
+    real_batch = co._dispatch_batch
+
+    def evil(vb, kb, slab, out, staged):
+        rows = [r for t, r, _w, _n in slab[5] if t.tid == hostile]
+        summ = type(co)._summary(co, vb, kb)
+
+        def poisoned(carries, src, dst, valid):
+            outs = summ(carries, src, dst, valid)
+            if not rows:
+                return outs
+            mdeg = outs[0].clone()
+            mdeg[rows[0]] = -1
+            return (mdeg,) + tuple(outs[1:])
+
+        co._summary = lambda _vb, _kb: poisoned
+        try:
+            return real_batch(vb, kb, slab, out, staged)
+        finally:
+            del co._summary
+
+    co._dispatch_batch = evil
+
+
+def phase_hooks_cohort(dev, streams: dict, want: dict, gnn_want: dict,
+                       cohort_bound: dict) -> dict:
+    """The cohort's hooks on its main path (serve_cohort over
+    cohort_streams(): 64 tenants, 8 at vb=65536, about 8.3M tenant
+    edges): the pass disarmed, with the journal, the sanitizer and
+    provenance alone, and with every hook armed (COHORT_HOOKS,
+    checkpoints every 16 windows among them), disarmed and all twice in
+    mirrored turns: every tenant's windows, the launches and the host
+    syncs equal to the disarmed pass's; tenant edges/s. Then the drills:
+    a `cohort_dispatch` fault on t05 and a poisoned output row on t17
+    (GS_QUARANTINE_WINDOWS=2) quarantine exactly those two, every
+    tenant's windows exact, t05 re-admitted after its probes; a
+    KernelError of the cohort launch raised unwrapped, nothing
+    quarantined or demoted; a kill after pump 3 recovered from
+    checkpoints + journal into a fresh cohort to the uninterrupted
+    windows; the cost observatory's row at 64 × 8 windows, vb=8192,
+    equal to phase cohort's bound; 4 tenants with stamps shuffled within
+    GS_OOO_BOUND equal to the sorted streams; GnnTenantCohort with every
+    hook armed equal to phase gnn_cohort, one provenance record a tenant
+    window."""
+    import tempfile
+
+    from gelly_streaming_tpu_torch import (StreamSummaryEngine,
+                                           TenantBackpressure, TenantCohort,
+                                           kernels)
+    from gelly_streaming_tpu_torch.utils import (costmodel, faults,
+                                                 metrics, provenance,
+                                                 resilience)
+
+    t_phase = time.perf_counter()
+    total = sum(len(s) for s, _d, _v in streams.values())
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        passes = [("disarmed", ()), ("all", COHORT_HOOKS)]
+        runs = {}
+        order = passes + [("journal", ("wal",)),
+                          ("sanitizer", ("sanitize",)),
+                          ("provenance", ("provenance",))] + passes[::-1]
+        for i, (label, hooks) in enumerate(order):
+            sub = os.path.join(tmp, "%s_%d" % (label, i))
+            os.makedirs(sub)
+            runs.setdefault(label, []).append(
+                cohort_hooks_pass(streams, hooks, sub, want))
+        base = min(runs["disarmed"], key=lambda r: r["wall"])
+        for label, rs in runs.items():
+            for r in rs:
+                require(r["launches"] == base["launches"], "hooks_cohort "
+                        "%s: launches %s, disarmed %s"
+                        % (label, r["launches"], base["launches"]))
+                require(r["syncs"] == base["syncs"], "hooks_cohort %s: %d "
+                        "host syncs, disarmed %d" % (label, r["syncs"],
+                                                     base["syncs"]))
+        rate0 = total / base["wall"]
+        for label, rs in runs.items():
+            best = min(rs, key=lambda r: r["wall"])
+            report[label] = {
+                "tenant_edges_per_s": total / best["wall"],
+                "share": total / best["wall"] / rate0,
+                "walls_s": [r["wall"] for r in rs],
+                "launches": sum(best["launches"].values()),
+                "syncs": best["syncs"],
+                **{k: best[k] for k in ("journal_bytes", "fsync_s",
+                                        "checkpoints") if k in best}}
+        # the row of phase cohort's main dispatch: the vb=CO_VB group's
+        # tenants (56: nb=64) × 8 windows
+        nb = 1 << (CO_TENANTS - CO_BIG - 1).bit_length()
+        sig = costmodel.tensor_sig((
+            torch.empty(nb, CO_VB + 1, dtype=torch.int32),
+            torch.empty(nb, 8, CO_EB, dtype=torch.int32)))
+        rows = [r for r in runs["all"][0]["cost_rows"] if r["sig"] == sig]
+        require(len(rows) == 1, "hooks_cohort: no cost row at %d x 8, "
+                "vb=%d" % (nb, CO_VB))
+        cost = {"bound_ms": rows[0]["bound_ms"],
+                "bound_by": rows[0]["bound_by"],
+                "mean_ms": 1e3 * rows[0]["measured_mean_s"],
+                "calls": rows[0]["dispatches"]}
+        require(abs(cost["bound_ms"] - cohort_bound["bound_ms"]) < 1e-9,
+                "hooks_cohort: cost row bound %.6f ms, phase cohort's %.6f"
+                % (cost["bound_ms"], cohort_bound["bound_ms"]))
+        print("phase hooks_cohort passes: ok  armed == disarmed, launches "
+              "%d, host syncs %d in every pass; M tenant edges/s (share of "
+              "disarmed) %s; cost row bound %.4f ms (%s), mean event time "
+              "%.4f ms a call over %d calls"
+              % (report["disarmed"]["launches"], base["syncs"], ", ".join(
+                  "%s %.2f (%.3f)" % (k, v["tenant_edges_per_s"] / 1e6,
+                                      v["share"])
+                  for k, v in report.items()), cost["bound_ms"],
+                 cost["bound_by"], cost["mean_ms"], cost["calls"]))
+
+        # the poison drill: a dispatch fault on t05 in the first pump, a
+        # poisoned output row on t17 in every dispatch that carries it
+        reset_hooks()
+        resilience.reset_demotions()
+        bisects = []
+
+        def poison_t05(payload):
+            if payload and "t05" in payload:
+                raise faults.InjectedFault("poisoned", "cohort_dispatch")
+            return payload
+
+        with knob_env(**hook_knobs((), tmp), GS_QUARANTINE_WINDOWS=2):
+            co = TenantCohort(CO_EB, CO_VB)
+            poison_rows(co, "t17")
+            split = co._bisect_split
+
+            def counted(batch, wins, err, errors):
+                got = split(batch, wins, err, errors)
+                bisects.append(got is not None)
+                return got
+
+            co._bisect_split = counted
+            t0 = time.perf_counter()
+            cursor = dict.fromkeys(streams, 0)
+            with faults.inject(faults.FaultSpec(
+                    site="cohort_dispatch", action="call", fn=poison_t05,
+                    times=10 ** 6)):
+                out, co, _s = serve_cohort(streams, co=co, cursor=cursor,
+                                           stop_after=1)
+            tiers = {t: co.tenant_tier(t) for t in ("t05", "t17")}
+            rest, co, _s = serve_cohort(streams, co=co, cursor=cursor)
+            torch.cuda.synchronize()
+            poison_s = time.perf_counter() - t0
+        quarantined = sorted({e["tenant"] for e in
+                              resilience.demotion_events()
+                              if e["to"] == "quarantined"})
+        require(quarantined == ["t05", "t17"] and tiers == {
+            "t05": "quarantined", "t17": "quarantined"},
+            "hooks_cohort poison: quarantined %s, tiers %s"
+            % (quarantined, tiers))
+        require(co.tenant_tier("t05") == "cohort", "hooks_cohort poison: "
+                "t05 not re-admitted")
+        for tid, rows_ in want.items():
+            require(out[tid] + rest[tid] == rows_, "hooks_cohort poison: "
+                    "tenant %s differs" % tid)
+        resilience.reset_demotions()
+        report["poison"] = {"quarantined": quarantined, "seconds": poison_s,
+                            "bisects": sum(bisects),
+                            "final_tiers": {t: co.tenant_tier(t)
+                                            for t in ("t05", "t17")}}
+        print("phase hooks_cohort poison: ok  t05 (dispatch fault) and t17 "
+              "(poisoned row) quarantined, every tenant exact, t05 "
+              "re-admitted after its probes; %d bisects; %.2f s"
+              % (sum(bisects), poison_s))
+
+        # a KernelError of the cohort launch: raised unwrapped, nothing
+        # quarantined or demoted
+        real = kernels.library
+        calls = []
+
+        def broken(name):
+            if name == "cohort_summary":
+                calls.append(name)
+                raise kernels.KernelError("injected: the cohort_summary "
+                                          "library failed")
+            return real(name)
+
+        with knob_env(**hook_knobs((), tmp)):
+            co = TenantCohort(CO_EB, CO_VB)
+            kernels.library = broken
+            try:
+                serve_cohort(streams, co=co)
+                raise SmokeFailure("hooks_cohort: the KernelError did not "
+                                   "raise")
+            except kernels.KernelError as e:
+                require(not isinstance(e, resilience.StageError)
+                        and e.__cause__ is None and len(calls) == 1,
+                        "hooks_cohort: KernelError wrapped or retried: %r %s"
+                        % (e, calls))
+            finally:
+                kernels.library = real
+        require(co.quarantined() == [] and all(
+            co.tenant_tier(t) == "cohort" for t in streams),
+            "hooks_cohort: a device error quarantined or demoted")
+        no_demotions("hooks_cohort KernelError")
+        report["kernel_error"] = "raised unwrapped, nothing quarantined"
+
+        # a kill after pump 3, recovered from checkpoints + journal
+        sub = os.path.join(tmp, "kill")
+        wal_dir, ck = os.path.join(sub, "wal"), os.path.join(sub, "ckpt")
+        reset_hooks()
+        with knob_env(**hook_knobs(("metrics",), sub)):
+            co = TenantCohort(CO_EB, CO_VB)
+            require(co.enable_wal(wal_dir), "enable_wal refused")
+            co.enable_auto_checkpoint(ck, every_n_windows=COHORT_CKPT_EVERY)
+            cursor = dict.fromkeys(streams, 0)
+            head, co, _s = serve_cohort(streams, co=co, cursor=cursor,
+                                        stop_after=COHORT_KILL_PUMP)
+            co._wal.close()                       # the kill
+            t0 = time.perf_counter()
+            rec = TenantCohort(CO_EB, CO_VB)
+            for tid, (_s, _d, vb) in streams.items():
+                rec.admit(tid, vertex_bucket=vb)
+            rec.enable_auto_checkpoint(ck, every_n_windows=COHORT_CKPT_EVERY)
+            require(rec.enable_wal(wal_dir), "enable_wal refused")
+            info = rec.recover()
+            recovery_s = time.perf_counter() - t0
+            resumed = {tid: rec.windows_done(tid) for tid in streams}
+            tail, rec, _s = serve_cohort(streams, co=rec, cursor=cursor)
+            rec._wal.close()
+            h = metrics.histogram("gs_wal_fsync_seconds")
+        for tid, rows_ in want.items():
+            require(head[tid][:resumed[tid]] + tail[tid] == rows_,
+                    "hooks_cohort kill: tenant %s differs" % tid)
+        require(all(info["resumed"].values()), "hooks_cohort kill: a "
+                "tenant had no checkpoint")
+        report["kill"] = {
+            "recovery_s": recovery_s,
+            "replayed_edges": sum(info["replayed_edges"].values()),
+            "journal_mb_per_m_edges": dir_bytes(wal_dir) / total,
+            "fsync_s": None if h is None else h["sum"],
+            "fsyncs": None if h is None else h["count"]}
+        print("phase hooks_cohort kill: ok  killed after pump %d, %d "
+              "tenants resumed, %d journaled edges replayed in %.3f s, every "
+              "window exact; journal %.2f MB a million edges, fsync %.3f s"
+              % (COHORT_KILL_PUMP, len(resumed),
+                 report["kill"]["replayed_edges"], recovery_s,
+                 report["kill"]["journal_mb_per_m_edges"],
+                 report["kill"]["fsync_s"] or 0.0))
+
+        # the reorder buffer: stamps shuffled within the bound
+        rng = np.random.default_rng(SEED)
+        n = OOO_WINDOWS * CO_EB
+        got, ref = {}, {}
+        with knob_env(**hook_knobs((), tmp), GS_OOO_BOUND=OOO_BOUND):
+            co = TenantCohort(CO_EB, CO_VB)
+            for i in range(OOO_TENANTS):
+                tid = "t%02d" % i
+                s, d, _vb = streams[tid]
+                s, d = s[:n], d[:n]
+                ts = (np.arange(n, dtype=np.int64) * 1000
+                      + rng.integers(-40, 40, n) * 1000)
+                order = np.argsort(ts, kind="stable")
+                ref[tid] = StreamSummaryEngine(CO_EB, CO_VB).process(
+                    s[order], d[order])
+                co.admit(tid)
+                got[tid] = []
+                at = 0
+                while at < n:
+                    try:
+                        co.feed(tid, s[at:at + CO_FEED], d[at:at + CO_FEED],
+                                ts=ts[at:at + CO_FEED])
+                        at += CO_FEED
+                    except TenantBackpressure:
+                        got[tid] += co.pump().get(tid, [])
+                got[tid] += co.pump().get(tid, []) + co.close(tid)
+        require(got == ref, "hooks_cohort: the reorder buffer's windows "
+                "differ from the sorted streams'")
+        print("phase hooks_cohort reorder: ok  %d tenants, stamps shuffled "
+              "within GS_OOO_BOUND=%d ns, equal to the sorted streams"
+              % (OOO_TENANTS, OOO_BOUND))
+
+        # the GNN cohort, every hook armed
+        reset_hooks()
+        with knob_env(**hook_knobs(("telemetry", "metrics", "latency",
+                                    "costmodel", "provenance"), tmp)):
+            kernels.reset_launches()
+            gout, _co, gwall = serve_gnn_cohort(*gnn_cohort_inputs())
+            torch.cuda.synchronize()
+            provenance.reset()
+            recs = provenance.scan(os.path.join(tmp, "prov"))["records"]
+        require(gout == gnn_want, "hooks_cohort: the armed GNN cohort "
+                "differs from phase gnn_cohort")
+        require(len(recs) == CO_TENANTS * GNN_CO_WINDOWS
+                and kernels.LAUNCHES["gnn_round"] > 0,
+                "hooks_cohort gnn: %d provenance records" % len(recs))
+        report["gnn_all"] = {"seconds": gwall,
+                             "provenance_records": len(recs)}
+    reset_hooks()
+    resilience.reset_demotions()
+    report["cost"] = cost
+    report["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"hooks_cohort": report,
+                      "device": torch.cuda.get_device_name(0)}))
+    print("phase hooks_cohort: ok  %.1f s" % report["seconds"])
+    return report
+
+
 def device_trace_capture(dev) -> dict:
     """One device_trace capture of a driver call over DEMOTE_EDGES edges
     with the flight recorder armed, taken before any other profiler
@@ -5281,9 +5684,9 @@ def run_phases() -> int:
     no_demotions("phase gnn_stream")
     dense, dense_launches, sparse_launches = phase_dense(dev)
     no_demotions("phase dense")
-    cohort_launches = phase_cohort_stream(dev)
+    cohort_launches, co_streams, co_out = phase_cohort_stream(dev)
     no_demotions("phase cohort_stream")
-    phase_gnn_cohort(dev)
+    _gnn_launches, gnn_co_out = phase_gnn_cohort(dev)
     no_demotions("phase gnn_cohort")
     driver_launches, driver_got, driver_scan = phase_driver(dev, counts)
     no_demotions("phase driver")
@@ -5318,6 +5721,8 @@ def run_phases() -> int:
     del hooks
     phase_hooks_driver(dev, driver_got, snapshot)
     phase_demotion(dev, driver_got)
+    phase_hooks_cohort(dev, co_streams, co_out, gnn_co_out, cohort)
+    no_demotions("phase hooks_cohort")
     phase_api_tracing(dev, api_launches, driver_got, capture)
     no_demotions("phase api_tracing")
 

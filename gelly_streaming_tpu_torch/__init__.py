@@ -53,7 +53,8 @@ from .core.gtime import (AscendingTimestampExtractor, ManualClock, SystemClock,
 from .core.platform import resolve_device
 from .core.types import NULL, Edge, EdgeDirection, NullValue, Vertex
 from .core.tenancy import (GnnTenantCohort, TenantBackpressure,
-                           TenantCohort, TenantError, TenantRejected)
+                           TenantCohort, TenantError, TenantQuarantined,
+                           TenantRejected)
 from .ops.gnn_window import (GnnHostEngine, GnnResidentEngine,
                              GnnSummaryEngine)
 from .ops.ingress_pipeline import forced_sync
@@ -74,6 +75,7 @@ __all__ = ["DataStream", "StreamEnvironment", "EdgesApply", "EdgesFold",
            "SlidingSummaryEngine", "StreamSummaryEngine",
            "StreamingAnalyticsDriver", "WindowResult",
            "TenantBackpressure", "TenantCohort", "TenantError",
-           "TenantRejected", "TriangleWindowKernel", "WindowedEdgeReduce",
+           "TenantQuarantined", "TenantRejected", "TriangleWindowKernel",
+           "WindowedEdgeReduce",
            "forced_sync", "make_stream", "resolve_device",
            "triangle_count", "triangle_count_dense"]

@@ -20,7 +20,10 @@ launch per dispatch, whatever nb and W are; csrc/summary_body.cuh) and a
 `WindowCounter` (ops/window_counter.py) for triangles and K-overflow on
 CUDA tensors, and runs `summarize_cohort_plain`, the plain PyTorch
 version, on CPU ones; it never falls back from one to the other. The
-two agree bit for bit, overflowing windows included.
+two agree bit for bit, overflowing windows included. With the cost
+observatory armed (GS_COSTMODEL, utils/costmodel.py) each call is one
+`cohort_summary` row: CUDA events around its two launches, its bytes and
+operations from `costmodel.summary_work(W, eb, vb, rows=nb)`.
 Each carry row must be one the engines make
 (ops/scan_analytics.check_summary_carry says which).
 """
@@ -30,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils import costmodel
 from .window_counter import WindowCounter
 from .window_summary import summarize_windows_plain
 
@@ -78,16 +82,20 @@ class CohortSummary:
             raise ValueError("cohort summary on %s given tensors on %s"
                              % (self.device, src.device))
         _check(carries, src, dst, valid, self.vb)
-        if src.device.type == "cpu":
-            return summarize_cohort_plain(carries, src, dst, valid,
-                                          self.vb, self.kb)
         nb, windows, eb = src.shape
-        sums = torch.empty(nb, 3, windows, dtype=torch.int32,
-                           device=src.device)
-        summarize_cohort(carries, src, dst, valid, self.vb, sums)
-        tri, overflow = self.count(src, dst, valid)
-        return (sums[:, 0], sums[:, 1], sums[:, 2] != 0,
-                tri.view(nb, windows), overflow.view(nb, windows))
+        with costmodel.launch(
+                "cohort_summary", (carries[0], src),
+                lambda: costmodel.summary_work(windows, eb, self.vb,
+                                               rows=nb), src.device):
+            if src.device.type == "cpu":
+                return summarize_cohort_plain(carries, src, dst, valid,
+                                              self.vb, self.kb)
+            sums = torch.empty(nb, 3, windows, dtype=torch.int32,
+                               device=src.device)
+            summarize_cohort(carries, src, dst, valid, self.vb, sums)
+            tri, overflow = self.count(src, dst, valid)
+            return (sums[:, 0], sums[:, 1], sums[:, 2] != 0,
+                    tri.view(nb, windows), overflow.view(nb, windows))
 
     def count(self, src, dst, valid):
         """The triangle stage alone, on a checked CUDA slab: (count,

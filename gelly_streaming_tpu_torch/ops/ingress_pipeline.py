@@ -130,7 +130,11 @@ class StageTimers:
 class PrepError(RuntimeError):
     """A prep or h2d stage failed on a worker. The message carries the
     worker's formatted traceback; the original exception rides as
-    __cause__."""
+    __cause__; `stage` names the stage ('prep' / 'h2d')."""
+
+    def __init__(self, message: str, stage: Optional[str] = None):
+        super().__init__(message)
+        self.stage = stage
 
 
 _POOLS: dict = {}
@@ -243,7 +247,7 @@ def _timed_prep(prep: Callable, item, timers: Optional[StageTimers],
         if _passes_through(e):
             raise
         raise PrepError("ingress prep stage failed for chunk %r:\n%s"
-                        % (item, traceback.format_exc())) from e
+                        % (item, traceback.format_exc()), "prep") from e
     dt = time.perf_counter() - t0
     if timers is not None:
         timers.add("prep", dt)
@@ -277,7 +281,7 @@ def _prep_then_h2d(prep: Callable, h2d: Callable, item,
         if _passes_through(e) or isinstance(e, _Abandoned):
             raise
         raise PrepError("ingress h2d stage failed for chunk %r:\n%s"
-                        % (item, traceback.format_exc())) from e
+                        % (item, traceback.format_exc()), "h2d") from e
     dt = time.perf_counter() - t0
     if timers is not None:
         timers.add("h2d", dt)

@@ -32,6 +32,15 @@ Sites the port fires (each a no-op without a plan: one list test):
                   inside its native / host fold), on the caller's thread
     finalize      core/driver.py, before a chunk's finalize reads its
                   outs
+    tenant_prep   core/tenancy.py, one tenant's slab prep (payload=the
+                  tenant id): a failure demotes that tenant alone
+    cohort_dispatch
+                  core/tenancy.py, before a cohort dispatch's staging
+                  copy and launch, on the caller's thread
+                  (payload=the batch's tenant ids): a non-fatal fault
+                  bisects the batch to the tenants it follows
+    h2d           core/tenancy.py too, before a cohort slab's staging
+                  copy (payload=("cohort", ordinal))
 
 The mesh sites come with their owner (ROADMAP step 1.10).
 

@@ -10,8 +10,10 @@ registry's (`utils/resilience.py`), the dispatch autotuner's
 (`ops/autotune.py`), the resident tier's (`ops/resident_engine.py`), the
 host hooks' (`utils/telemetry.py`, `metrics.py`, `healthz.py`,
 `wal.py`, `latency.py`, `sanitize.py`, `costmodel.py`, `provenance.py`)
-the GNN engine's width and activation (`ops/gnn_window.py`) and the
-driver's probation and slide (`core/driver.py`). The
+the GNN engine's width and activation (`ops/gnn_window.py`), the
+driver's probation and slide (`core/driver.py`) and the cohort's
+admission cap, queue depth, overflow policy, quarantine probation and
+reorder bound (`core/tenancy.py`). The
 cost model's peaks are not knobs here: they come from the card's row of
 `utils/costmodel.PEAKS`.
 
@@ -379,6 +381,33 @@ register("GS_SLIDE", "int", 0, lo=0,
          help="the driver's `slide=` where it is None: an emission every "
               "this many edges, each edge folded into its pane once; a "
               "power of two dividing the window size; 0 = tumbling")
+
+# the multi-tenant cohort (core/tenancy.py)
+register("GS_TENANT_MAX", "int", 64, lo=1,
+         help="admission cap of `TenantCohort` and `GnnTenantCohort` "
+              "where `max_tenants` is None: tenants past it are refused "
+              "with a typed `TenantRejected` and a durable "
+              "`tenant_rejected` event")
+register("GS_TENANT_QUEUE_WINDOWS", "int", 8, lo=1,
+         help="per-tenant ingest-queue depth in windows where "
+              "`queue_windows` is None (capacity = depth x edge_bucket "
+              "edges)")
+register("GS_TENANT_ADMISSION", "str", "reject",
+         choices=("reject", "drop"),
+         help="queue-overflow policy where `admission` is None: "
+              "`reject` raises a typed `TenantBackpressure` accepting "
+              "nothing, `drop` accepts what fits and sheds the rest "
+              "with an event and a counter")
+register("GS_QUARANTINE_WINDOWS", "int", 4, lo=0,
+         help="clean solo probation windows a quarantined tenant must "
+              "finalize, on its own engine on the cohort's device, "
+              "before it re-enters the cohort; 0 = quarantine is "
+              "permanent for the process")
+register("GS_OOO_BOUND", "int", 0, lo=0,
+         help="bounded out-of-orderness (event-time ns) of the cohort's "
+              "per-tenant reorder buffer: a `feed(ts=)` edge is held "
+              "until the tenant's watermark (newest stamp − bound) "
+              "passes it, then released in ts order; 0 = off")
 
 
 # ----------------------------------------------------------------------

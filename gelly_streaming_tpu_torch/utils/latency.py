@@ -19,8 +19,9 @@ the same instant in seconds.
   registry's cardinality bound; armed metrics add the
   `gs_latency_e2e_seconds` and `gs_latency_stage_seconds` histograms.
 - `queue_age(lane)`: the age of the oldest admitted but unfinalized
-  edge (`gs_latency_oldest_edge_age_s`). The event-time watermark of
-  the cohort's reorder buffer comes with its owner (step 1.8c).
+  edge (`gs_latency_oldest_edge_age_s`). A lane whose owner reports an
+  event-time watermark (`note_watermark`: the cohort's GS_OOO_BOUND
+  reorder buffer) contributes its watermark lag to that gauge instead.
 - SLO burn: with GS_SLO_P99_S set, each window is good or bad against
   the target; a burn rate ≥ GS_SLO_BURN over GS_SLO_WINDOW_S flips the
   `/healthz` `latency` section to `degraded` (durable `slo_burn`).
@@ -87,7 +88,7 @@ class _Lane:
     joining windows back to admission times, and the e2e reservoir."""
 
     __slots__ = ("fed", "done", "marks", "e2e", "windows",
-                 "evicted_to")
+                 "evicted_to", "wm_armed", "wm_lag", "wm_held")
 
     def __init__(self):
         self.fed = 0
@@ -100,6 +101,12 @@ class _Lane:
         # window at or below it lost its true admission anchor and
         # reports approximate latency instead of growing memory
         self.evicted_to = 0
+        # event-time watermark (note_watermark, GS_OOO_BOUND armed):
+        # while armed, the lane's age-gauge contribution is its
+        # watermark lag instead of the ingestion-time queue age
+        self.wm_armed = False
+        self.wm_lag = 0.0
+        self.wm_held = 0
 
     def push_mark(self, mark) -> None:
         if len(self.marks) == self.marks.maxlen:
@@ -386,6 +393,38 @@ def _queue_age_locked(ln: _Lane, now: float) -> Optional[float]:
     return None
 
 
+def note_watermark(lane, lag_s: float, held: int = 0) -> None:
+    """Record one lane's event-time watermark lag: seconds of event time
+    between the newest stamp the stream has seen and the oldest edge
+    still held in its reorder buffer (`held` edges; the cohort's
+    GS_OOO_BOUND hold). While a lane is armed this repoints its
+    contribution to `gs_latency_oldest_edge_age_s`: an event-time
+    stream reports how far its watermark trails its frontier, not how
+    long a released edge has sat in the ingest queue."""
+    if not enabled():
+        return
+    p = _plane()
+    now = clock()
+    lag = max(0.0, float(lag_s))
+    with p.lock:
+        ln = p.lane(lane)
+        ln.wm_armed = True
+        ln.wm_lag = lag
+        ln.wm_held = int(held)
+    metrics.gauge_set("gs_tenant_watermark_lag_s", round(lag, 6),
+                      tenant=str(lane))
+    _age_gauge(p, now)
+
+
+def _lane_age_locked(ln: _Lane, now: float) -> Optional[float]:
+    """One lane's age-gauge contribution: the event-time watermark lag
+    when armed (note_watermark), else the ingestion-time queue age.
+    Caller holds the plane lock."""
+    if ln.wm_armed:
+        return ln.wm_lag
+    return _queue_age_locked(ln, now)
+
+
 def queue_age(lane, now: Optional[float] = None) -> Optional[float]:
     """Age (seconds) of `lane`'s oldest admitted-but-unfinalized
     edge — the ingestion-time watermark-lag twin. None when the lane
@@ -400,8 +439,10 @@ def queue_age(lane, now: Optional[float] = None) -> Optional[float]:
 
 
 def oldest_age(now: Optional[float] = None) -> Optional[float]:
-    """The worst per-lane queue age across every lane (the global
-    `gs_latency_oldest_edge_age_s` gauge body)."""
+    """The worst per-lane age across every lane (the global
+    `gs_latency_oldest_edge_age_s` gauge body): watermark-armed lanes
+    contribute their event-time watermark lag (note_watermark), the
+    rest their ingestion-time queue age."""
     if not enabled():
         return None
     p = _plane()
@@ -409,7 +450,7 @@ def oldest_age(now: Optional[float] = None) -> Optional[float]:
     ages = []
     with p.lock:
         for ln in p.lanes.values():
-            age = _queue_age_locked(ln, now)
+            age = _lane_age_locked(ln, now)
             if age is not None:
                 ages.append(age)
     return max(ages) if ages else None
@@ -515,6 +556,11 @@ def health_section(now: Optional[float] = None) -> dict:
                 "e2e_p95_s": round(pct[95], 6),
                 "e2e_p99_s": round(pct[99], 6),
             }
+            if ln.wm_armed:
+                # an event-time lane: its watermark lag and the depth
+                # of its reorder hold beside the ingestion-time age
+                row["watermark_lag_s"] = _round_opt(ln.wm_lag)
+                row["watermark_held"] = ln.wm_held
             sec["tenants"][name] = row
         for stage_name, samples in p.stage_samples.items():
             pct = telemetry.percentiles(samples)

@@ -1,7 +1,8 @@
 """The port's knob registry (gelly_streaming_tpu_torch/utils/knobs.py)
 against the JAX package's: every knob the port reads (the stage guard
 and demotion registry, the dispatch autotuner, the resident tier, the
-host hooks, the GNN engines, the driver's probation and slide) with the
+host hooks, the GNN engines, the driver's probation and slide, the
+cohort's admission, queue, quarantine and reorder bound) with the
 same kinds, defaults, bounds and choices, and the same parsing (live
 reads, clamping, typed refusals)."""
 
@@ -25,7 +26,8 @@ SLICE_KNOBS = (
     "GS_SANITIZE", "GS_DLQ_DIR", "GS_DLQ_RETAIN", "GS_MAX_BATCH_EDGES",
     "GS_COSTMODEL", "GS_GNN_F", "GS_GNN_ACT",
     "GS_PROVENANCE", "GS_PROVENANCE_DIR", "GS_PROVENANCE_RETAIN",
-    "GS_SLIDE")
+    "GS_SLIDE", "GS_TENANT_MAX", "GS_TENANT_QUEUE_WINDOWS",
+    "GS_TENANT_ADMISSION", "GS_QUARANTINE_WINDOWS", "GS_OOO_BOUND")
 
 
 @pytest.fixture(autouse=True)
@@ -58,7 +60,10 @@ def test_knob_matches_jax(name):
     ("GS_RESIDENT", None), ("GS_RESIDENT", "on"), ("GS_RESIDENT", "auto"),
     ("GS_RESIDENT_SPB", None), ("GS_RESIDENT_SPB", "100"),
     ("GS_RESIDENT_SPB", "-3"), ("GS_RESIDENT_SLOTS", "0"),
-    ("GS_RESIDENT_SLOTS", ""), ("GS_RESIDENT_SLOTS", "4")])
+    ("GS_RESIDENT_SLOTS", ""), ("GS_RESIDENT_SLOTS", "4"),
+    ("GS_TENANT_MAX", "0"), ("GS_TENANT_QUEUE_WINDOWS", "3"),
+    ("GS_TENANT_ADMISSION", "drop"), ("GS_QUARANTINE_WINDOWS", "0"),
+    ("GS_OOO_BOUND", "-5")])
 def test_reads_match_jax(monkeypatch, name, raw):
     if raw is not None:
         monkeypatch.setenv(name, raw)
@@ -69,7 +74,8 @@ def test_reads_match_jax(monkeypatch, name, raw):
 
 @pytest.mark.parametrize("name,raw", [
     ("GS_AUTOTUNE", "maybe"), ("GS_AUTOTUNE_ROUND", "3O"),
-    ("GS_RESIDENT", "always"), ("GS_RESIDENT_SLOTS", "two")])
+    ("GS_RESIDENT", "always"), ("GS_RESIDENT_SLOTS", "two"),
+    ("GS_TENANT_ADMISSION", "queue"), ("GS_OOO_BOUND", "1e3")])
 def test_malformed_values_raise(monkeypatch, name, raw):
     monkeypatch.setenv(name, raw)
     get = {"int": knobs.get_int, "bool": knobs.get_bool,
