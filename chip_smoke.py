@@ -20,9 +20,10 @@ tenants at vb=65536 in the L2 tier, one tenant at vb=8192, and 4
 tenants at vb=65536 whose last row not odd turns odd mid-chunk), compact
 (the compact-wire forms of the counter and the summary kernel against
 plain and against the standard wire) and snapshot (the driver's snapshot
-kernel in both tiers, each analytics subset, full rows with and without
-masks and the delta wire, a window of one edge, empty windows,
-self-loops) and cell_reduce (the windowed reduce's cell-reduce kernel:
+kernel in its one tier, the cooperative grid, each analytics subset,
+full rows with and without masks and the delta wire, a window of one
+edge, empty windows, self-loops, and the grid fixtures of
+utils/tier_fixtures.py) and cell_reduce (the windowed reduce's cell-reduce kernel:
 sum/min/max × out/in/all × int32/float32 on both wires, full rows and
 the delta wire, at [64, 8192] vb=16384 and [64, 32768] vb=65536, edge
 cases, cohort_step of 64 rows). Fourteen drive the port's paths, each
@@ -2070,7 +2071,7 @@ def serve_gnn_cohort(W, b, streams: dict, slabs: list) -> tuple:
     return out, co, time.perf_counter() - t0
 
 
-SNAP_SMALL_VB = 8192               # the snapshot's shared-memory tier
+SNAP_SMALL_VB = 8192               # the driver's early buckets (the L2 tier)
 SNAP_WINDOWS = 16                  # windows of the snapshot phase's fixtures
 FILE_EDGES = 1_048_576             # phase driver_file's timestamped file
 FILE_WINDOW = 8192                 # its mean window, in edges
@@ -2080,12 +2081,17 @@ DRIVER_FEED = (1, 1, 2, 4, 8, 16, 32, 64, 64, 64, 64)
 # a delta cap below the changed slots of the stream's windows: its chunks
 # overflow and are run again on full rows
 DRIVER_SMALL_CAP = 1024
+SNAP_EDGE_EB = 2048                # the grid fixtures' windows
+SNAP_EDGE_WINDOWS = 2
+# the grid fixtures' vertex buckets: the driver's early and main buckets
+# less a few slots, so that the blocks' runs are ragged
+SNAP_EDGE_VBS = (SNAP_SMALL_VB - 3, VB - 5)
 
 
 def snapshot_fixtures():
     """(name, vb, analytics, [W, eb] chunk, prefix chunk) of the snapshot
-    phase: Zipf windows at vb=65536 (the L2 tier) and at vb=8192 (the
-    shared-memory tier), each analytics subset; edge cases at vb=8192: a
+    phase: Zipf windows at vb=65536 and at vb=8192 (the driver's main and
+    early buckets), each analytics subset; edge cases at vb=8192: a
     window of one edge, empty (all-padding) windows, self-loops (odd
     cycles of one edge), a ragged chunk."""
     from gelly_streaming_tpu_torch import make_stream
@@ -2176,33 +2182,150 @@ def snapshot_carry(vb, analytics, dev):
         else None, dev)
 
 
+SNAP_SUBSETS = [("degrees", "cc", "bipartite"), ("degrees",), ("cc",),
+                ("bipartite",), ("degrees", "cc"), ("degrees", "bipartite"),
+                ("cc", "bipartite")]
+
+
+def snapshot_grid_checks(dev, compare_forms) -> int:
+    """The tier_fixtures windows at the card's sizes against the plain
+    version: each kind at each vb of SNAP_EDGE_VBS, SNAP_EDGE_WINDOWS
+    windows of SNAP_EDGE_EB edges (one window for one_window), the
+    blocks' runs those of the kernel's grid (one block an SM at this
+    eb), from driver mirrors that are not fresh (chained forests in
+    every other fixture): all three analytics on full rows with and
+    without masks and on the delta wire at the default cap and at 64
+    (64 passed by a window), and the first fixture in every analytics
+    subset on full rows. Returns the fixtures run."""
+    from gelly_streaming_tpu_torch.ops import delta_egress
+    from gelly_streaming_tpu_torch.ops import segment as seg
+    from gelly_streaming_tpu_torch.ops import window_snapshot as ws
+    from gelly_streaming_tpu_torch.utils import tier_fixtures as tf
+
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    i = 0
+    for vb in SNAP_EDGE_VBS:
+        cap = delta_egress.egress_cap(SNAP_EDGE_EB, vb)
+        every = [(False, "full", 0), (True, "full", 0), (False, "delta", cap),
+                 (True, "delta", 64)]
+        for kind in tf.SNAPSHOT_KINDS:
+            windows = tf.snapshot_windows(kind, vb, SNAP_EDGE_EB, blocks,
+                                          seed=vb + i,
+                                          windows=SNAP_EDGE_WINDOWS)
+            mirrors = tf.driver_mirrors(vb, seed=i, compressed=i % 2 == 0)
+            chunk = seg.stack_window_list(windows, SNAP_EDGE_EB, vb)
+            for analytics in SNAP_SUBSETS if i == 0 else SNAP_SUBSETS[:1]:
+                on = [a in analytics for a in ws.ANALYTICS]
+
+                def carries(vb=vb, on=on, mirrors=mirrors):
+                    args = [m if o else None for m, o in zip(mirrors, on)]
+                    return (ws.engine_carry(vb, *args, device=dev),
+                            ws.engine_carry(vb, *args, device=dev), None)
+
+                forms = every if analytics == SNAP_SUBSETS[0] else every[:1]
+                compare_forms("grid %s vb=%d %s" % (kind, vb,
+                                                    "+".join(analytics)),
+                              vb, analytics, chunk, carries, forms)
+            i += 1
+    print("phase snapshot grid fixtures: ok (%s at vb %s, %d blocks' runs)"
+          % (", ".join(tf.SNAPSHOT_KINDS), SNAP_EDGE_VBS, blocks))
+    return i
+
+
+def launch_api_calls(fn, reps: int) -> tuple:
+    """({launch entry point: calls}, {device kernel name: launches}) of
+    `reps` calls of fn() under one torch.profiler run: the host-side
+    CUDA API rows of the launch entry points (utils/profiling
+    LAUNCH_CALLS, variants counted under their entry point), which the
+    profiler keeps where it drops device records late in a process, and
+    the device rows it kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gelly_streaming_tpu_torch.utils.profiling import LAUNCH_CALLS
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    api, device = {}, {}
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA"):
+            device[ev.key[:70]] = device.get(ev.key[:70], 0) + ev.count
+            continue
+        entry = max((c for c in LAUNCH_CALLS if ev.key.startswith(c)),
+                    key=len, default=None)
+        if entry:
+            api[entry] = api.get(entry, 0) + ev.count
+    return api, device
+
+
+SNAP_TIER_REPS = 3
+
+
+def snapshot_tier_check(dev) -> dict:
+    """The snapshot kernel's one tier: at each of the driver's buckets
+    (vb 4096 .. 65536) SNAP_TIER_REPS calls of one window make one
+    cooperative launch each and no other launch (the profile's launch
+    API rows), and the device rows the profile kept name no snapshot
+    kernel but snapshot_grid_kernel. Returns {vb: (launch API calls,
+    the grid kernel's device rows kept)}."""
+    from gelly_streaming_tpu_torch import make_stream
+    from gelly_streaming_tpu_torch.ops import segment as seg
+    from gelly_streaming_tpu_torch.ops import window_snapshot as ws
+
+    out = {}
+    for vb in (4096, SNAP_SMALL_VB, 16384, 32768, VB):
+        src, dst = make_stream(EB, vb, seed=vb)
+        _w, s, d, v = seg.window_stack(src, dst, EB, sentinel=vb)
+        one = [torch.from_numpy(np.ascontiguousarray(x[:1])).to(dev)
+               for x in (s, d, v)]
+        analytics = ("degrees", "cc", "bipartite")
+        snap = ws.WindowSnapshot(vb, analytics, dev)
+        carry = snapshot_carry(vb, analytics, dev)
+        snap(carry, *one)
+        api, rows = launch_api_calls(lambda: snap(carry, *one),
+                                     SNAP_TIER_REPS)
+        grid = sum(n for k, n in rows.items() if "snapshot_grid_kernel" in k)
+        others = [k for k in rows
+                  if "snapshot" in k and "snapshot_grid_kernel" not in k]
+        require(api == {"cudaLaunchCooperativeKernel": SNAP_TIER_REPS}
+                and grid <= SNAP_TIER_REPS and not others,
+                "snapshot vb=%d: %d calls made launch calls %s, device rows "
+                "%s" % (vb, SNAP_TIER_REPS, api, rows))
+        out[vb] = (api, grid)
+    return out
+
+
 def phase_snapshot(dev) -> dict:
     """The snapshot kernel (csrc/window_snapshot.cu) vs its plain version
     on every fixture of snapshot_fixtures(), each from a carry that is
-    not fresh (a prefix chunk folded first), in both tiers, on the full
-    rows with masks and without, and on the delta wire at the default
-    cap and at a cap of 64 that windows overflow; then times at the main
+    not fresh (a prefix chunk folded first), on the full rows with masks
+    and without, and on the delta wire at the default cap and at a cap
+    of 64 that windows overflow; then the grid fixtures
+    (snapshot_grid_checks) and the one tier at every driver bucket from
+    the profile (snapshot_tier_check); then the W ladder of
+    utils/snapshot_probe.py at vb=65536 and 8192, and times at the main
     path's chunk (64 Zipf windows at eb=32768, vb=65536, all three
     analytics, full rows: the driver's default), the delta wire, and one
     window beside the counter at one window."""
-    from gelly_streaming_tpu_torch import make_stream
+    from gelly_streaming_tpu_torch import kernels, make_stream
     from gelly_streaming_tpu_torch.ops import delta_egress
     from gelly_streaming_tpu_torch.ops import segment as seg
     from gelly_streaming_tpu_torch.ops import window_counter as wc
     from gelly_streaming_tpu_torch.ops import window_snapshot as ws
+    from gelly_streaming_tpu_torch.utils import snapshot_probe
 
-    tiers = set()
+    t_phase = time.perf_counter()
     err = 0
-    for name, vb, analytics, chunk, prefix in snapshot_fixtures():
-        cap = delta_egress.egress_cap(EB, vb)
-        forms = [(False, "full", 0), (True, "full", 0), (False, "delta", cap)]
-        if analytics == ("degrees", "cc", "bipartite"):
-            forms += [(True, "delta", 64)]
+
+    def compare_forms(name, vb, analytics, chunk, make_carries, forms):
+        nonlocal err
         for deltas, egress, c in forms:
             snap = ws.WindowSnapshot(vb, analytics, dev, deltas=deltas,
                                      egress=egress, cap=c)
-            carry = snapshot_carry(vb, analytics, dev)
-            plain_carry = snapshot_carry(vb, analytics, dev)
+            carry, plain_carry, prefix = make_carries()
 
             def plain_on_card(pc, s, d, v, vb=vb, deltas=deltas,
                               egress=egress, c=c):
@@ -2210,19 +2333,44 @@ def phase_snapshot(dev) -> dict:
                                                  egress, c)
 
             label = "%s %s%s" % (name, egress, "+masks" if deltas else "")
-            _want, e1 = compare_snapshot(label + " prefix", snap,
-                                         plain_on_card, prefix, carry,
-                                         plain_carry, dev)
+            if prefix is not None:
+                _want, e1 = compare_snapshot(label + " prefix", snap,
+                                             plain_on_card, prefix, carry,
+                                             plain_carry, dev)
+                err = max(err, e1)
             want, e2 = compare_snapshot(label, snap, plain_on_card, chunk,
                                         carry, plain_carry, dev)
-            err = max(err, e1, e2)
+            err = max(err, e2)
             if egress == "delta" and c == 64:
                 require(max(int(want[k].max()) for k in want
                             if k.endswith("_cnt")) > 64,
                         "%s: no window passed the cap" % label)
-        tiers.add(summary_tier(vb, dev))
+
+    for name, vb, analytics, chunk, prefix in snapshot_fixtures():
+        cap = delta_egress.egress_cap(EB, vb)
+        forms = [(False, "full", 0), (True, "full", 0), (False, "delta", cap)]
+        if analytics == ("degrees", "cc", "bipartite"):
+            forms += [(True, "delta", 64)]
+        compare_forms(name, vb, analytics, chunk, lambda vb=vb, a=analytics,
+                      p=prefix: (snapshot_carry(vb, a, dev),
+                                 snapshot_carry(vb, a, dev), p), forms)
         print("phase snapshot %s: ok" % name)
-    require(tiers == {"shared", "L2"}, "snapshot tiers %s" % tiers)
+    fixtures = snapshot_grid_checks(dev, compare_forms)
+    grid_launches = snapshot_tier_check(dev)
+    lib = kernels.library("window_snapshot")
+    ladder = {}
+    for vb in (VB, SNAP_SMALL_VB):
+        rows = snapshot_probe.snapshot_ladder(lib, vb, snapshot_probe.LADDER,
+                                              dev)
+        ladder[vb] = {"ladder": rows,
+                      "fit_full": snapshot_probe.fit(rows, "full_ms"),
+                      "fit_delta": snapshot_probe.fit(rows, "delta_ms")}
+        print("phase snapshot W ladder vb=%d: full %s, delta %s  (%s)"
+              % (vb, ladder[vb]["fit_full"],
+                 ladder[vb]["fit_delta"],
+                 ", ".join("W=%d %.4f/%.4f" % (r["windows"], r["full_ms"],
+                                               r["delta_ms"])
+                           for r in rows)))
 
     # times at the main path's chunk, the carry after one chunk folded
     src, dst = make_stream(2 * CHUNK * EB, VB, seed=24)
@@ -2264,15 +2412,20 @@ def phase_snapshot(dev) -> dict:
     # window 3 root walks
     nbytes = CHUNK * EB * 9 + 2 * 16 * (VB + 1) + CHUNK * VB * 9
     b_ms, b_by = bound(nbytes, 5 * slots + 3 * VB * CHUNK)
-    print("phase snapshot: ok  kernel %.3f ms/chunk (%s tier; delta wire "
+    seconds = time.perf_counter() - t_phase
+    print("phase snapshot: ok  kernel %.3f ms/chunk (L2 tier; delta wire "
           "%.3f; one window %.4f, the counter at one window %.4f; carry "
           "clone %.3f)  plain %.1f ms/chunk  bound %.4f (%s)  (%d windows, "
-          "%d valid slots)  max |kernel - plain| %d"
-          % (ms, summary_tier(VB, dev), delta_ms, w1_ms, counter_w1_ms,
-             clone_ms, plain_ms, b_ms, b_by, CHUNK, slots, err))
+          "%d valid slots)  max |kernel - plain| %d  %d grid fixtures, "
+          "grid launches %s  %.1f s"
+          % (ms, delta_ms, w1_ms, counter_w1_ms, clone_ms, plain_ms, b_ms,
+             b_by, CHUNK, slots, err, fixtures, grid_launches, seconds))
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "max_abs_err": err, "delta_ms": delta_ms,
-            "w1_ms": w1_ms, "counter_w1_ms": counter_w1_ms}
+            "w1_ms": w1_ms, "counter_w1_ms": counter_w1_ms,
+            "grid_fixtures": fixtures, "grid_launches": grid_launches,
+            "ladder": ladder,
+            "seconds": seconds}
 
 
 FIELDS = ("window_start", "num_edges", "triangles")
@@ -2451,7 +2604,7 @@ def phase_driver_file(dev) -> None:
     """stream_file over a timestamped 'src dst ts' text file written to a
     temporary directory (FILE_EDGES Zipf edges, event-time windows of
     about FILE_WINDOW edges, pieces of FILE_CHUNK_BYTES), the vertex
-    bucket growing past the snapshot's shared-memory tier on the way;
+    bucket growing from 4096 on the way;
     every window equal to run_file of the native tier."""
     import tempfile
 
@@ -3289,10 +3442,50 @@ def uf_work(n: int, ne: int, carried: bool) -> tuple:
     return 8 * n + 8 * ne, 3 * ne + (2 if carried else 1) * n
 
 
-def time_union_find(label, lab0, s, d, carried: bool, reps: int) -> dict:
+def uf_launch_rows(fn, reps: int, names: tuple) -> tuple:
+    """(device ms a call, {kernel name: device launches}, launch calls)
+    of `reps` calls of fn() under torch.profiler, one warm call first:
+    the device ms a call sums each kernel's mean over the launches the
+    profile kept; the launch calls are the profile's host-side record
+    of launch API calls (utils/profiling.device_times). A profile that
+    keeps fewer than reps - 1 launches of a kernel of `names` is taken
+    again where the API rows confirm the launches (take_profile)."""
+    fn()
+
+    def whole(rows, _before):
+        return all(sum(n for k, (_ms, n) in rows.items() if name in k)
+                   >= reps - 1 for name in names)
+
+    from gelly_streaming_tpu_torch.utils.profiling import device_times
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    _wall, rows, _before = take_profile(run, whole)
+    # the launch API calls of one more profiled run, counted by the
+    # profiler itself
+    _w, _rows, calls = device_times(run, launch_calls=True)
+    require(rows, "no device rows in a profile of %d union-find calls"
+            % reps)
+    per_call = sum(ms / n for ms, n in rows.values())
+    return per_call, {k: n for k, (_ms, n) in rows.items()}, calls
+
+
+# the device kernels each tier of the union-find's plan launches a call
+UF_TIER_KERNELS = {"grid": ("cc_grid_kernel",),
+                   "four launches": ("init_kernel", "edge_kernel",
+                                     "compress_kernel")}
+
+
+def time_union_find(label, lab0, s, d, carried: bool, reps: int,
+                    one_launch: bool) -> dict:
     """cc_fixpoint against its plain version on one call's tensors:
-    equal labels, CUDA-event and profiled device ms of each, the
-    bound."""
+    equal labels, its plan, CUDA-event and profiled device ms of each,
+    the bound. The profile must show the plan tier's kernels, one launch
+    of each a call (the profiler may miss one of a run); with
+    `one_launch` (the calls the models make) that tier must be one
+    launch."""
     from gelly_streaming_tpu_torch.ops import unionfind as uf
 
     got = uf.cc_fixpoint(lab0, s, d, carried)
@@ -3300,19 +3493,95 @@ def time_union_find(label, lab0, s, d, carried: bool, reps: int) -> dict:
     err = int((got.long() - want.long()).abs().max())
     require(err == 0, "cc_fixpoint %s: kernel != plain" % label)
     n, ne = lab0.numel(), s.numel()
+    plan = uf.plan(n, ne, lab0.device)
     b_ms, b_by = bound(*uf_work(n, ne, carried))
-    res = {"slots": n, "edges": ne, "carried": carried,
+    names = UF_TIER_KERNELS[plan["tier"]]
+    if carried and plan["tier"] == "four launches":
+        names += ("link_kernel",)
+    dev_ms, rows, calls = uf_launch_rows(
+        lambda: uf.cc_fixpoint(lab0, s, d, carried), reps, names)
+    # the device rows hold only the plan's kernels, each at most once a
+    # call, and the launch API was called len(names) times a call
+    require((not one_launch or len(names) == 1)
+            and len(rows) == len(names)
+            and all(any(k in row for row in rows) for k in names)
+            and all(0 < n_ <= reps for n_ in rows.values())
+            and calls == reps * len(names),
+            "cc_fixpoint %s: plan %s, %d calls made device launches %s "
+            "and %d launch calls" % (label, plan, reps, rows, calls))
+    res = {"slots": n, "edges": ne, "carried": carried, "plan": plan,
            "ms": cuda_ms(lambda: uf.cc_fixpoint(lab0, s, d, carried), reps),
-           "device_ms": device_ms(lambda: uf.cc_fixpoint(lab0, s, d,
-                                                         carried), reps),
+           "device_ms": dev_ms, "device_launches": rows,
+           "launch_calls": calls,
            "plain_ms": cuda_ms(lambda: uf.cc_fixpoint_plain(
                lab0, s, d, carried), 3),
            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
-    print("  cc_fixpoint %s: %d slots, %d edges: %.4f ms (device %.4f), "
-          "plain %.3f ms, bound %.5f ms (%s)"
-          % (label, n, ne, res["ms"], res["device_ms"], res["plain_ms"],
-             b_ms, b_by))
+    print("  cc_fixpoint %s: %d slots, %d edges (%s, %d blocks): %.4f ms "
+          "(device %.4f; %d calls: %d launch calls, device rows %s), plain "
+          "%.3f ms, bound %.5f ms (%s)"
+          % (label, n, ne, plan["tier"], plan["blocks"], res["ms"],
+             res["device_ms"], reps, calls, sorted(rows.values()),
+             res["plain_ms"], b_ms, b_by))
     return res
+
+
+UF_GRID_EDGES = 1 << 17            # csrc/window_summary.cu kGridEdges
+# (kind, slots, edges, the plan's tier) of union_find_edge_cases
+UF_EDGE_CASES = (("one_slot", 1, 0, "grid"),
+                 ("no_edges", 65537, 0, "grid"),
+                 ("cross_ranks", 32769, 3 * 32768, "grid"),
+                 ("out_of_range", 65537, UF_GRID_EDGES, "grid"),
+                 ("long_chains", 65537, UF_GRID_EDGES + 1, "four launches"),
+                 ("long_chains", 131073, UF_GRID_EDGES, "grid"),
+                 ("out_of_range", 131073, UF_GRID_EDGES + 1,
+                  "four launches"))
+
+
+def union_find_edge_cases(dev) -> dict:
+    """The union-find kernel against its plain version on the
+    tier_fixtures cases of UF_EDGE_CASES (edges out of range compared
+    with the plain fixpoint over the edges the kernel folds; the blocks'
+    runs those of the plan's grid): n = 1, a carried forest of chains
+    with no edge, and both sides of the plan's one threshold, at
+    UF_GRID_EDGES edges (one cooperative launch) and one more (four
+    launches). Each call's plan is the case's, its profile's launch API
+    rows that tier's launches (one cooperative launch; or one
+    cudaLaunchKernel a kernel of the four launches), and the device rows
+    the profile kept only that tier's kernels, once each. Returns {case:
+    plan}."""
+    from gelly_streaming_tpu_torch.ops import unionfind as uf
+    from gelly_streaming_tpu_torch.utils import tier_fixtures as tf
+
+    out = {}
+    for i, (kind, n, ne, tier) in enumerate(UF_EDGE_CASES):
+        C = uf.plan(n, ne, dev)["blocks"]
+        lab0, src, dst, carried = tf.union_find_case(kind, n, ne, C, seed=i)
+        fs, fd = tf.in_range_edges(src, dst, len(lab0))
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+             for x in (lab0, src, dst, fs, fd)]
+        label = "%s n=%d ne=%d" % (kind, len(lab0), len(src))
+        plan = uf.plan(len(lab0), len(src), dev)
+        require(plan["tier"] == tier, "cc_fixpoint %s: plan %s, not %s"
+                % (label, plan, tier))
+        got = uf.cc_fixpoint(t[0], t[1], t[2], carried)
+        want = uf.cc_fixpoint_plain(t[0], t[3], t[4], carried)
+        require(torch.equal(got, want), "cc_fixpoint %s: kernel != plain"
+                % label)
+        names = UF_TIER_KERNELS[tier]
+        if carried and tier == "four launches":
+            names += ("link_kernel",)
+        api, rows = launch_api_calls(
+            lambda: uf.cc_fixpoint(t[0], t[1], t[2], carried), 1)
+        want_api = ({"cudaLaunchCooperativeKernel": 1} if tier == "grid"
+                    else {"cudaLaunchKernel": len(names)})
+        require(api == want_api
+                and all(any(k in r for k in names) and n_ == 1
+                        for r, n_ in rows.items()),
+                "cc_fixpoint %s: plan %s, one call made launch calls %s, "
+                "device rows %s" % (label, plan, api, rows))
+        out[label] = plan
+    print("  cc_fixpoint tier fixtures: ok  %s" % out)
+    return out
 
 
 def union_find_cases(src, dst, carry, dev) -> dict:
@@ -3336,16 +3605,16 @@ def union_find_cases(src, dst, carry, dev) -> dict:
     m = slice(w * MODEL_WINDOW_MS, (w + 1) * MODEL_WINDOW_MS)
     uniq, (ws, wd) = seg.intern(src[m], dst[m])
     cases["cc_window"] = time_union_find(
-        "cc window", *fresh(ws, wd, len(uniq)), False, 50)
+        "cc window", *fresh(ws, wd, len(uniq)), False, 50, True)
     cs, cd = uf.double_cover_edges(ws, wd, len(uniq))
     cases["bipartite_window"] = time_union_find(
-        "bipartite window", *fresh(cs, cd, 2 * len(uniq)), False, 50)
+        "bipartite window", *fresh(cs, cd, 2 * len(uniq)), False, 50, True)
     n = int(max(src.max(), dst.max())) + 1
     cases["cc_graph"] = time_union_find("cc graph", *fresh(src, dst, n),
-                                        False, 10)
+                                        False, 10, False)
     cs, cd = uf.double_cover_edges(src, dst, n)
     cases["bipartite_graph"] = time_union_find(
-        "bipartite graph", *fresh(cs, cd, 2 * n), False, 10)
+        "bipartite graph", *fresh(cs, cd, 2 * n), False, 10, False)
     labels, slot_s, slot_d, nv = carry
     vb = seg.bucket_size(nv)
     st, dt = uf._padded_edges(slot_s, slot_d, seg.bucket_size(len(slot_s)),
@@ -3353,7 +3622,7 @@ def union_find_cases(src, dst, carry, dev) -> dict:
     lab0 = torch.from_numpy(np.concatenate([
         labels, np.arange(len(labels), vb + 1, dtype=np.int32)])).to(dev)
     cases["carried_batch"] = time_union_find("carried batch", lab0, st, dt,
-                                             True, 20)
+                                             True, 20, True)
     return cases
 
 
@@ -3557,6 +3826,7 @@ def phase_models(dev) -> dict:
     res["launches"] = launches
     res["union_find"] = union_find_cases(
         src, dst, (before, slot[src[m]], slot[dst[m]], nv), dev)
+    res["union_find_tiers"] = union_find_edge_cases(dev)
     print(json.dumps({"models": dict(res,
                                      device=torch.cuda.get_device_name(0))}))
     print("phase models: ok  cc %.1f edges/s (idle %.4f, host fold %.1f s), "
@@ -5637,7 +5907,7 @@ def run_phases() -> int:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     print(card())
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     logs = kernels.build()
     print("build: %.1f s  (%s)" % (time.perf_counter() - t0,
                                    ", ".join(sorted(kernels.SIGNATURES))))
@@ -5768,6 +6038,8 @@ def run_phases() -> int:
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"],
             "library_ms": res.get("library_ms")})
+    print("chip_smoke: every phase ok in %.1f s"
+          % (time.perf_counter() - t_run))
     print(card())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

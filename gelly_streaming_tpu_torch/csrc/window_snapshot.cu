@@ -7,7 +7,7 @@
 // window stack carrying (degrees, labels, cover) and emitting, per
 // window, the full rows or the changed-slot wire of ops/delta_egress.py.
 // Here the scan is one launch per chunk over the summary body's pieces
-// (csrc/summary_body.cuh: its two tiers, its tiles of the wire, the
+// (csrc/summary_body.cuh: its grid rows, its tiles of the wire, the
 // lock-free union-find of union_find.cuh), for any subset of the three
 // analytics and with no summaries. Per window w, in order:
 //   fold  each valid slot (both ids in [0, vb)) adds 1 to deg[s] and
@@ -32,18 +32,19 @@
 // carry invariant of the summary body (no degree-0 or mirror rule): the
 // rows come from the compressed labels themselves.
 //
-// Tiers, as the summary body's: where the carry row (16(vb+1) bytes)
-// fits one block's shared memory (vb <= 14527 on an H100) one block of
-// 1024 threads folds the chunk there and writes the carry back once;
-// above it one cooperative grid works in device memory, the barrier
-// that of cooperative_groups. In both, block b of the call's blocks owns
-// a contiguous run of slots in the emit, so the wire's indices ascend
-// block after block.
+// One tier at every vb: one cooperative grid works on the carry in
+// device memory (L2), the barrier that of cooperative_groups; block b of
+// the grid owns a contiguous run of slots in the emit, so the wire's
+// indices ascend block after block. The summary body's one-block tier,
+// the carry in one SM's shared memory, was 7.6x slower here at vb=8192
+// (4.727 against 0.620 ms a 64-window chunk on an H100): one SM folds
+// what the grid spreads over all of them.
 //
 // What bounds it: not bytes (a chunk's rows are 9 bytes a slot a
-// window, about 38 MB at W=64, vb=65536: 11 us at 3.35 TB/s) but the two
-// grid barriers a window and the emit's root walks, one per slot of
-// each analytic a window.
+// window, about 38 MB at W=64, vb=65536: 11 us at 3.35 TB/s) but the
+// two grid barriers a window and the emit's root walks, one per slot
+// of each analytic a window: a window of 256 edges costs about what one
+// of 32768 does (utils/snapshot_probe.py).
 #include "summary_body.cuh"
 
 namespace {
@@ -318,39 +319,6 @@ __device__ void snapshot_body(const StandardWire& wire, const Rows& r,
     }
 }
 
-// Shared-memory tier: one block; the carry's rows of the analytics on
-// in dynamic shared memory, read in and written back once.
-__global__ void __launch_bounds__(kBlockThreads) snapshot_block_kernel(
-        const StandardWire wire, int windows, int vb, int flags, int* deg,
-        int* labels, int* cover, const SnapshotArgs a) {
-    extern __shared__ int carry[];
-    __shared__ int buf[kWarp];
-    const int row = vb + 1, slots = 4 * row;
-    const BlockRows r{carry, carry + row, carry + 2 * row, deg, labels,
-                      cover, 0, vb};
-    for (int k = threadIdx.x; k < slots; k += blockDim.x) {
-        if (k < row) {
-            if (flags & kSnapDeg) carry[k] = deg[k];
-        } else if (k < 2 * row) {
-            if (flags & kSnapCc) carry[k] = labels[k - row];
-        } else if (flags & kSnapBip) {
-            carry[k] = cover[k - 2 * row];
-        }
-    }
-    __syncthreads();
-    snapshot_body(wire, r, windows, flags, a, buf);
-    __syncthreads();
-    for (int k = threadIdx.x; k < slots; k += blockDim.x) {
-        if (k < row) {
-            if (flags & kSnapDeg) deg[k] = carry[k];
-        } else if (k < 2 * row) {
-            if (flags & kSnapCc) labels[k - row] = carry[k];
-        } else if (flags & kSnapBip) {
-            cover[k - 2 * row] = carry[k];
-        }
-    }
-}
-
 // L2 tier: the grid works on the carry in device memory; launched
 // cooperatively (the grid barrier needs every block resident).
 __global__ void __launch_bounds__(kThreads) snapshot_grid_kernel(
@@ -361,33 +329,23 @@ __global__ void __launch_bounds__(kThreads) snapshot_grid_kernel(
     snapshot_body(wire, r, windows, flags, a, buf);
 }
 
-// Per device, once: the SM count, and the dynamic shared memory the
-// block kernel may take (the opt-in size less its static buffer), to
-// which its limit is raised.
-cudaError_t snapshot_prepare(int device, int& sms, int& smem) {
-    static std::atomic<int> sm_count[kMaxDevices], dyn_max[kMaxDevices];
+// Per device, once: the SM count and the grid kernel's blocks an SM.
+cudaError_t snapshot_prepare(int device, int& sms, int& per_sm) {
+    static std::atomic<int> sm_count[kMaxDevices], grid_per_sm[kMaxDevices];
     if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
     if (!sm_count[device].load()) {
-        int n = 0, optin = 0;
-        cudaFuncAttributes attr{};
+        int n = 0, per = 0;
         cudaError_t err = cudaDeviceGetAttribute(
             &n, cudaDevAttrMultiProcessorCount, device);
         if (err == cudaSuccess)
-            err = cudaDeviceGetAttribute(
-                &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-        if (err == cudaSuccess)
-            err = cudaFuncGetAttributes(&attr, snapshot_block_kernel);
-        const int dyn = optin - (int)attr.sharedSizeBytes;
-        if (err == cudaSuccess)
-            err = cudaFuncSetAttribute(
-                snapshot_block_kernel,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per, snapshot_grid_kernel, kThreads, 0);
         if (err != cudaSuccess) return err;
-        dyn_max[device].store(dyn);
+        grid_per_sm[device].store(per);
         sm_count[device].store(n);
     }
     sms = sm_count[device].load();
-    smem = dyn_max[device].load();
+    per_sm = grid_per_sm[device].load();
     return cudaSuccess;
 }
 
@@ -412,22 +370,12 @@ GS_EXPORT int gs_window_snapshot(const int* src, const int* dst,
             || !(flags & (kSnapDeg | kSnapCc | kSnapBip))
             || ((flags & kSnapDelta) && args->cap <= 0))
         return cudaErrorInvalidValue;
-    int sms = 0, smem = 0;
-    if ((err = snapshot_prepare(device, sms, smem)) != cudaSuccess)
+    int sms = 0, per_sm = 0;
+    if ((err = snapshot_prepare(device, sms, per_sm)) != cudaSuccess)
         return err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const StandardWire wire{src, dst, valid, eb};
     const SnapshotArgs a = *args;
-    const size_t row_bytes = 16 * (size_t)(vb + 1);
-    if (kSharedTier && row_bytes <= (size_t)smem) {
-        snapshot_block_kernel<<<1, kBlockThreads, row_bytes, s>>>(
-            wire, windows, vb, flags, deg, labels, cover, a);
-        return cudaGetLastError();
-    }
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, snapshot_grid_kernel, kThreads, 0);
-    if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
     // a slot a thread, at least a block an SM, at most what fits at once
     // and what block_counts holds

@@ -63,6 +63,7 @@ SIGNATURES = {
                               _P],
         "gs_window_summary_compact": [_P, _P, _P, _I, _I, _I, _P, _P, _P,
                                       _P, _I, _P],
+        "gs_cc_plan": [_I, _LL, _I, _P],
         "gs_cc_fixpoint": [_P, _I, _P, _P, _LL, _I, _P, _I, _P],
     },
     "window_snapshot": {

@@ -12,13 +12,17 @@ is what lets the two forms below agree bit for bit:
   package's `while_loop` does, one host check per round.
 - on a CUDA tensor `cc_fixpoint` launches the union-find entry point of
   `csrc/window_summary.cu` (`gs_cc_fixpoint`): a lock-free union-find in
-  device memory, no rounds and no host check. It never runs the plain
-  loop, and the plain loop never stands in for it.
+  device memory, no rounds and no host check, in one cooperative launch
+  up to 131,072 edges (every call the models make) and four launches
+  above (`plan`). It never runs the plain loop, and the plain loop never
+  stands in for it.
 
 Padded edge slots point at the sentinel vertex `num_vertices`.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -87,6 +91,20 @@ def cc_fixpoint(labels0: torch.Tensor, src: torch.Tensor,
     kernels.check("window_summary", code)
     kernels.LAUNCHES["cc_fixpoint"] += 1
     return out
+
+
+TIERS = ("grid", "four launches")
+
+
+def plan(n: int, ne: int, device) -> dict:
+    """The union-find kernel's plan for a call of n slots and ne edges on
+    a card: its tier ("grid": one cooperative launch; "four launches")
+    and the grid's blocks."""
+    dev = torch.device(device)
+    out = (ctypes.c_int * 2)()
+    kernels.check("window_summary", kernels.library("window_summary")
+                  .gs_cc_plan(n, ne, dev.index, out))
+    return {"tier": TIERS[out[0]], "blocks": out[1]}
 
 
 def cc_labels(src: torch.Tensor, dst: torch.Tensor,

@@ -26,7 +26,7 @@ After the call the carry holds the state after the last window, labels
 and cover canonical (each slot at the smallest slot of its set).
 
 `WindowSnapshot` launches the CUDA kernel of csrc/window_snapshot.cu
-(one launch a call, over the summary body's tiers) on CUDA tensors and
+(one cooperative launch a call over device memory) on CUDA tensors and
 runs `snapshot_windows_plain`, the plain PyTorch version, on CPU ones;
 it never falls back from one to the other. Each call is one launch of
 the cost observatory (utils/costmodel.py `snapshot_work`).
