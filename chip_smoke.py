@@ -26,7 +26,10 @@ edge, empty windows, self-loops, and the grid fixtures of
 utils/tier_fixtures.py) and cell_reduce (the windowed reduce's cell-reduce kernel:
 sum/min/max × out/in/all × int32/float32 on both wires, full rows and
 the delta wire, at [64, 8192] vb=16384 and [64, 32768] vb=65536, edge
-cases, cohort_step of 64 rows). Fourteen drive the port's paths, each
+cases, the plan against its Python mirror, the cell fixtures of
+utils/tier_fixtures.py on both of its read paths, one launch a call, a
+refused call raising KernelError, cohort_step of 64 rows). Fourteen
+drive the port's paths, each
 with the launch counts set to 0 just before it and read just after,
 every window checked, and each profile holding one summary-body launch
 per summary wrapper call: over the bench's north-star stream
@@ -141,6 +144,7 @@ device. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -2772,12 +2776,17 @@ def cell_bytes(rep: int, wb: int, eb: int, vbp: int, wire: str) -> int:
 def phase_cell_reduce(dev) -> dict:
     """The cell-reduce kernel (csrc/cell_reduce.cu) against its plain
     version on the card: sum/min/max × out/in/all × int32/float32 on
-    both wires, full rows and the delta wire, at [64, 8192] vb=16384 (one
-    block a window's row in shared memory) and [64, 32768] vb=65536 (a
-    cluster of blocks a row); the edge-case windows; cohort_step of 64
-    rows. Then times at the main path's chunk beside the plain version
-    and the library calls (index_add_ for cells and counts): device
-    time under the profiler, and each call's time by CUDA events."""
+    both wires, full rows and the delta wire, at [64, 8192] vb=16384
+    (plain loads, a cluster of two blocks a row) and [64, 32768]
+    vb=65536 (the TMA ring, four blocks a row); the edge-case windows;
+    a multi-pass row; the card's plans against `plan_mirror`; the cell
+    fixtures (cell_fixture_checks); a refused call raising KernelError;
+    cohort_step of 64 rows. Then times at the main path's chunk and the
+    north-star chunk beside the plain version and the library calls
+    (index_add_ for cells and counts), each with its bound and share:
+    device time under the profiler, and each call's time by CUDA
+    events; the hub chunk at both vb; one launch a call in a
+    profile."""
     from gelly_streaming_tpu_torch import make_stream
     from gelly_streaming_tpu_torch.ops import cell_reduce as cr
     from gelly_streaming_tpu_torch.ops import windowed_reduce as wr
@@ -2789,7 +2798,9 @@ def phase_cell_reduce(dev) -> dict:
     for eb, vb, seed in ((RED_EB, RED_VB, 7), (EB, VB, 7)):
         wb, vbp = CHUNK, vb + 1
         src, dst = make_stream(wb * eb, vb, seed=seed)
-        plans[vb] = cr.plan(wb, vbp, dev)
+        direction = "out" if vb == RED_VB else "all"
+        plans[vb] = dict(cr.plan(wb, vbp, dev, eb, "standard", direction),
+                         eb=eb, direction=direction)
         values = {"int32": rng.integers(-1000, 1000, wb * eb)
                   .astype(np.int32),
                   "float32": (rng.standard_normal(wb * eb) * 100)
@@ -2826,9 +2837,11 @@ def phase_cell_reduce(dev) -> dict:
                                                      dgot, dwant, name,
                                                      dtol))
                         checked += 2
-        print("phase cell_reduce %d/%d: ok  (cluster %d, span %d, "
-              "passes %d)" % (eb, vb, plans[vb]["cluster"],
-                              plans[vb]["span"], plans[vb]["passes"]))
+        print("phase cell_reduce %d/%d: ok  (%s: cluster %d, span %d, "
+              "passes %d, stages %d, clusters %d)"
+              % (eb, vb, direction, plans[vb]["cluster"], plans[vb]["span"],
+                 plans[vb]["passes"], plans[vb]["stages"],
+                 plans[vb]["clusters"]))
 
     # edge cases, both wires, full and delta
     for eb, vb in ((RED_EB, RED_VB), (EB, VB)):
@@ -2855,10 +2868,12 @@ def phase_cell_reduce(dev) -> dict:
                         (2 if direction == "all" else 1),
                         label + ": one-edge window")
     # rows past 8 blocks' shared memory: several passes a cluster
-    eb, vb, wb = RED_EB, CELL_PASSES_VB, 2
+    eb, vb, wb = 2 * RED_EB, CELL_PASSES_VB, 2
     vbp = vb + 1
-    plans[vb] = cr.plan(wb, vbp, dev)
-    require(plans[vb]["passes"] > 1, "multi-pass plan %s" % plans[vb])
+    plans[vb] = dict(cr.plan(wb, vbp, dev, eb, "standard", "all"), eb=eb,
+                     direction="all")
+    require(plans[vb]["passes"] > 1 and plans[vb]["stages"] > 0,
+            "multi-pass ring plan %s" % plans[vb])
     src, dst = rng.integers(0, vb, wb * eb), rng.integers(0, vb, wb * eb)
     for name, direction, val in (
             ("sum", "all", rng.integers(-50, 50, wb * eb).astype(np.int32)),
@@ -2875,6 +2890,18 @@ def phase_cell_reduce(dev) -> dict:
                 wire, t, wb, eb, vbp, name, direction, "delta", cap),
                 cr.touched_wire(*want, cap), name)
             checked += 2
+
+    # the plan on the card is its Python mirror's, fed the card's SMs and
+    # room; then the fixtures of utils/tier_fixtures.py at card sizes
+    for vb, p in plans.items():
+        m = cr.plan_mirror(CHUNK if vb != CELL_PASSES_VB else 2, vb + 1,
+                           p["sms"], p["room"], p["eb"] * cr.slot_bytes(
+                               "standard", p["direction"]))
+        require(all(p[k] == m[k] for k in m if k != "smem"),
+                "cell_reduce plan at vb=%d %s != its mirror %s" % (vb, p, m))
+    fixtures = cell_fixture_checks(dev, plans[VB]["room"], rng)
+    checked += fixtures["calls"]
+    err = max(err, fixtures["max_abs_err"])
 
     # cohort_step: 64 tenants' windows in one launch, each equal to its
     # own window on the host tier
@@ -2899,6 +2926,25 @@ def phase_cell_reduce(dev) -> dict:
         (hc, hn), = host.process_stream(s, d, v)
         require(np.array_equal(gn, hn) and np.array_equal(gc, hc),
                 "cohort row %d differs from the host tier" % r)
+
+    # a call the C entry refuses (a bad rep, a device that is not there)
+    # raises KernelError before any launch; nothing falls back to plain
+    lib = kernels.library("cell_reduce")
+    ids = torch.zeros(8, dtype=torch.int32, device=dev)
+    drill = torch.empty(2, 9, dtype=torch.int32, device=dev)
+    out = cr._Out(cells=drill[0].data_ptr(), counts=drill[1].data_ptr())
+    for label, rep, index in (("rep 3", 3, dev.index), ("device 999", 1, 999)):
+        before = kernels.LAUNCHES["cell_reduce"]
+        try:
+            kernels.check("cell_reduce", lib.gs_cell_reduce(
+                ids.data_ptr(), ids.data_ptr(), 1, 8, rep, 9, 0, 0,
+                ctypes.byref(out), index, kernels.stream_of(ids)))
+        except kernels.KernelError:
+            require(kernels.LAUNCHES["cell_reduce"] == before,
+                    "cell_reduce drill %s: counted a launch" % label)
+        else:
+            raise SmokeFailure("cell_reduce drill %s: no KernelError" % label)
+    torch.cuda.synchronize()
 
     # times at the main path's chunk (out, sum, int32, standard, full)
     res = {}
@@ -2948,28 +2994,119 @@ def phase_cell_reduce(dev) -> dict:
                     "delta_ms": delta_ms, "compact_ms": compact_ms,
                     "bound_ms": b_ms, "bound_by": b_by,
                     "eb": eb, "vb": vb, "direction": direction}
-    # a window all on one hub vertex (the atomics serialise), one chunk
-    hub = np.full(CHUNK * RED_EB, 4242, np.int64)
-    ht = cell_wire(hub, hub, np.ones(len(hub), np.int32), RED_EB, RED_VB,
-                   "out", "standard", dev)
-    hub_ms = device_ms(lambda: reduce_call("standard", ht, CHUNK, RED_EB,
-                                           RED_VB + 1, "sum", "out"), 50)
-    main = res["main"]
+    # a chunk all on one hub vertex (its folds meet in one cell), at
+    # both shapes
+    hub_ms = {}
+    for key, eb, vb in (("main", RED_EB, RED_VB), ("big", EB, VB)):
+        hub = np.full(CHUNK * eb, 4242, np.int64)
+        ht = cell_wire(hub, hub, np.ones(len(hub), np.int32), eb, vb,
+                       "out", "standard", dev)
+        hub_ms[key] = device_ms(lambda: reduce_call(
+            "standard", ht, CHUNK, eb, vb + 1, "sum", "out"), 50)
+    # one launch a call: 64 windows at vb=65536 (more clusters than the
+    # card runs at once), 20 calls in a profile: 20 launch calls in its
+    # CUDA API rows, and no device row but the kernel's (the profiler
+    # may drop device records in an aged process, never add them)
+    from gelly_streaming_tpu_torch.utils.profiling import device_times
+
+    big = cell_wire(*make_stream(CHUNK * EB, VB, seed=7),
+                    np.ones(CHUNK * EB, np.int32), EB, VB, "all",
+                    "standard", dev)
+    _wall, rows, calls = device_times(
+        lambda: [reduce_call("standard", big, CHUNK, EB, VB + 1, "sum",
+                             "all") for _ in range(20)], launch_calls=True)
+    grid = {k: n for k, (_ms, n) in rows.items()}
+    require(calls == 20 and grid and all("cell_reduce" in k for k in grid)
+            and sum(grid.values()) <= 20,
+            "cell_reduce: %d launch calls, device rows %s in 20 calls"
+            % (calls, grid))
+    main, big = res["main"], res["big"]
+    for r in (main, big):
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
     print(json.dumps({"cell_reduce": {
         "checked_calls": checked, "max_abs_err": err, "plans": plans,
-        "times": res, "hub_chunk_ms": hub_ms,
+        "times": res, "hub_chunk_ms": hub_ms, "fixtures": fixtures,
+        "launch_calls": calls, "device_records": grid,
         "device": torch.cuda.get_device_name(0)}}))
     print("phase cell_reduce: ok  kernel %.4f ms/chunk on the device "
           "(call %.4f; delta %.4f, compact %.4f)  library %.4f (call "
-          "%.4f)  plain %.3f  bound %.4f (%s); vb=65536 all %.4f (library "
-          "%.4f); hub chunk %.4f  (%d calls checked, max float |kernel - "
-          "plain| %g)"
+          "%.4f)  plain %.3f  bound %.4f (%s, %.0f%%); vb=65536 all %.4f "
+          "(library %.4f, bound %.4f, %.0f%%); hub chunk %.4f, %.4f at "
+          "vb=65536; %d fixture calls; one launch a call  (%d calls "
+          "checked, max float |kernel - plain| %g)"
           % (main["ms"], main["call_ms"], main["delta_ms"],
              main["compact_ms"], main["library_ms"],
              main["library_call_ms"], main["plain_ms"], main["bound_ms"],
-             main["bound_by"], res["big"]["ms"], res["big"]["library_ms"],
-             hub_ms, checked, err))
-    return dict(main, max_abs_err=err, big=res["big"], hub_ms=hub_ms)
+             main["bound_by"], 100 * main["share_of_bound"], big["ms"],
+             big["library_ms"], big["bound_ms"],
+             100 * big["share_of_bound"], hub_ms["main"], hub_ms["big"],
+             fixtures["calls"], checked, err))
+    return dict(main, max_abs_err=err, big=big, hub_ms=hub_ms)
+
+
+def cell_fixture_checks(dev, room: int, rng) -> dict:
+    """utils/tier_fixtures.py's cell-reduce fixtures at card sizes, each
+    kernel call against the plain version on the same tensors: both
+    wires (the compact one up to 65536 vertices), full rows and the
+    delta wire, float32 sum over "all", int32 min over "out" and
+    float32 max over "in"; the fixtures' block ranges are the card's
+    plans (`max_span` from the card's room)."""
+    from gelly_streaming_tpu_torch.ops import cell_reduce as cr
+    from gelly_streaming_tpu_torch.utils import tier_fixtures as tf
+
+    ring_span = ((room - cr.MIN_STAGES * cr.STAGE_BYTES - 64) // 8) & ~31
+    plain_span = ((room - 64) // 8) & ~31
+    big = cr.plan(CHUNK, VB + 1, dev, EB, "standard", "all")
+    # (kind, windows, eb, vb): eb 8192 "all" and below read with plain
+    # loads, 16384 "all" (256 KB a window) and above through the ring
+    cases = [("boundaries", 8, RED_EB, RED_VB),
+             ("one_block", 4, 2 * RED_EB, VB),
+             ("ragged", 6, RED_EB + 5, RED_VB),
+             ("ragged", 6, 2 * RED_EB + 5, RED_VB),
+             ("nvalid", 10, 2 * RED_EB, RED_VB),
+             ("uniform", 3 * big["sms"] // big["cluster"] + 1, 2 * RED_EB,
+              VB),
+             ("boundaries", 2, 2 * RED_EB, CELL_PASSES_VB),
+             ("hub", 4, 2 * RED_EB, VB)]
+    cases += [("boundaries", 4, 2 * RED_EB, vbp - 1)
+              for vbp in tf.capacity_vbps(ring_span, 2)]
+    cases += [("boundaries", 4, RED_EB // 2, vbp - 1)
+              for vbp in tf.capacity_vbps(plain_span, 2)]
+    calls, err = 0, 0.0
+    for kind, wb, eb, vb in cases:
+        p = cr.plan(wb, vb + 1, dev, eb, "standard", "all")
+        src, dst, nvalid = tf.cell_stack(kind, wb, eb, vb, calls,
+                                         p["cluster"], p["span"])
+        for k, (name, direction, dtype) in enumerate(
+                (("sum", "all", "float32"), ("min", "out", "int32"),
+                 ("max", "in", "float32"))):
+            val = tf.cell_values(dtype, wb, eb, k)
+            wires = tf.cell_wires(src, dst, nvalid, val, vb, direction)
+            cap = min(eb * (2 if direction == "all" else 1), vb + 1)
+            std = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                        for a in wires["standard"])
+            tol = None
+            if dtype == "float32" and name == "sum":
+                tol = cr.cell_reduce_plain(std[0], std[1].abs(), wb, eb,
+                                           vb + 1, "sum")[0]
+            for wire in ("standard", "compact")[:1 if vb > 65536 else 2]:
+                t = std if wire == "standard" else tuple(
+                    torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                    for a in wires["compact"])
+                want = reduce_call(wire, t, wb, eb, vb + 1, name, direction,
+                                   plain=True)
+                label = "cell_reduce fixture %s %dx%d vb=%d %s %s %s" % (
+                    kind, wb, eb, vb, wire, name, direction)
+                err = max(err, compare_cells(label, reduce_call(
+                    wire, t, wb, eb, vb + 1, name, direction), want, name,
+                    tol))
+                dwant = cr.touched_wire(*want, cap)
+                err = max(err, compare_cells(label + " delta", reduce_call(
+                    wire, t, wb, eb, vb + 1, name, direction, "delta", cap),
+                    dwant, name, None if tol is None else
+                    torch.gather(tol, 1, dwant[1].long())))
+                calls += 2
+    return {"calls": calls, "max_abs_err": err, "cases": len(cases)}
 
 
 def np_port_with_counts(src, val, eb: int, vb: int) -> list:
@@ -6038,6 +6175,14 @@ def run_phases() -> int:
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"],
             "library_ms": res.get("library_ms")})
+        if name == "cell_reduce":   # the north-star chunk beside the main
+            big = res["big"]
+            rows[-1].update(
+                share_of_bound=res["share_of_bound"], big_ms=big["ms"],
+                big_bound_ms=big["bound_ms"],
+                big_share_of_bound=big["share_of_bound"],
+                big_library_ms=big["library_ms"],
+                big_plain_ms=big["plain_ms"], hub_chunk_ms=res["hub_ms"])
     print("chip_smoke: every phase ok in %.1f s"
           % (time.perf_counter() - t_run))
     print(card())

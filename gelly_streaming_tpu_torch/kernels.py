@@ -82,7 +82,7 @@ SIGNATURES = {
         "gs_six_t_partials": [_P, _I, _P, _I, _P],
     },
     "cell_reduce": {
-        "gs_cell_reduce_plan": [_I, _I, _I, _P],
+        "gs_cell_reduce_plan": [_I, _I, _I, _I, _I, _P],
         "gs_cell_reduce": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
         "gs_cell_reduce_compact": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _P, _I, _P],

@@ -213,12 +213,78 @@ def cell_reduce_compact(s16: torch.Tensor, d16: torch.Tensor,
     return res
 
 
-def plan(wb: int, vbp: int, device) -> dict:
-    """The kernel's launch shape for wb windows of vbp cells on a card:
-    blocks a window (the cluster), vertices a block holds a pass, and
-    passes."""
+PLAN_KEYS = ("cluster", "span", "passes", "stages", "stage_bytes",
+             "clusters", "sms", "room")
+
+# csrc/cell_reduce.cu's plan constants
+STAGE_BYTES = 49152
+MIN_STAGES, MAX_STAGES = 2, 4
+RING_MIN_BYTES = 262144  # smaller windows are read with plain loads
+MAX_CLUSTER = 8
+SPREAD_MIN = 2048
+SLOT_ALIGN = 8
+SMEM_OPTIN = 232448      # shared memory a block may use on an H100
+
+
+def slot_bytes(wire: str, direction: str) -> int:
+    """Bytes a slot of a window of the wire holds: 8 a direction on the
+    standard wire (an int32 id and a value), two uint16 ids or one and
+    a value on the compact one."""
+    rep = 2 if direction == "all" else 1
+    return 8 * rep if wire == "standard" else 2 * rep + 4
+
+
+def plan(wb: int, vbp: int, device, eb: int, wire: str = "standard",
+         direction: str = "out") -> dict:
+    """The kernel's launch shape for wb windows of eb slots at vbp cells
+    on a card (PLAN_KEYS): blocks a window (the cluster), vertices a
+    block holds a pass, passes, the ring's stages (0: each window read
+    with plain loads) and bytes a stage, the clusters launched (one a
+    window), and the card's SMs and the shared memory a block may use
+    beside the kernel's static part (`room`), from which `plan_mirror`
+    derives the same shape."""
     dev = torch.device(device)
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * len(PLAN_KEYS))()
     kernels.check("cell_reduce", kernels.library("cell_reduce")
-                  .gs_cell_reduce_plan(wb, vbp, dev.index, out))
-    return {"cluster": out[0], "span": out[1], "passes": out[2]}
+                  .gs_cell_reduce_plan(wb, eb, slot_bytes(wire, direction),
+                                       vbp, dev.index, out))
+    return dict(zip(PLAN_KEYS, out))
+
+
+def plan_smem(span: int, stages: int) -> int:
+    """Dynamic shared memory of a plan: the ring, then the cells and the
+    counts, each span words and up to 12 bytes to set its 16-byte
+    phase."""
+    return stages * STAGE_BYTES + 2 * ((span * 4 + 31) & ~15)
+
+
+def plan_mirror(wb: int, vbp: int, sms: int, room: int,
+                window_bytes: int) -> dict:
+    """csrc/cell_reduce.cu `plan` in Python: the cluster, span, passes,
+    stages and dynamic shared memory of a call of wb windows of
+    `window_bytes` at vbp cells on a card of `sms` SMs with `room` bytes
+    of shared memory a block."""
+    wb, vbp = max(wb, 1), max(vbp, 1)
+    ring = window_bytes >= RING_MIN_BYTES
+    max_span = ((room - (MIN_STAGES * STAGE_BYTES if ring else 0) - 64)
+                // 8) & ~31
+    c = 1
+    while c < MAX_CLUSTER and max_span * c < vbp:
+        c *= 2
+    while (c < MAX_CLUSTER and 2 * wb * c <= sms
+           and -(-vbp // (2 * c)) >= SPREAD_MIN):
+        c *= 2
+    span = max(1, min(max_span, -(-vbp // c)))
+    passes = -(-vbp // (c * span))
+    stages = MAX_STAGES if ring else 0
+    while plan_smem(span, stages) > room:
+        stages -= 1
+    return {"cluster": c, "span": span, "passes": passes,
+            "stages": stages, "stage_bytes": STAGE_BYTES,
+            "smem": plan_smem(span, stages)}
+
+
+def tile_slots(per_slot: int) -> int:
+    """Slots a stage holds of a wire of `per_slot` bytes a slot (the
+    kernel's tile), a multiple of SLOT_ALIGN."""
+    return STAGE_BYTES // per_slot // SLOT_ALIGN * SLOT_ALIGN

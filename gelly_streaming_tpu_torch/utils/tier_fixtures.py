@@ -1,6 +1,7 @@
-"""Inputs that the snapshot and union-find kernels' grids make risky,
-built once for both sizes they run at: small vertex buckets in the CPU
-tests (tests/test_torch_kernel_tiers.py, plain versions against the JAX
+"""Inputs that the snapshot, union-find and cell-reduce kernels' plans
+make risky, built once for both sizes they run at: small vertex buckets
+in the CPU tests (tests/test_torch_kernel_tiers.py and
+tests/test_torch_cell_reduce.py, plain versions against the JAX
 package) and the card's sizes in chip_smoke.py (kernels against the
 plain versions).
 
@@ -8,8 +9,14 @@ The snapshot kernel's grid (csrc/window_snapshot.cu `owned`) splits the
 slots over its C blocks in contiguous runs of `run_length`, one run a
 block in the emit and the delta wire (the rule mirrored here): what
 these fixtures stress is where that split shows, and the unions that
-cross it in both kernels. Every fixture function is seeded and returns numpy
-arrays.
+cross it in both kernels. The cell reduce (csrc/cell_reduce.cu `plan`,
+mirrored by ops/cell_reduce.plan_mirror) splits a window's vertices over
+a cluster of C blocks of `span` vertices, pass after pass, and streams
+the window's slots through a ring of tiles: its fixtures stress the
+ranges' edges, the row at its shared-memory capacity, the tiles'
+ragged and unaligned tails, the valid counts, more windows than
+clusters, and hub vertices. Every fixture function is seeded and
+returns numpy arrays.
 """
 
 from __future__ import annotations
@@ -210,3 +217,109 @@ def union_find_case(kind: str, n: int, ne: int, C: int, seed: int) -> tuple:
             s, d = np.concatenate([s, ls]), np.concatenate([d, ld])
         return np.arange(n, dtype=np.int32), s, d, False
     raise ValueError("unknown union-find fixture %r" % kind)
+
+
+CELL_KINDS = ("boundaries", "one_block", "ragged", "nvalid", "hub", "zipf",
+              "uniform")
+
+
+def block_ranges(vbp: int, cluster: int, span: int, passes: int) -> list:
+    """[(lo, hi)] of every (pass, block) of a cell-reduce plan: block r
+    owns [(k·C + r)·span, +span) in pass k, clipped to [0, vbp)."""
+    out = []
+    for k in range(passes):
+        for r in range(cluster):
+            lo = min((k * cluster + r) * span, vbp)
+            out.append((lo, min(lo + span, vbp)))
+    return out
+
+
+def capacity_vbps(max_span: int, cluster: int) -> tuple:
+    """The row widths around C blocks' capacity of max_span vertices
+    each: C·max_span - 1, C·max_span and C·max_span + 1 (the last takes
+    a wider cluster or another pass)."""
+    full = cluster * max_span
+    return full - 1, full, full + 1
+
+
+def cell_stack(kind: str, wb: int, eb: int, vb: int, seed: int,
+               cluster: int = 1, span: int = None):
+    """(src [wb, eb], dst [wb, eb], nvalid [wb]) int32 of fixture `kind`
+    over vertices [0, vb); padding past nvalid holds ids like any slot's.
+    A plan of `cluster` blocks of `span` vertices (default one block
+    over the whole row) places the edges of the range kinds:
+    - boundaries: uniform ids, a third of them on the first and last
+      vertex of every block's range and its neighbours, 0 and vb-1;
+    - one_block: every id in the last block's range;
+    - ragged: uniform, full windows but the last, which holds eb - 3
+      (the caller's eb sets the tiles' alignment);
+    - nvalid: valid counts cycling 0, 1, eb - 1, eb, eb // 2 + 3;
+    - hub: window 0 all on one vertex, the rest half on it;
+    - zipf: Zipf(1.1) ids, a few hubs take most contributions;
+    - uniform: uniform ids (more windows than clusters: the caller's
+      wb)."""
+    rng = np.random.default_rng(seed)
+    span = span or vb + 1
+    src = rng.integers(0, vb, (wb, eb))
+    dst = rng.integers(0, vb, (wb, eb))
+    nvalid = np.full(wb, eb, np.int64)
+    if kind == "boundaries":
+        edges = []
+        for lo, hi in block_ranges(vb + 1, cluster, span, -(-(vb + 1)
+                                   // (cluster * span))):
+            edges += [lo - 1, lo, lo + 1, hi - 2, hi - 1, hi]
+        edges = np.clip(np.array(edges + [0, vb - 1]), 0, vb - 1)
+        pick = rng.random((2, wb, eb)) < 1 / 3
+        src = np.where(pick[0], rng.choice(edges, (wb, eb)), src)
+        dst = np.where(pick[1], rng.choice(edges, (wb, eb)), dst)
+    elif kind == "one_block":
+        lo, hi = [(a, b) for a, b in block_ranges(vb, cluster, span, 1)
+                  if b > a][-1]
+        src = rng.integers(lo, hi, (wb, eb))
+        dst = rng.integers(lo, hi, (wb, eb))
+    elif kind == "ragged":
+        nvalid[-1] = max(eb - 3, 0)
+    elif kind == "nvalid":
+        cycle = np.array([0, 1, eb - 1, eb, eb // 2 + 3])
+        nvalid = np.clip(cycle[np.arange(wb) % len(cycle)], 0, eb)
+    elif kind == "hub":
+        h = int(rng.integers(0, vb))
+        src[0] = dst[0] = h
+        half = rng.random((2, wb, eb)) < 0.5
+        src = np.where(half[0], h, src)
+        dst = np.where(half[1], h, dst)
+    elif kind == "zipf":
+        weights = 1.0 / np.arange(1, vb + 1) ** 1.1
+        perm = rng.permutation(vb)
+        src, dst = (perm[rng.choice(vb, (wb, eb), p=weights / weights.sum())]
+                    for _ in range(2))
+    elif kind != "uniform":
+        raise ValueError("unknown cell-reduce fixture %r" % kind)
+    return (src.astype(np.int32), dst.astype(np.int32),
+            nvalid.astype(np.int32))
+
+
+def cell_values(dtype: str, wb: int, eb: int, seed: int) -> np.ndarray:
+    """[wb, eb] values: int32 in [-1000, 1000), or float32 normals ·
+    100."""
+    rng = np.random.default_rng(seed)
+    if dtype == "int32":
+        return rng.integers(-1000, 1000, (wb, eb)).astype(np.int32)
+    return (rng.standard_normal((wb, eb)) * 100).astype(np.float32)
+
+
+def cell_wires(src, dst, nvalid, val, vb: int, direction: str) -> dict:
+    """Both wires of a stack, as the device tier stages them: standard
+    (ids [rep·wb·eb] int32, w·vbp + v or the trash id wb·vbp past
+    nvalid; values repeated rep times) and compact (s16, d16 [wb, eb]
+    uint16, nvalid, values [wb, eb])."""
+    wb, eb = src.shape
+    vbp = vb + 1
+    valid = np.arange(eb)[None, :] < nvalid[:, None]
+    base = (np.arange(wb) * vbp)[:, None]
+    vtx = {"out": [src], "in": [dst], "all": [src, dst]}[direction]
+    ids = np.concatenate([np.where(valid, base + v, wb * vbp).reshape(-1)
+                          for v in vtx]).astype(np.int32)
+    return {"standard": (ids, np.concatenate([val.reshape(-1)] * len(vtx))),
+            "compact": (src.astype(np.uint16), dst.astype(np.uint16),
+                        nvalid.astype(np.int32), val)}

@@ -22,6 +22,7 @@ from gelly_streaming_tpu_torch.ops import cell_reduce as cr
 from gelly_streaming_tpu_torch.ops import compact_ingress
 from gelly_streaming_tpu_torch.ops import segment as port_seg
 from gelly_streaming_tpu_torch.ops import windowed_reduce as pw
+from gelly_streaming_tpu_torch.utils import tier_fixtures as tf
 
 GRID = list(itertools.product(("sum", "min", "max"), ("out", "in", "all"),
                               ("int32", "float32")))
@@ -250,3 +251,143 @@ def test_wrappers_refuse_bad_input():
         cr.cell_reduce_compact(s16, s16, torch.zeros(3, dtype=torch.int32),
                                torch.zeros(2, 8, dtype=torch.int32), 9,
                                "sum", "out")
+
+
+# ---- the redesigned kernel's plan and its risky inputs ---------------
+
+# the room an H100 leaves a block of the kernel (232,448 bytes less an
+# assumed static part of 512 and the 64 spare): the card reports its own,
+# which chip_smoke.py feeds the mirror
+H100_ROOM = cr.SMEM_OPTIN - 512 - 64
+MAX_SPAN = ((H100_ROOM - cr.MIN_STAGES * cr.STAGE_BYTES - 64) // 8) & ~31
+
+# (kind, wb, eb, vb, cluster, span): the plan a fixture places its
+# edges by; the plain version does not depend on it
+CELL_CASES = [
+    ("boundaries", 3, 64, 4 * 126 - 1, 4, 126),
+    ("boundaries", 2, 64, MAX_SPAN * 2 - 2, 2, MAX_SPAN),
+    ("uniform", 2, 64, MAX_SPAN * 2 - 1, 2, MAX_SPAN),
+    ("uniform", 2, 64, MAX_SPAN * 2, 4, MAX_SPAN // 2 + 1),
+    ("one_block", 3, 64, 1000, 4, 251),
+    ("ragged", 4, 61, 300, 1, None),
+    ("nvalid", 6, 64, 300, 1, None),
+    ("uniform", 40, 32, 200, 1, None),
+    ("uniform", 2, 64, 1 << 18, 8, MAX_SPAN),
+    ("hub", 3, 64, 300, 1, None),
+    ("zipf", 4, 128, 1000, 2, 501),
+]
+COMBOS = (("sum", "all", "float32"), ("min", "out", "int32"),
+          ("max", "in", "float32"))
+
+
+def _case_id(case):
+    kind, wb, eb, vb = case[:4]
+    return "%s-%dx%d-vb%d" % (kind, wb, eb, vb)
+
+
+@pytest.mark.parametrize("case,wire", [
+    (c, w) for c in CELL_CASES for w in ("standard", "compact")
+    if w == "standard" or c[3] < 65536],
+    ids=lambda x: x if isinstance(x, str) else _case_id(x))
+def test_fixture_against_jax_stack_programs(case, wire):
+    """Each cell-reduce fixture on both egress forms: the port's wrappers
+    (the plain version on the CPU) against the JAX engine's `_stack_fn`
+    / `_stack_fn_compact` and its delta tail on the same stack; counts,
+    indices, integer cells and float min/max equal, float sums within
+    1e-5 · Σ|v| a cell."""
+    kind, wb, eb, vb, cluster, span = case
+    vbp = vb + 1
+    for k, (name, direction, dtype) in enumerate(COMBOS):
+        src, dst, nvalid = tf.cell_stack(kind, wb, eb, vb, 11 + k, cluster,
+                                         span)
+        val = tf.cell_values(dtype, wb, eb, 17 + k)
+        wires = tf.cell_wires(src, dst, nvalid, val, vb, direction)
+        eng = jw.WindowedEdgeReduce(vb, eb, name, direction)
+        eng.vb, eng.eb = vb, eb   # the stack's own widths, not buckets
+        cap = eng._delta_cap()
+        ids, vals = wires["standard"]
+        tol = cr.cell_reduce_plain(torch.from_numpy(ids),
+                                   torch.from_numpy(np.abs(vals)), wb, eb,
+                                   vbp, "sum")[0].numpy()
+        if wire == "standard":
+            args = wires["standard"]
+            jfull, jdelta = (eng._stack_fn(wb, d)(*args) for d in (0, 1))
+            t = tuple(torch.from_numpy(a) for a in args)
+        else:
+            args = wires["compact"]
+            jfull, jdelta = (eng._stack_fn_compact(wb, d)(*args)
+                             for d in (0, 1))
+            t = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                      for a in args)
+        cells, counts = _call(wire, t, wb, eb, vbp, name, direction)
+        _same((cells.numpy(), counts.numpy()),
+              tuple(np.asarray(x) for x in jfull), name, dtype, tol)
+        cnt, idx, dc, dn = _call(wire, t, wb, eb, vbp, name, direction,
+                                 "delta", cap)
+        jc, ji, jdc, jdn = (np.asarray(x) for x in jdelta)
+        for a, b in ((cnt, jc), (idx, ji), (dn, jdn)):
+            np.testing.assert_array_equal(a.numpy(), b)
+        _same((dc.numpy(), dn.numpy()), (jdc, jdn), name, dtype,
+              np.take_along_axis(tol, ji.astype(np.int64), 1))
+
+
+# a window the ring streams (the north-star chunk's, 32768 slots "all")
+# and one read straight from device memory (the reduce stream's)
+RING_WINDOW, DIRECT_WINDOW = 32768 * 16, 8192 * 8
+
+
+@pytest.mark.parametrize("window_bytes", [RING_WINDOW, DIRECT_WINDOW])
+@pytest.mark.parametrize("wb,vbp", [
+    (64, 16385), (64, 65537), (2, 262145), (1, 9), (1, 1025), (8, 16385),
+    (300, 4097), (64, 8193), (3, MAX_SPAN * 2 - 1), (3, MAX_SPAN * 2),
+    (3, MAX_SPAN * 2 + 1), (1, MAX_SPAN * 8 + 1), (200, 65537)])
+def test_plan_mirror_invariants(wb, vbp, window_bytes):
+    """The Python mirror of csrc/cell_reduce.cu `plan`: every vertex
+    owned by one (pass, block) range; ring plus row within the room (and
+    so within 232,448 bytes); a ring of 2-4 stages for a window of
+    RING_MIN_BYTES or more, none below; each wire's tile a multiple of
+    8 slots, every array of it a 16-byte multiple inside one stage;
+    C = 1-8 blocks, more passes only at 8."""
+    for room in (H100_ROOM, H100_ROOM - 4096):
+        p = cr.plan_mirror(wb, vbp, 132, room, window_bytes)
+        owners = np.zeros(vbp, np.int64)
+        for lo, hi in tf.block_ranges(vbp, p["cluster"], p["span"],
+                                      p["passes"]):
+            owners[lo:hi] += 1
+        assert (owners == 1).all()
+        assert p["smem"] == cr.plan_smem(p["span"], p["stages"])
+        assert p["smem"] <= room < cr.SMEM_OPTIN
+        assert p["cluster"] in (1, 2, 4, 8)
+        if window_bytes >= cr.RING_MIN_BYTES:
+            assert cr.MIN_STAGES <= p["stages"] <= cr.MAX_STAGES
+        else:
+            assert p["stages"] == 0
+        assert p["passes"] == 1 or p["cluster"] == cr.MAX_CLUSTER
+        for wire in ("standard", "compact"):
+            for direction in ("out", "all"):
+                per = cr.slot_bytes(wire, direction)
+                tile = cr.tile_slots(per)
+                assert tile % cr.SLOT_ALIGN == 0
+                assert tile * per <= cr.STAGE_BYTES
+                sizes = ([4] * (per // 4) if wire == "standard"
+                         else [2] * (per // 2 - 2) + [4])
+                assert sum(sizes) == per
+                assert all(tile * e % 16 == 0 for e in sizes)
+
+
+def test_plan_mirror_capacity():
+    """At C blocks' capacity beside the ring the row fills them in one
+    pass; one vertex more takes twice the blocks (or, at 8, a second
+    pass); a window read straight from memory has the ring's room for
+    its row."""
+    for c in (1, 2, 4):
+        below, full, above = tf.capacity_vbps(MAX_SPAN, c)
+        for vbp in (below, full):
+            p = cr.plan_mirror(132, vbp, 132, H100_ROOM, RING_WINDOW)
+            assert (p["cluster"], p["passes"]) == (c, 1)
+        p = cr.plan_mirror(132, above, 132, H100_ROOM, RING_WINDOW)
+        assert (p["cluster"], p["passes"]) == (2 * c, 1)
+        assert cr.plan_mirror(132, above, 132, H100_ROOM,
+                              DIRECT_WINDOW)["cluster"] == c
+    p = cr.plan_mirror(1, 8 * MAX_SPAN + 1, 132, H100_ROOM, RING_WINDOW)
+    assert (p["cluster"], p["passes"], p["stages"]) == (8, 2, 2)
