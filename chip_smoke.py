@@ -4,7 +4,7 @@ NVIDIA GPU.
 
 Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and the
 native host runtime (gelly_streaming_tpu_torch/native, g++) and runs
-thirty-two phases, with the dispatch tuner's cache (GS_TUNE_CACHE) in a
+thirty-three phases, with the dispatch tuner's cache (GS_TUNE_CACHE) in a
 fresh temporary directory. The first twenty-two run with GS_AUTOTUNE=0,
 so their numbers stay comparable across runs. Eight hold a kernel against its plain PyTorch version on
 the card: intersect (ascending and shuffled rows), counter (count and
@@ -97,8 +97,9 @@ to equal results, and passes a fatal fault and an error of the launch
 wrapper through unretried and unwrapped; costmodel_health arms the cost
 observatory and the metrics registry, reads /healthz on an ephemeral
 local port while the engines stream, and holds each kernel's cost-model
-bound equal to its bound on the kernels line. Four drive the driver's
-and the cohort's hooks, the driver's demotion ladder and tracing: hooks_driver runs the driver
+bound equal to its bound on the kernels line. Five drive the driver's
+and the cohort's hooks, the driver's demotion ladder, the serving front
+end and tracing: hooks_driver runs the driver
 over the same stream (the scan tier fed as in phase driver, then the
 resident tier) disarmed, with each hook alone (telemetry, metrics,
 latency, costmodel, provenance, the journal, the sanitizer,
@@ -122,8 +123,18 @@ unwrapped with nothing quarantined, recovers a kill after pump 3 from
 checkpoints + journal bit-exactly, holds the cost observatory's cohort
 row to phase cohort's bound, reorders 4 tenants' shuffled stamps within
 GS_OOO_BOUND, and runs GnnTenantCohort all armed equal to phase
-gnn_cohort; api_tracing traces the record API's reduce_on_edges over phase api's 1M edges beside its untraced
-rate, arms the reduce stream's spans, and reports the device_trace
+gnn_cohort; serve (the serving front end, core/serve.py) takes phase
+cohort_stream's 64 streams over loopback from 4 client threads into a
+StreamServer on the card with GS_PUMP=async, every row and the results
+file equal to cohort_stream's windows, feeds admitted during dispatches,
+tenant edges/s beside the direct rate, host seconds of the codec, feed,
+pump and emit, the card's idle share from CUDA events; then the sync
+pump over 8 tenants, the standalone server on the card killed mid-window
+and recovered with --recover then drained by SIGTERM, a subscriber that
+never reads shed, and a KernelError on the pump thread raised unwrapped
+with nothing quarantined; api_tracing traces the record API's
+reduce_on_edges over the first 262,144 of phase api's 1M edges beside
+its untraced rate, arms the reduce stream's spans, and reports the device_trace
 (torch.profiler) capture of a driver call taken first in the process.
 Every main-path phase ends with no demotion in the drivers' logs or the
 process's. Each path reports
@@ -150,6 +161,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -1975,7 +1987,7 @@ def phase_cohort_stream(dev) -> dict:
     print(json.dumps({"cohort_profile": prof}))
     print("phase cohort_stream: ok  %d tenants  %d windows  %.1f tenant "
           "edges/s  %d pumps" % (len(streams), windows, rate, secs["pumps"]))
-    return launches, streams, out
+    return launches, streams, out, rate
 
 
 def phase_gnn_cohort(dev) -> dict:
@@ -2659,6 +2671,7 @@ RED_BIG_EB = 32768                  # the north-star stream, sum over "all"
 RED_SLIDE = 2048
 CELL_PASSES_VB = 1 << 18            # rows past a cluster's shared memory
 API_EDGES = 1_048_576               # make_stream(API_EDGES, VB, seed=7)
+API_TRACE_EDGES = API_EDGES // 4    # phase api_tracing's prefix of it
 API_EDGES_PER_MS = 16
 API_WINDOW_MS = 512                 # the reduce_on_edges slice
 API_TRI_MS = (128, 2048)            # dense route, sparse route
@@ -3478,7 +3491,7 @@ def check_api_reduce(label: str, records, src, dst, ts) -> int:
     .reduce_on_edges(sum) job (`records`, the sink's (value, ts) pairs)
     equal to numpy's sums of the edges' weights; returns the windows."""
     weight = 1 + (src + 3 * dst) % 97
-    n_win = -(-API_EDGES // (API_WINDOW_MS * API_EDGES_PER_MS))
+    n_win = -(-len(src) // (API_WINDOW_MS * API_EDGES_PER_MS))
     win = ts // API_WINDOW_MS
     got = {}
     for (vid, value), wmax in records:
@@ -5905,6 +5918,515 @@ def phase_hooks_cohort(dev, streams: dict, want: dict, gnn_want: dict,
     return report
 
 
+SERVE_CLIENTS = 4                  # phase serve (a): client threads
+SERVE_SYNC = (6, 2, 16)            # (b): small, big tenants; windows each
+SERVE_CLI = (4, 16)                # (c), (d): tenants; windows each
+SERVE_CLI_KILL = 8                 # (c): windows fed before the kill
+SERVE_DEVICE_ARGS = ()             # the subprocess server's --device
+SERVE_BUDGET_S = 300               # (c)'s deadline for its subprocesses
+
+
+class TimedClient:
+    """A ServeClient whose requests time their own JSON encode and
+    decode (`codec`, seconds) and ride the typed backpressure: `feed_all`
+    feeds a tenant's stream from its cursor until the queue refuses."""
+
+    def __init__(self, port: int):
+        from gelly_streaming_tpu_torch import ServeClient
+
+        self.cli = ServeClient(port, timeout=120)
+        # a feed is about one loopback segment: no Nagle hold on its tail
+        self.cli.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.codec = 0.0         # JSON encode and decode, seconds
+        self.wire = 0.0          # request round trips less the codec
+        self.slept = 0.0         # sleeping retry hints
+        self.refused = 0
+
+    def request(self, **req) -> dict:
+        cli = self.cli
+        t0 = time.perf_counter()
+        line = (json.dumps(req) + "\n").encode()
+        t1 = time.perf_counter()
+        cli.sock.sendall(line)
+        while b"\n" not in cli._buf:
+            cli._recv("serve: the server closed a connection")
+        t2 = time.perf_counter()
+        resp = cli._line()
+        self.codec += (t1 - t0) + (time.perf_counter() - t2)
+        self.wire += t2 - t1
+        return resp
+
+    def sleep(self, seconds: float) -> None:
+        time.sleep(seconds)
+        self.slept += seconds
+
+    def feed(self, tid, s, d) -> dict:
+        t0 = time.perf_counter()
+        src, dst = s.tolist(), d.tolist()
+        self.codec += time.perf_counter() - t0
+        return self.request(op="feed", tenant=tid, src=src, dst=dst)
+
+    def feed_until_refused(self, tid, s, d, cursor: dict):
+        """Feed CO_FEED edges at a time from cursor[tid]; None once the
+        stream is in, else the refusal's retry hint."""
+        while cursor[tid] < len(s):
+            c = cursor[tid]
+            r = self.feed(tid, s[c:c + CO_FEED], d[c:c + CO_FEED])
+            if not r["ok"]:
+                require(r["error"] == "TenantBackpressure", "serve: %s" % r)
+                self.refused += 1
+                return r["retry_after_s"]
+            require(r["accepted"] == len(s[c:c + CO_FEED]),
+                    "serve: a partial accept %s" % r)
+            cursor[tid] = c + CO_FEED
+        return None
+
+
+def serve_streams(port: int, streams: dict, client: "TimedClient" = None,
+                  pump: bool = False) -> "TimedClient":
+    """Admit `streams` ({tenant: (src, dst, vb)}) through one client and
+    feed them whole, sweeping the tenants: each is fed until its queue
+    refuses, and a refused tenant waits out its retry hint before it is
+    tried again (the async server pumps by itself); with `pump` (the
+    sync server) a sweep with a refusal is followed by a pump request
+    instead. Closes every tenant at the end."""
+    cli = client or TimedClient(port)
+    for tid, (_s, _d, vb) in streams.items():
+        require(cli.request(op="admit", tenant=tid,
+                            vertex_bucket=vb)["ok"], "serve: admit %s" % tid)
+    cursor = dict.fromkeys(streams, 0)
+    wake = dict.fromkeys(streams, 0.0)     # a refused tenant's next try
+    while True:
+        pending = [t for t, (s, _d, _v) in streams.items()
+                   if cursor[t] < len(s)]
+        if not pending:
+            break
+        now = time.perf_counter()
+        ready = [t for t in pending if wake[t] <= now]
+        if not ready:
+            cli.sleep(min(wake[t] for t in pending) - now)
+            continue
+        refused = False
+        for t in ready:
+            s, d, _vb = streams[t]
+            hint = cli.feed_until_refused(t, s, d, cursor)
+            if hint is not None:
+                refused = True
+                if not pump:
+                    wake[t] = time.perf_counter() + hint
+        if pump and refused:
+            require(cli.request(op="pump")["ok"], "serve: pump refused")
+    for tid in streams:
+        require(cli.request(op="close", tenant=tid)["ok"],
+                "serve: close %s" % tid)
+    return cli
+
+
+def served_rows(label: str, rows: dict, want: dict, windows=None) -> int:
+    """Every tenant's delivered rows: ordinals 0.. and summaries equal to
+    `want` (its first `windows` where given). Returns the rows."""
+    n = 0
+    for tid, w in want.items():
+        w = w if windows is None else w[:windows]
+        got = rows.get(tid, [])
+        require([r["window"] for r in got] == list(range(len(w)))
+                and [r["summary"] for r in got] == w,
+                "%s: tenant %s: %d rows, %d differ from phase "
+                "cohort_stream's" % (label, tid, len(got), sum(
+                    a["summary"] != b for a, b in zip(got, w))))
+        n += len(got)
+    return n
+
+
+def results_file_rows(path: str) -> dict:
+    """The last record per (tenant, window) of a results file."""
+    last = {}
+    with open(path) as f:
+        for line in f:
+            r = json.loads(line)
+            last[(r["tenant"], r["window"])] = r["summary"]
+    return last
+
+
+def spawn_cli(tmp: str, *extra) -> tuple:
+    """Start `python -m gelly_streaming_tpu_torch.core.serve` on the card
+    (the default device) with a journal, checkpoints, a results file and
+    a port file: (process, port file, start time)."""
+    port_file = os.path.join(tmp, "port.txt")
+    if os.path.exists(port_file):
+        os.unlink(port_file)
+    cmd = [sys.executable, "-m", "gelly_streaming_tpu_torch.core.serve",
+           "--edge-bucket", str(CO_EB), "--vertex-bucket", str(CO_VB),
+           "--wal", os.path.join(tmp, "wal"),
+           "--ckpt", os.path.join(tmp, "ckpt"), "--ckpt-every", "4",
+           "--results", os.path.join(tmp, "results.jsonl"),
+           "--port-file", port_file, *SERVE_DEVICE_ARGS, *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, port_file, t0
+
+
+def serving_port(cli: tuple, end: float) -> tuple:
+    """(port, seconds from the start to the port file) of a spawn_cli
+    server; kills it on a failure."""
+    proc, port_file, t0 = cli
+    try:
+        while True:
+            require(time.perf_counter() < end, "serve: no port file")
+            text = open(port_file).read() if os.path.exists(port_file) \
+                else ""
+            if text.strip():
+                return int(text), time.perf_counter() - t0
+            if proc.poll() is not None:
+                _out, err = proc.communicate()
+                raise SmokeFailure("serve: the server exited %d: %s"
+                                   % (proc.returncode, err[-2000:]))
+            time.sleep(0.02)
+    except BaseException:
+        reap(proc)
+        raise
+
+
+def reap(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def phase_serve(dev, streams: dict, want: dict, direct_rate: float) -> dict:
+    """The serving front end (core/serve.py) on the card over loopback.
+    (a) GS_PUMP=async: a StreamServer over TenantCohort(4096, 8192) takes
+    phase cohort_stream's 64 streams (8 at vb=65536, about 8.3M edges)
+    from SERVE_CLIENTS client threads in CO_FEED-edge feeds riding the
+    typed backpressure: every row and the results file equal to phase
+    cohort_stream's windows, feeds admitted during dispatches, the cohort
+    and counter kernels launched, nothing demoted; tenant edges/s beside
+    cohort_stream's, host seconds of codec, feed, pump and emit, device
+    busy from CUDA events around each dispatch. (b) GS_PUMP=sync over a
+    cut of 8 tenants (2 at vb=65536) of 16 windows: rows equal to (a)'s.
+    (c) The standalone server on the card with journal, checkpoints and
+    results, 4 tenants of 16 windows: killed after 8.5 windows a tenant
+    were fed, restarted with --recover, fed the rest, closed and drained
+    by SIGTERM: exit 0, a sealed drain, the last record per (tenant,
+    window) equal to (a)'s. (d) A subscriber at GS_SUB_QUEUE=1 that never
+    reads is shed while the pump serves on; a KernelError of the cohort
+    launch on the async pump thread makes the server fatal and is raised
+    unwrapped by serve_until_drained, nothing quarantined or demoted."""
+    import signal
+    import tempfile
+    import threading
+    from types import SimpleNamespace
+
+    from gelly_streaming_tpu_torch import (ServeClient, StreamServer,
+                                           TenantCohort, kernels)
+    from gelly_streaming_tpu_torch.core import serve as serve_mod
+
+    t_phase = time.perf_counter()
+    total = sum(len(s) for s, _d, _v in streams.values())
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c)'s standalone server starts (interpreter, torch, the card)
+        # while (a) and (b) run
+        sub = os.path.join(tmp, "cli")
+        os.makedirs(sub)
+        first = spawn_cli(sub)
+        end = time.perf_counter() + SERVE_BUDGET_S
+        try:
+            # (a) the async pump, whole streams, several clients
+            secs = {"feed": 0.0, "pump": 0.0, "emit": 0.0, "request": 0.0,
+                    "codec": 0.0}
+            lock = threading.Lock()
+
+            def timed_call(fn, key):
+                def run(*a, **k):
+                    t0 = time.perf_counter()
+                    try:
+                        return fn(*a, **k)
+                    finally:
+                        with lock:
+                            secs[key] += time.perf_counter() - t0
+                return run
+
+            results = os.path.join(tmp, "results.jsonl")
+            with knob_env(GS_PUMP="async"):
+                co = TenantCohort(CO_EB, CO_VB)        # device=None: the card
+                srv = StreamServer(co, port=0, results_path=results)
+            co.feed = timed_call(co.feed, "feed")
+            co.pump = timed_call(co.pump, "pump")
+            srv._emit = timed_call(srv._emit, "emit")
+            srv._handle_request = timed_call(srv._handle_request, "request")
+            # the server's JSON codec: its module's json, timed
+            serve_mod.json = SimpleNamespace(
+                loads=timed_call(json.loads, "codec"),
+                dumps=timed_call(json.dumps, "codec"))
+            tids = list(streams)
+            parts = [{tid: streams[tid] for tid in tids[i::SERVE_CLIENTS]}
+                     for i in range(SERVE_CLIENTS)]
+            clients, errors = [], []
+
+            def client(part):
+                try:
+                    clients.append(serve_streams(srv.port, part))
+                except BaseException as e:      # raised after the join
+                    errors.append(e)
+
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            srv.start()
+            with dispatch_events([co._stage]) as evs:
+                t0 = time.perf_counter()
+                threads = [threading.Thread(target=client, args=(p,))
+                           for p in parts]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join()
+                require(not errors, "serve (a): a client failed: %r"
+                        % (errors[:1],))
+                for c in clients:
+                    c.cli.close()
+                drained = srv.drain(deadline_s=60)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            busy_ms = evs.busy_ms()
+            srv.close()
+            serve_mod.json = json
+            launches = dict(kernels.LAUNCHES)
+            n = served_rows("serve (a)", srv.results, want)
+            require(drained["sealed"] and drained["windows_total"] == n,
+                    "serve (a): drain %s" % drained)
+            require(results_file_rows(results) == {
+                (tid, i): s for tid, w in want.items()
+                for i, s in enumerate(w)}
+                and sum(1 for _ in open(results)) == n,
+                "serve (a): the results file differs from the rows")
+            require(srv._stats["overlap_feeds"] > 0,
+                    "serve (a): no feed was admitted during a dispatch")
+            require(launches["cohort_summary"] > 0
+                    and launches["window_counter"] > 0,
+                    "serve (a): launches %s" % launches)
+            no_demotions("phase serve (a)")
+            codec_client = sum(c.codec for c in clients)
+            wire = sum(c.wire for c in clients)
+            slept = sum(c.slept for c in clients)
+            report["async"] = {
+                "tenants": len(streams), "edges": total, "windows": n,
+                "clients": SERVE_CLIENTS, "seconds": wall,
+                "tenant_edges_per_s": total / wall,
+                "direct_tenant_edges_per_s": direct_rate,
+                "share_of_direct": total / wall / direct_rate,
+                "host_seconds": {
+                    "client_codec": codec_client, "client_wire": wire,
+                    "client_slept": slept,
+                    "server_codec": secs["codec"],
+                    "server_requests": secs["request"],
+                    "feed": secs["feed"], "pump": secs["pump"],
+                    "emit": secs["emit"]},
+                "refusals": sum(c.refused for c in clients),
+                "overlap_feeds": srv._stats["overlap_feeds"],
+                "requests": srv._stats["requests"],
+                "device_busy_ms": busy_ms, "dispatches": len(evs.spans),
+                "idle_share": 1 - busy_ms / (1e3 * wall),
+                "launches": launches}
+            print("phase serve (a): ok  %d tenants, %d windows over loopback, "
+                  "GS_PUMP=async, %d clients: %.4g tenant edges/s (direct "
+                  "%.4g, %.3f of it); host s: client codec %.2f, wire %.2f, "
+                  "slept %.2f (%d refusals), server codec %.2f, requests %.2f "
+                  "(feed %.2f), pump %.2f, emit %.2f; device busy %.1f ms of "
+                  "%.2f s, idle %.4f; %d overlapping feeds"
+                  % (len(streams), n, SERVE_CLIENTS, total / wall, direct_rate,
+                     total / wall / direct_rate, codec_client, wire, slept,
+                     report["async"]["refusals"], secs["codec"],
+                     secs["request"], secs["feed"], secs["pump"], secs["emit"],
+                     busy_ms, wall,
+                     report["async"]["idle_share"],
+                     srv._stats["overlap_feeds"]))
+
+            # (b) the sync pump over a cut
+            small, big, windows = SERVE_SYNC
+            cut = [t for t in tids if streams[t][2] == CO_VB][:small] \
+                + [t for t in tids if streams[t][2] == CO_BIG_VB][:big]
+            part = {t: tuple(a[:windows * CO_EB] for a in streams[t][:2])
+                    + (streams[t][2],) for t in cut}
+            with knob_env(GS_PUMP="sync"):
+                srv = StreamServer(TenantCohort(CO_EB, CO_VB), port=0).start()
+            try:
+                t0 = time.perf_counter()
+                cli = serve_streams(srv.port, part, pump=True)
+                sync_s = time.perf_counter() - t0
+                cli.cli.close()
+                require(srv.pump_mode == "sync" and srv._pump_thread is None,
+                        "serve (b): not the sync pump")
+            finally:
+                srv.close()
+            served_rows("serve (b)", srv.results,
+                        {t: want[t] for t in cut}, windows)
+            no_demotions("phase serve (b)")
+            report["sync"] = {"tenants": len(cut), "windows": windows,
+                              "seconds": sync_s,
+                              "tenant_edges_per_s":
+                                  len(cut) * windows * CO_EB / sync_s}
+            print("phase serve (b): ok  GS_PUMP=sync, %d tenants x %d windows "
+                  "equal to (a)'s, %.2f s" % (len(cut), windows, sync_s))
+
+            # (c) the standalone server on the card: kill, recover, drain
+            ntenants, windows = SERVE_CLI
+            part = {t: tuple(a[:windows * CO_EB] for a in streams[t][:2])
+                    + (streams[t][2],) for t in tids[:ntenants]}
+            head = SERVE_CLI_KILL * CO_EB + CO_EB // 2
+            proc = first[0]
+            port, start_s = serving_port(first, end)
+            try:
+                cli = TimedClient(port)
+                for t, (s, d, vb) in part.items():
+                    require(cli.request(op="admit", tenant=t,
+                                        vertex_bucket=vb)["ok"], "serve (c)")
+                    cursor = {t: 0}
+                    while cursor[t] < head:
+                        hint = cli.feed_until_refused(t, s[:head], d[:head],
+                                                      cursor)
+                        if hint is not None:
+                            cli.sleep(hint)
+                path = os.path.join(sub, "results.jsonl")
+                while not (os.path.exists(path) and len(results_file_rows(
+                        path)) >= ntenants * SERVE_CLI_KILL):
+                    require(time.perf_counter() < end and proc.poll() is None,
+                            "serve (c): the windows fed were not delivered")
+                    time.sleep(0.02)
+                cli.cli.close()
+                proc.kill()                            # SIGKILL mid-window
+                proc.communicate(timeout=60)
+            finally:
+                reap(proc)
+            killed_rows = len(results_file_rows(path))
+            second = spawn_cli(sub, "--recover")
+            proc = second[0]
+            port, recover_s = serving_port(second, end)
+            try:
+                cli = TimedClient(port)
+                for t, (s, d, _vb) in part.items():
+                    cursor = {t: head}
+                    while cursor[t] < len(s):
+                        hint = cli.feed_until_refused(t, s, d, cursor)
+                        if hint is not None:
+                            cli.sleep(hint)
+                    require(cli.request(op="close", tenant=t)["ok"],
+                            "serve (c): close %s" % t)
+                cli.cli.close()
+                proc.send_signal(signal.SIGTERM)
+                out, err = proc.communicate(
+                    timeout=max(1.0, end - time.perf_counter()))
+            finally:
+                reap(proc)
+            require(proc.returncode == 0, "serve (c): exit %d: %s"
+                    % (proc.returncode, err[-2000:]))
+            lines = out.splitlines()
+            drained = [json.loads(x[len("drained: "):]) for x in lines
+                       if x.startswith("drained: ")]
+            recovered = [json.loads(x[len("recovered: "):]) for x in lines
+                         if x.startswith("recovered: ")]
+            require(len(drained) == 1 and drained[0]["sealed"] is True
+                    and len(recovered) == 1, "serve (c): %s" % lines)
+            require(results_file_rows(path) == {
+                (t, i): s for t in part
+                for i, s in enumerate(want[t][:windows])},
+                "serve (c): the last records differ from (a)'s rows")
+            report["cli"] = {"tenants": ntenants, "windows": windows,
+                             "killed_after_rows": killed_rows,
+                             "start_s": start_s, "recover_start_s": recover_s,
+                             "replayed_edges": recovered[0]["replayed_edges"],
+                             "drain": drained[0]}
+            print("phase serve (c): ok  the standalone server on the card, %d "
+                  "tenants x %d windows: killed with %d rows delivered, "
+                  "restarted with --recover to serving in %.2f s (the first "
+                  "start, beside (a) and (b), %.2f s), %d journaled edges "
+                  "replayed, drained sealed, every window's last record equal "
+                  "to (a)'s"
+                  % (ntenants, windows, killed_rows, recover_s, start_s,
+                     sum(recovered[0]["replayed_edges"].values())))
+
+            # (d) the drills: a subscriber that never reads; a KernelError on
+            # the pump thread
+            with knob_env(GS_PUMP="async", GS_SUB_QUEUE=1):
+                srv = StreamServer(TenantCohort(CO_EB, CO_VB), port=0).start()
+                try:
+                    deaf = ServeClient(srv.port, timeout=120)
+                    require(deaf.subscribe("*")["ok"], "serve (d): subscribe")
+                    cli = serve_streams(srv.port, part)
+                    shed = (not srv._subs, srv._stats["shed"])
+                    cli.cli.close()
+                    deaf.close()
+                    srv.drain(deadline_s=60)
+                finally:
+                    srv.close()
+            require(shed[0] and shed[1] >= 1, "serve (d): the subscriber that "
+                    "never reads was not shed: %s" % (shed,))
+            served_rows("serve (d) subscriber", srv.results,
+                        {t: want[t] for t in part}, windows)
+            no_demotions("phase serve (d)")
+
+            real, calls = kernels.library, []
+
+            def broken(name):
+                if name == "cohort_summary":
+                    calls.append(name)
+                    raise kernels.KernelError("injected: the cohort_summary "
+                                              "library failed")
+                return real(name)
+
+            term = signal.getsignal(signal.SIGTERM)
+            with knob_env(GS_PUMP="async"):
+                srv = StreamServer(TenantCohort(CO_EB, CO_VB), port=0).start()
+            kernels.library = broken
+            try:
+                t, (s, d, vb) = next(iter(part.items()))
+                cli = ServeClient(srv.port, timeout=120)
+                cli.admit(t, vertex_bucket=vb)
+                require(cli.feed(t, s[:2 * CO_EB], d[:2 * CO_EB])["ok"],
+                        "serve (d): feed")
+                stop = time.perf_counter() + 60
+                while not srv.fatal and time.perf_counter() < stop:
+                    time.sleep(0.01)
+                require(srv.fatal, "serve (d): the KernelError left the "
+                        "server serving")
+                try:
+                    srv.serve_until_drained()
+                    raise SmokeFailure("serve (d): the KernelError did not "
+                                       "raise")
+                except kernels.KernelError as e:
+                    require(e is srv.pump_error and e.__cause__ is None
+                            and srv.fatal and calls == ["cohort_summary"],
+                            "serve (d): KernelError wrapped or retried: %r %s"
+                            % (e, calls))
+                cli.close()
+                co = srv.cohort
+                require(co.quarantined() == []
+                        and co.tenant_tier(t) == "cohort"
+                        and co.queued_edges(t) == 2 * CO_EB,
+                        "serve (d): a device error quarantined or demoted")
+            finally:
+                kernels.library = real
+                signal.signal(signal.SIGTERM, term)
+                srv.close()
+            no_demotions("phase serve (d) KernelError")
+            report["drills"] = {"subscriber_shed": shed[1],
+                                "kernel_error": "raised unwrapped, server "
+                                                "fatal, nothing quarantined"}
+            print("phase serve (d): ok  the subscriber that never read was "
+                  "shed and every row served; a KernelError on the pump "
+                  "thread raised unwrapped, the server fatal, nothing "
+                  "quarantined")
+        finally:
+            reap(first[0])
+    report["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"serve": report,
+                      "device": torch.cuda.get_device_name(0)}))
+    print("phase serve: ok  %.1f s" % report["seconds"])
+    return report
+
+
 def device_trace_capture(dev) -> dict:
     """One device_trace capture of a driver call over DEMOTE_EDGES edges
     with the flight recorder armed, taken before any other profiler
@@ -5954,10 +6476,10 @@ def device_trace_capture(dev) -> dict:
 def phase_api_tracing(dev, api: dict, want_driver: list,
                       capture: dict) -> dict:
     """Tracing on the graph API and the reduce stream: the record API's
-    slice(512 ms, ALL).reduce_on_edges over phase api's API_EDGES
-    timestamped edges with env.enable_tracing(), every window equal to
-    numpy, its steps and its rate beside phase api's untraced rate
-    (`api`); WindowedEdgeReduce over the reduce-leg stream with the
+    slice(512 ms, ALL).reduce_on_edges over the first API_TRACE_EDGES of
+    phase api's timestamped edges with env.enable_tracing(), every window
+    equal to numpy, its steps and its rate beside phase api's untraced
+    rate (`api`); WindowedEdgeReduce over the reduce-leg stream with the
     flight recorder armed, equal to bench.py's port, its spans counted;
     the device_trace capture of a driver call (`capture`, taken first in
     the process by device_trace_capture), its windows equal to phase
@@ -5969,8 +6491,9 @@ def phase_api_tracing(dev, api: dict, want_driver: list,
     from gelly_streaming_tpu_torch.utils import provenance, telemetry
 
     out = {}
-    src, dst = P.make_stream(API_EDGES, VB, seed=SEED)
-    ts = np.arange(API_EDGES) // API_EDGES_PER_MS
+    src, dst = (a[:API_TRACE_EDGES]
+                for a in P.make_stream(API_EDGES, VB, seed=SEED))
+    ts = np.arange(API_TRACE_EDGES) // API_EDGES_PER_MS
     env, graph = api_graph(P, src, dst, ts)
     sink = graph.slice(P.Time.milliseconds_of(API_WINDOW_MS),
                        P.EdgeDirection.ALL).reduce_on_edges(
@@ -5985,7 +6508,7 @@ def phase_api_tracing(dev, api: dict, want_driver: list,
     require(steps and sum(r["calls"] for r in steps) >= len(steps),
             "api_tracing: no steps")
     out["record_api"] = {
-        "edges_per_s": API_EDGES / wall,
+        "edges": API_TRACE_EDGES, "edges_per_s": API_TRACE_EDGES / wall,
         "untraced_edges_per_s": api["edges_per_s"],
         "steps": [{k: r[k] for k in ("op", "total_s", "calls", "records")}
                   for r in steps]}
@@ -6091,7 +6614,7 @@ def run_phases() -> int:
     no_demotions("phase gnn_stream")
     dense, dense_launches, sparse_launches = phase_dense(dev)
     no_demotions("phase dense")
-    cohort_launches, co_streams, co_out = phase_cohort_stream(dev)
+    cohort_launches, co_streams, co_out, co_rate = phase_cohort_stream(dev)
     no_demotions("phase cohort_stream")
     _gnn_launches, gnn_co_out = phase_gnn_cohort(dev)
     no_demotions("phase gnn_cohort")
@@ -6130,6 +6653,8 @@ def run_phases() -> int:
     phase_demotion(dev, driver_got)
     phase_hooks_cohort(dev, co_streams, co_out, gnn_co_out, cohort)
     no_demotions("phase hooks_cohort")
+    phase_serve(dev, co_streams, co_out, co_rate)
+    no_demotions("phase serve")
     phase_api_tracing(dev, api_launches, driver_got, capture)
     no_demotions("phase api_tracing")
 

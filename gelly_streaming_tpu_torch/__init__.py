@@ -16,7 +16,8 @@ windowed GNN engine (`GnnSummaryEngine.process`: one exact GCN round per
 window, with `GnnHostEngine` its numpy twin), the one-window count
 `triangle_count` (a dense contraction up to 4096 vertices) and the
 multi-tenant cohorts (`TenantCohort`: N summary streams, one cohort
-dispatch per window round; `GnnTenantCohort`: N GNN streams) through
+dispatch per window round; `GnnTenantCohort`: N GNN streams), served
+over loopback TCP by `StreamServer` (`ServeClient` its client), through
 hand-written CUDA kernels (`csrc/`, built by `kernels.py` at first
 use). The stream paths build their chunks through a three-stage ingress
 pipeline (prep and h2d on a worker pool, dispatch in chunk order;
@@ -28,8 +29,8 @@ package. Entry points run on the card unless the caller passes
 `device="cpu"`, which runs each kernel's plain PyTorch version.
 
 Layers: core/ (the graph-stream API and its runtime, device selection,
-the tenant cohorts, the columnar driver with tumbling or sliding
-windows), models/ (the window triangle count and its workloads,
+the tenant cohorts and their serving front end, the columnar driver
+with tumbling or sliding windows), models/ (the window triangle count and its workloads,
 connected components, bipartiteness, iterative CC, matching, the
 sampling estimators), ops/ (the neighborhood kernels, the windowed
 reduce and cell reduce, window
@@ -51,6 +52,7 @@ from .core.graphstream import GraphStream, GraphWindowStream, SimpleEdgeStream
 from .core.gtime import (AscendingTimestampExtractor, ManualClock, SystemClock,
                          Time, TimeCharacteristic)
 from .core.platform import resolve_device
+from .core.serve import ServeClient, StreamServer, serve_port
 from .core.types import NULL, Edge, EdgeDirection, NullValue, Vertex
 from .core.tenancy import (GnnTenantCohort, TenantBackpressure,
                            TenantCohort, TenantError, TenantQuarantined,
@@ -71,11 +73,11 @@ __all__ = ["DataStream", "StreamEnvironment", "EdgesApply", "EdgesFold",
            "ManualClock", "SystemClock", "Time", "TimeCharacteristic",
            "NULL", "Edge", "EdgeDirection", "NullValue", "Vertex",
            "GnnHostEngine", "GnnResidentEngine", "GnnSummaryEngine",
-           "GnnTenantCohort",
-           "SlidingSummaryEngine", "StreamSummaryEngine",
+           "GnnTenantCohort", "ServeClient",
+           "SlidingSummaryEngine", "StreamServer", "StreamSummaryEngine",
            "StreamingAnalyticsDriver", "WindowResult",
            "TenantBackpressure", "TenantCohort", "TenantError",
            "TenantQuarantined", "TenantRejected", "TriangleWindowKernel",
            "WindowedEdgeReduce",
-           "forced_sync", "make_stream", "resolve_device",
+           "forced_sync", "make_stream", "resolve_device", "serve_port",
            "triangle_count", "triangle_count_dense"]

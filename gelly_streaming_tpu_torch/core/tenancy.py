@@ -67,8 +67,8 @@ marks and provenance.
 Not ported yet (ROADMAP.md): the resident cohort tier and the
 tenants-per-dispatch autotuner arm (step 1.7's second half, with the
 ingest ring of step 1.3; `tenants_per_dispatch` is an argument until
-then); the serving front end `core/serve.py` (step 1.9). Slabs are
-prepared inline on the pumping thread.
+then). Slabs are prepared inline on the pumping thread. The serving
+front end over a cohort is `core/serve.py`.
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@ host hooks' (`utils/telemetry.py`, `metrics.py`, `healthz.py`,
 the GNN engine's width and activation (`ops/gnn_window.py`), the
 driver's probation and slide (`core/driver.py`) and the cohort's
 admission cap, queue depth, overflow policy, quarantine probation and
-reorder bound (`core/tenancy.py`). The
+reorder bound (`core/tenancy.py`), and the serving front end's port,
+deadlines, pump mode and subscriber queue (`core/serve.py`). The
 cost model's peaks are not knobs here: they come from the card's row of
 `utils/costmodel.PEAKS`.
 
@@ -408,6 +409,37 @@ register("GS_OOO_BOUND", "int", 0, lo=0,
               "per-tenant reorder buffer: a `feed(ts=)` edge is held "
               "until the tenant's watermark (newest stamp − bound) "
               "passes it, then released in ts order; 0 = off")
+
+# the serving front end (core/serve.py)
+register("GS_SERVE_PORT", "int", 0, lo=0, hi=65535,
+         help="TCP port of the serving front end "
+              "(`core/serve.StreamServer`, 127.0.0.1); 0 = a port the "
+              "OS assigns (the server's `.port` holds it)",
+         default_text="0 (ephemeral)")
+register("GS_SERVE_DRAIN_S", "float", 30.0, lo=0.0,
+         help="graceful-drain deadline: on SIGTERM the server stops "
+              "accepting, waits up to this long for in-flight requests, "
+              "pumps every queue dry, checkpoints, seals the journal and "
+              "exits 0; 0 = wait for in-flight requests without a "
+              "deadline",
+         default_text="30")
+register("GS_SERVE_IDLE_S", "float", 60.0, lo=0.1,
+         help="per-connection deadline of the serving front end: a "
+              "connection idle this long is closed, and a client whose "
+              "response send stalls this long is shed (durable "
+              "`serve_client_shed` event), never stalling the pump",
+         default_text="60")
+register("GS_PUMP", "str", "sync", choices=("sync", "async"),
+         help="the serving pump: `sync` (default) pumps inline under the "
+              "request lock; `async` runs slab prep, h2d, the launches "
+              "and finalize on a pump thread, so the accept loop and "
+              "file tails only sanitize, journal and enqueue under the "
+              "cohort's queue lock (same windows either way)",
+         default_text="sync")
+register("GS_SUB_QUEUE", "int", 256, lo=1,
+         help="bounded per-connection queue (rows) of the `subscribe` "
+              "op; a subscriber whose queue overflows is shed with the "
+              "durable `serve_client_shed` event")
 
 
 # ----------------------------------------------------------------------

@@ -184,6 +184,12 @@ def register_health_section(name: str, provider) -> None:
         _HEALTH_SECTIONS[name] = provider
 
 
+def unregister_health_section(name: str) -> None:
+    """Drop the named `/healthz` section (a closed server's)."""
+    with _REG_LOCK:
+        _HEALTH_SECTIONS.pop(name, None)
+
+
 def _reg() -> _Registry:
     global _REG
     if _REG is None:

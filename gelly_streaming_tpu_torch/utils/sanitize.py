@@ -531,6 +531,17 @@ def resolve_dlq() -> Optional[DeadLetterJournal]:
         return j
 
 
+def dlq_status() -> Optional[dict]:
+    """The live journal's depth (None when the journal is disarmed or
+    was never opened): the serving front end's `dlq` health cell."""
+    d = dlq_dir()
+    if d is None:
+        return None
+    with _DLQ_LOCK:
+        j = _DLQS.get(d)
+    return j.status() if j is not None else None
+
+
 def reset() -> None:
     """Test hook: close and forget every registered journal."""
     with _DLQ_LOCK:

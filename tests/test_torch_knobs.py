@@ -2,7 +2,8 @@
 against the JAX package's: every knob the port reads (the stage guard
 and demotion registry, the dispatch autotuner, the resident tier, the
 host hooks, the GNN engines, the driver's probation and slide, the
-cohort's admission, queue, quarantine and reorder bound) with the
+cohort's admission, queue, quarantine and reorder bound, the serving
+front end's port, deadlines, pump mode and subscriber queue) with the
 same kinds, defaults, bounds and choices, and the same parsing (live
 reads, clamping, typed refusals)."""
 
@@ -27,7 +28,9 @@ SLICE_KNOBS = (
     "GS_COSTMODEL", "GS_GNN_F", "GS_GNN_ACT",
     "GS_PROVENANCE", "GS_PROVENANCE_DIR", "GS_PROVENANCE_RETAIN",
     "GS_SLIDE", "GS_TENANT_MAX", "GS_TENANT_QUEUE_WINDOWS",
-    "GS_TENANT_ADMISSION", "GS_QUARANTINE_WINDOWS", "GS_OOO_BOUND")
+    "GS_TENANT_ADMISSION", "GS_QUARANTINE_WINDOWS", "GS_OOO_BOUND",
+    "GS_SERVE_PORT", "GS_SERVE_DRAIN_S", "GS_SERVE_IDLE_S", "GS_PUMP",
+    "GS_SUB_QUEUE")
 
 
 @pytest.fixture(autouse=True)
@@ -63,22 +66,28 @@ def test_knob_matches_jax(name):
     ("GS_RESIDENT_SLOTS", ""), ("GS_RESIDENT_SLOTS", "4"),
     ("GS_TENANT_MAX", "0"), ("GS_TENANT_QUEUE_WINDOWS", "3"),
     ("GS_TENANT_ADMISSION", "drop"), ("GS_QUARANTINE_WINDOWS", "0"),
-    ("GS_OOO_BOUND", "-5")])
+    ("GS_OOO_BOUND", "-5"), ("GS_SERVE_PORT", None),
+    ("GS_SERVE_PORT", "70000"), ("GS_SERVE_DRAIN_S", "0"),
+    ("GS_SERVE_DRAIN_S", "-1.5"), ("GS_SERVE_IDLE_S", "0.01"),
+    ("GS_SERVE_IDLE_S", None), ("GS_PUMP", None), ("GS_PUMP", "async"),
+    ("GS_SUB_QUEUE", "0"), ("GS_SUB_QUEUE", "16")])
 def test_reads_match_jax(monkeypatch, name, raw):
     if raw is not None:
         monkeypatch.setenv(name, raw)
-    get = {"int": "get_int", "bool": "get_bool", "str": "get_str",
-           "path": "get_path"}[knobs.REGISTRY[name].kind]
+    get = {"int": "get_int", "float": "get_float", "bool": "get_bool",
+           "str": "get_str", "path": "get_path"}[knobs.REGISTRY[name].kind]
     assert getattr(knobs, get)(name) == getattr(jax_knobs, get)(name)
 
 
 @pytest.mark.parametrize("name,raw", [
     ("GS_AUTOTUNE", "maybe"), ("GS_AUTOTUNE_ROUND", "3O"),
     ("GS_RESIDENT", "always"), ("GS_RESIDENT_SLOTS", "two"),
-    ("GS_TENANT_ADMISSION", "queue"), ("GS_OOO_BOUND", "1e3")])
+    ("GS_TENANT_ADMISSION", "queue"), ("GS_OOO_BOUND", "1e3"),
+    ("GS_PUMP", "threaded"), ("GS_SERVE_IDLE_S", "soon")])
 def test_malformed_values_raise(monkeypatch, name, raw):
     monkeypatch.setenv(name, raw)
-    get = {"int": knobs.get_int, "bool": knobs.get_bool,
+    get = {"int": knobs.get_int, "float": knobs.get_float,
+           "bool": knobs.get_bool,
            "str": knobs.get_str}[knobs.REGISTRY[name].kind]
     with pytest.raises(knobs.KnobError, match=name) as err:
         get(name)

@@ -134,8 +134,9 @@ def test_resolve_device(monkeypatch):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter (this one has JAX loaded by conftest):
     importing every module of the port (the summary, GNN, dense
-    triangle and tenant cohort paths' among them), and chip_smoke, loads
-    neither `jax` nor `gelly_streaming_tpu`. The compact wire and the
+    triangle and tenant cohort paths' and the serving front end among
+    them), and chip_smoke, loads neither `jax` nor
+    `gelly_streaming_tpu`. The compact wire and the
     ingress pipeline, numpy-only modules in the JAX package too, are the
     port's own copies."""
     code = (
@@ -153,7 +154,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'ops.window_summary', 'ops.scan_analytics',\n"
         "          'ops.staging', 'ops.gnn_window', 'ops.gnn_round',\n"
         "          'ops.dense_triangles', 'ops.cohort_summary',\n"
-        "          'core.tenancy', 'ops.compact_ingress',\n"
+        "          'core.tenancy', 'core.serve', 'ops.compact_ingress',\n"
         "          'ops.ingress_pipeline'):\n"
         "    assert 'gelly_streaming_tpu_torch.' + m in sys.modules, m\n"
         "print('clean', len([n for n in sys.modules\n"
