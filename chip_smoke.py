@@ -4,9 +4,11 @@ NVIDIA GPU.
 
 Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and the
 native host runtime (gelly_streaming_tpu_torch/native, g++) and runs
-thirty-three phases, with the dispatch tuner's cache (GS_TUNE_CACHE) in a
-fresh temporary directory. The first twenty-two run with GS_AUTOTUNE=0,
-so their numbers stay comparable across runs. Eight hold a kernel against its plain PyTorch version on
+thirty-four phases, with the dispatch tuner's cache (GS_TUNE_CACHE) in a
+fresh temporary directory. The first twenty-three run with GS_AUTOTUNE=0,
+so their numbers stay comparable across runs (phase cohort_resident's
+(d) sets the tuner itself), and phases hooks_cohort and serve run with
+GS_AUTOTUNE=0 and GS_COHORT_RESIDENT=off. Eight hold a kernel against its plain PyTorch version on
 the card: intersect (ascending and shuffled rows), counter (count and
 overflow on every window, overflowing ones included, both wires: a
 Zipf chunk, a repeated edge across a whole window, a star, a row past
@@ -43,7 +45,16 @@ ingress pipeline and each also once under forced_sync; the
 one-window count triangle_count over dense windows of up to 4096
 vertices, and its sparse route past 4096 (phase dense);
 TenantCohort(4096, 8192) serving 64 tenant streams, 8 of them at
-vb=65536, about 8.3M edges (phase cohort_stream); and
+vb=65536, about 8.3M edges (phase cohort_stream), and the same served
+on the cohort's resident tier (GS_COHORT_RESIDENT=on: each group's
+carries stacked on the card between rounds, each dispatch one replayed
+CUDA graph of graph family cohort_resident), every window and state
+equal to the scan cohort's, tenant edges/s and the idle share of the
+resident cohort, the scan cohort and 64 sequential engines in turns,
+super-batches of 32 windows a tenant, the tuner's tenants-per-dispatch
+arm and the ingest ring at 16 tenants a dispatch, and the poison drill
+on resident hits with the committed stack bit-equal across each refused
+dispatch (phase cohort_resident); and
 GnnTenantCohort(4096, 8192, feature_dim=64) over 64 tenants of 16
 windows (phase gnn_cohort); StreamingAnalyticsDriver(window_ms=1,
 edge_bucket=32768).run_arrays over the north-star stream, count-based,
@@ -59,8 +70,8 @@ slide=2048, the native tier, and the north-star stream at vb=65536
 nine TestSlice goldens through host and Torch* UDFs, 1,048,576
 timestamped edges through slice(512 ms, ALL).reduce_on_edges(
 TorchEdgesReduce(name="sum")), WindowTriangleCount taking both routes
-of triangle_count, and get_degrees(); the summary-aggregation models
-(phase models) over the synthetic cit-HepPh stream (421,578 edges, ts =
+of triangle_count, and get_degrees() over the first 262,144 of them;
+the summary-aggregation models (phase models) over the synthetic cit-HepPh stream (421,578 edges, ts =
 arrival index): aggregate(TorchConnectedComponents(4096)) and
 aggregate(TorchBipartitenessCheck(4096)), also over a bipartite stream
 of the same size, against scipy and host double-cover oracles,
@@ -2087,6 +2098,369 @@ def serve_gnn_cohort(W, b, streams: dict, slabs: list) -> tuple:
     return out, co, time.perf_counter() - t0
 
 
+CO_DEEP_QUEUE = 32                 # phase cohort_resident (c): queue windows
+CO_TPD = 16                        # (d): tenants a dispatch, four batches a round
+CO_PAIRS = 3                       # (b): turns of the three forms
+CO_PROBATION = 64                  # (e): past a stream's windows
+
+
+def cohort_states(co, tids) -> dict:
+    return {tid: co.tenant_state_dict(tid) for tid in tids}
+
+
+def same_states(label, got: dict, want: dict, sentinel: bool = True):
+    """Every tenant's state equal, carries bit for bit; without
+    `sentinel` the cover's slot 2vb+1 (it records whether padded windows
+    were folded, which the slab shapes decide) is left out."""
+    for tid, a in want.items():
+        b = got[tid]
+        require(a["windows_done"] == b["windows_done"]
+                and a["closed_partial"] == b["closed_partial"],
+                "%s: tenant %s cursor differs" % (label, tid))
+        for i, (x, y) in enumerate(zip(a["carry"], b["carry"])):
+            if i == 2 and not sentinel:
+                x, y = x[:-1], y[:-1]
+            require(np.array_equal(x, y), "%s: tenant %s carry leaf %d "
+                    "differs" % (label, tid, i))
+
+
+def same_windows(label, got: dict, want: dict) -> int:
+    for tid, rows in want.items():
+        require(got[tid] == rows, "%s: tenant %s: %d of %d windows differ"
+                % (label, tid, sum(a != b for a, b in zip(got[tid], rows))
+                   + abs(len(got[tid]) - len(rows)), len(rows)))
+    return sum(len(r) for r in want.values())
+
+
+def resident_serve(streams: dict, tier: str, **kw) -> tuple:
+    """serve_cohort on a new TenantCohort(CO_EB, CO_VB) with
+    GS_COHORT_RESIDENT=`tier`, CUDA events around each of its dispatches
+    (dispatch_events): (summaries, the cohort, host seconds, a row of
+    the run's rate, dispatches, device busy ms and idle share)."""
+    from gelly_streaming_tpu_torch import TenantCohort
+
+    total = sum(len(s) for s, _d, _v in streams.values())
+    queue = kw.pop("queue_windows", None)
+    with knob_env(GS_COHORT_RESIDENT=tier):
+        co = TenantCohort(CO_EB, CO_VB, queue_windows=queue)
+        torch.cuda.synchronize()
+        with dispatch_events([co._stage]) as evs:
+            out, co, secs = serve_cohort(streams, co=co, **kw)
+        busy = evs.busy_ms()
+    row = {"edges_per_s": total / secs["wall"], "seconds": secs["wall"],
+           "host_seconds": {k: secs[k] for k in ("feed", "prep", "pump",
+                                                 "close")},
+           "dispatches": len(evs.spans), "device_busy_ms": busy,
+           "idle_share": 1 - busy / (1e3 * secs["wall"]),
+           "resident_dispatches": co.resident_dispatches,
+           "restacks": co.resident_restacks,
+           "captures": co._graphs.captures}
+    return out, co, secs, row
+
+
+def sequential_serve(streams: dict, engines: dict) -> dict:
+    """The same streams through one StreamSummaryEngine a vertex bucket,
+    reset between tenants, one process() call a stream: the rate, CUDA
+    events around every dispatch, the idle share."""
+    total = sum(len(s) for s, _d, _v in streams.values())
+    torch.cuda.synchronize()
+    with dispatch_events([e._ring for e in engines.values()]) as evs:
+        t0 = time.perf_counter()
+        out = {}
+        for tid, (s, d, vb) in streams.items():
+            eng = engines[vb]
+            eng.reset()
+            out[tid] = eng.process(s, d)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = evs.busy_ms()
+    return out, {"edges_per_s": total / wall, "seconds": wall,
+                 "dispatches": len(evs.spans), "device_busy_ms": busy,
+                 "idle_share": 1 - busy / (1e3 * wall)}
+
+
+def watch_refusals(co, checked: list) -> None:
+    """Around each dispatch of `co` on a resident hit, keep a device copy
+    of the committed stack; when the dispatch is refused (a PoisonOutput
+    or an injected dispatch fault), require the committed stack, every
+    row, bit-equal to that copy, and count the check in `checked`."""
+    from gelly_streaming_tpu_torch.core.tenancy import PoisonOutput
+    from gelly_streaming_tpu_torch.utils import faults
+
+    real = co._dispatch_batch
+
+    def watched(vb, kb, slab, out, staged):
+        entry = co._res.get((vb, kb))
+        copy = None if entry is None else (
+            entry, tuple(a.clone() for a in entry["carry"]))
+        try:
+            return real(vb, kb, slab, out, staged)
+        except (PoisonOutput, faults.InjectedFault):
+            if copy is not None and co._res.get((vb, kb)) is copy[0]:
+                require(all(torch.equal(a, b) for a, b in
+                            zip(copy[0]["carry"], copy[1])),
+                        "cohort_resident: a refused dispatch changed the "
+                        "committed stack")
+                checked.append(sum(r is not None for r in copy[0]["rows"]))
+            raise
+
+    co._dispatch_batch = watched
+
+
+def phase_cohort_resident(dev, streams: dict, want: dict) -> dict:
+    """The cohort's resident tier (GS_COHORT_RESIDENT=on), its tuner arm
+    and the ingest ring on phase cohort_stream's 64 streams (56 at
+    vb=8192, 8 at vb=65536, about 8.3M edges), GS_AUTOTUNE=0 but in (d):
+    (a) serve_cohort with the tier on and t03 demoted after the second
+    pump: every window equal to phase cohort_stream's, every
+    tenant_state_dict bit-equal to a scan cohort's served the same way,
+    resident dispatches, restacks, graph captures and `cohort_resident`
+    replays counted; (b) CO_PAIRS turns of the resident cohort, the scan
+    cohort and 64 sequential StreamSummaryEngines (one a vertex bucket,
+    reset between tenants): tenant edges/s, the spread, host seconds,
+    dispatches and the idle share from CUDA events, and one row in the
+    JAX `tenancy_ab` shape; (c) (a) and the resident turns again at
+    queue_windows=32 (a super-batch of up to 32 windows a tenant); (d)
+    GS_AUTOTUNE=1 with the tuning cache in a fresh directory (the arm
+    chosen, the rounds by arm, the ring's submissions) and
+    GS_TENANT_TPD=16 (four batches a round on the ring), every window
+    equal; (e) phase
+    hooks_cohort's drill with the tier on, each refusal on a resident
+    hit: t17's output row poisoned from pump 3 and a dispatch fault on
+    t05 from pump 4, each until its tenant is quarantined
+    (GS_QUARANTINE_WINDOWS=64, past a stream's windows: they stay on
+    probation, so pump 4 meets the stack pump 3 committed): exactly
+    those two quarantined, once each,
+    the committed stack bit-equal across each refused dispatch, every
+    tenant's windows exact; each tenant's state after pump 2, taken
+    under the tier, resumed in a scan cohort to the same windows."""
+    import tempfile
+
+    from gelly_streaming_tpu_torch import StreamSummaryEngine, TenantCohort
+    from gelly_streaming_tpu_torch import kernels
+    from gelly_streaming_tpu_torch.utils import faults, resilience
+
+    t_phase = time.perf_counter()
+    total = sum(len(s) for s, _d, _v in streams.values())
+    report = {}
+    with knob_env(GS_AUTOTUNE="0"):
+        # (a) exactness, a membership change (t03 demoted) among it
+        kernels.reset_launches()
+        out, co, _secs, row = resident_serve(streams, "on", demote="t03")
+        launches = {"launches": dict(kernels.LAUNCHES),
+                    "replays": dict(kernels.REPLAYS)}
+        windows = same_windows("cohort_resident (a)", out, want)
+        require(co.resident_dispatches > 0
+                and launches["replays"]["cohort_resident"] > 0,
+                "cohort_resident (a): %d resident dispatches, replays %s"
+                % (co.resident_dispatches, launches["replays"]))
+        resilience.reset_demotions()
+        _o, scan, _s, _r = resident_serve(streams, "off", demote="t03")
+        resilience.reset_demotions()
+        scan_states = cohort_states(scan, streams)
+        same_states("cohort_resident (a)", cohort_states(co, streams),
+                    scan_states)
+        report["a"] = dict(row, **launches, windows=windows)
+        print("phase cohort_resident (a): ok  %d windows equal to "
+              "cohort_stream's, states equal to the scan cohort's; %d "
+              "resident dispatches, %d restacks, %d graph captures, "
+              "replays %d, launches %s"
+              % (windows, co.resident_dispatches, co.resident_restacks,
+                 co._graphs.captures,
+                 launches["replays"]["cohort_resident"],
+                 {k: v for k, v in launches["launches"].items() if v}))
+        del co, scan
+
+        # (b) speed: the three forms in alternating turns
+        engines = {vb: StreamSummaryEngine(CO_EB, vb)
+                   for vb in sorted({v for _s, _d, v in streams.values()})}
+        sequential_serve(streams, engines)                   # warm-up
+        turns = {"resident": [], "scan": [], "sequential": []}
+        for i in range(CO_PAIRS):
+            for form in (("resident", "scan", "sequential") if i % 2 == 0
+                         else ("sequential", "scan", "resident")):
+                if form == "sequential":
+                    got, r = sequential_serve(streams, engines)
+                else:
+                    got, _co, _s, r = resident_serve(
+                        streams, "on" if form == "resident" else "off")
+                same_windows("cohort_resident (b) %s" % form, got, want)
+                turns[form].append(r)
+        best = {form: max(rs, key=lambda r: r["edges_per_s"])
+                for form, rs in turns.items()}
+        for form, rs in turns.items():
+            report["b_" + form] = dict(best[form], spread_edges_per_s=[
+                r["edges_per_s"] for r in rs])
+        ab = {"probe": "cohort_resident", "parity": True,
+              "tenants": len(streams), "tenant_edges_per_s":
+              best["resident"]["edges_per_s"],
+              "sequential_edges_per_s": best["sequential"]["edges_per_s"],
+              "speedup": best["resident"]["edges_per_s"]
+              / best["sequential"]["edges_per_s"],
+              "scan_edges_per_s": best["scan"]["edges_per_s"],
+              "device": torch.cuda.get_device_name(0), "card": card()}
+        print(json.dumps({"cohort_resident_turns": turns}))
+        print(json.dumps({"tenancy_ab": ab}))
+        print("phase cohort_resident (b): ok  M tenant edges/s (best, "
+              "spread of %d): %s; idle %s" % (CO_PAIRS, "; ".join(
+                  "%s %.2f [%s]" % (f, best[f]["edges_per_s"] / 1e6,
+                                    ", ".join("%.2f" % (r["edges_per_s"]
+                                                        / 1e6) for r in rs))
+                  for f, rs in turns.items()), ", ".join(
+                  "%s %.3f" % (f, best[f]["idle_share"]) for f in turns)))
+
+        # (c) deep queues: a super-batch of up to 32 windows a tenant
+        out, co, _s, row = resident_serve(streams, "on",
+                                          queue_windows=CO_DEEP_QUEUE)
+        same_windows("cohort_resident (c)", out, want)
+        require(co.resident_dispatches > 0, "cohort_resident (c): no "
+                "resident dispatch")
+        same_states("cohort_resident (c)", cohort_states(co, streams),
+                    scan_states, sentinel=False)
+        deep = [row]
+        for _ in range(CO_PAIRS):
+            got, _co, _s, r = resident_serve(streams, "on",
+                                             queue_windows=CO_DEEP_QUEUE)
+            same_windows("cohort_resident (c) turns", got, want)
+            deep.append(r)
+        report["c"] = {"exact": row, "turns": deep[1:]}
+        print("phase cohort_resident (c): ok  queue_windows=%d: every "
+              "window equal, %d resident dispatches; M tenant edges/s %s"
+              % (CO_DEEP_QUEUE, co.resident_dispatches, ", ".join(
+                  "%.2f" % (r["edges_per_s"] / 1e6) for r in deep[1:])))
+        del co
+
+        # (d) the tuner's arm and the ring
+        tuned = {}
+        with tempfile.TemporaryDirectory() as cache:
+            for label, knobs_ in (("tuner", {"GS_AUTOTUNE": "1",
+                                             "GS_TUNE_CACHE": cache}),
+                                  ("tpd", {"GS_TENANT_TPD": str(CO_TPD)})):
+                with knob_env(GS_COHORT_RESIDENT="on", **knobs_):
+                    c = TenantCohort(CO_EB, CO_VB)
+                    ring = []
+                    submit = c._ring.submit
+
+                    def counted(fn, key, item, ring=ring, submit=submit):
+                        ok = submit(fn, key, item)
+                        ring.append(ok)
+                        return ok
+
+                    c._ring.submit = counted
+                    arms = {}
+                    resolve = c._resolve_tpd
+
+                    def logged(vb, n_ready, arms=arms, resolve=resolve):
+                        tpd, arm = resolve(vb, n_ready)
+                        key = "vb=%d ready=%d tpd=%d spb=%s" % (
+                            vb, n_ready, tpd, (arm or {}).get("spb"))
+                        arms[key] = arms.get(key, 0) + 1
+                        return tpd, arm
+
+                    c._resolve_tpd = logged
+                    got, c, secs = serve_cohort(streams, co=c)
+                same_windows("cohort_resident (d) %s" % label, got, want)
+                tuned[label] = {
+                    "edges_per_s": total / secs["wall"],
+                    "ring_submissions": sum(ring),
+                    "ring_declined": len(ring) - sum(ring),
+                    "resident_dispatches": c.resident_dispatches,
+                    "restacks": c.resident_restacks,
+                    "rounds_by_arm": arms,
+                    "tuners": {vb: {k: t.summary()[k] for k in
+                                    ("key", "chosen", "rounds",
+                                     "promotions")}
+                               for vb, t in c._tuners.items()}}
+        require(tuned["tpd"]["ring_submissions"] > 0, "cohort_resident "
+                "(d): GS_TENANT_TPD=%d put nothing on the ring" % CO_TPD)
+        require(tuned["tuner"]["tuners"] and all(
+            t["rounds"] >= 1 and "tpd" in t["chosen"]
+            for t in tuned["tuner"]["tuners"].values()),
+            "cohort_resident (d): tuner %s" % tuned["tuner"]["tuners"])
+        report["d"] = tuned
+        print("phase cohort_resident (d): ok  every window equal; tuner "
+              "%s, ring %d; GS_TENANT_TPD=%d: ring %d, %d restacks"
+              % ({vb: (t["chosen"], t["rounds"]) for vb, t in
+                  tuned["tuner"]["tuners"].items()},
+                 tuned["tuner"]["ring_submissions"], CO_TPD,
+                 tuned["tpd"]["ring_submissions"],
+                 tuned["tpd"]["restacks"]))
+
+        # (e) the poison drill on resident hits, and a resume on scan
+        resilience.reset_demotions()
+        armed = {"t05": False, "t17": False}
+
+        def poison_t05(payload):
+            if armed["t05"] and payload and "t05" in payload:
+                raise faults.InjectedFault("poisoned", "cohort_dispatch")
+            return payload
+
+        checked = []
+        t0 = time.perf_counter()
+        with knob_env(GS_COHORT_RESIDENT="on",
+                      GS_QUARANTINE_WINDOWS=str(CO_PROBATION)), \
+                faults.inject(faults.FaultSpec(
+                    site="cohort_dispatch", action="call", fn=poison_t05,
+                    times=10 ** 6)):
+            co = TenantCohort(CO_EB, CO_VB)
+            poison_rows(co, "t17", armed)
+            watch_refusals(co, checked)
+            quarantine = co._quarantine
+
+            def disarm(t, reason):      # hostile until quarantined once
+                armed[t.tid] = False
+                quarantine(t, reason)
+
+            co._quarantine = disarm
+            cursor = dict.fromkeys(streams, 0)
+            out, co, _s = serve_cohort(streams, co=co, cursor=cursor,
+                                       stop_after=2)
+            resume = cohort_states(co, streams)
+            armed["t17"] = True
+            got, co, _s = serve_cohort(streams, co=co, cursor=cursor,
+                                       stop_after=1)
+            armed["t05"] = True
+            more, co, _s = serve_cohort(streams, co=co, cursor=cursor,
+                                        stop_after=1)
+            rest, co, _s = serve_cohort(streams, co=co, cursor=cursor)
+            torch.cuda.synchronize()
+        drill_s = time.perf_counter() - t0
+        quarantined = sorted(e["tenant"] for e in
+                             resilience.demotion_events()
+                             if e["to"] == "quarantined")
+        resilience.reset_demotions()
+        require(quarantined == ["t05", "t17"] and not any(armed.values()),
+                "cohort_resident (e): quarantined %s" % quarantined)
+        require(len(checked) >= 2, "cohort_resident (e): %d refusals on a "
+                "resident hit checked" % len(checked))
+        same_windows("cohort_resident (e)", {
+            tid: out[tid] + got[tid] + more[tid] + rest[tid]
+            for tid in streams}, want)
+        with knob_env(GS_COHORT_RESIDENT="off"):
+            scan = TenantCohort(CO_EB, CO_VB)
+            for tid, (_s, _d, vb) in streams.items():
+                scan.admit(tid, vertex_bucket=vb)
+                scan.load_tenant_state_dict(tid, resume[tid])
+            cursor = {tid: scan.resume_offset(tid) for tid in streams}
+            tail, scan, _s = serve_cohort(streams, co=scan, cursor=cursor)
+        same_windows("cohort_resident (e) resume", tail, {
+            tid: rows[resume[tid]["windows_done"]:]
+            for tid, rows in want.items()})
+        no_demotions("cohort_resident (e) resume")
+        report["e"] = {"quarantined": quarantined, "seconds": drill_s,
+                       "refusals_checked": checked}
+        print("phase cohort_resident (e): ok  t17 (poisoned row, pump 3) "
+              "and t05 (dispatch fault, pump 4) quarantined; the committed "
+              "stack bit-equal across %d refused dispatches on a resident "
+              "hit (rows %s); every window exact; the states after pump 2 "
+              "resumed in a scan cohort exact; %.2f s"
+              % (len(checked), checked, drill_s))
+    report["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"cohort_resident": report}))
+    print("phase cohort_resident: ok  %.1f s" % report["seconds"])
+    return report
+
+
 SNAP_SMALL_VB = 8192               # the driver's early buckets (the L2 tier)
 SNAP_WINDOWS = 16                  # windows of the snapshot phase's fixtures
 FILE_EDGES = 1_048_576             # phase driver_file's timestamped file
@@ -2672,6 +3046,7 @@ RED_SLIDE = 2048
 CELL_PASSES_VB = 1 << 18            # rows past a cluster's shared memory
 API_EDGES = 1_048_576               # make_stream(API_EDGES, VB, seed=7)
 API_TRACE_EDGES = API_EDGES // 4    # phase api_tracing's prefix of it
+API_DEGREE_EDGES = API_EDGES // 4   # phase api's get_degrees prefix
 API_EDGES_PER_MS = 16
 API_WINDOW_MS = 512                 # the reduce_on_edges slice
 API_TRI_MS = (128, 2048)            # dense route, sparse route
@@ -3368,8 +3743,9 @@ def phase_api(dev) -> dict:
     TorchEdgesReduce(name="sum")), every window equal to numpy, launch
     counts set to 0 just before and read just after; WindowTriangleCount
     over the same graph at API_TRI_MS, both routes of triangle_count
-    taken, every window equal to ops/host_triangles; get_degrees() equal
-    to a numpy running degree."""
+    taken, every window equal to ops/host_triangles; get_degrees() over
+    the first API_DEGREE_EDGES edges (a host-only path, cut to a prefix
+    to keep the script's time) equal to a numpy running degree."""
     import gelly_streaming_tpu_torch as P
     from gelly_streaming_tpu_torch import kernels
     from gelly_streaming_tpu_torch.models.triangles import \
@@ -3454,13 +3830,14 @@ def phase_api(dev) -> dict:
             "triangles: routes %s" % routes)
 
     # get_degrees (BASELINE config #1): a running degree a contribution
-    env, graph = api_graph(P, src, dst, ts)
+    m = API_DEGREE_EDGES
+    env, graph = api_graph(P, src[:m], dst[:m], ts[:m])
     out = graph.get_degrees().collect()
     t0 = time.perf_counter()
     env.execute()
     wall = time.perf_counter() - t0
     got = env.results_of(out)
-    ids = np.stack([src, dst], 1).reshape(-1)
+    ids = np.stack([src[:m], dst[:m]], 1).reshape(-1)
     order = np.argsort(ids, kind="stable")
     run = np.empty(len(ids), np.int64)
     first = np.r_[0, np.flatnonzero(np.diff(ids[order])) + 1]
@@ -3470,8 +3847,8 @@ def phase_api(dev) -> dict:
             and [v.id for v in got] == ids.tolist()
             and [v.value for v in got] == run.tolist(),
             "api get_degrees differs from the numpy running degree")
-    res["degrees"] = {"records": len(got), "seconds": wall,
-                      "edges_per_s": API_EDGES / wall}
+    res["degrees"] = {"edges": m, "records": len(got), "seconds": wall,
+                      "edges_per_s": m / wall}
     print(json.dumps({"api": dict(res, routes=routes,
                                   device=torch.cuda.get_device_name(0))}))
     print("phase api: ok  goldens 9 × 2 forms; reduce_on_edges %d windows "
@@ -5614,29 +5991,32 @@ def cohort_hooks_pass(streams: dict, hooks, tmp: str, want: dict) -> dict:
     return res
 
 
-def poison_rows(co, hostile: str) -> None:
-    """Wrap co's dispatch so the group's CohortSummary outputs come back
-    with max_degree -1 in `hostile`'s slab row (the wrapper of the port
-    test test_poison_output_quarantines_by_row)."""
+def poison_rows(co, hostile: str, armed: dict = None) -> None:
+    """Wrap co's dispatch so its folded outputs come back with max_degree
+    -1 in `hostile`'s slab row (the port test
+    test_poison_output_quarantines_by_row's poison), while
+    `armed[hostile]` is true if `armed` is given. The outputs are changed
+    after the fold (`_fold_slab`), so on the resident tier the poison
+    stays outside the replayed CUDA graph."""
     real_batch = co._dispatch_batch
+    real_fold = co._fold_slab
 
     def evil(vb, kb, slab, out, staged):
-        rows = [r for t, r, _w, _n in slab[5] if t.tid == hostile]
-        summ = type(co)._summary(co, vb, kb)
+        rows = [r for t, r, _w, _n in slab[5] if t.tid == hostile
+                and (armed is None or armed[hostile])]
 
-        def poisoned(carries, src, dst, valid):
-            outs = summ(carries, src, dst, valid)
-            if not rows:
-                return outs
-            mdeg = outs[0].clone()
-            mdeg[rows[0]] = -1
-            return (mdeg,) + tuple(outs[1:])
+        def poisoned(*args):
+            res = real_fold(*args)
+            if rows:
+                res = res.clone()
+                res[0, rows[0]] = -1
+            return res
 
-        co._summary = lambda _vb, _kb: poisoned
+        co._fold_slab = poisoned
         try:
             return real_batch(vb, kb, slab, out, staged)
         finally:
-            del co._summary
+            del co._fold_slab
 
     co._dispatch_batch = evil
 
@@ -5660,7 +6040,10 @@ def phase_hooks_cohort(dev, streams: dict, want: dict, gnn_want: dict,
     equal to phase cohort's bound; 4 tenants with stamps shuffled within
     GS_OOO_BOUND equal to the sorted streams; GnnTenantCohort with every
     hook armed equal to phase gnn_cohort, one provenance record a tenant
-    window."""
+    window. The caller pins GS_AUTOTUNE=0 and GS_COHORT_RESIDENT=off (the
+    scan form, every ready tenant of a group in one slab), so the numbers
+    compare with the runs before the resident tier and the tuner's
+    arm."""
     import tempfile
 
     from gelly_streaming_tpu_torch import (StreamSummaryEngine,
@@ -6113,7 +6496,11 @@ def phase_serve(dev, streams: dict, want: dict, direct_rate: float) -> dict:
     window) equal to (a)'s. (d) A subscriber at GS_SUB_QUEUE=1 that never
     reads is shed while the pump serves on; a KernelError of the cohort
     launch on the async pump thread makes the server fatal and is raised
-    unwrapped by serve_until_drained, nothing quarantined or demoted."""
+    unwrapped by serve_until_drained, nothing quarantined or demoted.
+    The caller pins GS_AUTOTUNE=0 and GS_COHORT_RESIDENT=off (the scan
+    form, every ready tenant of a group in one slab), so the numbers
+    compare with the runs before the resident tier and the tuner's arm;
+    (c)'s server inherits them."""
     import signal
     import tempfile
     import threading
@@ -6562,12 +6949,27 @@ def main() -> int:
         return run_phases()
 
 
+class Laps:
+    """lap(name) records the host seconds since the previous lap (the
+    first: since the laps began) under `name`, in `seconds`."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._mark = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self._mark, 2)
+        self._mark = now
+
+
 def run_phases() -> int:
     from gelly_streaming_tpu_torch import kernels
 
     dev = torch.device("cuda", torch.cuda.current_device())
     print(card())
     t_run = t0 = time.perf_counter()
+    lap = Laps()
     logs = kernels.build()
     print("build: %.1f s  (%s)" % (time.perf_counter() - t0,
                                    ", ".join(sorted(kernels.SIGNATURES))))
@@ -6584,6 +6986,7 @@ def run_phases() -> int:
     for name in ("gnn_round", "dense_triangles"):
         print("sass %s: %s" % (name, json.dumps(tensor_core_ops(
             kernels.library_path(name)))))
+    lap("build")
 
     # the phases of PRs 1-11 run the static configuration, so their
     # numbers stay comparable; the new ones set the tuner themselves
@@ -6592,54 +6995,85 @@ def run_phases() -> int:
           "configuration); autotune, resident, gnn_resident and "
           "driver_resident set it themselves")
     capture = device_trace_capture(dev)
+    lap("device_trace")
     rng = np.random.default_rng(SEED)
     inter = phase_intersect(dev, rng)
+    lap("intersect")
     counter = phase_counter(dev)
+    lap("counter")
     summary = phase_summary(dev)
+    lap("summary")
     gnn = phase_gnn(dev)
+    lap("gnn")
     cohort = phase_cohort(dev)
+    lap("cohort")
     compact = phase_compact(dev)
+    lap("compact")
     snapshot = phase_snapshot(dev)
+    lap("snapshot")
     cells = phase_cell_reduce(dev)
+    lap("cell_reduce")
     launches, counts = phase_stream(dev)
+    lap("stream")
     no_demotions("phase stream")
     compact_launches = phase_stream_compact(dev, counts)
+    lap("stream_compact")
     no_demotions("phase stream_compact")
     summary_launches, summaries, state = phase_summary_stream(dev)
+    lap("summary_stream")
     no_demotions("phase summary_stream")
     summary_compact_launches = phase_summary_stream_compact(dev, summaries,
                                                             state)
+    lap("summary_stream_compact")
     no_demotions("phase summary_stream_compact")
     gnn_launches, gnn_out, gnn_slab, gnn_scan = phase_gnn_stream(dev)
+    lap("gnn_stream")
     no_demotions("phase gnn_stream")
     dense, dense_launches, sparse_launches = phase_dense(dev)
+    lap("dense")
     no_demotions("phase dense")
     cohort_launches, co_streams, co_out, co_rate = phase_cohort_stream(dev)
+    lap("cohort_stream")
     no_demotions("phase cohort_stream")
+    phase_cohort_resident(dev, co_streams, co_out)
+    lap("cohort_resident")
+    no_demotions("phase cohort_resident")
     _gnn_launches, gnn_co_out = phase_gnn_cohort(dev)
+    lap("gnn_cohort")
     no_demotions("phase gnn_cohort")
     driver_launches, driver_got, driver_scan = phase_driver(dev, counts)
+    lap("driver")
     no_demotions("phase driver")
     phase_driver_file(dev)
+    lap("driver_file")
     no_demotions("phase driver_file")
     reduce_launches = phase_reduce_stream(dev)
+    lap("reduce_stream")
     no_demotions("phase reduce_stream")
     api_launches = phase_api(dev)
+    lap("api")
     no_demotions("phase api")
     require(api_launches["cell_reduce"] > 0, "api: no cell_reduce launch")
     union_find = phase_models(dev)
+    lap("models")
     no_demotions("phase models")
     phase_driver_slide(dev)
+    lap("driver_slide")
     no_demotions("phase driver_slide")
     phase_autotune(dev, counts, summaries, state)
+    lap("autotune")
     no_demotions("phase autotune")
     phase_resident(dev, summaries, state)
+    lap("resident")
     no_demotions("phase resident")
     phase_gnn_resident(dev, gnn_out, gnn_slab)
+    lap("gnn_resident")
     no_demotions("phase gnn_resident")
     phase_driver_resident(dev, driver_got)
+    lap("driver_resident")
     no_demotions("phase driver_resident")
     hooks = phase_hooks_engine(dev, counts, summaries, state, gnn_out)
+    lap("hooks_engine")
     no_demotions("phase hooks_engine")
     phase_costmodel_health(dev, hooks["engines"], {
         "window_counter": counter,
@@ -6647,15 +7081,24 @@ def run_phases() -> int:
         "window_summary": summary,
         "window_summary_compact": compact["summary"],
         "gnn_round": gnn})
+    lap("costmodel_health")
     no_demotions("phase costmodel_health")
     del hooks
     phase_hooks_driver(dev, driver_got, snapshot)
+    lap("hooks_driver")
     phase_demotion(dev, driver_got)
-    phase_hooks_cohort(dev, co_streams, co_out, gnn_co_out, cohort)
-    no_demotions("phase hooks_cohort")
-    phase_serve(dev, co_streams, co_out, co_rate)
-    no_demotions("phase serve")
+    lap("demotion")
+    # the scan form and static batches, as in the runs before the
+    # resident tier and the tuner's arm, so their numbers compare
+    with knob_env(GS_AUTOTUNE=0, GS_COHORT_RESIDENT="off"):
+        phase_hooks_cohort(dev, co_streams, co_out, gnn_co_out, cohort)
+        lap("hooks_cohort")
+        no_demotions("phase hooks_cohort")
+        phase_serve(dev, co_streams, co_out, co_rate)
+        lap("serve")
+        no_demotions("phase serve")
     phase_api_tracing(dev, api_launches, driver_got, capture)
+    lap("api_tracing")
     no_demotions("phase api_tracing")
 
     rows = []
@@ -6708,6 +7151,7 @@ def run_phases() -> int:
                 big_share_of_bound=big["share_of_bound"],
                 big_library_ms=big["library_ms"],
                 big_plain_ms=big["plain_ms"], hub_chunk_ms=res["hub_ms"])
+    print(json.dumps({"phase_seconds": lap.seconds}))
     print("chip_smoke: every phase ok in %.1f s"
           % (time.perf_counter() - t_run))
     print(card())

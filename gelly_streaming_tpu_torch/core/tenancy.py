@@ -4,9 +4,10 @@ per window round.
 Port of the JAX package's `core/tenancy.py`. `TenantCohort` admits up to
 GS_TENANT_MAX streams, each with its own bounded ingest queue and its
 own carry (deg, labels, cover) in the summary engines' layout, and
-right-pads each ready tenant's next windows (at most
-`windows_per_dispatch`, default 8) into one cohort slab [nb, wb, eb]
-per (vertex bucket, K) group, which one call of the group's
+right-pads each ready tenant's next windows (at most the window ceiling:
+`windows_per_dispatch`, default 8, or on the resident tier the
+GS_RESIDENT_SPB bucket) into one cohort slab [nb, wb, eb] per (vertex
+bucket, K) group and batch, which one call of the group's
 `ops/cohort_summary.CohortSummary` folds: the cohort kernel of
 csrc/cohort_summary.cu (one launch for the whole slab) and the window
 counter on a card, the plain PyTorch version on the CPU. nb and wb are
@@ -64,11 +65,39 @@ weight layer, and a pump folds every tenant's full windows through
 per tenant row on a card), under the same spans, attribution, health
 marks and provenance.
 
-Not ported yet (ROADMAP.md): the resident cohort tier and the
-tenants-per-dispatch autotuner arm (step 1.7's second half, with the
-ingest ring of step 1.3; `tenants_per_dispatch` is an argument until
-then). Slabs are prepared inline on the pumping thread. The serving
-front end over a cohort is `core/serve.py`.
+The dispatch loop, as in the JAX cohort:
+
+- **The resident tier.** With GS_COHORT_RESIDENT=on
+  (ops/resident_engine.resolve_resident_cohort) each (vb, K) group's
+  carries stay on the device between rounds as one stacked [nb, ...]
+  carry, restacked only when the rows of a dispatch are not the stack's
+  (a tenant admitted, closed, drained, quarantined, demoted or restored,
+  or a batch of other tenants): then every tenant of the old stack keeps
+  a copy of its row first. A dispatch folds up to the GS_RESIDENT_SPB
+  bucket of windows a tenant (`_window_ceiling`). On a card it is one
+  replay of a CUDA graph (ops/resident_engine.SuperBatchGraphs, family
+  "cohort_resident", keyed by (vb, K, nb, wb, staging slot)): a copy of
+  the committed stack into the group's work stack, then the cohort
+  kernel and its counter over the work stack and the staged slab. The
+  work stack is committed only past the poison gate, so a refused
+  dispatch leaves the committed stack and every carry as they were (the
+  JAX cohort donates its stack to the program instead). On the CPU the
+  same branch runs the plain versions eagerly.
+- **The tenants-per-dispatch arm.** A `tenant_cohort` DispatchTuner
+  (ops/autotune.py) per vertex bucket, keyed by eb, vb and the cohort
+  bucket Nb and re-keyed when Nb changes, picks each round's tenants per
+  dispatch (and, on the resident tier, windows per super-batch) and
+  takes back the round's edges/s. GS_TENANT_TPD, or the constructor's
+  `tenants_per_dispatch`, pins it; with GS_AUTOTUNE=0 every ready tenant
+  of a group goes in one slab. The arm changes no summary.
+- **The ingest ring.** A round of several batches preps batch k+1's slab
+  on the ingress pool (ops/resident_engine.IngestRing) while batch k
+  dispatches; a round of one batch preps inline. The staging copy stays
+  in the dispatch, under its stage guard. A failure in the round drains
+  the ring before it raises: the queues of the batches not dispatched
+  are not consumed.
+
+The serving front end over a cohort is `core/serve.py`.
 """
 
 from __future__ import annotations
@@ -80,6 +109,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..ops import autotune
+from ..ops import ingress_pipeline
+from ..ops import resident_engine
 from ..ops import segment as seg_ops
 from ..ops.cohort_summary import CohortSummary
 from ..ops.ingress_pipeline import PrepError
@@ -129,6 +161,12 @@ def admission_policy() -> str:
     raises TenantBackpressure accepting nothing; `drop` accepts what
     fits and sheds the rest."""
     return knobs.get_str("GS_TENANT_ADMISSION")
+
+
+def pinned_tpd() -> int:
+    """GS_TENANT_TPD: tenants per cohort dispatch; 0 = the tuner's arm,
+    or every ready tenant of a group with GS_AUTOTUNE=0."""
+    return knobs.get_int("GS_TENANT_TPD")
 
 
 def quarantine_windows() -> int:
@@ -225,16 +263,22 @@ def _resets_probation(err: BaseException) -> bool:
         and err.stage in ("queued", "prep")
 
 
+def _int_outputs(outs) -> torch.Tensor:
+    """A cohort summary's five [nb, wb] outputs as one int32 tensor."""
+    return torch.stack([x.to(torch.int32) for x in outs])
+
+
 class _Tenant:
     """One admitted stream: its bounded ingest queue, its carry in the
     engines' layout, its cursors, its bulkhead state and (demoted or on
     probation) its own single-tenant engine."""
 
-    __slots__ = ("tid", "vb", "kb", "src", "dst", "carry", "windows_done",
-                 "closed_partial", "closing", "closed", "tier", "engine",
-                 "ckpt_policy", "dropped_edges", "bp_stamped", "fed_offset",
-                 "probation", "quarantine_reason", "last_report", "last_ts",
-                 "ooo_src", "ooo_dst", "ooo_ts")
+    __slots__ = ("tid", "vb", "kb", "src", "dst", "carry", "res_row",
+                 "windows_done", "closed_partial", "closing", "closed",
+                 "tier", "engine", "ckpt_policy", "dropped_edges",
+                 "bp_stamped", "fed_offset", "probation",
+                 "quarantine_reason", "last_report", "last_ts", "ooo_src",
+                 "ooo_dst", "ooo_ts")
 
     def __init__(self, tid: str, vb: int, kb: int):
         self.tid = tid
@@ -243,6 +287,8 @@ class _Tenant:
         self.src = np.zeros(0, np.int32)
         self.dst = np.zeros(0, np.int32)
         self.carry = None          # lazy: the fresh state until a dispatch
+        self.res_row = None        # its row of the group's resident stack
+                                   # (the carry lives there, not here)
         self.windows_done = 0
         self.closed_partial = False
         self.closing = False
@@ -290,11 +336,13 @@ class TenantCohort:
     and accepts nothing; "drop": it accepts what fits and counts the
     rest in the tenant's `dropped_edges`) override GS_TENANT_MAX,
     GS_TENANT_QUEUE_WINDOWS and GS_TENANT_ADMISSION, which None (the
-    default) reads on every call. `tenants_per_dispatch` (0: every ready
-    tenant of a group in one slab) is the JAX GS_TENANT_TPD pin.
-    `windows_per_dispatch` is the JAX cohort's window ceiling: a tenant
-    folds at most its power-of-two bucket (at least 8) of windows per
-    dispatch. `k_bucket` is the tenants' default K (0: the analytic
+    default) reads on every call. `tenants_per_dispatch` above 0 pins
+    the tenants of a dispatch as GS_TENANT_TPD does; 0 reads the knob
+    (0 there: the tuner's arm, or every ready tenant of a group with
+    GS_AUTOTUNE=0). `windows_per_dispatch` is the JAX cohort's window
+    ceiling on the scan form: a tenant folds at most its power-of-two
+    bucket (at least 8) of windows per dispatch; the resident tier folds
+    up to the GS_RESIDENT_SPB bucket. `k_bucket` is the tenants' default K (0: the analytic
     default for the edge bucket); `admit(k_bucket=)` gives one its own."""
 
     MAX_WINDOWS_PER_DISPATCH = 8
@@ -330,6 +378,19 @@ class TenantCohort:
         self._summaries = {}       # vb -> {kb: CohortSummary}
         self._fresh = {}           # vb -> fresh carry on the device
         self._tri_redo = {}        # vb -> {kb: the 4·K exact recount}
+        self._tuners = {}          # vb -> DispatchTuner (the tpd arm)
+        self._tuner_nb = {}        # vb -> the Nb it was keyed at
+        # the resident tier: per (vb, kb) group the committed stack,
+        # {"nb": rows, "rows": (tid | None, ...), "carry": 3 tensors},
+        # restacked only when a dispatch's rows differ; its buffers and
+        # the work stack a dispatch folds, per (vb, kb, nb)
+        self._res = {}
+        self._res_bufs = {}
+        self._graphs = resident_engine.SuperBatchGraphs("cohort_resident")
+        self.resident_dispatches = 0   # dispatches through the tier
+        self.resident_restacks = 0     # of which restacked the group
+        self._round_spb = 0        # this round's windows-per-superbatch arm
+        self._ring = resident_engine.IngestRing()
         self._stage = ChunkStager(self.device)
         self._h2d_seq = 0          # the staging copies' ordinals
         self._round_no = 0
@@ -687,7 +748,64 @@ class TenantCohort:
         return got
 
     def _carry_of(self, t: _Tenant) -> tuple:
+        """The tenant's live carry wherever it is: its row of the
+        group's resident stack (views, read at once and never kept),
+        else its own carry, else the fresh state. Changes nothing."""
+        if t.res_row is not None:
+            entry = self._res[(t.vb, t.kb)]
+            return tuple(a[t.res_row] for a in entry["carry"])
         return t.carry if t.carry is not None else self._fresh_carry(t.vb)
+
+    def _evict_resident(self, key) -> None:
+        """Give every tenant of the (vb, kb) resident stack a copy of its
+        row and drop the stack. It must run before anything overwrites or
+        replaces the stack: a tenant whose row still pointed into it
+        would read another tenant's (or a pad row's) carry. The copies
+        are clones: the stack's buffers are folded again by later
+        dispatches."""
+        entry = self._res.pop(key, None)
+        if entry is None:
+            return
+        for tid in entry["rows"]:
+            other = self.tenants.get(tid) if tid else None
+            if other is not None and other.res_row is not None:
+                other.carry = tuple(a[other.res_row].clone()
+                                    for a in entry["carry"])
+                other.res_row = None
+
+    def _break_residency(self, t: _Tenant) -> None:
+        """Membership is about to change (a probation absorb, a
+        quarantine, a demotion, a restored checkpoint): evict the
+        resident stack `t` shares, so the next resident dispatch
+        restacks from the tenants' own carries."""
+        if t.res_row is None:
+            return
+        self._evict_resident((t.vb, t.kb))
+        t.res_row = None
+
+    def _res_buffers(self, vb: int, kb: int, nb: int) -> tuple:
+        """(stack, work): the resident tier's two stacked carries of nb
+        rows at vb, allocated once a (vb, kb, nb) so the graphs that bind
+        them keep their addresses."""
+        key = (vb, kb, nb)
+        got = self._res_bufs.get(key)
+        if got is None:
+            got = self._res_bufs[key] = tuple(
+                tuple(torch.empty((nb,) + a.shape, dtype=a.dtype,
+                                  device=self.device)
+                      for a in self._fresh_carry(vb)) for _ in range(2))
+        return got
+
+    def _stack_rows(self, vb: int, nb: int, real, out=None) -> tuple:
+        """The batch's carries stacked by slab row, pad rows fresh: new
+        tensors, or written into `out`."""
+        by_row = {row: t for t, row, _w, _n in real}
+        fresh = self._fresh_carry(vb)
+        return tuple(
+            torch.stack([self._carry_of(by_row[r])[leaf] if r in by_row
+                         else fresh[leaf] for r in range(nb)],
+                        out=None if out is None else out[leaf])
+            for leaf in range(3))
 
     def _adopt(self, t: _Tenant, carry) -> None:
         """Make host carry leaves `t`'s carry on the device."""
@@ -714,15 +832,95 @@ class TenantCohort:
                 self.eb, vb, k_bucket=4 * kb, device=self.device)
         return k
 
+    # ------------------------------------------------------------------
+    # the tenants-per-dispatch arm (ops/autotune.py)
+    # ------------------------------------------------------------------
+    def _pinned_tpd(self) -> int:
+        """The constructor's `tenants_per_dispatch`, else GS_TENANT_TPD."""
+        return self.tenants_per_dispatch or pinned_tpd()
+
+    def _cohort_nb(self, vb: int) -> int:
+        """The power-of-two bucket of the live cohort-tier tenants at
+        this vertex bucket, capped at the admission cap's: the slab's row
+        dimension and the arm family's N."""
+        with self._qlock:
+            live = list(self.tenants.values())
+        n = sum(1 for t in live
+                if t.tier == "cohort" and not t.closed and t.vb == vb)
+        return min(seg_ops.bucket_size(max(1, n)),
+                   seg_ops.bucket_size(self._cap()))
+
+    def _tuner_space(self, nb: int) -> dict:
+        """The `tenant_cohort` arms at cohort bucket nb: tenants-per-
+        dispatch rungs under it and, on the resident tier,
+        windows-per-super-batch rungs under the GS_RESIDENT_SPB bucket."""
+        space = {"tpd": autotune.rungs(nb)}
+        if resident_engine.resolve_resident_cohort():
+            space["spb"] = autotune.rungs(
+                resident_engine.resident_spb(self.eb))
+        return space
+
+    def _tuner(self, vb: int):
+        """The group's `tenant_cohort` DispatchTuner, keyed
+        `tenant_cohort:eb=…:vb=…:N=…` by the cohort bucket nb: a bucket
+        change re-keys it (DispatchTuner.rekey: its EMAs reset, the
+        incumbent kept where the new space has it), so a grown cohort
+        never exploits rates measured on another slab shape. None with
+        GS_AUTOTUNE=0 or a pin."""
+        if self._pinned_tpd() > 0 or not autotune.enabled():
+            return None
+        nb = self._cohort_nb(vb)
+        tuner = self._tuners.get(vb)
+        if tuner is not None and self._tuner_nb.get(vb) == nb:
+            return tuner
+        space = self._tuner_space(nb)
+        init = {k: v[-1] for k, v in space.items()}
+        name = "tenant_cohort:eb=%d:vb=%d:N=%d" % (self.eb, vb, nb)
+        if tuner is None:
+            tuner = self._tuners[vb] = autotune.DispatchTuner(
+                name, space, init, backend=self.device.type)
+        else:
+            tuner.rekey(name, space=space, initial=init)
+        self._tuner_nb[vb] = nb
+        return tuner
+
+    def _resolve_tpd(self, vb: int, n_ready: int):
+        """(tenants per dispatch, the tuner's arm or None) this round: the
+        pin, else the tuner's arm (its best under forced_sync), else
+        every ready tenant in one slab."""
+        pin = self._pinned_tpd()
+        if pin > 0:
+            return pin, None
+        tuner = self._tuner(vb)
+        if tuner is None:
+            return n_ready, None
+        arm = (tuner.best() if ingress_pipeline.forced_sync_active()
+               else tuner.next_round())
+        return arm["tpd"], arm
+
+    def _window_ceiling(self) -> int:
+        """Windows of one tenant a dispatch folds: `wc` on the scan form;
+        on the resident tier the GS_RESIDENT_SPB bucket, narrowed by the
+        round's windows-per-super-batch arm. Window cuts are counted in
+        edges, so the ceiling never changes a summary."""
+        if not resident_engine.resolve_resident_cohort():
+            return self.wc
+        spb = resident_engine.resident_spb(self.eb)
+        if self._round_spb:
+            spb = min(spb, seg_ops.bucket_size(self._round_spb))
+        return max(self.wc, spb)
+
     def _take_windows(self, t: _Tenant) -> int:
         """Full windows this tenant contributes to the next slab (plus
-        the final partial one once closing), at most `wc`."""
+        the final partial one once closing), at most the window
+        ceiling."""
         if t.tier != "cohort" or t.closed:
             return 0
+        wc = self._window_ceiling()
         full = t.queued // self.eb
-        if t.closing and t.queued % self.eb and full < self.wc:
-            return min(full + 1, self.wc)
-        return min(full, self.wc)
+        if t.closing and t.queued % self.eb and full < wc:
+            return min(full + 1, wc)
+        return min(full, wc)
 
     def _prep_slab(self, batch: List[_Tenant], wins: List[int]):
         """Right-pad each tenant's next `wins` windows into the cohort
@@ -789,26 +987,47 @@ class TenantCohort:
 
     def _dispatch_batch(self, vb: int, kb: int, slab, out: dict,
                         staged: list) -> int:
-        """One cohort dispatch and its finalize: the batch's carries
-        stacked (pad rows fresh), one staged copy of the slab, one call
-        of the group's cohort summary, one copy back of its [5, nb, wb]
-        outputs (with the carry rows of the tenants due for a
-        checkpoint). The stack is a copy the kernel folds in place, so
-        nothing changes before the poison gate passes: a refused
-        dispatch leaves every carry, queue and cursor as it was. Each
-        tenant then keeps a copy of its own carry row. Returns the edges
-        covered."""
+        """One cohort dispatch and its finalize: one staged copy of the
+        slab, one fold of the group's cohort summary (`_fold_slab`), one
+        copy back of its [5, nb, wb] outputs (with the carry rows of the
+        tenants due for a checkpoint).
+
+        On the scan form the batch's carries are stacked (pad rows
+        fresh) into a copy the kernel folds, and each tenant then keeps a
+        copy of its row. On the resident tier the group's committed stack
+        serves as it is when the batch's rows are its rows; else it is
+        evicted (its tenants keep copies of their rows) and the batch is
+        restacked into it. The kernel folds a copy of it, the work stack,
+        which becomes the committed stack; each tenant keeps only its
+        row. Either way nothing changes before the poison gate passes: a
+        refused dispatch leaves every carry, the committed stack, every
+        queue and cursor as they were. Returns the edges covered."""
         nb, wb, s, d, valid, real, failed, st = slab
         for t, err in failed:
             self._demote(t, "slab prep failed: %s" % err)
         if not real:
             return 0
-        by_row = {row: t for t, row, _w, _n in real}
-        fresh = self._fresh_carry(vb)
-        stacked = tuple(
-            torch.stack([self._carry_of(by_row[r])[leaf] if r in by_row
-                         else fresh[leaf] for r in range(nb)])
-            for leaf in range(3))
+        res_on = resident_engine.resolve_resident_cohort()
+        key = (vb, kb)
+        rows = [None] * nb          # the tenant of each slab row
+        for t, row, _w, _n in real:
+            rows[row] = t.tid
+        rows = tuple(rows)
+        entry = self._res.get(key) if res_on else None
+        if entry is None or entry["rows"] != rows \
+                or any(t.res_row != row for t, row, _w, _n in real):
+            # the rows changed (or the tier is off: a flipped pin leaves
+            # rows in a stack): every tenant of the old stack takes a
+            # copy of its row before the stack is overwritten
+            self._evict_resident(key)
+            entry = None
+        if res_on:
+            committed, stacked = self._res_buffers(vb, kb, nb)
+            if entry is None:
+                self._stack_rows(vb, nb, real, out=committed)
+                self.resident_restacks += 1
+        else:
+            committed, stacked = None, self._stack_rows(vb, nb, real)
         edges = sum(n for _t, _r, _w, n in real)
         due = [row for t, row, w, _n in real
                if self._ckpt_due(t, t.windows_done + w)]
@@ -821,13 +1040,13 @@ class TenantCohort:
                         tuple(t.tid for t, _r, _w, _n in real))
             stg = self._h2d(nb, wb, s, d, valid)
             try:
-                slab_dev = (x.view(nb, wb, self.eb)
-                            for x in self._stage.take(stg))
+                slab_dev = tuple(x.view(nb, wb, self.eb)
+                                 for x in self._stage.take(stg))
                 latency.stamp(st, "h2d")
-                outs = self._summary(vb, kb)(stacked, *slab_dev)
+                res = self._fold_slab(vb, kb, committed, stacked, slab_dev,
+                                      self._stage.slot_index(stg))
             finally:
                 self._stage.done(stg)
-            res = torch.stack([x.to(torch.int32) for x in outs])
             # one copy back: the outputs, then each due row's leaves
             host = (torch.cat([res.reshape(-1)] + [
                 leaf[r] for r in due for leaf in stacked]) if due
@@ -845,6 +1064,13 @@ class TenantCohort:
             raise PoisonOutput(
                 "cohort dispatch finalized implausible analytics for "
                 "tenant(s) %s" % ", ".join(poisoned), poisoned)
+        if res_on:
+            # past the gate: the folded work stack becomes the committed
+            # stack (a device copy into the buffers the graphs bind)
+            for c, w in zip(committed, stacked):
+                c.copy_(w)
+            self._res[key] = {"nb": nb, "rows": rows, "carry": committed}
+            self.resident_dispatches += 1
         saved = {}          # row -> the host leaves of its new carry
         at = res.numel()
         for r in due:
@@ -854,7 +1080,8 @@ class TenantCohort:
         # the dispatch's wall seconds split over the real rows by edges
         metrics.attribute_dispatch(
             sp.elapsed, [(t.tid, n) for t, _r, _w, n in real],
-            program="cohort_summary", sig=tags.get("sig"))
+            program="cohort_resident" if res_on else "cohort_summary",
+            sig=tags.get("sig"))
         prov = provenance.armed()
         marks = metrics.enabled()
         for t, row, w, n in real:
@@ -869,7 +1096,13 @@ class TenantCohort:
                                   "num_components": int(ncomp[row, j]),
                                   "odd_cycle": bool(odd[row, j]),
                                   "triangles": tri_w})
-            t.carry = tuple(a[row].clone() for a in stacked)
+            if res_on:
+                # the carry stays in the committed stack: the tenant
+                # keeps its row (checkpoints and demotions read it
+                # through _carry_of)
+                t.res_row, t.carry = row, None
+            else:
+                t.carry = tuple(a[row].clone() for a in stacked)
             with self._qlock:
                 t.src = t.src[n:]
                 t.dst = t.dst[n:]
@@ -888,7 +1121,8 @@ class TenantCohort:
                     provenance.emit(
                         tenant=t.tid, window=t.windows_done + j, wal_lo=lo,
                         wal_hi=lo + min((j + 1) * self.eb, n) - j * self.eb,
-                        tier="cohort", program="cohort_scan",
+                        tier="cohort_resident" if res_on else "cohort",
+                        program="cohort_scan",
                         sig=tags.get("sig"), summary=summaries[j])
             t.windows_done += w
             if n < w * self.eb:      # the final short window was just cut
@@ -909,6 +1143,36 @@ class TenantCohort:
                 t.ckpt_policy.mark(t.windows_done)
                 staged.append((t, self._state_of(t, saved[row])))
         return edges
+
+    def _fold_slab(self, vb: int, kb: int, committed, stacked, slab_dev,
+                   slot: int) -> torch.Tensor:
+        """The group's cohort summary over the staged slab: its outputs
+        as one [5, nb, wb] int32 tensor on the device, `stacked` folded
+        in place. On the resident tier (`committed` given) the committed
+        stack is first copied into `stacked`, the work stack; on a card
+        the copy and the two launches are one replay of the CUDA graph of
+        (vb, kb, nb, wb, staging slot), captured at its first use after
+        one eager run (SuperBatchGraphs), so its output tensor is the
+        graph's and the next replay rewrites it. The graph binds the two
+        stacks, the slot's slab and the counter's scratch; any of them
+        moved, it is captured again."""
+        summ = self._summary(vb, kb)
+        if committed is None:
+            return _int_outputs(summ(stacked, *slab_dev))
+
+        def fold(c0, c1, c2, w0, w1, w2, src, dst, valid, *_scratch):
+            for w, c in ((w0, c0), (w1, c1), (w2, c2)):
+                w.copy_(c)
+            return _int_outputs(summ((w0, w1, w2), src, dst, valid))
+
+        tensors = committed + stacked + slab_dev
+        if self.device.type == "cuda":
+            nb, wb, eb = slab_dev[0].shape
+            summ.counter.reserve(nb * wb, eb)
+            tensors += (summ.counter.scratch.buffer,)
+        return self._graphs.run((vb, kb) + tuple(slab_dev[0].shape[:2])
+                                + (slot,), tensors, fold,
+                                warm=lambda: fold(*tensors))
 
     # ------------------------------------------------------------------
     # the bulkhead
@@ -998,6 +1262,7 @@ class TenantCohort:
         record."""
         if t.tier == "quarantined":
             return
+        self._break_residency(t)    # its carry leaves the device stack
         from_tier = t.tier
         t.tier = "quarantined"
         t.engine = None
@@ -1045,7 +1310,10 @@ class TenantCohort:
         round first runs the demoted tenants' engines and the
         quarantined tenants' probation windows, then groups the ready
         tenants by (vertex bucket, K) and dispatches each group in
-        batches of `tenants_per_dispatch` (all of them with 0). Returns
+        batches of the round's tenants per dispatch (`_resolve_tpd`)
+        through `_run_batches`; a tuned round's edges/s go back to the
+        tuner, whose best is saved as the pump returns (not under
+        forced_sync). Returns
         {tenant: [summary dict, ...]} for every window finalized by this
         call; due checkpoints are written when it returns (the delivery
         boundary). `only` restricts the pump to one tenant (close()'s
@@ -1074,7 +1342,10 @@ class TenantCohort:
             rounds += 1
             self._round_no += 1
             for (vb, kb), ready in sorted(by_group.items()):
-                tpd = self.tenants_per_dispatch or len(ready)
+                tpd, arm = self._resolve_tpd(vb, len(ready))
+                # the resident tier's windows-per-super-batch arm narrows
+                # this round's window ceiling
+                self._round_spb = int((arm or {}).get("spb") or 0)
                 descs = [(b, [self._take_windows(t) for t in b])
                          for b in (ready[i:i + tpd]
                                    for i in range(0, len(ready), tpd))]
@@ -1082,14 +1353,58 @@ class TenantCohort:
                         "cohort.round", vb=vb, tenants=len(ready),
                         edges=sum(min(w * self.eb, t.queued)
                                   for b, ws in descs
-                                  for t, w in zip(b, ws))):
-                    for batch, wins in descs:
-                        self._dispatch_guarded(
-                            vb, kb, batch, wins,
-                            self._prep_slab(batch, wins), out, staged)
+                                  for t, w in zip(b, ws))) as sp:
+                    edges = self._run_batches(vb, kb, descs, out, staged)
+                if arm is not None and edges:
+                    tuner = self._tuner(vb)
+                    if tuner is not None:
+                        tuner.record(arm, edges, sp.elapsed)
+        if not ingress_pipeline.forced_sync_active():
+            for tuner in self._tuners.values():
+                tuner.save()
         for t, snap in staged:
             checkpoint.save(self._ckpt_path(t.tid), snap)
         return out
+
+    def _run_batches(self, vb: int, kb: int, descs, out: dict,
+                     staged: list) -> int:
+        """Dispatch one round's batches, the ingest ring prepping batch
+        k+1's slab on the ingress pool while batch k dispatches (the
+        batches of a round hold different tenants, so a look-ahead prep
+        reads no queue an earlier batch consumes). A round of one batch
+        preps inline, as does a batch the ring declines (full, or
+        forced_sync). A failure drains the ring (waiting for the preps
+        still running) before it raises: the batches not dispatched keep
+        their queues for the next pump. Returns the edges covered."""
+        if len(descs) == 1:
+            batch, wins = descs[0]
+            return self._dispatch_guarded(vb, kb, batch, wins,
+                                          self._prep_slab(batch, wins),
+                                          out, staged)
+
+        def prep(desc):
+            return self._prep_slab(*desc)
+
+        edges = 0
+        ringed = set()      # the batches handed to the ring
+        try:
+            for i, (batch, wins) in enumerate(descs):
+                # this batch unless the ring has it, and the look-ahead
+                for j in (i, i + 1):
+                    if j < len(descs) and j not in ringed \
+                            and self._ring.submit(prep, j, descs[j]):
+                        ringed.add(j)
+                if i in ringed:
+                    fut, _desc = self._ring.pop(i)
+                    slab = fut.result()
+                else:
+                    slab = self._prep_slab(batch, wins)
+                edges += self._dispatch_guarded(vb, kb, batch, wins, slab,
+                                                out, staged)
+        except BaseException:
+            self._ring.drain()
+            raise
+        return edges
 
     def _pump_singles(self, out: dict, staged: list,
                       only: Optional[str] = None) -> None:
@@ -1197,6 +1512,7 @@ class TenantCohort:
                 self._probation_failed(t, e)
                 continue
             # the probe engine's state is the new last-good carry
+            self._break_residency(t)
             self._adopt(t, t.engine.state_dict()["carry"])
             with self._qlock:
                 t.src = t.src[n:]
@@ -1253,6 +1569,7 @@ class TenantCohort:
     def _demote(self, t: _Tenant, reason: str) -> None:
         if t.tier == "single":
             return
+        self._break_residency(t)    # its carry leaves the device stack
         t.engine = self._tenant_engine(t)
         t.tier = "single"
         resilience.record_demotion("tenant:%s" % t.tid, "cohort", "single",
@@ -1328,6 +1645,9 @@ class TenantCohort:
         check_summary_carry(carry, t.vb)
         t.windows_done = windows_done
         t.closed_partial = bool(state["closed_partial"])
+        # the checkpoint wins: a tenant restored while the resident stack
+        # holds its carry leaves the stack
+        self._break_residency(t)
         self._adopt(t, carry)
         q = state.get("quarantine")
         if q is not None:

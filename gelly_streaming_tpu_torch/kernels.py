@@ -99,7 +99,8 @@ KERNELS = ("intersect", "window_counter", "window_counter_compact",
            "dense_triangles", "cell_reduce")
 LAUNCHES = {name: 0 for name in KERNELS}
 # CUDA graph replays of the resident tier, per graph family
-GRAPH_FAMILIES = ("resident_summary", "gnn_resident", "driver_resident")
+GRAPH_FAMILIES = ("resident_summary", "gnn_resident", "driver_resident",
+                  "cohort_resident")
 REPLAYS = {name: 0 for name in GRAPH_FAMILIES}
 
 _LIBS: dict = {}

@@ -5,8 +5,10 @@ Port of the JAX package's `ops/autotune.py` (the knobs :55-97, the
 cache :100-150, `DispatchTuner` :153-359). The engines that use it
 (`TriangleWindowKernel.count_stream`, `StreamSummaryEngine.process`,
 `ResidentSummaryEngine`, the driver's scan and resident tiers) fold a
-long call in measurement rounds; the tuner picks each round's arm and
-takes back its measured edges/s:
+long call in measurement rounds, and `TenantCohort` (core/tenancy.py,
+family `tenant_cohort`: tenants per dispatch, and windows per
+super-batch on its resident tier) its pump rounds; the tuner picks each
+round's arm and takes back its measured edges/s:
 
 - The space is small and safe: every arm is a configuration the kernels
   already run exactly (wb rungs under the chunk limit, K rungs of the

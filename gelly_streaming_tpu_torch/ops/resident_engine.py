@@ -51,9 +51,12 @@ launched) and goes through `metrics.wrap_dispatch` ("resident_fused",
 "resident_fused_compact", "gnn_resident": the shape watch); `IngestRing`
 sets the `gs_inflight_chunks` gauge.
 
-Left out, with ROADMAP step 1.7's second half: the cohort's resident tier
-(`resolve_resident_cohort` answers False until it comes). With step 1.1:
-the evidence routing of `resolve_resident` (its `auto` is the scan tier).
+The cohort's resident tier (core/tenancy.py `TenantCohort`, selected by
+`resolve_resident_cohort`) uses the same graphs in family
+"cohort_resident": one per (vertex bucket, K, tenants, windows, staging
+slot), the cohort kernel and its counter over the group's stacked carry.
+Left out, with step 1.1: the evidence routing of `resolve_resident` and
+`resolve_resident_cohort` (their `auto` is the scan tier).
 """
 
 from __future__ import annotations
@@ -109,12 +112,18 @@ def resolve_resident() -> bool:
     return knobs.get_str("GS_RESIDENT") == "on"
 
 
+def _reset_resident_cohort() -> None:
+    """Test hook of the JAX package's name. The port memoizes nothing:
+    GS_COHORT_RESIDENT is read live on every call."""
+
+
 def resolve_resident_cohort() -> bool:
-    """Should a tenant cohort keep its carries stacked on the device
-    across rounds? Not yet: the cohort's resident tier and its
-    GS_COHORT_RESIDENT pin come with ROADMAP step 1.7's second half, so
-    every cohort runs its scan form."""
-    return False
+    """Should a tenant cohort keep each group's carries stacked on the
+    device between rounds (the resident cohort tier, core/tenancy.py)?
+    GS_COHORT_RESIDENT=on selects it; `off`, unset and `auto` are the
+    scan form: the JAX package adopts it on committed measurements of
+    its own, which the port has not made yet (ROADMAP step 1.1)."""
+    return knobs.get_str("GS_COHORT_RESIDENT") == "on"
 
 
 # ----------------------------------------------------------------------

@@ -399,6 +399,20 @@ register("GS_TENANT_ADMISSION", "str", "reject",
               "`reject` raises a typed `TenantBackpressure` accepting "
               "nothing, `drop` accepts what fits and sheds the rest "
               "with an event and a counter")
+register("GS_TENANT_TPD", "int", 0, lo=0,
+         help="tenants per cohort dispatch where `tenants_per_dispatch` "
+              "is 0: a value above 0 pins it; 0 lets the dispatch "
+              "autotuner's tenants-per-dispatch arm choose (every ready "
+              "tenant of a group in one slab with GS_AUTOTUNE=0)",
+         default_text="0 (auto)")
+register("GS_COHORT_RESIDENT", "str", "", choices=("on", "off", "auto"),
+         help="the resident cohort tier (`core/tenancy.py`): each (vertex "
+              "bucket, K) group's carries stay stacked on the device "
+              "between rounds, each dispatch one replayed CUDA graph, "
+              "restacked only when the group's membership changes; `on` "
+              "selects it, `off`, unset and `auto` run the scan form "
+              "(`auto` waits on the port's own measurements)",
+         default_text="auto")
 register("GS_QUARANTINE_WINDOWS", "int", 4, lo=0,
          help="clean solo probation windows a quarantined tenant must "
               "finalize, on its own engine on the cohort's device, "

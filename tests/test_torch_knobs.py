@@ -2,7 +2,8 @@
 against the JAX package's: every knob the port reads (the stage guard
 and demotion registry, the dispatch autotuner, the resident tier, the
 host hooks, the GNN engines, the driver's probation and slide, the
-cohort's admission, queue, quarantine and reorder bound, the serving
+cohort's admission, queue, tenants per dispatch, resident tier,
+quarantine and reorder bound, the serving
 front end's port, deadlines, pump mode and subscriber queue) with the
 same kinds, defaults, bounds and choices, and the same parsing (live
 reads, clamping, typed refusals)."""
@@ -28,7 +29,8 @@ SLICE_KNOBS = (
     "GS_COSTMODEL", "GS_GNN_F", "GS_GNN_ACT",
     "GS_PROVENANCE", "GS_PROVENANCE_DIR", "GS_PROVENANCE_RETAIN",
     "GS_SLIDE", "GS_TENANT_MAX", "GS_TENANT_QUEUE_WINDOWS",
-    "GS_TENANT_ADMISSION", "GS_QUARANTINE_WINDOWS", "GS_OOO_BOUND",
+    "GS_TENANT_ADMISSION", "GS_TENANT_TPD", "GS_COHORT_RESIDENT",
+    "GS_QUARANTINE_WINDOWS", "GS_OOO_BOUND",
     "GS_SERVE_PORT", "GS_SERVE_DRAIN_S", "GS_SERVE_IDLE_S", "GS_PUMP",
     "GS_SUB_QUEUE")
 
@@ -70,7 +72,10 @@ def test_knob_matches_jax(name):
     ("GS_SERVE_PORT", "70000"), ("GS_SERVE_DRAIN_S", "0"),
     ("GS_SERVE_DRAIN_S", "-1.5"), ("GS_SERVE_IDLE_S", "0.01"),
     ("GS_SERVE_IDLE_S", None), ("GS_PUMP", None), ("GS_PUMP", "async"),
-    ("GS_SUB_QUEUE", "0"), ("GS_SUB_QUEUE", "16")])
+    ("GS_SUB_QUEUE", "0"), ("GS_SUB_QUEUE", "16"), ("GS_TENANT_TPD", None),
+    ("GS_TENANT_TPD", "16"), ("GS_TENANT_TPD", "-2"),
+    ("GS_COHORT_RESIDENT", None), ("GS_COHORT_RESIDENT", "on"),
+    ("GS_COHORT_RESIDENT", "off"), ("GS_COHORT_RESIDENT", "auto")])
 def test_reads_match_jax(monkeypatch, name, raw):
     if raw is not None:
         monkeypatch.setenv(name, raw)
@@ -83,7 +88,8 @@ def test_reads_match_jax(monkeypatch, name, raw):
     ("GS_AUTOTUNE", "maybe"), ("GS_AUTOTUNE_ROUND", "3O"),
     ("GS_RESIDENT", "always"), ("GS_RESIDENT_SLOTS", "two"),
     ("GS_TENANT_ADMISSION", "queue"), ("GS_OOO_BOUND", "1e3"),
-    ("GS_PUMP", "threaded"), ("GS_SERVE_IDLE_S", "soon")])
+    ("GS_PUMP", "threaded"), ("GS_SERVE_IDLE_S", "soon"),
+    ("GS_TENANT_TPD", "all"), ("GS_COHORT_RESIDENT", "yes")])
 def test_malformed_values_raise(monkeypatch, name, raw):
     monkeypatch.setenv(name, raw)
     get = {"int": knobs.get_int, "float": knobs.get_float,
@@ -113,3 +119,31 @@ def test_render_table_is_in_the_readme():
     readme = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "README.md")
     assert knobs.render_table() in open(readme).read()
+
+
+def test_tenant_knobs_and_the_constructor_override(monkeypatch):
+    """GS_TENANT_TPD (int, 0 = auto) and GS_COHORT_RESIDENT (on, off,
+    auto; unset the scan form): their kinds, defaults and choices, and
+    the cohort's `tenants_per_dispatch`, which pins above 0 and reads
+    the knob at 0."""
+    from gelly_streaming_tpu_torch import TenantCohort
+    from gelly_streaming_tpu_torch.core import tenancy
+    from gelly_streaming_tpu_torch.ops import resident_engine
+
+    tpd, res = knobs.REGISTRY["GS_TENANT_TPD"], \
+        knobs.REGISTRY["GS_COHORT_RESIDENT"]
+    assert (tpd.kind, tpd.default, tpd.lo) == ("int", 0, 0)
+    assert (res.kind, res.default, res.choices) == ("str", "",
+                                                    ("on", "off", "auto"))
+    assert tenancy.pinned_tpd() == 0
+    assert not resident_engine.resolve_resident_cohort()
+    co = TenantCohort(64, 128, device="cpu")
+    pinned = TenantCohort(64, 128, device="cpu", tenants_per_dispatch=3)
+    assert co._pinned_tpd() == 0 and pinned._pinned_tpd() == 3
+    monkeypatch.setenv("GS_TENANT_TPD", "5")
+    monkeypatch.setenv("GS_COHORT_RESIDENT", "on")
+    assert tenancy.pinned_tpd() == 5 and co._pinned_tpd() == 5
+    assert pinned._pinned_tpd() == 3
+    assert resident_engine.resolve_resident_cohort()
+    with pytest.raises(ValueError, match="tenants_per_dispatch"):
+        TenantCohort(64, 128, device="cpu", tenants_per_dispatch=-1)
