@@ -4,7 +4,7 @@ NVIDIA GPU.
 
 Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and the
 native host runtime (gelly_streaming_tpu_torch/native, g++) and runs
-thirty-four phases, with the dispatch tuner's cache (GS_TUNE_CACHE) in a
+thirty-five phases, with the dispatch tuner's cache (GS_TUNE_CACHE) in a
 fresh temporary directory. The first twenty-three run with GS_AUTOTUNE=0,
 so their numbers stay comparable across runs (phase cohort_resident's
 (d) sets the tuner itself), and phases hooks_cohort and serve run with
@@ -29,8 +29,10 @@ utils/tier_fixtures.py) and cell_reduce (the windowed reduce's cell-reduce kerne
 sum/min/max × out/in/all × int32/float32 on both wires, full rows and
 the delta wire, at [64, 8192] vb=16384 and [64, 32768] vb=65536, edge
 cases, the plan against its Python mirror, the cell fixtures of
-utils/tier_fixtures.py on both of its read paths, one launch a call, a
-refused call raising KernelError, cohort_step of 64 rows). Fourteen
+utils/tier_fixtures.py on both of its read paths, one launch a call in
+a profile taken first in a child process (`python3 chip_smoke.py
+--cell-reduce-capture`), a refused call raising KernelError, cohort_step
+of 64 rows). Fourteen
 drive the port's paths, each
 with the launch counts set to 0 just before it and read just after,
 every window checked, and each profile holding one summary-body launch
@@ -147,6 +149,20 @@ with nothing quarantined; api_tracing traces the record API's
 reduce_on_edges over the first 262,144 of phase api's 1M edges beside
 its untraced rate, arms the reduce stream's spans, and reports the device_trace
 (torch.profiler) capture of a driver call taken first in the process.
+The last, sharded, drives the sharded engines
+(gelly_streaming_tpu_torch/parallel/) on a one-rank NCCL group made by
+make_mesh() on the card: ShardedTriangleWindowKernel(mesh, 32768, 65536,
+k_bucket=128).count_stream over the north-star stream in both table
+modes, every count equal to phase stream's; ShardedSummaryEngine over
+its first SHARDED_SUMMARY_WINDOWS windows, every summary equal to phase
+summary_stream's and the state to the single-chip engine's there;
+ShardedWindowEngine(mesh, 65536) against the host twin and numpy
+(degrees, CC, bipartite, a triangle table, sliding sum/min/max over
+int32 and float32 and gcd); a state taken half way through the host
+twin and back; the single-chip and sharded count_stream in turns
+(edges/s, idle share from CUDA events). Its launches of the intersect,
+union-find and cell-reduce kernels go on the kernels line as
+"sharded_launches".
 Every main-path phase ends with no demotion in the drivers' logs or the
 process's. Each path reports
 its rate, its launches and
@@ -3394,16 +3410,10 @@ def phase_cell_reduce(dev) -> dict:
     # one launch a call: 64 windows at vb=65536 (more clusters than the
     # card runs at once), 20 calls in a profile: 20 launch calls in its
     # CUDA API rows, and no device row but the kernel's (the profiler
-    # may drop device records in an aged process, never add them)
-    from gelly_streaming_tpu_torch.utils.profiling import device_times
-
-    big = cell_wire(*make_stream(CHUNK * EB, VB, seed=7),
-                    np.ones(CHUNK * EB, np.int32), EB, VB, "all",
-                    "standard", dev)
-    _wall, rows, calls = device_times(
-        lambda: [reduce_call("standard", big, CHUNK, EB, VB + 1, "sum",
-                             "all") for _ in range(20)], launch_calls=True)
-    grid = {k: n for k, (_ms, n) in rows.items()}
+    # may drop device records in an aged process, never add them). The
+    # profile is the first of a fresh process (cell_reduce_capture):
+    # taken here, ~100 s into this one, it has kept none of them
+    calls, grid = cell_reduce_capture()
     require(calls == 20 and grid and all("cell_reduce" in k for k in grid)
             and sum(grid.values()) <= 20,
             "cell_reduce: %d launch calls, device rows %s in 20 calls"
@@ -3430,6 +3440,63 @@ def phase_cell_reduce(dev) -> dict:
              100 * big["share_of_bound"], hub_ms["main"], hub_ms["big"],
              fixtures["calls"], checked, err))
     return dict(main, max_abs_err=err, big=big, hub_ms=hub_ms)
+
+
+CAPTURE_FLAG = "--cell-reduce-capture"
+
+
+_CAPTURE = []                      # the capture child, once started
+
+
+def start_cell_reduce_capture() -> None:
+    """Start the child of cell_reduce_capture (once the kernels are
+    built), so that it runs beside the first phases; it is stopped at
+    exit if it is still running."""
+    import atexit
+
+    if not _CAPTURE:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), CAPTURE_FLAG],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        atexit.register(lambda: proc.poll() is None and proc.kill())
+        _CAPTURE.append(proc)
+
+
+def cell_reduce_capture() -> tuple:
+    """(launch calls, {device row: launches}) of 20 cell-reduce calls at
+    [64, 32768], vb=65536, direction "all", in a child process
+    (`python3 chip_smoke.py --cell-reduce-capture`,
+    cell_reduce_capture_child) whose torch.profiler session is the first
+    of its life; started here unless start_cell_reduce_capture did."""
+    start_cell_reduce_capture()
+    out, err = _CAPTURE[0].communicate(timeout=600)
+    require(_CAPTURE[0].returncode == 0, "cell_reduce capture: exit %d\n%s"
+            % (_CAPTURE[0].returncode, err[-3000:]))
+    got = json.loads(out.strip().splitlines()[-1])
+    return got["launch_calls"], got["device_rows"]
+
+
+def cell_reduce_capture_child() -> int:
+    """The child of cell_reduce_capture: builds the wire, runs the kernel
+    once, then takes the profile of 20 calls and prints one JSON line."""
+    from gelly_streaming_tpu_torch import make_stream
+    from gelly_streaming_tpu_torch.utils.profiling import device_times
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    big = cell_wire(*make_stream(CHUNK * EB, VB, seed=7),
+                    np.ones(CHUNK * EB, np.int32), EB, VB, "all",
+                    "standard", dev)
+
+    def call():
+        return reduce_call("standard", big, CHUNK, EB, VB + 1, "sum", "all")
+
+    call()
+    torch.cuda.synchronize()
+    _wall, rows, calls = device_times(lambda: [call() for _ in range(20)],
+                                      launch_calls=True)
+    print(json.dumps({"launch_calls": calls, "device_rows": {
+        k: n for k, (_ms, n) in rows.items()}}))
+    return 0
 
 
 def cell_fixture_checks(dev, room: int, rng) -> dict:
@@ -6936,11 +7003,344 @@ def phase_api_tracing(dev, api: dict, want_driver: list,
     return out
 
 
+# ----------------------------------------------------------------------
+SHARDED_SUMMARY_WINDOWS = 160      # (b), (d): depth of the summary stream
+                                   # (cut from 320: the script past 400 s)
+SHARDED_ENGINE_WINDOWS = 4         # (c): windows through degrees/CC/bipartite
+SHARDED_PANES = 16                 # (c): panes of the sliding reduce
+SHARDED_PANE_EDGES = 16384         # edges a pane
+SHARDED_WP = 4                     # panes a window
+SHARDED_TABLES = ("replicated", "owner")
+
+
+def oriented_csr(src, dst, n: int):
+    """The oriented CSR of a window ((degree, id) order, deduplicated,
+    rows ascending): (nbr [vb+1, K], a, b) for
+    ShardedWindowEngine.triangles."""
+    src, dst = np.asarray(src, np.int64), np.asarray(dst, np.int64)
+    keep = src != dst
+    lo, hi = np.minimum(src, dst)[keep], np.maximum(src, dst)[keep]
+    und = np.unique(lo * n + hi)
+    lo, hi = und // n, und % n
+    deg = np.bincount(np.concatenate([lo, hi]), minlength=n)
+    rank = np.argsort(np.argsort(deg.astype(np.int64) * n + np.arange(n)))
+    a = np.where(rank[lo] < rank[hi], lo, hi).astype(np.int32)
+    b = np.where(rank[lo] < rank[hi], hi, lo).astype(np.int32)
+    order = np.argsort(a.astype(np.int64) * n + b, kind="stable")
+    a, b = a[order], b[order]
+    counts = np.bincount(a, minlength=n)
+    starts = np.zeros(n + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    k = 8
+    while k < counts.max():
+        k *= 2
+    nbr = np.full((n + 1, k), n, np.int32)
+    nbr[a, np.arange(len(a)) - starts[a]] = b
+    return nbr, a, b
+
+
+def numpy_panes(src, pane, val, vb: int, pb: int, wp: int, name: str):
+    """(win_vals, win_counts, win_abs) of the sliding reduce in numpy:
+    each (pane, vertex) cell reduced, then each window's wp panes
+    combined; empty cells hold the monoid identity (the engines'
+    `_pane_identity`), win_abs the Σ|v| of each window cell."""
+    vbp = vb + 1
+    ids = pane.astype(np.int64) * vbp + src
+    counts = np.bincount(ids, minlength=pb * vbp).reshape(pb, vbp)
+    absum = np.zeros(pb * vbp)
+    np.add.at(absum, ids, np.abs(val.astype(np.float64)))
+    if name == "sum":
+        cells = np.zeros(pb * vbp, val.dtype)
+        np.add.at(cells, ids, val)
+        ident = 0
+    else:
+        big = (np.finfo(val.dtype).max if val.dtype.kind == "f"
+               else np.iinfo(val.dtype).max)
+        ident = big if name == "min" else -big
+        cells = np.full(pb * vbp, ident, val.dtype)
+        (np.minimum if name == "min" else np.maximum).at(cells, ids, val)
+    cells = cells.reshape(pb, vbp)
+    n_w = pb + wp - 1
+    wv = np.full((n_w, vbp), ident, val.dtype)
+    wc = np.zeros((n_w, vbp), np.int64)
+    wa = np.zeros((n_w, vbp))
+    for w in range(n_w):
+        lo, hi = max(w - wp + 1, 0), min(w, pb - 1)
+        part = cells[lo:hi + 1]
+        wv[w] = (part.sum(0, dtype=val.dtype) if name == "sum" else
+                 part.min(0) if name == "min" else part.max(0))
+        wc[w] = counts[lo:hi + 1].sum(0)
+        wa[w] = absum.reshape(pb, vbp)[lo:hi + 1].sum(0)
+    return wv, wc, wa
+
+
+def sharded_window_engine(m, src, dst, counts: list) -> dict:
+    """(c): ShardedWindowEngine(mesh, 65536) over the stream's first
+    windows (degrees, CC, bipartite against the host twin and numpy),
+    the triangle table of window 0 (its count against phase stream's),
+    and sliding_reduce for sum/min/max over int32 and float32 and gcd
+    in the associative tier (against numpy; float sums to 1e-5·Σ|v| a
+    cell). Returns its launches and checks."""
+    from gelly_streaming_tpu_torch import kernels
+    from gelly_streaming_tpu_torch.parallel import host_twin, sharded
+
+    eng = sharded.ShardedWindowEngine(m, VB)
+    twin = host_twin.HostWindowEngine(VB)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for w in range(SHARDED_ENGINE_WINDOWS):
+        s, d = src[w * EB:(w + 1) * EB], dst[w * EB:(w + 1) * EB]
+        got = eng.degrees(s, d)
+        require(np.array_equal(got, twin.degrees(s, d)),
+                "sharded engine: degrees of window %d differ" % w)
+        require(np.array_equal(got, (
+            np.bincount(src[:(w + 1) * EB], minlength=VB)
+            + np.bincount(dst[:(w + 1) * EB], minlength=VB))),
+            "sharded engine: degrees of window %d != numpy" % w)
+        require(np.array_equal(eng.cc_labels(s, d), twin.cc_labels(s, d)),
+                "sharded engine: CC labels of window %d differ" % w)
+        for a, b in zip(eng.bipartite(s, d), twin.bipartite(s, d)):
+            require(np.array_equal(a, b), "sharded engine: bipartite of "
+                    "window %d differs" % w)
+    nbr, a, b = oriented_csr(src[:EB], dst[:EB], VB)
+    tri = eng.triangles(nbr, a, b, np.ones(len(a), bool))
+    require(tri == counts[0], "sharded engine: triangles %d != phase "
+            "stream's %d" % (tri, counts[0]))
+    n = SHARDED_PANES * SHARDED_PANE_EDGES
+    ps = np.asarray(src[:n], np.int32)
+    pane = (np.arange(n) // SHARDED_PANE_EDGES).astype(np.int32)
+    ival = red_values(ps, dst[:n])
+    fval = (ival * np.float32(0.37) - np.float32(11.5)).astype(np.float32)
+    err = 0.0
+    cells = 0
+    for val in (ival, fval):
+        for name in ("sum", "min", "max"):
+            wv, wc = eng.sliding_reduce(ps, pane, val, SHARDED_PANES,
+                                        SHARDED_WP, name=name)
+            want, wantc, wa = numpy_panes(ps, pane, val, VB, SHARDED_PANES,
+                                          SHARDED_WP, name)
+            label = "sliding %s %s" % (name, val.dtype)
+            require(np.array_equal(wc, wantc), label + ": counts differ")
+            occ = wantc > 0
+            cells += int(occ.sum())
+            if name == "sum" and val.dtype == np.float32:
+                diff = np.abs(wv.astype(np.float64) - want)
+                err = max(err, float(diff[occ].max()))
+                require(np.all(diff[occ] <= 1e-5 * wa[occ]),
+                        label + ": past 1e-5 · Σ|v|")
+            else:
+                require(np.array_equal(wv, want), label + ": values differ")
+    gv, gc = eng.sliding_reduce(ps, pane, ival, SHARDED_PANES, SHARDED_WP,
+                                fn=torch.gcd)
+    mv, mc = eng.sliding_reduce(ps, pane, ival, SHARDED_PANES, SHARDED_WP,
+                                name="min")
+    require(np.array_equal(gc, mc), "sliding gcd: counts differ")
+    # gcd of values 1..97 over a cell: checked against numpy's on the
+    # cells of window SHARDED_WP - 1 (its wp panes in full)
+    w = SHARDED_WP - 1
+    ids = ps[:(w + 1) * SHARDED_PANE_EDGES].astype(np.int64)
+    want = np.zeros(VB + 1, np.int64)
+    np.gcd.at(want, ids, ival[:(w + 1) * SHARDED_PANE_EDGES].astype(np.int64))
+    occ = gc[w] > 0
+    require(np.array_equal(gv[w][occ], want[occ]), "sliding gcd: values of "
+            "window %d differ" % w)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"launches": dict(kernels.LAUNCHES), "seconds": seconds,
+            "pane_cells_checked": cells, "float_sum_max_abs_err": err,
+            "triangles_window0": tri}
+
+
+def sharded_turns(m, src, dst, counts: list) -> dict:
+    """(e): count_stream of the single-chip kernel and of the sharded
+    kernel (the replicated table; (a) times the owner mode once) in
+    turns, single, sharded, sharded, single: wall, edges/s and the idle
+    share from CUDA events around each dispatch (event_busy)."""
+    from gelly_streaming_tpu_torch import TriangleWindowKernel
+    from gelly_streaming_tpu_torch.parallel import sharded
+
+    kerns = {"single": TriangleWindowKernel(EB, VB),
+             "sharded": sharded.ShardedTriangleWindowKernel(
+                 m, EB, VB, k_bucket=KB)}
+    for k in kerns.values():
+        k.count_stream(src[:2 * EB], dst[:2 * EB])   # warm-up
+    turns = {k: [] for k in kerns}
+    for name in ("single", "sharded", "sharded", "single"):
+        got = []
+        row = event_busy(lambda: got.append(kerns[name].count_stream(src,
+                                                                     dst)),
+                         lambda: None, [kerns[name]._ring])
+        require(got[0] == counts, "timing turn %s: counts differ" % name)
+        row["edges_per_s"] = STREAM_EDGES / (row["wall_ms"] / 1e3)
+        turns[name].append(row)
+    return turns
+
+
+def phase_sharded(dev, counts: list, summaries: list, state: dict) -> dict:
+    """The sharded engines (gelly_streaming_tpu_torch/parallel/) on a
+    one-rank NCCL group made by make_mesh() on the card, over the bench
+    stream at eb=32768, vb=65536, kb=128: (a)
+    ShardedTriangleWindowKernel.count_stream over the 320 windows in both
+    table modes, every count equal to phase stream's, the launches of
+    rows 1, U and R and the windows that went down the ladder, and a
+    200-clique window recounted down it; (b)
+    ShardedSummaryEngine.process over SHARDED_SUMMARY_WINDOWS windows,
+    every summary and the final state bit-equal to phase
+    summary_stream's; (c) ShardedWindowEngine (sharded_window_engine);
+    (d) a state taken half way, through the host twin and back, the
+    resumed stream equal to (b)'s; (e) sharded_turns. Each path's
+    launches are counted from 0. The group is destroyed at the end."""
+    import torch.distributed as dist
+
+    from gelly_streaming_tpu_torch import StreamSummaryEngine, kernels
+    from gelly_streaming_tpu_torch.parallel import host_twin
+    from gelly_streaming_tpu_torch.parallel import mesh as mesh_mod
+    from gelly_streaming_tpu_torch.parallel import sharded
+
+    require(not dist.is_initialized(), "a process group exists already")
+    t_phase = time.perf_counter()
+    m = mesh_mod.make_mesh()                  # device=None: the card
+    try:
+        require(m.backend == "nccl" and m.device.type == "cuda"
+                and m.size == 1 and m.rank == 0,
+                "mesh %s is not one NCCL rank on the card" % m)
+        src, dst = bench_stream()
+        num_w = STREAM_EDGES // EB
+        res = {"mesh": repr(m), "stream": {}}
+        launches = {}
+        # (a) the triangle stream, both table modes
+        for table in SHARDED_TABLES:
+            kern = sharded.ShardedTriangleWindowKernel(m, EB, VB,
+                                                       k_bucket=KB,
+                                                       table=table)
+            require((kern.eb, kern.vb, kern.kb, kern.cap)
+                    == (EB, VB, KB, EB),
+                    "buckets %s" % ((kern.eb, kern.vb, kern.kb, kern.cap),))
+            kern.count_stream(src[:2 * EB], dst[:2 * EB])   # warm-up
+            torch.cuda.synchronize()
+            ladder = []
+            count = kern.count
+            kern.count = lambda s, d, **kw: (ladder.append(kw), count(s, d,
+                                                                   **kw))[1]
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            got = kern.count_stream(src, dst)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches["stream_" + table] = dict(kernels.LAUNCHES)
+            require(len(got) == num_w and got == counts,
+                    "sharded %s stream: counts differ from phase stream's "
+                    "at windows %s" % (table, [w for w in range(
+                        min(len(got), num_w)) if got[w] != counts[w]][:8]))
+            require(kernels.LAUNCHES["intersect"] >= num_w,
+                    "sharded %s stream: %d intersect launches"
+                    % (table, kernels.LAUNCHES["intersect"]))
+            res["stream"][table] = {
+                "seconds": wall, "edges_per_s": STREAM_EDGES / wall,
+                "ladder_windows": len(ladder),
+                "launches": launches["stream_" + table]}
+            # a window built to overflow kb=128 goes down the ladder
+            cs, cd = clique(CLIQUE, 1000)
+            del ladder[:]
+            got = kern.count_stream(np.concatenate([src[:EB], cs]),
+                                    np.concatenate([dst[:EB], cd]))
+            require(got == [counts[0], math.comb(CLIQUE, 3)]
+                    and len(ladder) == 1,
+                    "sharded %s: the overflow stream gave %s with %d "
+                    "ladder windows" % (table, got, len(ladder)))
+        # (b) the summary engine
+        depth = SHARDED_SUMMARY_WINDOWS * EB
+        eng = sharded.ShardedSummaryEngine(m, EB, VB, k_bucket=KB)
+        eng.process(src[:2 * EB], dst[:2 * EB])          # warm-up
+        eng.reset()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = eng.process(src[:depth], dst[:depth])
+        wall = time.perf_counter() - t0
+        launches["summary"] = dict(kernels.LAUNCHES)
+        require(out == summaries[:SHARDED_SUMMARY_WINDOWS],
+                "sharded summary: summaries differ from phase "
+                "summary_stream's at windows %s" % [
+                    w for w in range(len(out)) if out[w] != summaries[w]][:8])
+        final = eng.state_dict()
+        want = state
+        if SHARDED_SUMMARY_WINDOWS < num_w:    # a cut depth: the prefix's
+            ref = StreamSummaryEngine(EB, VB)
+            ref.process(src[:depth], dst[:depth])
+            want = ref.state_dict()
+        for key in ("edge_bucket", "vertex_bucket", "windows_done",
+                    "closed_partial", "wal_offset"):
+            require(final[key] == want[key], "sharded summary: state %s "
+                    "%s != %s" % (key, final[key], want[key]))
+        for label, a, b in zip(("deg", "labels", "cover"), final["carry"],
+                               want["carry"]):
+            require(np.array_equal(a, b), "sharded summary: final carry "
+                    "%s differs from the single-chip engine's" % label)
+        require(kernels.LAUNCHES["cc_fixpoint"] > 0
+                and kernels.LAUNCHES["intersect"] > 0,
+                "sharded summary: launches %s" % kernels.LAUNCHES)
+        res["summary"] = {"windows": len(out), "seconds": wall,
+                          "edges_per_s": depth / wall,
+                          "cc_rounds_per_window": kernels.LAUNCHES[
+                              "cc_fixpoint"] / max(len(out), 1),
+                          "launches": launches["summary"]}
+        # (c) the window engine
+        c = sharded_window_engine(m, src, dst, counts)
+        launches["engine"] = c.pop("launches")
+        require(launches["engine"]["cell_reduce"] > 0
+                and launches["engine"]["cc_fixpoint"] > 0
+                and launches["engine"]["intersect"] > 0,
+                "sharded engine: launches %s" % launches["engine"])
+        res["engine"] = c
+        # (d) a state taken half way, through the twin and back
+        half = (SHARDED_SUMMARY_WINDOWS // 2) * EB
+        first = sharded.ShardedSummaryEngine(m, EB, VB, k_bucket=KB)
+        head = first.process(src[:half], dst[:half])
+        twin = host_twin.HostSummaryEngine.from_state(first.state_dict())
+        back = sharded.ShardedSummaryEngine(m, EB, VB, k_bucket=KB)
+        back.load_state_dict(twin.state_dict())
+        off = back.resume_offset()
+        require(off == half, "resume offset %d, want %d" % (off, half))
+        tail = back.process(src[off:depth], dst[off:depth])
+        require(head + tail == out, "sharded resume: the resumed stream "
+                "differs from the stream that never stopped")
+        for label, a, b in zip(("deg", "labels", "cover"),
+                               back.state_dict()["carry"], final["carry"]):
+            require(np.array_equal(a, b), "sharded resume: final carry %s "
+                    "differs" % label)
+        # (e) the timing turns, with the static single-chip path
+        with knob_env(GS_AUTOTUNE=0):
+            res["turns"] = sharded_turns(m, src, dst, counts)
+        res["launches"] = launches
+        totals = {k: sum(l[k] for l in launches.values())
+                  for k in ("intersect", "cc_fixpoint", "cell_reduce")}
+        require(all(totals.values()), "phase sharded: launches %s" % totals)
+        res["row_launches"] = totals
+        res["seconds"] = time.perf_counter() - t_phase
+    finally:
+        dist.destroy_process_group()
+    res["device"] = card()
+    print(card())
+    print(json.dumps({"sharded": res}))
+    best = {k: max(r["edges_per_s"] for r in v)
+            for k, v in res["turns"].items()}
+    print("phase sharded: ok  %d windows in both table modes, %d ladder "
+          "windows (and the clique's); summaries of %d windows bit-equal; "
+          "launches %s; best edges/s single %.1f, sharded %.1f  (%.1f s)"
+          % (num_w, res["stream"]["replicated"]["ladder_windows"],
+             len(out), totals, best["single"], best["sharded"],
+             res["seconds"]))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:] == [CAPTURE_FLAG]:
+        return cell_reduce_capture_child()
     import tempfile
 
     # the tuners' cache in a fresh directory: one run never seeds another
@@ -6977,6 +7377,8 @@ def run_phases() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas %s: %s" % (name, line.strip()))
+    # phase cell_reduce's profile, in a process of its own, meanwhile
+    start_cell_reduce_capture()
     from gelly_streaming_tpu_torch import native
 
     t0 = time.perf_counter()
@@ -7100,6 +7502,9 @@ def run_phases() -> int:
     phase_api_tracing(dev, api_launches, driver_got, capture)
     lap("api_tracing")
     no_demotions("phase api_tracing")
+    shard = phase_sharded(dev, counts, summaries, state)
+    lap("sharded")
+    no_demotions("phase sharded")
 
     rows = []
     pw = "gelly_streaming_tpu/ops/pallas_window.py:"
@@ -7143,6 +7548,8 @@ def run_phases() -> int:
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"],
             "library_ms": res.get("library_ms")})
+        if name in shard["row_launches"]:   # phase sharded's, rows 1, U, R
+            rows[-1]["sharded_launches"] = shard["row_launches"][name]
         if name == "cell_reduce":   # the north-star chunk beside the main
             big = res["big"]
             rows[-1].update(

@@ -37,7 +37,10 @@ reduce and cell reduce, window
 layout, the compact wire, the ingress pipeline and staging, the
 intersect, window-counter, window-summary, cohort-summary, GNN-round and
 dense-triangle kernels' wrappers, the union-find, the triangle stream
-and dispatcher, the summary and GNN engines, the numpy oracles), utils/
+and dispatcher, the summary and GNN engines, the numpy oracles),
+parallel/ (the sharded engines on torch.distributed: the mesh, the
+sharded triangle kernel, window and summary engines, the multi-host
+layout, their numpy twins), utils/
 (synthetic streams, the synthetic cit-HepPh stream, the models' summary
 states and event records), kernels.py + csrc/ (CUDA build and binding).
 """

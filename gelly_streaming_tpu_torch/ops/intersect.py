@@ -23,16 +23,21 @@ K_CHUNK = 128       # compare-chunk width, as triangles.intersect_rows
 
 
 def intersect_local_plain(nbr: torch.Tensor, ea: torch.Tensor,
-                          eb: torch.Tensor,
-                          emask: torch.Tensor) -> torch.Tensor:
+                          eb: torch.Tensor, emask: torch.Tensor,
+                          sentinel: int = None) -> torch.Tensor:
     """The chunked broadcast equality compare of the JAX package
     (triangles.py:112-135), on whatever device the tensors lie on.
 
     nbr:   [V+1, K] int32 deduplicated out-neighbor rows, fill = V (row V
            is the pad row); rows need not be sorted.
     ea/eb: [Ep] int32 oriented edge endpoints; emask: [Ep] bool.
+    `sentinel` (default V) is the fill: entries of row a below it count.
+    A table of gathered row pairs (the sharded owner mode) has another
+    number of rows than vertices, so it names its fill (the JAX
+    package's `intersect_rows`, :112).
     Returns a 0-dim int32 tensor."""
-    sentinel = nbr.shape[0] - 1
+    if sentinel is None:
+        sentinel = nbr.shape[0] - 1
     k = nbr.shape[1]
     total = torch.zeros((), dtype=torch.int64, device=nbr.device)
     for e0 in range(0, ea.shape[0] if k else 0, EDGE_CHUNK):
@@ -50,18 +55,21 @@ def intersect_local_plain(nbr: torch.Tensor, ea: torch.Tensor,
 
 def intersect_local(nbr: torch.Tensor, ea: torch.Tensor,
                     eb: torch.Tensor, emask: torch.Tensor,
-                    ascending: bool = False) -> torch.Tensor:
+                    ascending: bool = False,
+                    sentinel: int = None) -> torch.Tensor:
     """Same contract as `intersect_local_plain`: the CUDA kernel for CUDA
     tensors, the plain version for CPU ones. `ascending=True` promises
     that every row is strictly ascending with its fill at the end, which
     lets the kernel merge rows instead of comparing every pair."""
+    if sentinel is None:
+        sentinel = nbr.shape[0] - 1
     if nbr.device.type == "cpu":
-        return intersect_local_plain(nbr, ea, eb, emask)
+        return intersect_local_plain(nbr, ea, eb, emask, sentinel)
     _check(nbr, ea, eb, emask)
     out = torch.empty(1, dtype=torch.int32, device=nbr.device)
     lib = kernels.library("intersect")
     code = lib.gs_intersect(
-        nbr.data_ptr(), nbr.shape[0], nbr.shape[1], nbr.shape[0] - 1,
+        nbr.data_ptr(), nbr.shape[0], nbr.shape[1], sentinel,
         ea.data_ptr(), eb.data_ptr(), emask.data_ptr(), ea.shape[0],
         int(ascending), out.data_ptr(), nbr.device.index,
         kernels.stream_of(out))

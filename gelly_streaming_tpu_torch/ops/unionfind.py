@@ -17,6 +17,17 @@ is what lets the two forms below agree bit for bit:
   above (`plan`). It never runs the plain loop, and the plain loop never
   stands in for it.
 
+With `exchange=` (the sharded engines' elementwise MIN over a process
+group, parallel/sharded.py) the edges are one shard's and the labels are
+replicated: the plain version runs the JAX package's sharded rounds
+(`cc_round`, the exchange, pointer jumping); on the card each round is
+one union-find launch from the replicated labels (carried), then the
+exchange, until a round changes nothing. Both end at the canonical
+labeling of all shards' edges: each round's MIN of per-shard canonical
+labelings points every slot at a smaller slot of its component, its
+partition only coarsens, and at the fixed point every shard's edges and
+forest links lie inside its sets.
+
 Padded edge slots point at the sentinel vertex `num_vertices`.
 """
 
@@ -47,14 +58,15 @@ def cc_round(labels: torch.Tensor, src: torch.Tensor,
 
 
 def cc_fixpoint_plain(labels0: torch.Tensor, src: torch.Tensor,
-                      dst: torch.Tensor,
-                      carried: bool = True) -> torch.Tensor:
+                      dst: torch.Tensor, carried: bool = True,
+                      exchange=None) -> torch.Tensor:
     """`cc_round` + pointer jumping until a round changes nothing, on the
     tensors' device (unionfind.py:47-84). With `carried`, the forest's
     links (v, labels0[v]) join the edges in every round: without them an
     old root that merges into two trees in one round keeps only the
     smaller link and splits its component. Fresh callers (labels0 the
-    identity) pass carried=False."""
+    identity) pass carried=False. `exchange(labels)`, where given, merges
+    each round's labels across shards before the pointer jump."""
     src = src.to(torch.int32)
     dst = dst.to(torch.int32)
     if carried:
@@ -65,6 +77,8 @@ def cc_fixpoint_plain(labels0: torch.Tensor, src: torch.Tensor,
     labels = labels0
     while True:
         new = cc_round(labels, src, dst)
+        if exchange is not None:
+            new = exchange(new)
         new = new[new.long()]
         if torch.equal(new, labels):
             return new
@@ -72,15 +86,33 @@ def cc_fixpoint_plain(labels0: torch.Tensor, src: torch.Tensor,
 
 
 def cc_fixpoint(labels0: torch.Tensor, src: torch.Tensor,
-                dst: torch.Tensor, carried: bool = True) -> torch.Tensor:
+                dst: torch.Tensor, carried: bool = True,
+                exchange=None) -> torch.Tensor:
     """The canonical labeling of labels0 [n] int32 folded with the edges
     (src, dst) [E] int32, as a new tensor: the union-find kernel for CUDA
     tensors, `cc_fixpoint_plain` for CPU ones. On the card, edges with
     an endpoint outside [0, n) are skipped, and without `carried` labels0
     must point each slot at an equal or smaller one (the identity, as
-    fresh callers pass)."""
+    fresh callers pass). With `exchange` (a merge of replicated labels
+    across shards; the module docstring), src/dst are this shard's edges
+    and the result is the labeling of every shard's edges."""
     if labels0.device.type == "cpu":
-        return cc_fixpoint_plain(labels0, src, dst, carried)
+        return cc_fixpoint_plain(labels0, src, dst, carried, exchange)
+    if exchange is None:
+        return _launch_fixpoint(labels0, src, dst, carried)
+    labels = labels0
+    while True:
+        # one launch from the replicated labels, then the merge: every
+        # shard sees the same merged labels, so every shard stops at the
+        # same round
+        new = exchange(_launch_fixpoint(labels, src, dst, carried))
+        if torch.equal(new, labels):
+            return new
+        labels, carried = new, True
+
+
+def _launch_fixpoint(labels0, src, dst, carried: bool) -> torch.Tensor:
+    """One launch of the union-find entry point on checked tensors."""
     _check(labels0, src, dst)
     out = torch.empty_like(labels0)
     lib = kernels.library("window_summary")

@@ -42,7 +42,16 @@ Sites the port fires (each a no-op without a plan: one list test):
     h2d           core/tenancy.py too, before a cohort slab's staging
                   copy (payload=("cohort", ordinal))
 
-The mesh sites come with their owner (ROADMAP step 1.10).
+    shard_dispatch
+                  parallel/sharded.py, before each sharded dispatch
+                  (one firing a dispatch, not a shard; payload=the
+                  shard count)
+    shard_gather  parallel/sharded.py, before the copy back of
+                  replicated sharded outputs (window stacks, engine
+                  state); payload=the shard count
+    shard_wire    parallel/sharded.guard_wire, before a mesh-bound h2d;
+                  payload=(arrays, shard count), so a `call` spec can
+                  corrupt one shard's slice
 
 Actions:
     raise          raise InjectedFault (or `exc` if given). fatal=True

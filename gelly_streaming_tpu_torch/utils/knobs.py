@@ -6,7 +6,8 @@ Port of the JAX package's `utils/knobs.py`: the registry API as it is
 `get_str`, `get_path`, `render_table`; :46-180 and :631-649 there), with
 the knobs the port reads registered under the JAX names, kinds, defaults
 and bounds (:180-625 there): the stage guard's and the demotion
-registry's (`utils/resilience.py`), the dispatch autotuner's
+registry's (`utils/resilience.py`; the sharded engines' wire check,
+`parallel/sharded.py`), the dispatch autotuner's
 (`ops/autotune.py`), the resident tier's (`ops/resident_engine.py`), the
 host hooks' (`utils/telemetry.py`, `metrics.py`, `healthz.py`,
 `wal.py`, `latency.py`, `sanitize.py`, `costmodel.py`, `provenance.py`)
@@ -192,6 +193,12 @@ register("GS_TIER_DEMOTE", "bool", True,
 register("GS_MESH_DEMOTE", "bool", True,
          help="`0` pins a sharded session to the mesh (the "
               "`sharded→scan` rung); subordinate to `GS_TIER_DEMOTE`")
+register("GS_MESH_WIRE_CHECK", "bool", False,
+         help="`1` arms the per-shard range check of every mesh-bound "
+              "h2d stack (`parallel/sharded.guard_wire`): a corrupt "
+              "shard wire raises an error naming the shard instead of "
+              "scattering garbage ids into carried state",
+         default_text="0 (off)")
 
 # dispatch autotuner (ops/autotune.py)
 register("GS_AUTOTUNE", "bool", True,

@@ -20,7 +20,8 @@ Port of the JAX package's `utils/resilience.py`:
 - The demotion registry (`record_demotion`, `demotion_events`,
   `tier_demotion_enabled`, `mesh_demotion_enabled`): a process-global
   log of tier demotions, served on `/healthz`, and the probation knob
-  (`tier_retry_windows`). Its owner is the driver's demotion ladder
+  (`tier_retry_windows`). `mesh_wire_check_enabled` arms the sharded
+  engines' wire check (parallel/sharded.guard_wire). Its owner is the driver's demotion ladder
   (core/driver.py `_maybe_demote`), which never demotes on a device
   error.
 
@@ -288,3 +289,12 @@ def mesh_demotion_enabled() -> bool:
     """GS_MESH_DEMOTE=0 pins a sharded session to the mesh
     (subordinate to GS_TIER_DEMOTE)."""
     return knobs.get_bool("GS_MESH_DEMOTE")
+
+
+def mesh_wire_check_enabled() -> bool:
+    """GS_MESH_WIRE_CHECK=1 arms the sharded engines' h2d wire check
+    (parallel/sharded.guard_wire): every mesh-bound stack is range-checked
+    shard slice by shard slice before it is staged, so a corrupt shard
+    wire raises an error naming the shard instead of scattering
+    out-of-range ids into carried state. Off by default."""
+    return knobs.get_bool("GS_MESH_WIRE_CHECK")

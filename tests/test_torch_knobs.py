@@ -1,6 +1,7 @@
 """The port's knob registry (gelly_streaming_tpu_torch/utils/knobs.py)
 against the JAX package's: every knob the port reads (the stage guard
-and demotion registry, the dispatch autotuner, the resident tier, the
+and demotion registry, the sharded engines' wire check, the dispatch
+autotuner, the resident tier, the
 host hooks, the GNN engines, the driver's probation and slide, the
 cohort's admission, queue, tenants per dispatch, resident tier,
 quarantine and reorder bound, the serving
@@ -17,7 +18,7 @@ from gelly_streaming_tpu_torch.utils import knobs
 SLICE_KNOBS = (
     "GS_STAGE_TIMEOUT_S", "GS_STAGE_RETRIES", "GS_STAGE_BACKOFF_S",
     "GS_TIER_RETRY_WINDOWS", "GS_TIER_DEMOTE", "GS_MESH_DEMOTE",
-    "GS_AUTOTUNE", "GS_AUTOTUNE_ROUND", "GS_AUTOTUNE_EXPLORE",
+    "GS_MESH_WIRE_CHECK", "GS_AUTOTUNE", "GS_AUTOTUNE_ROUND", "GS_AUTOTUNE_EXPLORE",
     "GS_TUNE_CACHE", "GS_RESIDENT", "GS_RESIDENT_SPB", "GS_RESIDENT_SLOTS",
     "GS_TELEMETRY", "GS_TRACE_DIR", "GS_TRACE_RING", "GS_TRACE_DURABLE",
     "GS_METRICS", "GS_METRICS_PORT", "GS_METRICS_SERIES",
@@ -75,7 +76,8 @@ def test_knob_matches_jax(name):
     ("GS_SUB_QUEUE", "0"), ("GS_SUB_QUEUE", "16"), ("GS_TENANT_TPD", None),
     ("GS_TENANT_TPD", "16"), ("GS_TENANT_TPD", "-2"),
     ("GS_COHORT_RESIDENT", None), ("GS_COHORT_RESIDENT", "on"),
-    ("GS_COHORT_RESIDENT", "off"), ("GS_COHORT_RESIDENT", "auto")])
+    ("GS_COHORT_RESIDENT", "off"), ("GS_COHORT_RESIDENT", "auto"),
+    ("GS_MESH_WIRE_CHECK", None), ("GS_MESH_WIRE_CHECK", "1")])
 def test_reads_match_jax(monkeypatch, name, raw):
     if raw is not None:
         monkeypatch.setenv(name, raw)
