@@ -3061,6 +3061,9 @@ RED_BIG_EB = 32768                  # the north-star stream, sum over "all"
 RED_SLIDE = 2048
 CELL_PASSES_VB = 1 << 18            # rows past a cluster's shared memory
 API_EDGES = 1_048_576               # make_stream(API_EDGES, VB, seed=7)
+API_RUN_EDGES = API_EDGES // 2      # phase api's reduce and triangle jobs'
+                                    # prefix (cut, PR 22: the script past
+                                    # 455 s with phase driver_mesh)
 API_TRACE_EDGES = API_EDGES // 4    # phase api_tracing's prefix of it
 API_DEGREE_EDGES = API_EDGES // 4   # phase api's get_degrees prefix
 API_EDGES_PER_MS = 16
@@ -3805,8 +3808,9 @@ def api_graph(P, src, dst, ts):
 
 def phase_api(dev) -> dict:
     """The record API on the card: the nine TestSlice goldens through
-    host and Torch* UDFs; API_EDGES timestamped edges (API_EDGES_PER_MS
-    edges a ms) through slice(512 ms, ALL).reduce_on_edges(
+    host and Torch* UDFs; the first API_RUN_EDGES of API_EDGES timestamped
+    edges (API_EDGES_PER_MS edges a ms) through slice(512 ms,
+    ALL).reduce_on_edges(
     TorchEdgesReduce(name="sum")), every window equal to numpy, launch
     counts set to 0 just before and read just after; WindowTriangleCount
     over the same graph at API_TRI_MS, both routes of triangle_count
@@ -3822,8 +3826,9 @@ def phase_api(dev) -> dict:
     t0 = time.perf_counter()
     api_goldens(dev)
     golden_s = time.perf_counter() - t0
-    src, dst = P.make_stream(API_EDGES, VB, seed=SEED)
-    ts = np.arange(API_EDGES) // API_EDGES_PER_MS
+    src, dst = (a[:API_RUN_EDGES]
+                for a in P.make_stream(API_EDGES, VB, seed=SEED))
+    ts = np.arange(API_RUN_EDGES) // API_EDGES_PER_MS
     res = {"goldens_seconds": golden_s}
 
     # reduce_on_edges over 512 ms tumbling windows, direction ALL
@@ -3841,8 +3846,8 @@ def phase_api(dev) -> dict:
     require(launches["cell_reduce"] == n_win,
             "api: %d cell_reduce launches for %d windows"
             % (launches["cell_reduce"], n_win))
-    res["reduce"] = {"edges": API_EDGES, "windows": n_win,
-                     "seconds": wall, "edges_per_s": API_EDGES / wall,
+    res["reduce"] = {"edges": API_RUN_EDGES, "windows": n_win,
+                     "seconds": wall, "edges_per_s": API_RUN_EDGES / wall,
                      "launches": launches["cell_reduce"]}
     # where its time goes: a 1/8 prefix of the same job, profiled
     k = API_EDGES // 8
@@ -3891,7 +3896,7 @@ def phase_api(dev) -> dict:
             routes[r] += here[r]
         res["triangles_%dms" % size] = {
             "windows": n_w, "routes": here, "seconds": wall,
-            "edges_per_s": API_EDGES / wall,
+            "edges_per_s": API_RUN_EDGES / wall,
             "launches": tri_launches[size]}
     require(routes["dense"] > 0 and routes["sparse"] > 0,
             "triangles: routes %s" % routes)
@@ -3959,7 +3964,8 @@ def check_api_reduce(label: str, records, src, dst, ts) -> int:
 # ----------------------------------------------------------------------
 MODEL_WINDOW_MS = 4096              # the models' merge window (ts = index)
 MODEL_BATCH = 32768                 # the iterative CC's batch
-MODEL_SAMPLE_EDGES = 131072         # the estimators' prefix
+MODEL_SAMPLE_EDGES = 65536          # the estimators' prefix (131072 to
+                                    # PR 21; cut, PR 22)
 MODEL_SAMPLES = 64
 MODEL_STATE_EDGES = 16384           # the samplers' determinism prefix
 SLIDE_EDGES = 2_097_152             # phase driver_slide: the stream's prefix
@@ -7176,10 +7182,25 @@ def sharded_turns(m, src, dst, counts: list) -> dict:
     return turns
 
 
-def phase_sharded(dev, counts: list, summaries: list, state: dict) -> dict:
-    """The sharded engines (gelly_streaming_tpu_torch/parallel/) on a
-    one-rank NCCL group made by make_mesh() on the card, over the bench
-    stream at eb=32768, vb=65536, kb=128: (a)
+def sharded_group():
+    """The one-rank NCCL group of phases sharded and driver_mesh:
+    make_mesh() on the card (device=None), whose caller destroys it."""
+    import torch.distributed as dist
+
+    from gelly_streaming_tpu_torch.parallel import mesh as mesh_mod
+
+    require(not dist.is_initialized(), "a process group exists already")
+    m = mesh_mod.make_mesh()                  # device=None: the card
+    require(m.backend == "nccl" and m.device.type == "cuda"
+            and m.size == 1 and m.rank == 0,
+            "mesh %s is not one NCCL rank on the card" % m)
+    return m
+
+
+def phase_sharded(m, counts: list, summaries: list, state: dict) -> dict:
+    """The sharded engines (gelly_streaming_tpu_torch/parallel/) on the
+    one-rank NCCL group of sharded_group(), over the bench stream at
+    eb=32768, vb=65536, kb=128: (a)
     ShardedTriangleWindowKernel.count_stream over the 320 windows in both
     table modes, every count equal to phase stream's, the launches of
     rows 1, U and R and the windows that went down the ladder, and a
@@ -7189,137 +7210,126 @@ def phase_sharded(dev, counts: list, summaries: list, state: dict) -> dict:
     summary_stream's; (c) ShardedWindowEngine (sharded_window_engine);
     (d) a state taken half way, through the host twin and back, the
     resumed stream equal to (b)'s; (e) sharded_turns. Each path's
-    launches are counted from 0. The group is destroyed at the end."""
-    import torch.distributed as dist
-
+    launches are counted from 0."""
     from gelly_streaming_tpu_torch import StreamSummaryEngine, kernels
     from gelly_streaming_tpu_torch.parallel import host_twin
-    from gelly_streaming_tpu_torch.parallel import mesh as mesh_mod
     from gelly_streaming_tpu_torch.parallel import sharded
 
-    require(not dist.is_initialized(), "a process group exists already")
     t_phase = time.perf_counter()
-    m = mesh_mod.make_mesh()                  # device=None: the card
-    try:
-        require(m.backend == "nccl" and m.device.type == "cuda"
-                and m.size == 1 and m.rank == 0,
-                "mesh %s is not one NCCL rank on the card" % m)
-        src, dst = bench_stream()
-        num_w = STREAM_EDGES // EB
-        res = {"mesh": repr(m), "stream": {}}
-        launches = {}
-        # (a) the triangle stream, both table modes
-        for table in SHARDED_TABLES:
-            kern = sharded.ShardedTriangleWindowKernel(m, EB, VB,
-                                                       k_bucket=KB,
-                                                       table=table)
-            require((kern.eb, kern.vb, kern.kb, kern.cap)
-                    == (EB, VB, KB, EB),
-                    "buckets %s" % ((kern.eb, kern.vb, kern.kb, kern.cap),))
-            kern.count_stream(src[:2 * EB], dst[:2 * EB])   # warm-up
-            torch.cuda.synchronize()
-            ladder = []
-            count = kern.count
-            kern.count = lambda s, d, **kw: (ladder.append(kw), count(s, d,
-                                                                   **kw))[1]
-            kernels.reset_launches()
-            t0 = time.perf_counter()
-            got = kern.count_stream(src, dst)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches["stream_" + table] = dict(kernels.LAUNCHES)
-            require(len(got) == num_w and got == counts,
-                    "sharded %s stream: counts differ from phase stream's "
-                    "at windows %s" % (table, [w for w in range(
-                        min(len(got), num_w)) if got[w] != counts[w]][:8]))
-            require(kernels.LAUNCHES["intersect"] >= num_w,
-                    "sharded %s stream: %d intersect launches"
-                    % (table, kernels.LAUNCHES["intersect"]))
-            res["stream"][table] = {
-                "seconds": wall, "edges_per_s": STREAM_EDGES / wall,
-                "ladder_windows": len(ladder),
-                "launches": launches["stream_" + table]}
-            # a window built to overflow kb=128 goes down the ladder
-            cs, cd = clique(CLIQUE, 1000)
-            del ladder[:]
-            got = kern.count_stream(np.concatenate([src[:EB], cs]),
-                                    np.concatenate([dst[:EB], cd]))
-            require(got == [counts[0], math.comb(CLIQUE, 3)]
-                    and len(ladder) == 1,
-                    "sharded %s: the overflow stream gave %s with %d "
-                    "ladder windows" % (table, got, len(ladder)))
-        # (b) the summary engine
-        depth = SHARDED_SUMMARY_WINDOWS * EB
-        eng = sharded.ShardedSummaryEngine(m, EB, VB, k_bucket=KB)
-        eng.process(src[:2 * EB], dst[:2 * EB])          # warm-up
-        eng.reset()
+    src, dst = bench_stream()
+    num_w = STREAM_EDGES // EB
+    res = {"mesh": repr(m), "stream": {}}
+    launches = {}
+    # (a) the triangle stream, both table modes
+    for table in SHARDED_TABLES:
+        kern = sharded.ShardedTriangleWindowKernel(m, EB, VB,
+                                                   k_bucket=KB,
+                                                   table=table)
+        require((kern.eb, kern.vb, kern.kb, kern.cap)
+                == (EB, VB, KB, EB),
+                "buckets %s" % ((kern.eb, kern.vb, kern.kb, kern.cap),))
+        kern.count_stream(src[:2 * EB], dst[:2 * EB])   # warm-up
         torch.cuda.synchronize()
+        ladder = []
+        count = kern.count
+        kern.count = lambda s, d, **kw: (ladder.append(kw), count(s, d,
+                                                               **kw))[1]
         kernels.reset_launches()
         t0 = time.perf_counter()
-        out = eng.process(src[:depth], dst[:depth])
+        got = kern.count_stream(src, dst)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches["summary"] = dict(kernels.LAUNCHES)
-        require(out == summaries[:SHARDED_SUMMARY_WINDOWS],
-                "sharded summary: summaries differ from phase "
-                "summary_stream's at windows %s" % [
-                    w for w in range(len(out)) if out[w] != summaries[w]][:8])
-        final = eng.state_dict()
-        want = state
-        if SHARDED_SUMMARY_WINDOWS < num_w:    # a cut depth: the prefix's
-            ref = StreamSummaryEngine(EB, VB)
-            ref.process(src[:depth], dst[:depth])
-            want = ref.state_dict()
-        for key in ("edge_bucket", "vertex_bucket", "windows_done",
-                    "closed_partial", "wal_offset"):
-            require(final[key] == want[key], "sharded summary: state %s "
-                    "%s != %s" % (key, final[key], want[key]))
-        for label, a, b in zip(("deg", "labels", "cover"), final["carry"],
-                               want["carry"]):
-            require(np.array_equal(a, b), "sharded summary: final carry "
-                    "%s differs from the single-chip engine's" % label)
-        require(kernels.LAUNCHES["cc_fixpoint"] > 0
-                and kernels.LAUNCHES["intersect"] > 0,
-                "sharded summary: launches %s" % kernels.LAUNCHES)
-        res["summary"] = {"windows": len(out), "seconds": wall,
-                          "edges_per_s": depth / wall,
-                          "cc_rounds_per_window": kernels.LAUNCHES[
-                              "cc_fixpoint"] / max(len(out), 1),
-                          "launches": launches["summary"]}
-        # (c) the window engine
-        c = sharded_window_engine(m, src, dst, counts)
-        launches["engine"] = c.pop("launches")
-        require(launches["engine"]["cell_reduce"] > 0
-                and launches["engine"]["cc_fixpoint"] > 0
-                and launches["engine"]["intersect"] > 0,
-                "sharded engine: launches %s" % launches["engine"])
-        res["engine"] = c
-        # (d) a state taken half way, through the twin and back
-        half = (SHARDED_SUMMARY_WINDOWS // 2) * EB
-        first = sharded.ShardedSummaryEngine(m, EB, VB, k_bucket=KB)
-        head = first.process(src[:half], dst[:half])
-        twin = host_twin.HostSummaryEngine.from_state(first.state_dict())
-        back = sharded.ShardedSummaryEngine(m, EB, VB, k_bucket=KB)
-        back.load_state_dict(twin.state_dict())
-        off = back.resume_offset()
-        require(off == half, "resume offset %d, want %d" % (off, half))
-        tail = back.process(src[off:depth], dst[off:depth])
-        require(head + tail == out, "sharded resume: the resumed stream "
-                "differs from the stream that never stopped")
-        for label, a, b in zip(("deg", "labels", "cover"),
-                               back.state_dict()["carry"], final["carry"]):
-            require(np.array_equal(a, b), "sharded resume: final carry %s "
-                    "differs" % label)
-        # (e) the timing turns, with the static single-chip path
-        with knob_env(GS_AUTOTUNE=0):
-            res["turns"] = sharded_turns(m, src, dst, counts)
-        res["launches"] = launches
-        totals = {k: sum(l[k] for l in launches.values())
-                  for k in ("intersect", "cc_fixpoint", "cell_reduce")}
-        require(all(totals.values()), "phase sharded: launches %s" % totals)
-        res["row_launches"] = totals
-        res["seconds"] = time.perf_counter() - t_phase
-    finally:
-        dist.destroy_process_group()
+        launches["stream_" + table] = dict(kernels.LAUNCHES)
+        require(len(got) == num_w and got == counts,
+                "sharded %s stream: counts differ from phase stream's "
+                "at windows %s" % (table, [w for w in range(
+                    min(len(got), num_w)) if got[w] != counts[w]][:8]))
+        require(kernels.LAUNCHES["intersect"] >= num_w,
+                "sharded %s stream: %d intersect launches"
+                % (table, kernels.LAUNCHES["intersect"]))
+        res["stream"][table] = {
+            "seconds": wall, "edges_per_s": STREAM_EDGES / wall,
+            "ladder_windows": len(ladder),
+            "launches": launches["stream_" + table]}
+        # a window built to overflow kb=128 goes down the ladder
+        cs, cd = clique(CLIQUE, 1000)
+        del ladder[:]
+        got = kern.count_stream(np.concatenate([src[:EB], cs]),
+                                np.concatenate([dst[:EB], cd]))
+        require(got == [counts[0], math.comb(CLIQUE, 3)]
+                and len(ladder) == 1,
+                "sharded %s: the overflow stream gave %s with %d "
+                "ladder windows" % (table, got, len(ladder)))
+    # (b) the summary engine
+    depth = SHARDED_SUMMARY_WINDOWS * EB
+    eng = sharded.ShardedSummaryEngine(m, EB, VB, k_bucket=KB)
+    eng.process(src[:2 * EB], dst[:2 * EB])          # warm-up
+    eng.reset()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.process(src[:depth], dst[:depth])
+    wall = time.perf_counter() - t0
+    launches["summary"] = dict(kernels.LAUNCHES)
+    require(out == summaries[:SHARDED_SUMMARY_WINDOWS],
+            "sharded summary: summaries differ from phase "
+            "summary_stream's at windows %s" % [
+                w for w in range(len(out)) if out[w] != summaries[w]][:8])
+    final = eng.state_dict()
+    want = state
+    if SHARDED_SUMMARY_WINDOWS < num_w:    # a cut depth: the prefix's
+        ref = StreamSummaryEngine(EB, VB)
+        ref.process(src[:depth], dst[:depth])
+        want = ref.state_dict()
+    for key in ("edge_bucket", "vertex_bucket", "windows_done",
+                "closed_partial", "wal_offset"):
+        require(final[key] == want[key], "sharded summary: state %s "
+                "%s != %s" % (key, final[key], want[key]))
+    for label, a, b in zip(("deg", "labels", "cover"), final["carry"],
+                           want["carry"]):
+        require(np.array_equal(a, b), "sharded summary: final carry "
+                "%s differs from the single-chip engine's" % label)
+    require(kernels.LAUNCHES["cc_fixpoint"] > 0
+            and kernels.LAUNCHES["intersect"] > 0,
+            "sharded summary: launches %s" % kernels.LAUNCHES)
+    res["summary"] = {"windows": len(out), "seconds": wall,
+                      "edges_per_s": depth / wall,
+                      "cc_rounds_per_window": kernels.LAUNCHES[
+                          "cc_fixpoint"] / max(len(out), 1),
+                      "launches": launches["summary"]}
+    # (c) the window engine
+    c = sharded_window_engine(m, src, dst, counts)
+    launches["engine"] = c.pop("launches")
+    require(launches["engine"]["cell_reduce"] > 0
+            and launches["engine"]["cc_fixpoint"] > 0
+            and launches["engine"]["intersect"] > 0,
+            "sharded engine: launches %s" % launches["engine"])
+    res["engine"] = c
+    # (d) a state taken half way, through the twin and back
+    half = (SHARDED_SUMMARY_WINDOWS // 2) * EB
+    first = sharded.ShardedSummaryEngine(m, EB, VB, k_bucket=KB)
+    head = first.process(src[:half], dst[:half])
+    twin = host_twin.HostSummaryEngine.from_state(first.state_dict())
+    back = sharded.ShardedSummaryEngine(m, EB, VB, k_bucket=KB)
+    back.load_state_dict(twin.state_dict())
+    off = back.resume_offset()
+    require(off == half, "resume offset %d, want %d" % (off, half))
+    tail = back.process(src[off:depth], dst[off:depth])
+    require(head + tail == out, "sharded resume: the resumed stream "
+            "differs from the stream that never stopped")
+    for label, a, b in zip(("deg", "labels", "cover"),
+                           back.state_dict()["carry"], final["carry"]):
+        require(np.array_equal(a, b), "sharded resume: final carry %s "
+                "differs" % label)
+    # (e) the timing turns, with the static single-chip path
+    with knob_env(GS_AUTOTUNE=0):
+        res["turns"] = sharded_turns(m, src, dst, counts)
+    res["launches"] = launches
+    totals = {k: sum(l[k] for l in launches.values())
+              for k in ("intersect", "cc_fixpoint", "cell_reduce")}
+    require(all(totals.values()), "phase sharded: launches %s" % totals)
+    res["row_launches"] = totals
+    res["seconds"] = time.perf_counter() - t_phase
     res["device"] = card()
     print(card())
     print(json.dumps({"sharded": res}))
@@ -7332,6 +7342,305 @@ def phase_sharded(dev, counts: list, summaries: list, state: dict) -> dict:
              len(out), totals, best["single"], best["sharded"],
              res["seconds"]))
     return res
+
+
+MESH_PREFIX = 64                   # driver_mesh (b)-(d): windows of a prefix
+MESH_CKPT_CALL = 100               # (c): the call the checkpoint is taken in
+MESH_RESUME_TO = 128               # (c): the resumed drivers run to here
+MESH_FAULT_FEED = 8                # (d): windows a call
+MESH_PROBATION = 16                # (d): GS_TIER_RETRY_WINDOWS
+DELTA_FIELDS = ("delta_degrees", "delta_cc", "delta_bipartite")
+STATE_KEYS = ("windows_done", "edges_done", "wal_offset", "edge_bucket",
+              "vertex_bucket", "closed_partial", "vertex_ids", "degrees",
+              "cc", "bip")
+
+
+def same_deltas(name, want, got) -> None:
+    """Every delta field of `got` equal to `want`'s."""
+    require(len(want) == len(got), "%s: %d windows, want %d"
+            % (name, len(got), len(want)))
+    for i, (w, g) in enumerate(zip(want, got)):
+        for f in DELTA_FIELDS:
+            a, b = getattr(w, f), getattr(g, f)
+            require(a is not None and b is not None
+                    and all(np.array_equal(x, y) for x, y in zip(a, b)),
+                    "%s window %d: %s differs" % (name, i, f))
+
+
+def same_state(name, want: dict, got: dict) -> None:
+    """The carried state and cursors of two driver checkpoints equal
+    (either mode: the mesh's "engine" key is built from these)."""
+    for k in STATE_KEYS:
+        a, b = want[k], got[k]
+        require(np.array_equal(a, b) if isinstance(a, np.ndarray)
+                else a == b, "%s: state %s differs" % (name, k))
+
+
+class scan_spans:
+    """CUDA events around every call of a mesh driver's sharded scan (its
+    dispatches take host stacks, no staging ring), into a
+    dispatch_events' spans."""
+
+    def __init__(self, drv, evs):
+        self.drv, self.evs, self.saved = drv, evs, None
+
+    def __enter__(self):
+        fns = self.drv._sharded_scans
+        self.saved = dict(fns)
+
+        def wrap(fn):
+            def run(*a):
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a)
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                self.evs.spans.append((start, end))
+                return out
+            return run
+
+        for k, fn in self.saved.items():
+            fns[k] = wrap(fn)
+        return self
+
+    def __exit__(self, *exc):
+        self.drv._sharded_scans.clear()
+        self.drv._sharded_scans.update(self.saved)
+        return False
+
+
+def mesh_turns(m, src, dst, want: list) -> dict:
+    """(e): the whole stream in one call on a single-chip scan driver and
+    on the mesh driver, in turns single, mesh, mesh, single, each built at
+    vb=65536 and warmed: wall, edges/s and the idle share from CUDA events
+    around each dispatch (the snapshot and triangle dispatches)."""
+    from gelly_streaming_tpu_torch import StreamingAnalyticsDriver
+
+    drivers = {"single": StreamingAnalyticsDriver(
+                   window_ms=1, edge_bucket=EB, vertex_bucket=VB),
+               "mesh": StreamingAnalyticsDriver(
+                   window_ms=1, edge_bucket=EB, vertex_bucket=VB, mesh=m)}
+    for d in drivers.values():
+        d.run_arrays(src[:2 * EB], dst[:2 * EB])        # warm-up
+        d.reset()
+    turns = {k: [] for k in drivers}
+    for name in ("single", "mesh", "mesh", "single"):
+        d = drivers[name]
+        d.reset()
+        got = []
+        stagers = [d._tri_kern()._ring] + (
+            [d._ring] if name == "single" else [])
+        with dispatch_events(stagers) as evs:
+            with scan_spans(d, evs):
+                wall = timed(lambda: got.append(d.run_arrays(src, dst)))
+        busy = evs.busy_ms()
+        same_results("driver_mesh turn " + name, want, got[0])
+        turns[name].append({
+            "wall_ms": 1e3 * wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / (1e3 * wall),
+            "dispatches": len(evs.spans),
+            "edges_per_s": STREAM_EDGES / wall, "method": "cuda_events"})
+        del got
+    no_demotions("driver_mesh turns", *drivers.values())
+    return turns
+
+
+def phase_driver_mesh(m, want: list, counts: list) -> dict:
+    """The driver's mesh branch: StreamingAnalyticsDriver(window_ms=1,
+    edge_bucket=32768, mesh=m) on the one-rank NCCL group of
+    sharded_group(). (a) The 320-window stream fed in DRIVER_FEED calls,
+    so the vertex bucket grows 4096 -> 65536 on the mesh (launch counts
+    set to 0 just before, read just after): every window equal to phase
+    driver's scan run (`want`), its triangles to count_stream's
+    (`counts`), rows U (cc_fixpoint) and 1 (intersect) launched and row S
+    (window_snapshot) not, no demotion. (b) emit_deltas=True over a
+    MESH_PREFIX-window prefix: the deltas equal the single-chip driver's.
+    (c) A mesh checkpoint taken inside a call at window 64 resumed by a
+    fresh mesh driver and by a single-chip scan driver, and a single-chip
+    one resumed onto the mesh: the rest equal, and the final states equal
+    to an uninterrupted single-chip run's. (d) A shard_dispatch fault
+    demoting sharded -> scan mid-stream (record mesh_shape [1]), the scan
+    tier on the card, re-promotion after MESH_PROBATION windows, the
+    results equal throughout; a kernel error and a failed collective
+    raise unwrapped with no demotion. (e) mesh_turns. Returns the
+    launches of (a)."""
+    import tempfile
+
+    from gelly_streaming_tpu_torch import StreamingAnalyticsDriver, kernels
+    from gelly_streaming_tpu_torch.ops import unionfind
+    from gelly_streaming_tpu_torch.parallel import mesh as mesh_mod
+    from gelly_streaming_tpu_torch.utils import faults, resilience
+
+    t_phase = time.perf_counter()
+    src, dst = bench_stream()
+    num_w = STREAM_EDGES // EB
+
+    def on_mesh(**kw):
+        return StreamingAnalyticsDriver(window_ms=1, edge_bucket=EB, mesh=m,
+                                        **kw)
+
+    def single(**kw):
+        return StreamingAnalyticsDriver(window_ms=1, edge_bucket=EB, **kw)
+
+    res = {"mesh": repr(m)}
+    warm = on_mesh()
+    require(warm.device == m.device and warm.device.type == "cuda"
+            and warm.snapshot_tier == "sharded",
+            "mesh driver on %s, tier %s" % (warm.device, warm.snapshot_tier))
+    warm.run_arrays(src[:2 * EB], dst[:2 * EB])
+    torch.cuda.synchronize()
+    del warm
+    # (a) the main path
+    drv = on_mesh()
+    vbs, got, at = [], [], 0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for n in DRIVER_FEED:
+        got += drv.run_arrays(src[at * EB:(at + n) * EB],
+                              dst[at * EB:(at + n) * EB])
+        vbs.append(drv.vb)
+        at += n
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    require(launches["cc_fixpoint"] > 0 and launches["intersect"] > 0,
+            "driver_mesh: rows U and 1 not launched: %s" % launches)
+    require(launches["window_snapshot"] == 0,
+            "driver_mesh: row S launched %d times on the mesh"
+            % launches["window_snapshot"])
+    require(vbs[0] < VB and vbs[-1] == VB and len(set(vbs)) >= 3,
+            "driver_mesh: vertex buckets %s" % vbs)
+    same_results("driver_mesh", want, got)
+    require([r.triangles for r in got] == counts,
+            "driver_mesh: triangles differ from count_stream's")
+    no_demotions("phase driver_mesh (a)", drv)
+    res["main"] = {"windows": len(got), "seconds": wall,
+                   "edges_per_s": STREAM_EDGES / wall,
+                   "vertex_buckets": vbs, "launches": launches,
+                   "cc_rounds_per_window": launches["cc_fixpoint"] / num_w}
+    del got
+    # (b) the deltas over a prefix
+    n64 = MESH_PREFIX * EB
+    wantd = single(emit_deltas=True).run_arrays(src[:n64], dst[:n64])
+    gotd = on_mesh(emit_deltas=True).run_arrays(src[:n64], dst[:n64])
+    same_results("driver_mesh deltas", wantd, gotd)
+    same_deltas("driver_mesh deltas", wantd, gotd)
+    res["deltas_windows"] = len(gotd)
+    del wantd, gotd
+    # (c) checkpoints across the modes, one taken inside a call
+    lo, hi = MESH_PREFIX, MESH_RESUME_TO
+    ref = single()
+    ref.run_arrays(src[:hi * EB], dst[:hi * EB])
+    ref_state = ref.state_dict()
+    resumed = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, make in (("mesh", on_mesh), ("single", single)):
+            first = make()
+            path = os.path.join(tmp, label + ".npz")
+            first.enable_auto_checkpoint(path, every_n_windows=MESH_PREFIX)
+            first.run_arrays(src[:MESH_CKPT_CALL * EB],
+                             dst[:MESH_CKPT_CALL * EB])
+            for into, make2 in ((("mesh", on_mesh), ("single", single))
+                                if label == "mesh" else
+                                (("mesh", on_mesh),)):
+                r = make2()
+                require(r.try_resume(path), "no %s checkpoint" % label)
+                require(r.windows_done == lo, "%s -> %s: resumed at %d"
+                        % (label, into, r.windows_done))
+                rest = r.run_arrays(src[lo * EB:hi * EB], dst[lo * EB:hi * EB])
+                name = "driver_mesh %s checkpoint -> %s" % (label, into)
+                same_results(name, want[lo:hi], rest, offset=lo)
+                st = r.state_dict()
+                same_state(name, ref_state, st)
+                require(st["sharded"] == (into == "mesh"),
+                        "%s: sharded %s" % (name, st["sharded"]))
+                resumed["%s->%s" % (label, into)] = r.windows_done
+    res["resumed"] = resumed
+    # (d) an injected fault: demotion, probation, re-promotion; device
+    # errors raise
+    resilience.reset_demotions()
+    kernels.reset_launches()
+    with knob_env(GS_STAGE_RETRIES=2, GS_STAGE_BACKOFF_S=0.01,
+                  GS_TIER_RETRY_WINDOWS=MESH_PROBATION):
+        d = on_mesh()
+        out, at, live = [], 0, []
+        with faults.inject(faults.FaultSpec(site="shard_dispatch",
+                                            on_call=2, times=1 << 20,
+                                            shard=0)):
+            for _ in range(2):
+                out += d.run_arrays(src[at * EB:(at + MESH_FAULT_FEED) * EB],
+                                    dst[at * EB:(at + MESH_FAULT_FEED) * EB])
+                at += MESH_FAULT_FEED
+                live.append(d._mesh_live())
+        while at < MESH_PREFIX:
+            out += d.run_arrays(src[at * EB:(at + MESH_FAULT_FEED) * EB],
+                                dst[at * EB:(at + MESH_FAULT_FEED) * EB])
+            at += MESH_FAULT_FEED
+            live.append(d._mesh_live())
+        same_results("driver_mesh demoted", want[:MESH_PREFIX], out)
+        log = d.demotion_log()
+        require([(e["from"], e["to"]) for e in log]
+                == [("sharded", "scan"), ("scan", "sharded")],
+                "driver_mesh: demotion log %s" % log)
+        require(log[0]["mesh_shape"] == [1] and log[0]["shard_id"] == 0,
+                "driver_mesh: demotion record %s" % log[0])
+        require(not live[0] and live[-1] and d._mesh_live(),
+                "driver_mesh: live per call %s" % live)
+        require(kernels.LAUNCHES["window_snapshot"] > 0,
+                "driver_mesh: the demoted scan tier did not run on the card")
+        res["demotion"] = {"log": log, "live_per_call": live,
+                           "launches": dict(kernels.LAUNCHES)}
+        resilience.reset_demotions()
+        errors = {}
+        fix = unionfind.cc_fixpoint
+
+        def kernel_error(*a, **kw):
+            raise kernels.KernelError("window_summary: injected launch error")
+
+        real = mesh_mod.dist.all_reduce
+
+        def dead_peer(*a, **kw):
+            raise RuntimeError("injected: the peer closed the connection")
+
+        for label, patch, undo in (
+                ("kernel", lambda: setattr(unionfind, "cc_fixpoint",
+                                           kernel_error),
+                 lambda: setattr(unionfind, "cc_fixpoint", fix)),
+                ("collective", lambda: setattr(mesh_mod.dist, "all_reduce",
+                                               dead_peer),
+                 lambda: setattr(mesh_mod.dist, "all_reduce", real))):
+            e2 = on_mesh()
+            patch()
+            try:
+                e2.run_arrays(src[:2 * EB], dst[:2 * EB])
+                errors[label] = None
+            except Exception as e:            # recorded, then required
+                errors[label] = type(e).__name__
+            finally:
+                undo()
+            no_demotions("driver_mesh %s error" % label, e2)
+        require(errors == {"kernel": "KernelError",
+                           "collective": "CollectiveError"},
+                "driver_mesh: device errors raised %s" % errors)
+        res["device_errors"] = errors
+    # (e) the turns
+    with knob_env(GS_AUTOTUNE=0):
+        res["turns"] = mesh_turns(m, src, dst, want)
+    res["seconds"] = time.perf_counter() - t_phase
+    res["device"] = card()
+    print(card())
+    print(json.dumps({"driver_mesh": res}))
+    best = {k: max(r["edges_per_s"] for r in v)
+            for k, v in res["turns"].items()}
+    print("phase driver_mesh: ok  %d windows fed in %d calls at %.1f "
+          "edges/s, bit-equal to phase driver; deltas, checkpoints both "
+          "ways and a demotion equal; launches U %d, 1 %d, S %d; best "
+          "edges/s single %.1f, mesh %.1f  (%.1f s)"
+          % (num_w, len(DRIVER_FEED), STREAM_EDGES / wall,
+             launches["cc_fixpoint"], launches["intersect"],
+             launches["window_snapshot"], best["single"], best["mesh"],
+             res["seconds"]))
+    return launches
 
 
 def main() -> int:
@@ -7502,9 +7811,18 @@ def run_phases() -> int:
     phase_api_tracing(dev, api_launches, driver_got, capture)
     lap("api_tracing")
     no_demotions("phase api_tracing")
-    shard = phase_sharded(dev, counts, summaries, state)
-    lap("sharded")
-    no_demotions("phase sharded")
+    import torch.distributed as dist
+
+    m = sharded_group()
+    try:
+        shard = phase_sharded(m, counts, summaries, state)
+        lap("sharded")
+        no_demotions("phase sharded")
+        mesh_launches = phase_driver_mesh(m, driver_got, counts)
+        lap("driver_mesh")
+        no_demotions("phase driver_mesh")
+    finally:
+        dist.destroy_process_group()
 
     rows = []
     pw = "gelly_streaming_tpu/ops/pallas_window.py:"
@@ -7550,6 +7868,8 @@ def run_phases() -> int:
             "library_ms": res.get("library_ms")})
         if name in shard["row_launches"]:   # phase sharded's, rows 1, U, R
             rows[-1]["sharded_launches"] = shard["row_launches"][name]
+        if name in ("intersect", "cc_fixpoint"):   # phase driver_mesh's (a)
+            rows[-1]["mesh_driver_launches"] = mesh_launches[name]
         if name == "cell_reduce":   # the north-star chunk beside the main
             big = res["big"]
             rows[-1].update(

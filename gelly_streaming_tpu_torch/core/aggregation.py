@@ -7,8 +7,9 @@ that emits an improved global state after every incoming partial.
 
 Port of the JAX package's `core/aggregation.py`: the per-partition
 window fold is the parallel part; with a device `fold_kernel` it runs as
-one device call per window batch. The multi-chip merge of partials by
-collectives waits for the port's parallel/ (ROADMAP step 1.10).
+one device call per window batch. The merge of partials across chips has
+no code here, as in the JAX module (its :8-13): the SUM and MIN merges
+are fused into the sharded window programs of parallel/sharded.py.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """The columnar streaming analytics driver: the ingest-to-device path.
 
 Port of the JAX package's `core/driver.py` (`WindowResult` :268-303,
-`StreamingAnalyticsDriver` :306-2644), single-chip:
+`StreamingAnalyticsDriver` :306-2644), on one card or on a mesh:
 
     file -> native parse (native/ingest.cpp, io/sources.py)
          -> tumbling event-time windows (Flink's TimeWindow floor) or
@@ -92,10 +92,42 @@ typed error. The triangle flush walks the same ladder
 only the windows not finalized. `demotion_log()` lists the driver's
 demotions and re-promotions.
 
-Not ported yet, raising NotImplementedError where an argument asks for
-it: the mesh and sharded branches (ROADMAP step 1.10). The evidence
-routing of the snapshot tier and the egress waits for step 1.1: `egress`
-is a plain argument and `auto` resolves to the scan tier.
+The mesh branch (`mesh=`, a parallel/mesh.Mesh; the JAX driver's
+:489-531, :1058-1254, :1737-1750, :2028-2074, :2501-2640). Its base tier
+is "sharded": each chunk of up to 64 windows runs
+parallel/sharded.make_sharded_snapshot_scan on the caller's thread, every
+rank staging its slice of the edge axis (an eb the mesh does not divide
+is padded with invalid slots where the JAX driver takes its per-window
+path; the results are the same), the `dispatch` site, the wire check
+(`guard_wire`) and `shard_dispatch` inside the guarded dispatch, so a
+transient fault is retried with a fresh firing, `finalize` and
+`shard_gather` before the copy back. The carry is staged from the
+mirrors at each call's entry in the engines' layouts
+(`engine_state_from_mirrors`), and the mirrors move at every chunk
+boundary from the replicated end state, so they stay the one truth: a
+demotion needs nothing from a failing mesh and a checkpoint never
+touches it. Triangles flush on ShardedTriangleWindowKernel (row 1) while
+the mesh lives. A mesh session always takes full egress, never the
+resident tier or `slide=`, and its scan tuner is single-chip (a
+demotion's). Its ladder is sharded -> scan, both on the card; the
+sharded rung demotes on the failures above (a StageFailed of the
+`dispatch`, `shard_dispatch`, `shard_wire` or `shard_gather` sites whose
+cause is a RuntimeError, OSError or MemoryError; a prep failure of the
+triangle stream), never on a device error or a failed collective
+(parallel/mesh.CollectiveError), which raise as they were raised, so
+every rank stays in lockstep: a fault plan fires alike on every rank, a
+dead peer does not. GS_MESH_DEMOTE=0 pins the rung; re-promotion stages
+the mirrors back into the mesh carry, and a failed probe is recorded and
+restarts probation. The demotion records carry `mesh_shape` and the
+cause's `shard_id`. Checkpoints carry "sharded", "mesh_shape" and the
+"engine" key (the engines' state, built from the mirrors); a mesh driver
+takes the checkpoint's vertex bucket exactly, and either package's
+checkpoint of either mode resumes in either mode
+(`mirrors_from_engine_state`). On a mesh of several ranks only rank 0
+writes files (auto-checkpoints, the journal); every rank reads them.
+
+The evidence routing of the snapshot tier and the egress waits for step
+1.1: `egress` is a plain argument and `auto` resolves to the scan tier.
 """
 
 from __future__ import annotations
@@ -141,6 +173,8 @@ _CARRIED = ("degrees", "cc", "bipartite")
 # the tiers on the card: a driver pinned to one of them demotes only to
 # the next of them (the ladder below them is SNAPSHOT_TIERS, top down)
 _DEVICE_TIERS = ("resident", "scan")
+# a mesh session's ladder: the sharded scan, then the scan tier
+_MESH_TIERS = ("sharded", "scan")
 
 
 def resolve_snapshot_tier() -> str:
@@ -208,7 +242,10 @@ class StreamingAnalyticsDriver:
     count-based windows slide: one WindowResult every `slide` edges
     (GS_SLIDE where it is None). With no `snapshot_tier`,
     `resolve_snapshot_tier()` picks it. `tenant` labels the driver's
-    hook records; `tracing=True` keeps a StepTimer (`trace_report`)."""
+    hook records; `tracing=True` keeps a StepTimer (`trace_report`).
+    `mesh` (a parallel.mesh.Mesh this rank is a member of) runs the
+    carried analytics and the triangles over it: the driver's device is
+    the mesh's, its base tier "sharded" (module docstring)."""
 
     ANALYTICS = ("degrees", "cc", "bipartite", "triangles")
     _SCAN_CHUNK = 64                    # windows per snapshot call
@@ -229,13 +266,17 @@ class StreamingAnalyticsDriver:
         unknown = set(analytics) - set(self.ANALYTICS)
         if unknown:
             raise ValueError(f"unknown analytics: {sorted(unknown)}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported yet (ROADMAP step 1.10)")
+        if snapshot_tier is not None and snapshot_tier not in SNAPSHOT_TIERS:
+            raise ValueError(f"unknown snapshot_tier: {snapshot_tier!r}")
+        # the JAX driver's refusals, in its order, before any use of the
+        # mesh
+        if snapshot_tier == "resident" and mesh is not None:
+            raise ValueError(
+                "the resident tier is single-chip: a mesh session's base "
+                "tier is the sharded scan (its demotion ladder re-enters on "
+                "scan, never resident)")
         tier = (resolve_snapshot_tier() if snapshot_tier is None
                 else snapshot_tier)
-        if tier not in SNAPSHOT_TIERS:
-            raise ValueError(f"unknown snapshot_tier: {snapshot_tier!r}")
         if tier == "native" and not native.available():
             raise ValueError("native snapshot tier pinned but the native "
                              "library is unavailable: %s"
@@ -243,7 +284,28 @@ class StreamingAnalyticsDriver:
         egress = "full" if egress is None else egress
         if egress not in delta_egress.EGRESS:
             raise ValueError(f"unknown egress: {egress!r}")
-        self.device = resolve_device(device)
+        if slide is None:
+            slide = knobs.get_int("GS_SLIDE")
+        slide = int(slide) if slide else None
+        if slide is not None and mesh is not None:
+            raise ValueError(
+                "sliding windows are single-chip: the sharded scan cuts "
+                "whole-window slabs across the mesh (compose panes "
+                "upstream or drop slide=)")
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            if not mesh.member:
+                raise ValueError("this rank is not in the mesh %s"
+                                 % (mesh.shape,))
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError("device %s disagrees with the mesh's "
+                                 "device %s" % (device, mesh.device))
+            # the mesh's base tier and egress (the JAX driver's
+            # _base_tier, _scan_egress)
+            self.device = mesh.device
+            tier, egress = "sharded", "full"
         # the stream this driver serves, in its hook records
         self.tenant = None if tenant is None else str(tenant)
         self.timer = StepTimer() if tracing else None
@@ -255,9 +317,6 @@ class StreamingAnalyticsDriver:
         self.emit_deltas = bool(emit_deltas)
         self.vb = seg_ops.bucket_size(vertex_bucket)
         self.eb = seg_ops.bucket_size(edge_bucket)
-        if slide is None:
-            slide = knobs.get_int("GS_SLIDE")
-        slide = int(slide) if slide else None
         if slide is not None and (seg_ops.bucket_size(slide) != slide
                                   or self.eb % slide != 0):
             raise ValueError(
@@ -267,7 +326,8 @@ class StreamingAnalyticsDriver:
         # its own checkpoints (the JAX driver keeps eb and refuses them)
         self.slide = slide if slide != self.eb else None
         self._wp = (self.eb // slide) if slide else 1  # panes a window
-        self._tri_kernels = {}     # stream tier -> TriangleWindowKernel
+        self._tri_kernels = {}     # stream tier ("sharded") -> its kernel
+        self._sharded_scans = {}   # vb -> make_sharded_snapshot_scan's fn
         self._tri_pending = None   # the call's triangle windows (transient)
         self._per_window = False   # the call takes the JAX per-window path
         self._snaps = {}           # (vb, egress, cap) -> WindowSnapshot
@@ -364,7 +424,7 @@ class StreamingAnalyticsDriver:
         are written only once every window they cover has been yielded
         (_stage_ckpt), so a crash re-emits windows, never drops them.
         The file is its own journal: a journal-armed driver refuses."""
-        if self._wal is not None:
+        if self._wal_dir is not None:
             # wal_offset is edges_done, and a file's edges are never
             # journaled: mixing the two sources would let recovery skip
             # journaled edges
@@ -592,6 +652,9 @@ class StreamingAnalyticsDriver:
             for at in self._chunks(num_w):
                 finalize(at, self._SCAN_CHUNK, {}, (None, None, None))
             return
+        if tier == "sharded":
+            self._scan_sharded(interned, finalize)
+            return
         if tier in ("scan", "resident"):
             self._scan_device(interned, finalize, tier == "resident")
             return
@@ -618,6 +681,94 @@ class StreamingAnalyticsDriver:
                      tuple(None if a is None else a.copy() for a in carry))
 
     # ------------------------------------------------------------------
+    # the mesh branch (the JAX driver's :1058-1077, :1195-1254, :1737-1750)
+    # ------------------------------------------------------------------
+    def _mesh_live(self) -> bool:
+        """True while the sharded scan is the tier: a mesh driver that
+        no demotion has moved onto the scan tier."""
+        return self.mesh is not None and self._demoted_tier is None
+
+    def _mesh_shape(self):
+        """Ranks per mesh axis, as the demotion records and checkpoints
+        give them; None on one card."""
+        return (None if self.mesh is None
+                else [int(x) for x in self.mesh.layout.shape])
+
+    def _writes_files(self) -> bool:
+        """Only the mesh's rank 0 writes the driver's files (the
+        auto-checkpoints, the journal): every rank holds the same state,
+        and n ranks must not write one path at once."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _sync_engine_from_mirrors(self) -> tuple:
+        """The re-promotion probe: the mirrors staged into a mesh carry
+        (a failure here restarts probation; `_effective_tier`)."""
+        return self._stage_mesh_carry()
+
+    def _stage_mesh_carry(self) -> tuple:
+        """The mesh carry (degrees [vb+2], labels [vb+2], cover [2vb+2],
+        int32 on this rank's device) staged from the mirrors, at every
+        sharded call's entry."""
+        st = engine_state_from_mirrors(self.vb, self._degrees, self._cc,
+                                       self._bip, self._mesh_shape())
+        cov = st.get("bip_labels")
+        if cov is None:
+            cov = np.arange(2 * self.vb + 2, dtype=np.int32)
+        return tuple(self.mesh.put(a) for a in (st["degree_state"],
+                                                st["labels"], cov))
+
+    def _scan_sharded(self, interned, finalize) -> None:
+        """The sharded tier: chunks of _SCAN_CHUNK windows on the
+        caller's thread through parallel/sharded.make_sharded_snapshot_scan
+        over a carry staged from the mirrors. The `dispatch` site, the
+        wire check and `shard_dispatch` run inside the guarded dispatch
+        (retried under GS_STAGE_RETRIES with a fresh firing; never a
+        deadline thread, which could issue collectives after it was
+        abandoned); the `finalize` and `shard_gather` sites before the
+        copy back. Each chunk's end state refreshes the mirrors at its
+        boundary."""
+        from ..parallel import sharded
+
+        vb, n = self.vb, self.mesh.size
+        fn = self._sharded_scans.get(vb)
+        if fn is None:      # one bucket at a time: the last one's is dropped
+            fn = sharded.make_sharded_snapshot_scan(
+                self.mesh, vb, self.analytics, deltas=self.emit_deltas)
+            self._sharded_scans = {vb: fn}
+        carry = self._stage_mesh_carry()
+        want = tuple(a in self.analytics for a in _CARRIED)
+        for at in self._chunks(len(interned)):
+            chunk = interned[at:at + self._SCAN_CHUNK]
+            arrays = seg_ops.stack_window_rows(
+                [(s, d) for _w, s, d, _n in chunk], len(chunk),
+                self.eb, vb)
+
+            def dispatch(arrays=arrays, carry_in=carry):
+                faults.fire("dispatch")
+                s_w, d_w = sharded.guard_wire(arrays[:2], n, vb + 1)
+                sharded.fire_shard_dispatch(n)
+                return fn(carry_in, s_w, d_w, arrays[2])
+
+            with self._chunk_step("snapshot_scan", chunk, closes=False):
+                carry, outs = resilience.call_guarded("dispatch", at,
+                                                      dispatch, timeout=0)
+                copies = {k: HostCopy(v) for k, v in outs.items()}
+                ends = [HostCopy(t) if on else None
+                        for t, on in zip(carry, want)]
+            with self._chunk_step("snapshot_wait", chunk):
+                self._fire_site("finalize", at, retries=0)
+                self._fire_site("shard_gather", at, retries=0, payload=n)
+                outs = {k: c.numpy().copy() for k, c in copies.items()}
+                deg, lab, cov = (None if c is None else c.numpy()
+                                 for c in ends)
+            st = ({"dispatch": latency.clock()}
+                  if latency.enabled() and not self._per_window else None)
+            finalize(at, self._SCAN_CHUNK, outs, (
+                None if deg is None else deg[:vb].copy(),
+                None if lab is None else lab[:vb].copy(),
+                None if cov is None else cov[:2 * vb].copy()), st)
+
+    # ------------------------------------------------------------------
     # the demotion ladder (the JAX driver's _effective_tier,
     # _maybe_demote, demotion_log; :1079-1187, :1256)
     # ------------------------------------------------------------------
@@ -625,17 +776,34 @@ class StreamingAnalyticsDriver:
         """The tier the next chunk runs on: the demoted one, or after
         GS_TIER_RETRY_WINDOWS windows of probation there, the pinned
         tier again (a repeat failure demotes again and restarts
-        probation)."""
+        probation). A mesh session's probe stages the mirrors into the
+        mesh carry first: a host-side failure there (RuntimeError,
+        OSError, MemoryError; not a device error) is recorded as a failed
+        probe and restarts probation on the demoted tier."""
         if self._demoted_tier is None:
             return self.snapshot_tier
         n = resilience.tier_retry_windows()
         if not (n and self.windows_done - self._demoted_at >= n):
             return self._demoted_tier
+        prev = self._demoted_tier
+        if self.mesh is not None:
+            try:
+                self._sync_engine_from_mirrors()
+            except (RuntimeError, OSError, MemoryError) as e:
+                if resilience.is_device_error(e):
+                    raise
+                self._demotions.append(resilience.record_demotion(
+                    "snapshot", prev, prev, self.windows_done,
+                    "re-promotion probe failed (%s: %s); probation "
+                    "restarted" % (type(e).__name__, e),
+                    mesh_shape=self._mesh_shape(), tenant=self.tenant))
+                self._demoted_at = self.windows_done
+                return prev
         event = resilience.record_demotion(
-            "snapshot", self._demoted_tier, self.snapshot_tier,
+            "snapshot", prev, self.snapshot_tier,
             self.windows_done, "re-promotion probe after %d probation "
             "windows" % (self.windows_done - self._demoted_at),
-            tenant=self.tenant)
+            mesh_shape=self._mesh_shape(), tenant=self.tenant)
         self._demotions.append(event)
         if self.timer:
             self.timer.event("tier_repromotion", event)
@@ -653,23 +821,30 @@ class StreamingAnalyticsDriver:
         fault site demotes when its cause is a RuntimeError, OSError or
         MemoryError (a semantic error, ValueError or TypeError, is a bug
         to surface). The rungs below a tier on the card are on the card
-        only: resident -> scan. GS_TIER_DEMOTE=0 pins the tier."""
+        only: resident -> scan, and a mesh session's sharded -> scan (a
+        failed collective is a device error: it never demotes).
+        GS_TIER_DEMOTE=0 pins the tier, GS_MESH_DEMOTE=0 the sharded
+        one."""
         if resilience.is_device_error(err) \
                 or not resilience.tier_demotion_enabled() \
                 or getattr(err, "stage", None) == "h2d":
+            return False
+        if tier == "sharded" and not resilience.mesh_demotion_enabled():
             return False
         if getattr(err, "stage", None) not in ("queued", "prep") and not (
                 isinstance(err, resilience.StageFailed) and isinstance(
                     err.__cause__, (RuntimeError, OSError, MemoryError))):
             return False
-        ladder = (_DEVICE_TIERS if self.snapshot_tier in _DEVICE_TIERS
+        ladder = (_MESH_TIERS if self.mesh is not None
+                  else _DEVICE_TIERS if self.snapshot_tier in _DEVICE_TIERS
                   else SNAPSHOT_TIERS)
         for nxt in ladder[ladder.index(tier) + 1:]:
             if nxt == "native" and not native.available():
                 continue
             event = resilience.record_demotion(
-                "snapshot", tier, nxt, self.windows_done,
-                "%s: %s" % (type(err).__name__, err), tenant=self.tenant)
+                "snapshot", tier, nxt, self.windows_done, _reason(err),
+                mesh_shape=self._mesh_shape(), shard_id=_shard_of(err),
+                tenant=self.tenant)
             self._demotions.append(event)
             if self.timer:
                 self.timer.event("tier_demotion", event)
@@ -683,14 +858,16 @@ class StreamingAnalyticsDriver:
         log is `resilience.demotion_events()`)."""
         return list(self._demotions)
 
-    def _fire_site(self, site: str, at: int, retries=None) -> None:
-        """The host-side fault site `site` of the chunk at `at`, on the
-        caller's thread before its launch: inline (timeout=0, never on
-        a watchdog thread), an injected failure typed as StageFailed.
-        A no-op without a fault plan."""
+    def _fire_site(self, site: str, at: int, retries=None,
+                   payload=None) -> None:
+        """The host-side fault site `site` of the chunk at `at` (with
+        `payload`), on the caller's thread before its launch or copy
+        back: inline (timeout=0, never on a watchdog thread), an injected
+        failure typed as StageFailed. A no-op without a fault plan."""
         if faults.active() is not None:
-            resilience.call_guarded(site, at, lambda: faults.fire(site),
-                                    retries=retries, timeout=0)
+            resilience.call_guarded(
+                site, at, lambda: faults.fire(site, payload),
+                retries=retries, timeout=0)
 
     # ------------------------------------------------------------------
     # tracing (utils/tracing.StepTimer; the JAX driver's _step :2076)
@@ -1242,6 +1419,7 @@ class StreamingAnalyticsDriver:
         self.windows_done += len(chunk)
         self.edges_done += edges
         metrics.mark_window(len(chunk), edges, engine="driver", tier=tier,
+                            mesh_shape=self._mesh_shape(),
                             tenant=self.tenant)
         if closes_partial:
             self._closed_partial = True
@@ -1280,10 +1458,10 @@ class StreamingAnalyticsDriver:
             self._tri_pending = None
 
     def _flush_triangle_windows(self, windows) -> list:
-        """Count the flush's windows down the snapshot tier's ladder: a
-        demotable failure of one rung demotes, and the next rung counts
-        only the windows the failed one had not finalized (its
-        `drained_counts`)."""
+        """Count the flush's windows down the snapshot tier's ladder (the
+        sharded kernel while the mesh lives): a demotable failure of one
+        rung demotes, and the next rung counts only the windows the
+        failed one had not finalized (its `drained_counts`)."""
         done: list = []
         while True:
             kern = self._tri_kern()
@@ -1295,10 +1473,23 @@ class StreamingAnalyticsDriver:
                     raise
                 done += list(kern.drained_counts or [])
 
-    def _tri_kern(self) -> tri_ops.TriangleWindowKernel:
+    def _tri_kern(self):
         """The triangle kernel at the current buckets on the stream tier
-        of the current snapshot tier (the device kernel on the scan and
+        of the current snapshot tier (ShardedTriangleWindowKernel over
+        the mesh while it lives, the device kernel on the scan and
         resident tiers, the native or host counter on theirs)."""
+        if self._mesh_live():
+            from ..parallel import mesh as mesh_mod
+            from ..parallel import sharded
+
+            k = self._tri_kernels.get("sharded")
+            if k is None or (k.eb, k.vb) != (
+                    mesh_mod.mesh_padded_len(self.eb, self.mesh), self.vb):
+                k = self._tri_kernels["sharded"] = \
+                    sharded.ShardedTriangleWindowKernel(
+                        self.mesh, edge_bucket=self.eb,
+                        vertex_bucket=self.vb)
+            return k
         tier = _TRIANGLE_TIER[self._demoted_tier or self.snapshot_tier]
         k = self._tri_kernels.get(tier)
         if k is None or (k.eb, k.vb) != (self.eb, self.vb):
@@ -1387,8 +1578,9 @@ class StreamingAnalyticsDriver:
         """Write a checkpoint, then let the journal's retention cursor
         drop what only older generations needed (it moves only at a
         flushed checkpoint's wal_offset)."""
-        with self._step("checkpoint", 0):
-            checkpoint.save(self._ckpt_path, state)
+        if self._writes_files():
+            with self._step("checkpoint", 0):
+                checkpoint.save(self._ckpt_path, state)
         self._wal_retention.flushed(self._wal, self.tenant or "driver",
                                     int(state["wal_offset"]))
 
@@ -1438,11 +1630,14 @@ class StreamingAnalyticsDriver:
         `resume_and_replay(ckpt)` restores the newest checkpoint and
         feeds the journal past its `wal_offset` again, giving the lost
         windows bit-exactly. A journal-armed driver refuses
-        stream_file(). False (a no-op) under GS_WAL=0."""
+        stream_file(). False (a no-op) under GS_WAL=0. On a mesh of
+        several ranks only rank 0 writes the journal; every rank replays
+        it."""
         if not wal_mod.enabled():
             return False
         self._wal_dir = directory
-        self._wal = wal_mod.WriteAheadLog(directory)
+        self._wal = (wal_mod.WriteAheadLog(directory)
+                     if self._writes_files() else None)
         return True
 
     def seal_wal(self) -> None:
@@ -1483,17 +1678,19 @@ class StreamingAnalyticsDriver:
         return self.timer.report() if self.timer else []
 
     def state_dict(self) -> dict:
-        """The JAX driver's checkpoint keys and layouts (single-chip), as
-        of the last finalized window: the vertex table ends at its slots,
-        not at the slots a call interned ahead, so a driver resumed from a
-        checkpoint inside a call gives the uninterrupted run's arrays.
-        Sliding, the pane ring rides along, so a resumed stream composes
-        the same triangle slabs."""
+        """The JAX driver's checkpoint keys and layouts, as of the last
+        finalized window: the vertex table ends at its slots, not at the
+        slots a call interned ahead, so a driver resumed from a checkpoint
+        inside a call gives the uninterrupted run's arrays. Sliding, the
+        pane ring rides along, so a resumed stream composes the same
+        triangle slabs. A mesh driver adds "sharded", "mesh_shape" and
+        the "engine" key, the sharded engines' state built from the
+        mirrors (it never touches the mesh)."""
         state = {
             "window_ms": self.window_ms,
             "analytics": list(self.analytics),
-            "sharded": False,
-            "mesh_shape": None,
+            "sharded": self.mesh is not None,
+            "mesh_shape": self._mesh_shape(),
             "windows_done": self.windows_done,
             "edges_done": self.edges_done,
             "wal_offset": self.edges_done,
@@ -1509,6 +1706,10 @@ class StreamingAnalyticsDriver:
             state["slide"] = self.slide
             state["pane_ring_src"] = [s.copy() for s, _d in self._pane_ring]
             state["pane_ring_dst"] = [d.copy() for _s, d in self._pane_ring]
+        if self.mesh is not None:
+            state["engine"] = engine_state_from_mirrors(
+                self.vb, self._degrees, self._cc, self._bip,
+                self._mesh_shape())
         # the tuners' learned state, as the JAX driver keys it
         if self._scan_tuner is not None:
             state["autotune"] = self._scan_tuner.state_dict()
@@ -1517,16 +1718,18 @@ class StreamingAnalyticsDriver:
         return state
 
     def load_state_dict(self, state: dict) -> None:
+        """Either package's checkpoint of either mode: a mesh
+        checkpoint's "engine" state becomes the mirrors
+        (`mirrors_from_engine_state`), which a mesh driver stages into
+        its carry at its next call. A mesh driver takes the checkpoint's
+        vertex bucket exactly, a single-chip one keeps a larger
+        constructor bucket; tuner states load on one card only."""
         if state["window_ms"] != self.window_ms:
             raise ValueError("window size mismatch")
         if tuple(state["analytics"]) != self.analytics:
             raise ValueError(
                 f"analytics mismatch: checkpoint has "
                 f"{state['analytics']}, driver runs {list(self.analytics)}")
-        if state.get("sharded") or "engine" in state:
-            raise NotImplementedError(
-                "a mesh checkpoint needs the sharded driver (ROADMAP "
-                "step 1.10)")
         ckpt_slide = state.get("slide")
         if (int(ckpt_slide) if ckpt_slide else None) != self.slide:
             # pane cuts are governed by slide as window cuts are by eb
@@ -1552,23 +1755,99 @@ class StreamingAnalyticsDriver:
             # count-based windows are cut by eb: resume with the same cut
             self.eb = int(state["edge_bucket"])
         if "vertex_bucket" in state:
-            # a larger constructor bucket stays (the mirrors re-lay out)
-            self.vb = max(self.vb, int(state["vertex_bucket"]))
+            # a mesh takes the checkpoint's bucket; on one card a larger
+            # constructor bucket stays (the mirrors re-lay out)
+            ckpt_vb = int(state["vertex_bucket"])
+            self.vb = ckpt_vb if self.mesh is not None else max(self.vb,
+                                                                ckpt_vb)
         self.interner.intern_array(np.asarray(state["vertex_ids"],
                                               np.int64))
         self._nv_done = len(self.interner)
         self._degrees = np.array(state["degrees"])
         self._cc = np.array(state["cc"])
         self._bip = np.array(state["bip"])
+        if "engine" in state:
+            # a mesh checkpoint: the engines' state is the truth
+            deg, lab, bip = mirrors_from_engine_state(state["engine"],
+                                                      self._nv_done)
+            self._degrees, self._cc = deg, lab
+            if bip is not None:
+                self._bip = bip
         self._ensure_buckets(len(state["vertex_ids"]), 1)
-        # either package's tuner state (inert with GS_AUTOTUNE=0)
+        # either package's tuner state (inert with GS_AUTOTUNE=0); the
+        # scan tier's tuners are single-chip
         for key, ensure in (("autotune", self._ensure_scan_tuner),
                             ("autotune_resident",
                              self._ensure_resident_tuner)):
-            if state.get(key) is not None:
+            if state.get(key) is not None and self.mesh is None:
                 tuner = ensure()
                 if tuner is not None:
                     tuner.load_state_dict(state[key])
+
+
+def engine_state_from_mirrors(vb: int, degrees, cc, bip,
+                              mesh_shape=None) -> dict:
+    """The sharded engines' state (parallel/sharded.ShardedWindowEngine's
+    `state_dict` keys: "vb", "mesh_shape", "degree_state" and "labels"
+    [vb+2], "bip_labels" [2vb+2] where the cover mirror is not empty)
+    from the driver's mirrors (degrees [nv], labels [nv], the cover
+    [2·vb'] at any vb' ≤ vb, which is laid out again at vb): the JAX
+    driver's `_engine_state_from_mirrors` (:1227-1248). The sentinel
+    slots take their identities, degree 0 and their own label, as the
+    JAX batched path leaves them: they absorb padding and feed no
+    output."""
+    st = {"vb": vb, "mesh_shape": mesh_shape}
+    deg = np.zeros(vb + 2, np.int32)
+    deg[:len(degrees)] = degrees
+    lab = np.arange(vb + 2, dtype=np.int32)
+    lab[:len(cc)] = cc
+    st["degree_state"], st["labels"] = deg, lab
+    if len(bip):
+        if len(bip) != 2 * vb:
+            bip = StreamingAnalyticsDriver._grow_cover(bip, vb)
+        cov = np.arange(2 * vb + 2, dtype=np.int32)
+        cov[:2 * vb] = bip
+        st["bip_labels"] = cov
+    return st
+
+
+def mirrors_from_engine_state(state: dict, nv: int) -> tuple:
+    """(degrees int64 [nv], labels int32 [nv], cover int32 [2·vb] or None
+    where the state has none) from the sharded engines' state, which is
+    replicated, so any mesh width's: the JAX driver's
+    `_absorb_engine_state` (:1195-1225)."""
+    cov = state.get("bip_labels")
+    return (np.asarray(state["degree_state"])[:nv].astype(np.int64),
+            np.asarray(state["labels"])[:nv].astype(np.int32),
+            None if cov is None
+            else np.asarray(cov)[:len(cov) - 2].astype(np.int32))
+
+
+def _reason(err: BaseException) -> str:
+    """A demotion's reason: the error's first line, and its root cause's
+    where the first line does not hold it (a worker's failure carries a
+    traceback, which the record's 500 characters would cut)."""
+    root, seen = err, set()
+    while root.__cause__ is not None and id(root) not in seen:
+        seen.add(id(root))
+        root = root.__cause__
+    head = "%s: %s" % (type(err).__name__, str(err).split("\n", 1)[0])
+    tail = str(root).split("\n", 1)[0]
+    if root is not err and tail not in head:
+        head += " <- %s: %s" % (type(root).__name__, tail)
+    return head
+
+
+def _shard_of(err: BaseException):
+    """The shard a failure names: the first `shard` along its cause
+    chain (an InjectedFault of a mesh site), else None."""
+    seen = set()
+    while err is not None and id(err) not in seen:
+        seen.add(id(err))
+        if getattr(err, "shard", None) is not None:
+            return err.shard
+        err = err.__cause__
+    return None
 
 
 def _stack_specs(windows: int, width: int) -> list:

@@ -26,6 +26,12 @@ The backend follows the device, and never changes quietly:
 `device="cpu"` is gloo. A process group of the other backend, or no
 card with `device=None`, raises.
 
+A collective that fails (a dead or hung peer, a transport error) raises
+`CollectiveError` with the backend's error as its cause: such an error is
+never retried, wrapped or demoted on (utils/resilience.is_device_error),
+because a rank that retried a collective alone would wait forever for
+peers that moved on.
+
 Left out: `shard_map_norep`, the JAX replication checker's workaround
 (it has no counterpart: nothing here traces a program), and the
 `NamedSharding` helpers `edge_sharding` / `replicated` (a rank stages
@@ -45,6 +51,19 @@ import torch.distributed as dist
 SHARD_AXIS = "shard"
 
 _OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
+
+
+class CollectiveError(RuntimeError):
+    """A collective of the mesh failed; the backend's error rides as
+    __cause__."""
+
+
+def _collective(name: str, call, *args, **kw) -> None:
+    try:
+        call(*args, **kw)
+    except Exception as e:
+        raise CollectiveError("%s over the mesh failed: %s: %s"
+                              % (name, type(e).__name__, e)) from e
 
 
 def backend_for(device) -> str:
@@ -140,8 +159,8 @@ class Mesh:
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """The elementwise SUM, MIN or MAX of `t` over the mesh, in place
         (psum, pmin, pmax); returns t."""
-        dist.all_reduce(t, op=getattr(dist.ReduceOp, _OPS[op]),
-                        group=self.group)
+        _collective("all_reduce", dist.all_reduce, t,
+                    op=getattr(dist.ReduceOp, _OPS[op]), group=self.group)
         return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
@@ -151,7 +170,8 @@ class Mesh:
                           device=t.device)
         gather = getattr(dist, "all_gather_single", None) \
             or dist.all_gather_into_tensor
-        gather(out, t.reshape(-1), group=self.group)
+        _collective("all_gather", gather, out, t.reshape(-1),
+                    group=self.group)
         return out.reshape((self.size,) + tuple(t.shape))
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
@@ -160,7 +180,8 @@ class Mesh:
         what rank j sent here."""
         t = t.contiguous()
         out = torch.empty_like(t)
-        dist.all_to_all_single(out, t, group=self.group)
+        _collective("all_to_all", dist.all_to_all_single, out, t,
+                    group=self.group)
         return out
 
 

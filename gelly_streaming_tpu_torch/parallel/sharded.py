@@ -39,17 +39,24 @@ row ids the owned edges touch and an all_to_all of the column slices).
 files, which the port does not.
 
 Hooks: every sharded dispatch fires `shard_dispatch`, every copy back of
-replicated outputs `shard_gather`, every mesh-bound h2d `shard_wire`
+replicated outputs `shard_gather`, every mesh-bound stack `shard_wire`
 (utils/faults.py); GS_MESH_WIRE_CHECK=1 range-checks each shard's slice
 (`guard_wire`) on every rank, so a corrupt shard is refused by all ranks
-alike. With the stage guard armed, a dispatch is retried on a host-side
-failure, on the caller's thread (no deadline thread that could launch
-after it was abandoned); a kernel or CUDA error passes through unretried
+alike. With the stage guard armed, a dispatch's and a gather's firing is
+retried on a host-side failure, on the caller's thread (no deadline
+thread that could launch after it was abandoned), and surfaces as a
+typed StageFailed once the attempts are spent; the triangle stream
+checks its wire in the pipeline's prep, so a corrupt wire is retried as
+a prep. A kernel, CUDA or collective error passes through unretried
 (utils/resilience.py). Nothing leaves the card.
 
-Left out: `ICI_GBPS` and `ici_time_model` (TPU v5e link figures),
-`resolve_table_mode` (evidence routing) and `make_sharded_snapshot_scan`
-(the driver's mesh branch, ROADMAP step 1.10b).
+`make_sharded_snapshot_scan` is the driver's mesh branch
+(core/driver.py `mesh=`): the carried degrees, labels and cover of every
+window of a chunk, one SUM of the chunk's degree partials, each fixpoint
+on row U with its MIN exchange every round.
+
+Left out: `ICI_GBPS` and `ici_time_model` (TPU v5e link figures) and
+`resolve_table_mode` (evidence routing).
 """
 
 from __future__ import annotations
@@ -130,13 +137,14 @@ def _check_wire(arrays, n_shards: int, limit: int) -> None:
                     % (k, n_shards, int(sl.max()), limit))
 
 
-def _guarded_dispatch(chunk, fn):
-    """One pure sharded dispatch (its state rebinds on success only):
-    under the stage guard's retry when the knobs arm it, on this thread
-    with no deadline; the bare call otherwise. Device errors and fatal
-    faults pass through (resilience.call_guarded)."""
+def _guarded_dispatch(chunk, fn, stage: str = "dispatch"):
+    """One pure sharded dispatch (its state rebinds on success only), or
+    a fault site's firing: under the stage guard's retry when the knobs
+    arm it, on this thread with no deadline; the bare call otherwise.
+    Device errors and fatal faults pass through
+    (resilience.call_guarded)."""
     if resilience.guard_active():
-        return resilience.call_guarded("dispatch", chunk, fn, timeout=0)
+        return resilience.call_guarded(stage, chunk, fn, timeout=0)
     return fn()
 
 
@@ -522,8 +530,8 @@ class ShardedTriangleWindowKernel:
     def _run_stack(self, num_w: int, make_chunk, get_window) -> list:
         """Windows [0, num_w) in chunks of MAX_STREAM_WINDOWS through the
         ingress pipeline: prep `make_chunk(at, hi)` -> ((s, d, valid)
-        [hi - at, eb] host stacks) and the h2d of this rank's [W, eb/n]
-        columns (through guard_wire) on a worker; the dispatch runs the
+        [hi - at, eb] host stacks, through guard_wire) and the h2d of
+        this rank's [W, eb/n] columns on a worker; the dispatch runs the
         window body on each window of the chunk and enqueues the copy
         back of its [W, 3] outputs; the finalize, one chunk behind,
         recounts each overflowing window `get_window(w)` down the ladder.
@@ -535,18 +543,22 @@ class ShardedTriangleWindowKernel:
         chunk = self.MAX_STREAM_WINDOWS
 
         def prep(at):
-            return at, make_chunk(at, min(at + chunk, num_w))
+            sc, dc, vc = make_chunk(at, min(at + chunk, num_w))
+            # the wire check in the prep: a corrupt wire is retried as a
+            # prep under the armed guard, and refused before any staging
+            sc, dc = guard_wire((sc, dc), self.n, self.vb)
+            return at, (sc, dc, vc)
 
         def h2d(payload):
-            at, (sc, dc, vc) = payload
-            sc, dc = guard_wire((sc, dc), self.n, self.vb)
-            local = [self.mesh.local(a) for a in (sc, dc, vc)]
+            at, arrays = payload
+            local = [self.mesh.local(a) for a in arrays]
             return at, self._ring.put(local, at // chunk)
 
         def dispatch(dev_payload):
             at, staged = dev_payload
             s, d, v = self._ring.take(staged)
-            fire_shard_dispatch(self.n)
+            _guarded_dispatch(("sharded_stream", at),
+                              lambda: fire_shard_dispatch(self.n))
             telemetry.event("sharded.round", engine="triangles",
                             window=at, windows=s.shape[0], mesh=self.n)
             res = torch.stack([step(s[w], d[w], v[w])
@@ -556,7 +568,9 @@ class ShardedTriangleWindowKernel:
 
         def finalize(raw):
             at, res = raw
-            fire_shard_gather(self.n)
+            _guarded_dispatch(("sharded_stream", at),
+                              lambda: fire_shard_gather(self.n),
+                              stage="shard_gather")
             res = res.numpy()
             c = res[:, 0].astype(np.int64)
             for w in np.nonzero(res[:, 1] + res[:, 2])[0]:  # exact redo
@@ -849,6 +863,106 @@ def make_sharded_summary_scan(mesh: Mesh, eb: int, vb: int, kb: int,
     return run
 
 
+def make_sharded_snapshot_scan(mesh: Mesh, vb: int, analytics: tuple,
+                               deltas: bool = False):
+    """The driver's snapshot scan over the mesh (the JAX package's
+    `make_sharded_snapshot_scan`, parallel/sharded.py:1172-1256 there):
+    run(carry, s_w, d_w, valid_w) -> (carry', outs) over a [W, eb] stack
+    of host arrays, the same on every rank, whose invalid slots are
+    padding. Each rank stages its own slice of the edge axis (Mesh.local),
+    the axis padded to a multiple of the mesh with invalid slots at the
+    sentinel vb+1, so any eb splits.
+
+    The carry keeps the engines' layouts on the rank's device, int32:
+    degrees [vb+2] (sentinel vb+1), labels [vb+2], cover [2vb+2] ((+) at
+    v, (-) at vb+v, sentinels 2vb and 2vb+1); it is replicated, and a
+    run returns a new one. outs, on the device: "deg" and "labels"
+    [W, vb] int32 and "odd" [W, vb] bool where the analytic runs; with
+    `deltas` also "deg_chg", "labels_chg" and "cover_chg" [W, vb] bool,
+    each slot's change against the previous window (row -1: the carry),
+    the cover's of its odd flag.
+
+    Degrees do not depend on the carry: the chunk's [W, vb+2] partials
+    merge in one SUM, then a prefix sum over the windows (int32, wrapping
+    as the per-window sums do). Each window's label and cover fixpoints
+    run on row U (ops/unionfind.cc_fixpoint, carried) with the MIN
+    exchange every round."""
+    want_deg = "degrees" in analytics
+    want_cc = "cc" in analytics
+    want_bip = "bipartite" in analytics
+    sent, sent2 = vb + 1, 2 * vb + 1
+
+    def exchange(lab):
+        return mesh.all_reduce(lab, "min")
+
+    def stage(a, dtype, fill):
+        a = np.asarray(a, dtype)
+        pad = mesh_padded_len(a.shape[1], mesh) - a.shape[1]
+        if pad:
+            a = np.concatenate(
+                [a, np.full((a.shape[0], pad), fill, dtype)], axis=1)
+        return mesh.put(mesh.local(a))
+
+    def run(carry, s_w, d_w, valid_w):
+        deg, labels, cover = carry
+        valid = stage(valid_w, np.bool_, False)
+        src = torch.where(valid, stage(s_w, np.int32, sent), sent)
+        dst = torch.where(valid, stage(d_w, np.int32, sent), sent)
+        num_w = src.shape[0]
+        dev = src.device
+        outs = {}
+        if want_deg:
+            ones = valid.to(torch.int32).reshape(-1)
+            base = (torch.arange(num_w, device=dev) * (vb + 2))[:, None]
+            local = torch.zeros(num_w * (vb + 2), dtype=torch.int32,
+                                device=dev)
+            local.index_add_(0, (base + src).reshape(-1), ones)
+            local.index_add_(0, (base + dst).reshape(-1), ones)
+            mesh.all_reduce(local, "sum")
+            rows = deg + torch.cumsum(local.reshape(num_w, vb + 2), 0,
+                                      dtype=torch.int32)
+            outs["deg"] = rows[:, :vb]
+            if deltas:
+                outs["deg_chg"] = rows[:, :vb] != torch.cat(
+                    [deg[None, :vb], rows[:-1, :vb]])
+            deg = rows[-1].clone()
+        if want_cc:
+            outs["labels"] = torch.empty((num_w, vb), dtype=torch.int32,
+                                         device=dev)
+            if deltas:
+                outs["labels_chg"] = torch.empty((num_w, vb),
+                                                 dtype=torch.bool, device=dev)
+        if want_bip:
+            outs["odd"] = torch.empty((num_w, vb), dtype=torch.bool,
+                                      device=dev)
+            if deltas:
+                outs["cover_chg"] = torch.empty((num_w, vb),
+                                                dtype=torch.bool, device=dev)
+        for w in range(num_w):
+            s, d, v = src[w], dst[w], valid[w]
+            if want_cc:
+                new = unionfind.cc_fixpoint(labels, s, d, exchange=exchange)
+                outs["labels"][w] = new[:vb]
+                if deltas:
+                    outs["labels_chg"][w] = new[:vb] != labels[:vb]
+                labels = new
+            if want_bip:
+                s2 = torch.cat([torch.where(v, s, sent2),
+                                torch.where(v, s + vb, sent2)])
+                d2 = torch.cat([torch.where(v, d + vb, sent2),
+                                torch.where(v, d, sent2)])
+                new = unionfind.cc_fixpoint(cover, s2, d2, exchange=exchange)
+                odd = new[:vb] == new[vb:2 * vb]
+                outs["odd"][w] = odd
+                if deltas:
+                    outs["cover_chg"][w] = odd != (cover[:vb]
+                                                   == cover[vb:2 * vb])
+                cover = new
+        return (deg, labels, cover), outs
+
+    return run
+
+
 class ShardedSummaryEngine(SummaryEngineBase):
     """The summary engine over a mesh (ops/scan_analytics.py's
     `StreamSummaryEngine` with each window's edges split over the
@@ -904,7 +1018,8 @@ class ShardedSummaryEngine(SummaryEngineBase):
 
     def _dispatch_async(self, staged, wire: str):
         tensors = self._ring.take(staged)
-        fire_shard_dispatch(self.n)
+        _guarded_dispatch(("sharded_summary", self.windows_done),
+                          lambda: fire_shard_dispatch(self.n))
         telemetry.event("sharded.round", engine="summary",
                         window=self.windows_done,
                         windows=tensors[0].shape[0], mesh=self.n)

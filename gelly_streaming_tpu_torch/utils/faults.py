@@ -43,15 +43,16 @@ Sites the port fires (each a no-op without a plan: one list test):
                   copy (payload=("cohort", ordinal))
 
     shard_dispatch
-                  parallel/sharded.py, before each sharded dispatch
-                  (one firing a dispatch, not a shard; payload=the
-                  shard count)
-    shard_gather  parallel/sharded.py, before the copy back of
-                  replicated sharded outputs (window stacks, engine
-                  state); payload=the shard count
-    shard_wire    parallel/sharded.guard_wire, before a mesh-bound h2d;
-                  payload=(arrays, shard count), so a `call` spec can
-                  corrupt one shard's slice
+                  parallel/sharded.py and the mesh driver's chunks
+                  (core/driver.py), before each sharded dispatch (one
+                  firing a dispatch, not a shard; payload=the shard
+                  count)
+    shard_gather  the same, before the copy back of replicated sharded
+                  outputs (window stacks, engine state); payload=the
+                  shard count
+    shard_wire    parallel/sharded.guard_wire, before a mesh-bound stack
+                  is staged; payload=(arrays, shard count), so a `call`
+                  or `corrupt_shard` spec can corrupt one shard's slice
 
 Actions:
     raise          raise InjectedFault (or `exc` if given). fatal=True
@@ -60,6 +61,10 @@ Actions:
     hang           time.sleep(seconds) inside the stage; the deadline
                    (GS_STAGE_TIMEOUT_S) is what must cut it.
     truncate_file  payload is a path: cut the file to half its bytes.
+    corrupt_shard  payload is (arrays, shard count), as `shard_wire`
+                   fires: FaultSpec.shard's slice of each integer array
+                   (copied) set to the dtype's largest value, far past
+                   any bucket's sentinel.
     corrupt_bytes  payload is bytes: garble the first line.
     call           return `fn(payload)`: bespoke corruption.
 """
@@ -163,6 +168,19 @@ def _act(spec: FaultSpec, site: str, call_no: int, payload):
             f.seek(0, 2)
             f.truncate(f.tell() // 2)
         return payload
+    if spec.action == "corrupt_shard":
+        import numpy as np
+
+        arrays, n = payload
+        k = spec.shard or 0
+        poisoned = []
+        for a in arrays:
+            a = np.array(a)   # a copy: the caller's arrays stay clean
+            width = a.shape[-1] // n
+            if width and np.issubdtype(a.dtype, np.integer):
+                a[..., k * width:(k + 1) * width] = np.iinfo(a.dtype).max
+            poisoned.append(a)
+        return tuple(poisoned), n
     if spec.action == "corrupt_bytes":
         data = bytearray(payload)
         # garble the first line: digits -> 'x' makes the parser drop

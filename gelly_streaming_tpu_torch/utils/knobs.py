@@ -188,11 +188,12 @@ register("GS_TIER_RETRY_WINDOWS", "int", 0, lo=0,
 register("GS_TIER_DEMOTE", "bool", True,
          help="`0` pins the resolved tier: a persistent host-side "
               "failure raises a typed `StageFailed` instead of demoting "
-              "the driver's snapshot tier (a kernel or CUDA error never "
-              "demotes)")
+              "the driver's snapshot tier (a kernel, CUDA or collective "
+              "error never demotes)")
 register("GS_MESH_DEMOTE", "bool", True,
-         help="`0` pins a sharded session to the mesh (the "
-              "`sharded→scan` rung); subordinate to `GS_TIER_DEMOTE`")
+         help="`0` pins a mesh driver to the mesh (the `sharded→scan` "
+              "rung): a failure the rung would cure raises its typed "
+              "`StageFailed`; subordinate to `GS_TIER_DEMOTE`")
 register("GS_MESH_WIRE_CHECK", "bool", False,
          help="`1` arms the per-shard range check of every mesh-bound "
               "h2d stack (`parallel/sharded.guard_wire`): a corrupt "

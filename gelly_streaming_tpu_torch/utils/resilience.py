@@ -26,9 +26,10 @@ Port of the JAX package's `utils/resilience.py`:
   error.
 
 The rule of the port (`is_device_error`): an error raised by a kernel's
-build or launch (`kernels.KernelError`) or by a CUDA call (PyTorch's
-accelerator and out-of-memory errors, or a RuntimeError naming CUDA) is
-never retried and never wrapped: it propagates as it was raised. A
+build or launch (`kernels.KernelError`), by a CUDA call (PyTorch's
+accelerator and out-of-memory errors, or a RuntimeError naming CUDA) or
+by a collective of a mesh (parallel/mesh.CollectiveError) is never
+retried and never wrapped: it propagates as it was raised. A
 device fault such as an illegal address is sticky, so a retry would only
 launch again into a dead context, and a wrapped one could read to a
 later demotion as a host-stage failure. The JAX package's kernels log a
@@ -91,18 +92,21 @@ class StageFailed(StageError):
 
 def is_device_error(exc: BaseException) -> bool:
     """True when `exc`, or an exception it was raised from, is an error
-    of a kernel's build or launch or of a CUDA call: such an error is
-    never retried, wrapped or demoted on (module docstring)."""
+    of a kernel's build or launch, of a CUDA call or of a collective
+    (parallel/mesh.CollectiveError, torch.distributed's DistError): such
+    an error is never retried, wrapped or demoted on (module docstring)."""
     import torch
 
     from .. import kernels
+    from ..parallel.mesh import CollectiveError
 
     accel = getattr(torch, "AcceleratorError", None)
+    dist_error = getattr(torch.distributed, "DistError", CollectiveError)
     seen = set()
     while exc is not None and id(exc) not in seen:
         seen.add(id(exc))
-        if isinstance(exc, (kernels.KernelError,
-                            torch.cuda.OutOfMemoryError)):
+        if isinstance(exc, (kernels.KernelError, CollectiveError,
+                            dist_error, torch.cuda.OutOfMemoryError)):
             return True
         if accel is not None and isinstance(exc, accel):
             return True

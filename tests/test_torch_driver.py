@@ -336,8 +336,14 @@ def test_refusals(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             StreamingAnalyticsDriver(window_ms=10)
-    with pytest.raises(NotImplementedError, match="1.10"):
-        StreamingAnalyticsDriver(window_ms=10, device="cpu", mesh=object())
+    # the JAX driver's mesh refusals (tests/test_torch_driver_mesh.py
+    # holds the mesh driver itself)
+    with pytest.raises(ValueError, match="single-chip"):
+        StreamingAnalyticsDriver(window_ms=10, device="cpu", mesh=object(),
+                                 snapshot_tier="resident")
+    with pytest.raises(ValueError, match="single-chip"):
+        StreamingAnalyticsDriver(window_ms=10, device="cpu", mesh=object(),
+                                 slide=1024)
     # tenant= and tracing= are ported (tests/test_torch_hooks_driver.py)
     drv = StreamingAnalyticsDriver(window_ms=10, device="cpu", tenant=7,
                                    tracing=True)

@@ -8,8 +8,9 @@ on both wires, over chunked calls; ResidentState.grow's layout; bucket
 growth re-keying the tuner; the ingest ring, the mailbox and the knobs;
 the tuners' checkpoint keys loading into either package.
 
-The JAX tests' demotion, metrics and mesh cases belong to ROADMAP steps
-1.8 and 1.10. Every test gets its own tuning cache and one torch
+The JAX tests' demotion and metrics cases belong to ROADMAP step 1.8;
+the mesh's refusal of the resident pin is held in
+tests/test_torch_driver_mesh.py. Every test gets its own tuning cache and one torch
 thread; sizes stay small (eb ≤ 256, vb ≤ 1024, super-batches ≤ 16)."""
 
 import threading

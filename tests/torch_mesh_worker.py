@@ -320,9 +320,12 @@ SCENARIOS = {"raw": scenario_raw, "count": scenario_count,
 class Group:
     """`world` rank processes of one gloo group, started at once; `join`
     waits for them up to the deadline and returns each rank's results
-    ({scenario: result}), killing every rank on a failure or a hang."""
+    ({scenario: result}), killing every rank on a failure or a hang.
+    `script` is the rank program (this file by default; a sibling
+    worker with scenarios of its own calls `rank_main`)."""
 
-    def __init__(self, world: int, tmp, scenarios, timeout_s: float = 150):
+    def __init__(self, world: int, tmp, scenarios, timeout_s: float = 150,
+                 script: str = None):
         tmp = str(tmp)
         self.world = world
         self.deadline = time.monotonic() + timeout_s
@@ -340,7 +343,8 @@ class Group:
         for r in range(world):
             with open(self.logs[r], "w") as log:
                 self.procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), str(r),
+                    [sys.executable, os.path.abspath(script or __file__),
+                     str(r),
                      str(world), store, plan, self.outs[r]],
                     stdout=log, stderr=subprocess.STDOUT, env=env,
                     cwd=REPO))
@@ -370,8 +374,11 @@ class Group:
         return results
 
 
-def _rank_main(rank: int, world: int, store: str, plan: str,
-               out: str) -> None:
+def rank_main(rank: int, world: int, store: str, plan: str,
+              out: str, scenarios: dict = None) -> None:
+    """One rank: join the gloo group through the FileStore, run the
+    plan's scenarios (of `scenarios`, SCENARIOS by default) on the whole
+    world's mesh and pickle their results to `out`."""
     sys.path.insert(0, REPO)
     import torch
     import torch.distributed as dist
@@ -386,7 +393,8 @@ def _rank_main(rank: int, world: int, store: str, plan: str,
         with open(plan, "rb") as f:
             names = pickle.load(f)
         mesh = mesh_mod.make_mesh(device="cpu")
-        results = {name: SCENARIOS[name](mesh) for name in names}
+        table = SCENARIOS if scenarios is None else scenarios
+        results = {name: table[name](mesh) for name in names}
         with open(out + ".tmp", "wb") as f:
             pickle.dump(results, f)
         os.replace(out + ".tmp", out)
@@ -396,8 +404,8 @@ def _rank_main(rank: int, world: int, store: str, plan: str,
 
 if __name__ == "__main__":
     try:
-        _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
-                   sys.argv[4], sys.argv[5])
+        rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                  sys.argv[4], sys.argv[5])
     except BaseException:
         traceback.print_exc()
         sys.stdout.flush()
