@@ -4,7 +4,7 @@ NVIDIA GPU.
 
 Builds the CUDA kernels from gelly_streaming_tpu_torch/csrc and the
 native host runtime (gelly_streaming_tpu_torch/native, g++) and runs
-thirty-five phases, with the dispatch tuner's cache (GS_TUNE_CACHE) in a
+thirty-seven phases, with the dispatch tuner's cache (GS_TUNE_CACHE) in a
 fresh temporary directory. The first twenty-three run with GS_AUTOTUNE=0,
 so their numbers stay comparable across runs (phase cohort_resident's
 (d) sets the tuner itself), and phases hooks_cohort and serve run with
@@ -149,7 +149,7 @@ with nothing quarantined; api_tracing traces the record API's
 reduce_on_edges over the first 262,144 of phase api's 1M edges beside
 its untraced rate, arms the reduce stream's spans, and reports the device_trace
 (torch.profiler) capture of a driver call taken first in the process.
-The last, sharded, drives the sharded engines
+Then sharded drives the sharded engines
 (gelly_streaming_tpu_torch/parallel/) on a one-rank NCCL group made by
 make_mesh() on the card: ShardedTriangleWindowKernel(mesh, 32768, 65536,
 k_bucket=128).count_stream over the north-star stream in both table
@@ -162,7 +162,24 @@ int32 and float32 and gcd); a state taken half way through the host
 twin and back; the single-chip and sharded count_stream in turns
 (edges/s, idle share from CUDA events). Its launches of the intersect,
 union-find and cell-reduce kernels go on the kernels line as
-"sharded_launches".
+"sharded_launches". driver_mesh runs StreamingAnalyticsDriver(mesh=) on
+that group (phase_driver_mesh). The last, evidence, drives the
+measured-adoption routing (utils/evidence.py) with its evidence file in
+a temporary directory: (a) with no file every resolver keeps its
+default and an unpinned TriangleWindowKernel (eb 32768 and 8192),
+StreamSummaryEngine, StreamingAnalyticsDriver, TenantCohort (4 of phase
+cohort_stream's tenants), WindowedEdgeReduce and the sharded kernel run
+on the card with their kernels launched, equal to the earlier phases
+over the first EVIDENCE_WINDOWS windows; (b) utils/evidence_ab.py writes
+every section's rows over that prefix at full width, printed on a line
+of their own after the card's name and power limit; (c) each resolver
+chooses what the card's gate (worst_clears_bar) on those rows says, every
+routed path is equal to its pinned default (counts, summaries, windows,
+cohort rows, states; the reduce's float sums within 1e-5 · Σ|v|) and
+launches kernels unless a host or native tier was adopted for it, and
+the kernels the routing left out are printed; (d) the same rows under
+another device's name route nothing. An evidence file in the checkout
+is ignored, with a warning: every phase drives the default paths.
 Every main-path phase ends with no demotion in the drivers' logs or the
 process's. Each path reports
 its rate, its launches and
@@ -7643,6 +7660,358 @@ def phase_driver_mesh(m, want: list, counts: list) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+EVIDENCE_WINDOWS = 64                 # phase evidence: the prefix's windows
+EVIDENCE_TENANTS = 4                  # (a), (c): cohort tenants served
+FOREIGN_CARD = "NVIDIA A100-SXM4-80GB"  # (d): the rows under another name
+EVIDENCE_PINS = ("GS_RESIDENT", "GS_COHORT_RESIDENT", "GS_EGRESS",
+                 "GS_EGRESS_CAP")
+
+
+def evidence_choices(dev) -> dict:
+    """Every resolver of the measured-adoption routing on `dev`."""
+    from gelly_streaming_tpu_torch.core import driver as drv_mod
+    from gelly_streaming_tpu_torch.ops import delta_egress, resident_engine
+    from gelly_streaming_tpu_torch.ops import triangles as tri
+    from gelly_streaming_tpu_torch.ops import windowed_reduce as wr
+    from gelly_streaming_tpu_torch.parallel import sharded
+
+    ebs = (8192, EB)
+    return {"stream": {eb: tri._resolve_stream_impl(eb, dev) for eb in ebs},
+            "ingress": tri.resolve_ingress(None, VB, dev),
+            "kb": {eb: tri._tuned_kb(eb, dev) for eb in ebs},
+            "chunk": {eb: tri._tuned_chunk(eb, dev) for eb in ebs},
+            "resident": resident_engine.resolve_resident(dev),
+            "cohort": resident_engine.resolve_resident_cohort(dev),
+            "snapshot": drv_mod.resolve_snapshot_tier(dev),
+            "egress": delta_egress.resolve_egress(dev),
+            "reduce": wr._resolve_reduce_impl("sum", device=dev),
+            "table": sharded.resolve_table_mode(dev)}
+
+
+def evidence_defaults() -> dict:
+    """The choices with no evidence: the port's defaults."""
+    from gelly_streaming_tpu_torch.ops import triangles as tri
+
+    ebs = (8192, EB)
+    return {"stream": dict.fromkeys(ebs, "device"), "ingress": "standard",
+            "kb": {eb: tri.default_kb(eb) for eb in ebs},
+            "chunk": dict.fromkeys(ebs, CHUNK), "resident": False,
+            "cohort": False, "snapshot": "scan", "egress": "full",
+            "reduce": "device", "table": "replicated"}
+
+
+def evidence_expected(sec: dict, label: str) -> dict:
+    """What each resolver must choose on the card `label` given the rows
+    `sec`, computed here from the rows and the card's gate
+    (worst_clears_bar: the alternative's slowest turn against the
+    baseline's fastest): per edge bucket the stream tier; the wire, K,
+    chunk, resident tiers, egress, the reduce tier of "sum" and the
+    table mode."""
+    from gelly_streaming_tpu_torch import native
+    from gelly_streaming_tpu_torch.ops import triangles as tri
+    from gelly_streaming_tpu_torch.utils.evidence import worst_clears_bar
+
+    def tier(rows, native_loads):
+        if not rows:
+            return "device"
+        if worst_clears_bar(rows, "native", ("device", "host"),
+                            parity_key="native_parity") and native_loads:
+            return "native"
+        return "host" if worst_clears_bar(rows, "host", "device") \
+            else "device"
+
+    def fastest(eb, sweep, key, default):
+        rows = [x for row in sec["window"] if row["edge_bucket"] == eb
+                for x in row[sweep]]
+        return (min(rows, key=lambda x: x["per_window_ms"])[key] if rows
+                else default)
+
+    ebs = (8192, EB)
+    res = [r for r in sec["resident_ab"] if r["probe"] == "driver_resident"]
+    resident = worst_clears_bar(res, "resident", ("scan", "native"))
+    tab = sec["sharded_table"]
+    return {
+        "stream": {eb: tier([r for r in sec["host_stream"]
+                             if r["edge_bucket"] == eb],
+                            native.triangles_available()) for eb in ebs},
+        "ingress": ("compact" if worst_clears_bar(
+            sec["ingress_ab"], "compact", "std") else "standard"),
+        "kb": {eb: fastest(eb, "k_sweep", "k_bucket", tri.default_kb(eb))
+               for eb in ebs},
+        "chunk": {eb: fastest(eb, "chunk_sweep", "windows_per_dispatch",
+                              CHUNK) for eb in ebs},
+        "resident": resident,
+        "cohort": worst_clears_bar(
+            [r for r in sec["tenancy_ab"] if r["probe"] == "cohort_resident"],
+            "tenant", "sequential"),
+        "snapshot": "resident" if resident else "scan",
+        "egress": ("delta" if worst_clears_bar(sec["egress_ab"], "delta",
+                                               "full") else "full"),
+        "reduce": tier([r for r in sec["host_reduce"] if r["name"] == "sum"],
+                       native.windowed_reduce_available()),
+        "table": ("owner" if tab["backend"] == label
+                  and tab["counts_match"] is True
+                  and worst_clears_bar(tab["rows"], "owner", "replicated",
+                                       parity_key="counts_match")
+                  else "replicated")}
+
+
+def evidence_paths(m, label: str, want: dict, ref: dict = None) -> dict:
+    """The paths an unpinned caller drives, on the card over the phase's
+    prefix: TriangleWindowKernel(32768, 65536) and (8192, 65536),
+    StreamSummaryEngine(32768, 65536), StreamingAnalyticsDriver(
+    window_ms=1, edge_bucket=32768), TenantCohort(4096, 8192) over
+    EVIDENCE_TENANTS of phase cohort_stream's tenants, WindowedEdgeReduce(
+    16384, 8192, "sum") on integer and float values, and the sharded
+    kernel (k_bucket=128, no table) on the mesh; each with the launch
+    counts set to 0 just before it and read just after, its results held
+    to `want` (counts, summaries, windows and cohort rows of the earlier
+    phases, the pinned defaults' reduce rows and 8192-edge counts) and,
+    given `ref` (what (a) returned), its states to ref's. Returns the
+    launches by path, the states and the reduce rows."""
+    from gelly_streaming_tpu_torch import (StreamingAnalyticsDriver,
+                                           StreamSummaryEngine, TenantCohort,
+                                           TriangleWindowKernel,
+                                           WindowedEdgeReduce, kernels)
+    from gelly_streaming_tpu_torch.parallel.sharded import (
+        ShardedTriangleWindowKernel)
+
+    s, d = want["stream"]
+    out = {"launches": {}}
+
+    def path(name, run):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = run()
+        torch.cuda.synchronize()
+        out["launches"][name] = {k: v for k, v in kernels.LAUNCHES.items()
+                                 if v}
+        return got
+
+    k = TriangleWindowKernel(EB, VB)
+    require(k.device.type == "cuda", "evidence: kernel not on the card")
+    require(path("stream", lambda: k.count_stream(s, d)) == want["counts"],
+            "evidence: %s count_stream differs" % label)
+    s8, d8 = want["stream8"]
+    k8 = TriangleWindowKernel(8192, VB)
+    require(path("stream8192", lambda: k8.count_stream(s8, d8))
+            == want["counts8"], "evidence: %s counts at eb=8192 differ"
+            % label)
+    eng = StreamSummaryEngine(EB, VB)
+    require(path("summary", lambda: eng.process(s, d)) == want["summaries"],
+            "evidence: %s summaries differ" % label)
+    st = eng.state_dict()
+    out["summary_state"] = (st["windows_done"],
+                            [np.asarray(x) for x in st["carry"]])
+    drv = StreamingAnalyticsDriver(window_ms=1, edge_bucket=EB)
+    same_results("evidence %s driver" % label, want["windows"],
+                 path("driver", lambda: drv.run_arrays(s, d)))
+    no_demotions("evidence %s" % label, drv)
+    ds = drv.state_dict()
+    out["driver_state"] = {key: v for key, v in ds.items()
+                           if isinstance(v, np.ndarray)
+                           or key in ("windows_done", "edges_done")}
+    co = TenantCohort(CO_EB, CO_VB)
+    rows, _co, _secs = path("cohort", lambda: serve_cohort(
+        want["tenants"], co=co))
+    same_windows("evidence %s cohort" % label, rows, want["cohort"])
+    out["cohort_state"] = cohort_states(co, list(want["tenants"]))
+    rs, rd, rv = want["reduce_stream"]
+    red = WindowedEdgeReduce(RED_VB, RED_EB, "sum")
+    out["reduce"] = path("reduce", lambda: red.process_stream(rs, rd, rv))
+    out["reduce_float"] = red.process_stream(rs, rd, rv.astype(np.float32)
+                                             / 4)
+    sk = ShardedTriangleWindowKernel(m, EB, VB, k_bucket=KB)
+    require(path("sharded", lambda: sk.count_stream(s, d))
+            == want["counts"], "evidence: %s sharded counts differ" % label)
+    if ref is not None:
+        w0, carry0 = ref["summary_state"]
+        w1, carry1 = out["summary_state"]
+        require(w0 == w1 and all(np.array_equal(a, b) for a, b in
+                                 zip(carry0, carry1)),
+                "evidence: %s summary state differs" % label)
+        for key, v in ref["driver_state"].items():
+            got = out["driver_state"][key]
+            require(np.array_equal(got, v) if isinstance(v, np.ndarray)
+                     else got == v, "evidence: %s driver %s differs"
+                     % (label, key))
+        # the cover's sentinel slot records the slab shapes, which the
+        # cohort's tier decides
+        same_states("evidence %s cohort" % label, out["cohort_state"],
+                    ref["cohort_state"], sentinel=False)
+    return out
+
+
+def same_reduce_rows(label: str, got, want, vals=None, src=None) -> None:
+    """(cells, counts) rows equal: counts exactly; cells where counted,
+    exactly, or, given the values, within 1e-5 · Σ|v| of the cell (row
+    R's bound for float sums), the cell's Σ|v| from `src`."""
+    require(len(got) == len(want), "%s: %d rows, want %d"
+            % (label, len(got), len(want)))
+    for w, ((c1, n1), (c2, n2)) in enumerate(zip(got, want)):
+        require(np.array_equal(np.asarray(n1, np.int64),
+                               np.asarray(n2, np.int64)),
+                "%s window %d: counts differ" % (label, w))
+        on = np.asarray(n2) > 0
+        a = np.asarray(c1, np.float64)[on]
+        b = np.asarray(c2, np.float64)[on]
+        if vals is None:
+            require(np.array_equal(a, b), "%s window %d: cells differ"
+                    % (label, w))
+        else:
+            lo, hi = w * RED_EB, (w + 1) * RED_EB
+            tol = np.bincount(src[lo:hi], weights=np.abs(
+                vals[lo:hi].astype(np.float64)),
+                minlength=len(on))[:len(on)][on]
+            require(bool(np.all(np.abs(a - b) <= 1e-5 * tol + 1e-30)),
+                    "%s window %d: a float sum past 1e-5 Σ|v|" % (label, w))
+
+
+def phase_evidence(m, counts: list, summaries: list, driver_got: list,
+                   co_streams: dict, co_out: dict) -> dict:
+    """The measured-adoption routing (gelly_streaming_tpu_torch/utils/
+    evidence.py and its resolvers) on the card, with the evidence path
+    pointed at a temporary directory and the routing knobs unset:
+    (a) no evidence file: every resolver returns its default and the
+    unpinned paths of evidence_paths run on the card, each with its
+    kernels launched, equal to the earlier phases over the first
+    EVIDENCE_WINDOWS windows; (b) utils/evidence_ab.py writes every
+    section's rows there over that prefix at full width, printed with
+    the card's name and power limit; (c) each resolver's choice equals
+    the one computed here from the rows with the card's gate
+    (worst_clears_bar), every routed path is equal to its pinned default
+    on the same prefix (counts, summaries, windows, cohort rows, states;
+    the reduce's integer rows exactly, its float sums within
+    1e-5 · Σ|v|) and launches kernels unless a host or native tier was
+    adopted for it; (d) the same rows filed under another device's name
+    route nothing."""
+    import tempfile
+
+    from gelly_streaming_tpu_torch import (TriangleWindowKernel,
+                                           WindowedEdgeReduce, make_stream)
+    from gelly_streaming_tpu_torch.ops import triangles as tri
+    from gelly_streaming_tpu_torch.utils import evidence, evidence_ab
+
+    dev = m.device
+    label = torch.cuda.get_device_name(dev)
+    W = EVIDENCE_WINDOWS
+    src, dst = bench_stream()
+    s8, d8 = make_stream(W * 8192, VB, seed=SEED)
+    s8, d8 = s8.astype(np.int32), d8.astype(np.int32)
+    counts8 = TriangleWindowKernel(8192, VB, k_bucket=tri.default_kb(8192),
+                                   ingress="standard",
+                                   stream_tier="device").count_stream(s8, d8)
+    rs, rd = make_stream(W * RED_EB, RED_VB)
+    rv = red_values(rs, rd)
+    plain = WindowedEdgeReduce(RED_VB, RED_EB, "sum", tier="device",
+                               ingress="standard", egress="full")
+    tenants = dict(list(co_streams.items())[:EVIDENCE_TENANTS])
+    want = {"stream": (src[:W * EB], dst[:W * EB]),
+            "counts": counts[:W], "summaries": summaries[:W],
+            "windows": driver_got[:W], "stream8": (s8, d8),
+            "counts8": counts8, "tenants": tenants,
+            "cohort": {t: co_out[t] for t in tenants},
+            "reduce_stream": (rs, rd, rv)}
+    want_rows = plain.process_stream(rs, rd, rv)
+    want_float = plain.process_stream(rs, rd, rv.astype(np.float32) / 4)
+    tmp = tempfile.mkdtemp(prefix="gs_evidence_")
+    path = os.path.join(tmp, "PERF_torch.json")
+    saved_path = evidence.PERF_PATH
+    saved_pins = {k: os.environ.pop(k) for k in EVIDENCE_PINS
+                  if k in os.environ}
+    evidence.PERF_PATH = path
+    evidence.forget()
+    t_phase = time.perf_counter()
+    try:
+        # (a) no evidence file
+        got = evidence_choices(dev)
+        require(got == evidence_defaults(), "evidence (a): a resolver "
+                "left its default with no file: %s" % got)
+        t0 = time.perf_counter()
+        base = evidence_paths(m, "(a)", want)
+        for name, kern in (("stream", "window_counter"),
+                           ("stream8192", "window_counter"),
+                           ("summary", "window_summary"),
+                           ("driver", "window_snapshot"),
+                           ("cohort", "cohort_summary"),
+                           ("reduce", "cell_reduce"),
+                           ("sharded", "intersect")):
+            require(base["launches"][name].get(kern, 0) > 0,
+                    "evidence (a): %s launched no %s" % (name, kern))
+        same_reduce_rows("evidence (a) reduce", base["reduce"], want_rows)
+        same_reduce_rows("evidence (a) reduce float", base["reduce_float"],
+                         want_float, rv.astype(np.float32) / 4, rs)
+        print("evidence (a): defaults with no file, paths %.2f s, "
+              "launches %s" % (time.perf_counter() - t0,
+                               json.dumps(base["launches"])))
+
+        # (b) the rows, measured here
+        t0 = time.perf_counter()
+        w = evidence_ab.run(path, device=dev, windows=W, mesh=m, log=print)
+        t_rows = time.perf_counter() - t0
+        require(w.label == label, "evidence (b): label %s" % w.label)
+        print(card())
+        print(json.dumps({"evidence_rows": {"device": label,
+                                            "windows": W,
+                                            "seconds": w.seconds,
+                                            "sections": w.sections}},
+                         separators=(",", ":")))
+
+        # (c) route on them
+        evidence.forget()
+        expect = evidence_expected(w.sections, label)
+        got = evidence_choices(dev)
+        require(got == expect, "evidence (c): the resolvers chose %s, the "
+                "rows say %s" % (got, expect))
+        adopted = sorted(k for k in got if got[k] != evidence_defaults()[k])
+        t0 = time.perf_counter()
+        routed = evidence_paths(m, "(c)", want, ref=base)
+        # a routed path launches kernels unless a host or native tier was
+        # adopted for it; the kernels (a) launched that (c) did not
+        off_card = {"stream": got["stream"][EB],
+                    "stream8192": got["stream"][8192],
+                    "reduce": got["reduce"]}
+        for name, launched in routed["launches"].items():
+            require(bool(launched) or off_card.get(name) in ("host",
+                                                             "native"),
+                    "evidence (c): path %s launched no kernel" % name)
+        removed = {name: sorted(k for k, n in ran.items()
+                                if n and not routed["launches"][name].get(k))
+                   for name, ran in base["launches"].items()}
+        print("evidence (c): kernels launched in (a) and not in (c): %s"
+              % json.dumps({k: v for k, v in removed.items() if v}))
+        same_reduce_rows("evidence (c) reduce", routed["reduce"], want_rows)
+        same_reduce_rows("evidence (c) reduce float",
+                         routed["reduce_float"], want_float,
+                         rv.astype(np.float32) / 4, rs)
+        print("evidence (c): choices %s, adopted %s, paths %.2f s, "
+              "launches %s" % (json.dumps(got, sort_keys=True), adopted,
+                               time.perf_counter() - t0,
+                               json.dumps(routed["launches"])))
+
+        # (d) another device's name
+        evidence_ab.write(path, FOREIGN_CARD, w.sections)
+        with open(path) as f:
+            filed = json.load(f)["devices"]
+        filed.pop(label)
+        with open(path, "w") as f:
+            json.dump({"devices": filed}, f)
+        evidence.forget()
+        require(evidence_choices(dev) == evidence_defaults(),
+                "evidence (d): rows of %s routed %s" % (FOREIGN_CARD, label))
+        seconds = time.perf_counter() - t_phase
+        print("evidence: (a)-(d) ok in %.1f s (rows %.1f s)"
+              % (seconds, t_rows))
+    finally:
+        evidence.PERF_PATH = saved_path
+        evidence.forget()
+        os.environ.update(saved_pins)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"adopted": adopted, "seconds": seconds,
+            "launches_a": base["launches"], "launches_c": routed["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7652,9 +8021,19 @@ def main() -> int:
         return cell_reduce_capture_child()
     import tempfile
 
+    from gelly_streaming_tpu_torch.utils import evidence
+
     # the tuners' cache in a fresh directory: one run never seeds another
     with tempfile.TemporaryDirectory() as cache:
         os.environ["GS_TUNE_CACHE"] = cache
+        # every phase drives the default paths: an evidence file in the
+        # checkout would reroute each unpinned engine (phase evidence
+        # writes and reads rows of its own)
+        if os.path.exists(evidence.PERF_PATH):
+            print("chip_smoke: WARNING: %s is ignored: the phases measure "
+                  "the default paths" % evidence.PERF_PATH)
+        evidence.PERF_PATH = os.path.join(cache, "PERF_torch.json")
+        evidence.forget()
         return run_phases()
 
 
@@ -7821,6 +8200,9 @@ def run_phases() -> int:
         mesh_launches = phase_driver_mesh(m, driver_got, counts)
         lap("driver_mesh")
         no_demotions("phase driver_mesh")
+        phase_evidence(m, counts, summaries, driver_got, co_streams, co_out)
+        lap("evidence")
+        no_demotions("phase evidence")
     finally:
         dist.destroy_process_group()
 

@@ -17,20 +17,19 @@ Port of the JAX package's `core/driver.py` (`WindowResult` :268-303,
                          of the last edge_bucket/slide panes)
 
 The carried analytics run on the snapshot tier the constructor pins, or
-`resolve_snapshot_tier()` picks (GS_RESIDENT=on: "resident", else
-"scan"): "scan" (the snapshot program of ops/window_snapshot.py, its
-CUDA kernel on the card and its plain version on the CPU, chunks of up
-to 64 windows through the ingress pipeline with the finalize one chunk
-behind), "resident" (the same program at GS_RESIDENT_SPB windows a
-super-batch, each one a replayed CUDA graph over a device carry kept
-across calls, GS_RESIDENT_SLOTS super-batches prepped and copied ahead;
-ops/resident_engine.py, the JAX driver's :847-884 and :1520-1600, where
-the resident branch has an ingest ring of its own: here both tiers are
-one chunk loop, `_scan_device`), "native" (the C++ fold,
-native.snapshot_windows) or "host" (numpy, ops/host_snapshot.py). All
-four give the same bits. With GS_AUTOTUNE on (the default) the scan
-tier's windows per call and the resident tier's windows per super-batch
-are tuned online (ops/autotune.py; the JAX driver's
+`resolve_snapshot_tier(device)` picks (below): "scan" (the snapshot
+program of ops/window_snapshot.py, its CUDA kernel on the card and its
+plain version on the CPU, chunks of up to 64 windows through the ingress
+pipeline with the finalize one chunk behind), "resident" (the same
+program at GS_RESIDENT_SPB windows a super-batch, each one a replayed
+CUDA graph over a device carry kept across calls, GS_RESIDENT_SLOTS
+super-batches prepped and copied ahead; ops/resident_engine.py, the JAX
+driver's :847-884 and :1520-1600, where the resident branch has an
+ingest ring of its own: here both tiers are one chunk loop,
+`_scan_device`), "native" (the C++ fold, native.snapshot_windows) or
+"host" (numpy, ops/host_snapshot.py). All four give the same bits.
+With GS_AUTOTUNE on (the default) the scan tier's windows per call and
+the resident tier's windows per super-batch are tuned online (ops/autotune.py; the JAX driver's
 `_ensure_scan_tuner`, `_warm_scan_arm`, `_ensure_resident_tuner`,
 :868-930): the scan tier in rounds of GS_AUTOTUNE_ROUND chunks, as the
 engines tune, the resident tier one super-batch a round, as the JAX
@@ -126,8 +125,16 @@ checkpoint of either mode resumes in either mode
 (`mirrors_from_engine_state`). On a mesh of several ranks only rank 0
 writes files (auto-checkpoints, the journal); every rank reads them.
 
-The evidence routing of the snapshot tier and the egress waits for step
-1.1: `egress` is a plain argument and `auto` resolves to the scan tier.
+Measured adoption (utils/evidence.py; the JAX driver's :224-259, :974):
+with no `snapshot_tier=`, `resolve_snapshot_tier` takes "resident" where
+`resident_engine.resolve_resident` does (GS_RESIDENT, or `resident_ab`
+rows), else "native" only on the CPU where the `host_snapshot` rows all
+show parity and a 5% win over the scan and the library has its fold,
+else "scan". `egress=None` is `delta_egress.resolve_egress` (GS_EGRESS,
+or `egress_ab` rows; else "full") and `egress_cap=None` GS_EGRESS_CAP
+(else min(2·eb, vb)); a mesh driver stays on full egress. The triangle
+flush follows the snapshot tier (scan and resident count on the card),
+so a driver on the card counts on the host only where it demotes.
 """
 
 from __future__ import annotations
@@ -154,6 +161,7 @@ from ..ops import triangles as tri_ops
 from ..ops import window_snapshot as snap_ops
 from ..ops.staging import ChunkStager, HostCopy
 from ..utils import checkpoint
+from ..utils import evidence
 from ..utils import faults
 from ..utils import knobs
 from ..utils import latency
@@ -177,12 +185,30 @@ _DEVICE_TIERS = ("resident", "scan")
 _MESH_TIERS = ("sharded", "scan")
 
 
-def resolve_snapshot_tier() -> str:
+def _reset_snapshot_tier() -> None:
+    """Test hook: forget the memoized snapshot-tier selections."""
+    evidence.forget("snapshot_tier")
+
+
+def resolve_snapshot_tier(device=None) -> str:
     """The snapshot tier of a driver given no `snapshot_tier=`:
-    "resident" under the GS_RESIDENT=on pin, else "scan" (the JAX
-    driver's :224-250, whose committed-evidence routing the port reads
-    none of until step 1.1 measures its own)."""
-    return "resident" if resident_engine.resolve_resident() else "scan"
+    "resident" where `resident_engine.resolve_resident(device)` adopts it;
+    else, on the CPU only, "native" where every `host_snapshot` row shows
+    parity and the native rate at 1.05× the scan's and the library has
+    its fold (`native.snapshot_available()`); else "scan"."""
+    if resident_engine.resolve_resident(device):
+        return "resident"
+
+    def gate(perf, label):
+        if (not evidence.on_card(label)
+                and evidence.rows_clear_bar(perf.get("host_snapshot", []),
+                                            "native_edges_per_s",
+                                            "scan_edges_per_s")
+                and native.snapshot_available()):
+            return "native"
+        return "scan"
+
+    return evidence.choose("snapshot_tier", device, gate, "scan")
 
 
 def _snapshot_view(a: np.ndarray, row_size: int = 0) -> np.ndarray:
@@ -235,9 +261,11 @@ class StreamingAnalyticsDriver:
     untimestamped rows are cut into count-based windows of
     `edge_bucket` edges. `device=None` is the card (raising without
     one); `device="cpu"` runs the plain versions. `snapshot_tier` pins
-    the carried analytics' tier (SNAPSHOT_TIERS, default "scan");
-    `egress` ("full" by default, or "delta") the scan tier's copy back,
-    `egress_cap` the delta rows' width (ops/delta_egress.egress_cap).
+    the carried analytics' tier (SNAPSHOT_TIERS); `egress` ("full" or
+    "delta") the scan tier's copy back, `egress_cap` the delta rows'
+    width (ops/delta_egress.egress_cap); None routes each by the
+    device's evidence (module docstring; without it "scan", "full" and
+    min(2·eb, vb)).
     `slide`, a power of two dividing the edge bucket, makes the
     count-based windows slide: one WindowResult every `slide` edges
     (GS_SLIDE where it is None). With no `snapshot_tier`,
@@ -275,13 +303,18 @@ class StreamingAnalyticsDriver:
                 "the resident tier is single-chip: a mesh session's base "
                 "tier is the sharded scan (its demotion ladder re-enters on "
                 "scan, never resident)")
-        tier = (resolve_snapshot_tier() if snapshot_tier is None
-                else snapshot_tier)
+        # a mesh session's tier and egress are its own (below): only a
+        # single-card driver routes by evidence
+        routed = mesh is None
+        tier = snapshot_tier
+        if tier is None:
+            tier = resolve_snapshot_tier(device) if routed else "scan"
         if tier == "native" and not native.available():
             raise ValueError("native snapshot tier pinned but the native "
                              "library is unavailable: %s"
                              % native.build_error())
-        egress = "full" if egress is None else egress
+        if egress is None:
+            egress = delta_egress.resolve_egress(device) if routed else "full"
         if egress not in delta_egress.EGRESS:
             raise ValueError(f"unknown egress: {egress!r}")
         if slide is None:

@@ -121,7 +121,7 @@ from ..ops.gnn_window import (GnnSummaryEngine, build_gnn_cohort_scan,
 from ..ops.scan_analytics import (StreamSummaryEngine, _to_host,
                                   check_summary_carry)
 from ..ops.staging import ChunkStager
-from ..ops.triangles import TriangleWindowKernel, default_kb
+from ..ops.triangles import TriangleWindowKernel, _tuned_kb
 from ..ops.window_summary import fresh_carry
 from ..utils import checkpoint
 from ..utils import faults
@@ -342,8 +342,10 @@ class TenantCohort:
     GS_AUTOTUNE=0). `windows_per_dispatch` is the JAX cohort's window
     ceiling on the scan form: a tenant folds at most its power-of-two
     bucket (at least 8) of windows per dispatch; the resident tier folds
-    up to the GS_RESIDENT_SPB bucket. `k_bucket` is the tenants' default K (0: the analytic
-    default for the edge bucket); `admit(k_bucket=)` gives one its own."""
+    up to the GS_RESIDENT_SPB bucket. `k_bucket` is the tenants' default K (0: the
+    fastest `k_sweep` row of the device's evidence,
+    ops/triangles._tuned_kb, else the analytic default for the edge
+    bucket); `admit(k_bucket=)` gives one its own."""
 
     MAX_WINDOWS_PER_DISPATCH = 8
 
@@ -366,7 +368,7 @@ class TenantCohort:
         self.eb = seg_ops.bucket_size(edge_bucket)
         self.default_vb = seg_ops.bucket_size(vertex_bucket)
         self.kb = seg_ops.bucket_size(k_bucket if k_bucket
-                                      else default_kb(self.eb))
+                                      else _tuned_kb(self.eb, self.device))
         self.wc = seg_ops.bucket_size(
             windows_per_dispatch if windows_per_dispatch
             else self.MAX_WINDOWS_PER_DISPATCH)
@@ -855,7 +857,7 @@ class TenantCohort:
         dispatch rungs under it and, on the resident tier,
         windows-per-super-batch rungs under the GS_RESIDENT_SPB bucket."""
         space = {"tpd": autotune.rungs(nb)}
-        if resident_engine.resolve_resident_cohort():
+        if resident_engine.resolve_resident_cohort(self.device):
             space["spb"] = autotune.rungs(
                 resident_engine.resident_spb(self.eb))
         return space
@@ -903,7 +905,7 @@ class TenantCohort:
         on the resident tier the GS_RESIDENT_SPB bucket, narrowed by the
         round's windows-per-super-batch arm. Window cuts are counted in
         edges, so the ceiling never changes a summary."""
-        if not resident_engine.resolve_resident_cohort():
+        if not resident_engine.resolve_resident_cohort(self.device):
             return self.wc
         spb = resident_engine.resident_spb(self.eb)
         if self._round_spb:
@@ -1007,7 +1009,7 @@ class TenantCohort:
             self._demote(t, "slab prep failed: %s" % err)
         if not real:
             return 0
-        res_on = resident_engine.resolve_resident_cohort()
+        res_on = resident_engine.resolve_resident_cohort(self.device)
         key = (vb, kb)
         rows = [None] * nb          # the tenant of each slab row
         for t, row, _w, _n in real:

@@ -10,9 +10,10 @@ at first use with the Makefile's CXX and CXXFLAGS into
 .gitignore; the hash covers the source and the flags, so an edited
 source builds anew). Parsing, window assignment and interning keep a
 Python form with the same results where the library cannot build;
-`available()` says which form is live, and `build_error()` why the
-library is missing. `snapshot_windows`, `triangle_count_stream` and
-`windowed_reduce` return None without the library: their callers
+`available()` says which form is live (`triangles_available()`,
+`snapshot_available()` and `windowed_reduce_available()` for the three
+folds), and `build_error()` why the library is missing. `snapshot_windows`, `triangle_count_stream`
+and `windowed_reduce` return None without the library: their callers
 (ops/host_snapshot.py, ops/triangles.py, ops/windowed_reduce.py) decide
 what stands in, and a pinned native tier raises there.
 """
@@ -211,6 +212,20 @@ def assign_windows(ts: np.ndarray, size_ms: int) -> np.ndarray:
     out = np.empty(len(ts), np.int64)
     lib.gs_assign_windows(_i64ptr(ts), len(ts), size_ms, _i64ptr(out))
     return out
+
+
+def triangles_available() -> bool:
+    """True when the library (with its triangle stream counter) is
+    loaded."""
+    lib = _load()
+    return lib is not None and hasattr(lib, "gs_triangle_count_stream")
+
+
+def snapshot_available() -> bool:
+    """True when the library (with its carried snapshot fold) is
+    loaded."""
+    lib = _load()
+    return lib is not None and hasattr(lib, "gs_snapshot_windows")
 
 
 def triangle_count_stream(src: np.ndarray, dst: np.ndarray,

@@ -8,9 +8,17 @@ each window's pairs to its carried mirror, which then is that window's
 snapshot. Degrees change at most 2·eb slots a window, so cap =
 min(2·eb, vb) is exact for them; labels can cascade past any cap < vb,
 so a count past the cap sends its chunk back through the snapshot
-program on full rows (the driver's `_refold_chunk_outs`). The JAX package's evidence-routed
-`resolve_egress` and its GS_EGRESS / GS_EGRESS_CAP knobs are the
-driver's `egress=` and `egress_cap=` arguments here.
+program on full rows (the driver's `_refold_chunk_outs`).
+
+Selection (the JAX package's :47-93): `resolve_egress(device)` is the
+egress of a driver or a windowed reduce given none: GS_EGRESS pins
+("full"/"delta"); unset or "auto" is "delta" only where every `egress_ab`
+row of the device (utils/evidence.py) shows parity and a 5% win (on a
+card, in its worst turns), else "full". GS_EGRESS_CAP narrows the cap where no `egress_cap=` is given.
+The JAX reduce wire's `compact_touched` and `scatter_full` have their
+equivalent in the cell-reduce kernel's delta form (ops/cell_reduce.py:
+the touched cells of a window, ascending, with their values and counts)
+and its decode in ops/windowed_reduce.py (`_device_process_stream`).
 """
 
 from __future__ import annotations
@@ -18,12 +26,43 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import evidence
+from ..utils import knobs
+
 EGRESS = ("full", "delta")
+
+def _reset_egress() -> None:
+    """Test hook: forget the memoized egress selections."""
+    evidence.forget("egress")
+
+
+def resolve_egress(device=None) -> str:
+    """The d2h egress of the driver's scan tier and the windowed reduce
+    where none is given: the GS_EGRESS pin, else "delta" where every
+    `egress_ab` row of the device clears the bar (the CPU: parity and a
+    `speedup` of 1.05; a card: `evidence.worst_clears_bar`), else
+    "full". Memoized per device."""
+    pin = knobs.get_str("GS_EGRESS")
+    if pin in EGRESS:
+        return pin
+
+    def gate(perf, label):
+        rows = perf.get("egress_ab", [])
+        if evidence.on_card(label):
+            won = evidence.worst_clears_bar(rows, "delta", "full")
+        else:
+            won = evidence.rows_clear_bar(rows, "speedup", lambda r: 1.0)
+        return "delta" if won else "full"
+
+    return evidence.choose("egress", device, gate, "full")
 
 
 def egress_cap(eb: int, vb: int, cap: int = None) -> int:
-    """Changed slots a window's delta row holds: min(2·eb, vb), or `cap`
-    where given (at least 1, at most vb)."""
+    """Changed slots a window's delta row holds: `cap` where given, else
+    GS_EGRESS_CAP where set, else min(2·eb, vb); at least 1, at most
+    vb."""
+    if cap is None:
+        cap = knobs.get_int("GS_EGRESS_CAP")
     if cap is None:
         return min(2 * eb, vb)
     return max(1, min(int(cap), vb))

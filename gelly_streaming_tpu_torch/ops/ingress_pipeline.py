@@ -22,11 +22,22 @@ chunks through `run_pipeline`. Per chunk:
               chunk behind, then once at the end, so the round trip of
               chunk i hides behind chunk i+1's kernels.
 
-The pool's width (default min(4, cpus - 1)) and the look-ahead (default
-3 prepped and copied chunks ahead of dispatch) are arguments of
-`run_pipeline`, not environment knobs. `forced_sync` pins the
-synchronous form (prep and h2d inline on the caller's thread; dispatch
-keeps its one-behind finalize): the same results, the A/B lever.
+Knobs (the JAX package's :49-62, utils/knobs.py):
+  GS_PIPELINE_WORKERS=N   the pool's width (default min(4, cpus - 1));
+                          0 runs the synchronous form. A `workers=`
+                          given to `run_pipeline` or `prep_pool` wins.
+  GS_PIPELINE_INFLIGHT=N  prepped and copied chunks ahead of dispatch
+                          (default 3). It narrows an `inflight=` given
+                          to `run_pipeline`, as the JAX twin does: the
+                          engines pass their own `INFLIGHT` (3), the
+                          depth their staging ring of INFLIGHT + 1 slots
+                          is built for, and a narrower look-ahead holds
+                          fewer of those slots.
+  GS_STREAM_PREFETCH=0    the synchronous form everywhere.
+`forced_sync` pins the synchronous form for a scope (prep and h2d inline
+on the caller's thread; dispatch keeps its one-behind finalize): the
+same results, the A/B lever. `pipeline_enabled()` is False under any of
+the three.
 
 When a prep fails, the chunk already dispatched is drained (its finalize
 runs) before the error re-raises as a PrepError carrying the worker's
@@ -76,6 +87,7 @@ from concurrent.futures import TimeoutError as _FutureTimeout
 from typing import Callable, Iterable, List, Optional
 
 from ..utils import faults
+from ..utils import knobs
 from ..utils import metrics
 from ..utils import resilience
 from ..utils import telemetry
@@ -84,6 +96,7 @@ from ..utils.resilience import StageFailed, StageTimeout
 __all__ = ["DEFAULT_INFLIGHT", "PrepError", "StageFailed", "StageTimeout",
            "StageTimers", "forced_sync",
            "forced_sync_active", "inflight_limit", "map_ordered",
+           "pipeline_enabled",
            "prep_pool", "reset_pool", "run_pipeline", "submit_prep",
            "worker_count"]
 
@@ -143,15 +156,27 @@ _FORCE_SYNC = 0  # nesting depth of forced_sync() contexts
 
 
 def worker_count() -> int:
-    """The default pool width: min(4, cpus - 1), at least 1 (one core
-    stays with the dispatching thread)."""
+    """The default pool width: GS_PIPELINE_WORKERS where set, else
+    min(4, cpus - 1), at least 1 (one core stays with the dispatching
+    thread)."""
+    env = knobs.get_int("GS_PIPELINE_WORKERS")
+    if env is not None:
+        return env
     return max(1, min(_MAX_DEFAULT_WORKERS, (os.cpu_count() or 2) - 1))
 
 
 def inflight_limit() -> int:
     """The default look-ahead: prepped and copied chunks in flight ahead
-    of dispatch."""
-    return DEFAULT_INFLIGHT
+    of dispatch (GS_PIPELINE_INFLIGHT, default DEFAULT_INFLIGHT)."""
+    return knobs.get_int("GS_PIPELINE_INFLIGHT")
+
+
+def pipeline_enabled() -> bool:
+    """False where the synchronous form is pinned: forced_sync,
+    GS_STREAM_PREFETCH=0 or GS_PIPELINE_WORKERS=0."""
+    if _FORCE_SYNC or not knobs.get_bool("GS_STREAM_PREFETCH"):
+        return False
+    return worker_count() > 0
 
 
 def forced_sync_active() -> bool:
@@ -181,9 +206,9 @@ class forced_sync:
 def prep_pool(workers: Optional[int] = None):
     """The process's prep ThreadPoolExecutor of `workers` threads
     (default `worker_count()`), built at first use; None under
-    forced_sync or at zero workers."""
+    forced_sync, GS_STREAM_PREFETCH=0 or at zero workers."""
     w = worker_count() if workers is None else int(workers)
-    if _FORCE_SYNC or w <= 0:
+    if _FORCE_SYNC or w <= 0 or not knobs.get_bool("GS_STREAM_PREFETCH"):
         return None
     with _POOL_LOCK:
         pool = _POOLS.get(w)
@@ -431,9 +456,10 @@ def run_pipeline(items: Iterable, prep: Callable, h2d: Callable,
       finalize(raw)  -> None (waits for the outputs; one item behind
                         dispatch, then once at the end)
 
-    `inflight` (default 3) caps the prepped and copied look-ahead, which
-    bounds host and device memory: a caller whose h2d writes into a ring
-    of slots holds `inflight + 1` of them. `workers` is the pool's width
+    `inflight` caps the prepped and copied look-ahead, which bounds host
+    and device memory: a caller whose h2d writes into a ring of slots
+    holds `inflight + 1` of them. GS_PIPELINE_INFLIGHT (default 3) is
+    the cap where none is given and narrows one that is. `workers` is the pool's width
     (default min(4, cpus - 1)). A prep or h2d failure surfaces as
     PrepError, or with the stage guard armed as StageTimeout /
     StageFailed once the attempts are spent (a fatal fault or a device
@@ -442,7 +468,8 @@ def run_pipeline(items: Iterable, prep: Callable, h2d: Callable,
     for."""
     it = iter(items)
     head = list(itertools.islice(it, 2))    # one item: nothing to overlap
-    limit = inflight_limit() if inflight is None else int(inflight)
+    limit = (inflight_limit() if inflight is None
+             else min(int(inflight), inflight_limit()))
     pool = prep_pool(workers) if len(head) > 1 else None
     it = itertools.chain(head, it)
     pending = None          # (item, raw, span handle) one behind dispatch

@@ -55,8 +55,13 @@ The cohort's resident tier (core/tenancy.py `TenantCohort`, selected by
 `resolve_resident_cohort`) uses the same graphs in family
 "cohort_resident": one per (vertex bucket, K, tenants, windows, staging
 slot), the cohort kernel and its counter over the group's stacked carry.
-Left out, with step 1.1: the evidence routing of `resolve_resident` and
-`resolve_resident_cohort` (their `auto` is the scan tier).
+
+Selection (measured adoption, utils/evidence.py): GS_RESIDENT and
+GS_COHORT_RESIDENT pin `on`/`off`; unset or `auto` adopts the resident
+tier only where the device's rows all show parity and a 5% win:
+`resident_ab` rows of probe `driver_resident` over the best of the scan
+and native tiers (`resolve_resident`), `tenancy_ab` rows of probe
+`cohort_resident` over sequential engines (`resolve_resident_cohort`).
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ import torch
 
 from .. import kernels
 from ..utils import costmodel
+from ..utils import evidence
 from ..utils import knobs
 from ..utils import metrics
 from . import autotune
@@ -103,27 +109,62 @@ def ring_slots() -> int:
     return knobs.get_int("GS_RESIDENT_SLOTS")
 
 
-def resolve_resident() -> bool:
-    """Should the driver run the resident snapshot tier where no
-    `snapshot_tier=` is given? GS_RESIDENT pins it (`on`/`off`);
-    unset or `auto` is the scan tier: the JAX package adopts resident on
-    committed measurements of its own, which the port has not made yet
-    (ROADMAP step 1.1)."""
-    return knobs.get_str("GS_RESIDENT") == "on"
+def _reset_resident() -> None:
+    """Test hook: forget the memoized resident-tier selections."""
+    evidence.forget("resident")
 
 
 def _reset_resident_cohort() -> None:
-    """Test hook of the JAX package's name. The port memoizes nothing:
-    GS_COHORT_RESIDENT is read live on every call."""
+    """Test hook: forget the memoized resident-cohort selections."""
+    evidence.forget("resident_cohort")
 
 
-def resolve_resident_cohort() -> bool:
+def resolve_resident(device=None) -> bool:
+    """Should the driver run the resident snapshot tier where no
+    `snapshot_tier=` is given? GS_RESIDENT pins it (`on`/`off`); unset
+    or `auto` adopts it where every `resident_ab` row of probe
+    `driver_resident` on the device shows parity and the resident rate
+    at 1.05× the best of the scan and native rates (on a card, in the
+    worst turns)."""
+    pin = knobs.get_str("GS_RESIDENT")
+    if pin in ("on", "off"):
+        return pin == "on"
+
+    def gate(perf, label):
+        rows = [r for r in perf.get("resident_ab", [])
+                if r.get("probe") == "driver_resident"]
+        if evidence.on_card(label):
+            return evidence.worst_clears_bar(rows, "resident",
+                                             ("scan", "native"))
+        return evidence.rows_clear_bar(
+            rows, "resident_edges_per_s",
+            lambda r: max(r.get("scan_edges_per_s") or 0,
+                          r.get("native_edges_per_s") or 0))
+
+    return evidence.choose("resident", device, gate, False)
+
+
+def resolve_resident_cohort(device=None) -> bool:
     """Should a tenant cohort keep each group's carries stacked on the
     device between rounds (the resident cohort tier, core/tenancy.py)?
-    GS_COHORT_RESIDENT=on selects it; `off`, unset and `auto` are the
-    scan form: the JAX package adopts it on committed measurements of
-    its own, which the port has not made yet (ROADMAP step 1.1)."""
-    return knobs.get_str("GS_COHORT_RESIDENT") == "on"
+    GS_COHORT_RESIDENT pins it (`on`/`off`); unset or `auto` adopts it
+    where every `tenancy_ab` row of probe `cohort_resident` on the device
+    shows parity and the cohort's rate at 1.05× the sequential one (on a
+    card, in the worst turns)."""
+    pin = knobs.get_str("GS_COHORT_RESIDENT")
+    if pin in ("on", "off"):
+        return pin == "on"
+
+    def gate(perf, label):
+        rows = [r for r in perf.get("tenancy_ab", [])
+                if r.get("probe") == "cohort_resident"]
+        if evidence.on_card(label):
+            return evidence.worst_clears_bar(rows, "tenant", "sequential")
+        return evidence.rows_clear_bar(
+            rows, "tenant_edges_per_s",
+            lambda r: r.get("sequential_edges_per_s") or 0)
+
+    return evidence.choose("resident_cohort", device, gate, False)
 
 
 # ----------------------------------------------------------------------

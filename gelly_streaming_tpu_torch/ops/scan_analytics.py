@@ -85,7 +85,7 @@ from . import compact_ingress
 from . import ingress_pipeline
 from . import segment as seg_ops
 from .staging import ChunkStager, HostCopy
-from .triangles import TriangleWindowKernel, default_kb, resolve_ingress
+from .triangles import TriangleWindowKernel, _tuned_kb, resolve_ingress
 from .window_summary import WindowSummary, fresh_carry
 
 __all__ = ["SlidingSummaryEngine", "StreamSummaryEngine",
@@ -571,9 +571,12 @@ class StreamSummaryEngine(SummaryEngineBase):
     are recounted by a `TriangleWindowKernel` at 4·K.
 
     `device=None` means the CUDA card and raises when there is none;
-    `device="cpu"` runs the plain PyTorch path. `ingress` None or
-    "standard" is the standard wire; "compact" the compact one, which
-    raises ValueError for vertex_bucket > 65536."""
+    `device="cpu"` runs the plain PyTorch path. `ingress` "standard" is
+    the standard wire; "compact" the compact one, which raises
+    ValueError for vertex_bucket > 65536; None routes by the device's
+    `ingress_ab` rows (ops/triangles.resolve_ingress; standard without
+    them). `k_bucket=0` is ops/triangles._tuned_kb (the analytic default
+    without `k_sweep` rows)."""
 
     AUTOTUNE = True
     TUNABLE_INGRESS = True
@@ -584,8 +587,8 @@ class StreamSummaryEngine(SummaryEngineBase):
         self.eb = seg_ops.bucket_size(edge_bucket)
         self.vb = seg_ops.bucket_size(vertex_bucket)
         self.kb = seg_ops.bucket_size(
-            k_bucket if k_bucket else default_kb(self.eb))
-        self.ingress = resolve_ingress(ingress, self.vb)
+            k_bucket if k_bucket else _tuned_kb(self.eb, self.device))
+        self.ingress = resolve_ingress(ingress, self.vb, self.device)
         # an explicit wire pins it for the tuner too
         self._pinned_ingress = ingress is not None
         self._tuner = None

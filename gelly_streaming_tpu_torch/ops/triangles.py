@@ -16,15 +16,26 @@ intersected on the device. `triangle_count` counts one window of any
 size: the dense contraction (ops/dense_triangles.py) up to
 2·DENSE_LIMIT vertices, the sparse path past it.
 
-The JAX package's evidence-routed `_resolve_stream_impl`
-(triangles.py:508-563) is the `stream_tier=` argument of
-`TriangleWindowKernel` here: "device" (the default: the kernels
-above), "host" (the numpy counter, ops/host_triangles.py) or "native"
-(the C++ counter of native/ingest.cpp, one call per slice of
+Stream tiers (`stream_tier=` of `TriangleWindowKernel`): "device" (the
+kernels above), "host" (the numpy counter, ops/host_triangles.py) or
+"native" (the C++ counter of native/ingest.cpp, one call per slice of
 windows on the ingress pool). All three give the same counts for ids
 below the vertex bucket. A pinned "native" raises where the library
-cannot load; it never becomes "host". K comes from the analytic rule and
-the wire from the constructor, not from evidence files.
+cannot load; it never becomes "host".
+
+Measured adoption (the JAX package's :166-229, :449-657, utils/evidence.py
+here): what the caller leaves unset is routed by the rows measured on the
+engine's device, and adopted only where every row shows parity and a 5%
+win (`rows_clear_bar`); with no evidence file every default stands.
+`stream_tier=None` resolves through `_resolve_stream_impl(eb, device)`
+(`host_stream` rows: on the CPU one tier for the process, on a card one
+per edge bucket from that bucket's rows), `ingress=None` through
+`resolve_ingress` (`ingress_ab` rows, gated by the vertex bucket),
+`k_bucket=0` through `_tuned_kb` and the windows per call through
+`_tuned_chunk` (the fastest `window`/`chunk_deep` sweep row of the
+bucket; `default_kb` and MAX_STREAM_WINDOWS where none). The JAX
+package's compile caps (`compile_cap`, `capped_chunk`) are caps of a TPU
+compiler and have no counterpart.
 
 A device-tier `count_stream` of more than MAX_STREAM_WINDOWS windows runs
 under the online dispatch tuner (ops/autotune.py, GS_AUTOTUNE on by
@@ -56,6 +67,7 @@ import torch
 
 from .. import native
 from ..core.platform import resolve_device
+from ..utils import evidence
 from ..utils import metrics
 from . import autotune
 from . import compact_ingress
@@ -69,7 +81,7 @@ from .window_counter import (WindowCounter, dedupe_and_positions,
                              orient_by_degree)
 
 __all__ = ["DENSE_LIMIT", "STREAM_TIERS", "TriangleWindowKernel",
-           "build_window_counter",
+           "build_window_counter", "rows_clear_bar",
            "default_kb", "dedupe_and_positions", "orient_by_degree",
            "resolve_ingress", "triangle_count", "triangle_count_dense",
            "triangle_count_sparse"]
@@ -113,13 +125,16 @@ def _native_count_stream_parallel(src: np.ndarray, dst: np.ndarray,
                                   eb: int) -> list:
     """The native tier of count_stream across the ingress pool: the
     stream cut into window-aligned slices, one C++ call each (ctypes
-    drops the GIL), the counts joined in order; under forced_sync one
-    call for the whole stream. The same counts either way."""
-    if ingress_pipeline.forced_sync_active():
+    drops the GIL), the counts joined in order; where the pipeline is
+    off (`ingress_pipeline.pipeline_enabled()`: forced_sync,
+    GS_STREAM_PREFETCH=0, no workers) one call for the whole stream. The
+    same counts either way."""
+    if not ingress_pipeline.pipeline_enabled():
         return _native_count(src, dst, eb)
     num_w = -(-len(src) // eb)
     # ~4 slices a worker keeps the pool busy through uneven windows
-    groups = max(1, min(num_w, 4 * ingress_pipeline.worker_count()))
+    groups = max(1, min(num_w,
+                        4 * max(1, ingress_pipeline.worker_count())))
     per = -(-num_w // groups)
 
     def one(at):
@@ -136,12 +151,133 @@ def default_kb(eb: int) -> int:
     return min(128, 2 * math.isqrt(eb))
 
 
-def resolve_ingress(ingress, vb: int) -> str:
-    """The wire of a stream engine at vertex bucket vb: None or
-    "standard" is the standard wire, "compact" the compact one, which
-    raises ValueError where ids may not fit uint16 (the JAX engines'
-    message)."""
-    if ingress in (None, "standard"):
+rows_clear_bar = evidence.rows_clear_bar
+
+# ----------------------------------------------------------------------
+# measured adoption (the JAX package's :449-657)
+# ----------------------------------------------------------------------
+
+
+def _reset_stream_impl() -> None:
+    """Test hook: forget the memoized stream tiers."""
+    evidence.forget("stream_impl")
+
+
+def _reset_ingress() -> None:
+    """Test hook: forget the memoized wire selections."""
+    evidence.forget("ingress")
+
+
+def _reset_tuned() -> None:
+    """Test hook: forget the memoized K and chunk selections."""
+    evidence.forget("tuned_kb")
+    evidence.forget("tuned_chunk")
+
+
+def _pick_host_tier(rows, card: bool = False) -> str:
+    """The tier of a set of `host_stream` rows: "host" where the numpy
+    counter clears the device path on every row, "native" where the C++
+    counter also clears both and its library loads, else "device". On a
+    card (`card`) the rows clear in their worst turns
+    (`evidence.worst_clears_bar`)."""
+    if card:
+        host = evidence.worst_clears_bar(rows, "host", "device")
+        nat = evidence.worst_clears_bar(rows, "native", ("device", "host"),
+                                        parity_key="native_parity")
+    else:
+        host = rows_clear_bar(rows, "host_edges_per_s", "device_edges_per_s")
+        nat = rows_clear_bar(rows, "native_edges_per_s",
+                             lambda r: max(r.get("device_edges_per_s") or 0,
+                                           r.get("host_edges_per_s") or 0),
+                             parity_key="native_parity")
+    if nat and native.triangles_available():
+        return "native"
+    return "host" if host else "device"
+
+
+def _resolve_stream_impl(eb: int = None, device=None) -> str:
+    """The stream tier of a kernel given none, from the `host_stream`
+    rows of its device: on the CPU one tier for the process from all its
+    rows; on a card one tier per edge bucket from that bucket's rows
+    (`eb=None` there is "device"). "device" without evidence."""
+
+    def whole(perf, label):
+        return _pick_host_tier(perf.get("host_stream", []))
+
+    def bucket(perf, label):
+        rows = [r for r in perf.get("host_stream", [])
+                if r.get("edge_bucket") == eb]
+        return _pick_host_tier(rows, card=True) if rows else "device"
+
+    if not evidence.on_card(evidence.device_label(device)):
+        return evidence.choose("stream_impl", device, whole, "device")
+    if eb is None:
+        return "device"
+    return evidence.choose("stream_impl", device, bucket, "device", key=eb)
+
+
+def _fastest_sweep_row(perf: dict, eb: int, sweep_key: str, value_key: str,
+                       default):
+    """The value of the fastest measured row (least per_window_ms, its
+    recounts included) of this bucket's `sweep_key` sweeps in the
+    `window` and `chunk_deep` sections of `perf`; `default` where none.
+    Rows without the value key are skipped; the value is at least 1."""
+    rows = (list(perf.get("window", []) or [])
+            + list(perf.get("chunk_deep", []) or []))
+    measured = [s for row in rows
+                if isinstance(row, dict) and row.get("edge_bucket") == eb
+                for s in row.get(sweep_key, []) or []
+                if s.get("per_window_ms") and s.get(value_key)]
+    if not measured:
+        return default
+    return max(1, int(min(measured,
+                          key=lambda s: s["per_window_ms"])[value_key]))
+
+
+def _tuned_kb(eb: int, device=None) -> int:
+    """The starting K of an edge bucket: the fastest `k_sweep` row of
+    the device's evidence for it, else `default_kb(eb)`."""
+    return evidence.choose(
+        "tuned_kb", device,
+        lambda perf, label: _fastest_sweep_row(perf, eb, "k_sweep",
+                                               "k_bucket", default_kb(eb)),
+        default_kb(eb), key=eb)
+
+
+def _tuned_chunk(eb: int, device=None) -> int:
+    """Windows per count_stream call: the fastest `chunk_sweep` row of
+    the device's evidence for the bucket, else MAX_STREAM_WINDOWS (the
+    class default, read live)."""
+    got = evidence.choose(
+        "tuned_chunk", device,
+        lambda perf, label: _fastest_sweep_row(
+            perf, eb, "chunk_sweep", "windows_per_dispatch", None),
+        None, key=eb)
+    return TriangleWindowKernel.MAX_STREAM_WINDOWS if got is None else got
+
+
+def resolve_ingress(ingress, vb: int, device=None) -> str:
+    """The wire of a stream engine at vertex bucket vb: "standard" or
+    "compact" as pinned (a pinned "compact" raises ValueError where ids
+    may not fit uint16, the JAX engines' message); None is "compact"
+    only where the device's `ingress_ab` rows all show parity and a 5%
+    win (on a card, in their worst turns) and the ids of vb fit uint16,
+    else "standard"."""
+    if ingress is None:
+
+        def gate(perf, label):
+            rows = perf.get("ingress_ab", [])
+            if evidence.on_card(label):
+                won = evidence.worst_clears_bar(rows, "compact", "std")
+            else:
+                won = rows_clear_bar(rows, "speedup", lambda r: 1.0)
+            return "compact" if won else "standard"
+
+        if (evidence.choose("ingress", device, gate, "standard")
+                == "compact" and compact_ingress.supports(vb)):
+            return "compact"
+        return "standard"
+    if ingress == "standard":
         return "standard"
     if ingress != "compact":
         raise ValueError("unknown ingress %r (choices: 'standard', "
@@ -205,7 +341,19 @@ def triangle_count(src: np.ndarray, dst: np.ndarray, num_vertices: int,
                    device=None) -> int:
     """Exact triangle count of one window: the dense contraction for
     num_vertices ≤ 2·DENSE_LIMIT (where its float32 partials stay
-    exact), `triangle_count_sparse` above."""
+    exact), `triangle_count_sparse` above. Where the CPU's `host_stream`
+    evidence routes the stream tier to "native" or "host"
+    (`_resolve_stream_impl()`: on a card, always "device"), that tier
+    counts the window instead: the same count."""
+    tier = _resolve_stream_impl(device=device)
+    if tier == "native":
+        counts = native.triangle_count_stream(
+            np.asarray(src), np.asarray(dst), max(len(src), 1))
+        if counts is not None:
+            return int(counts[0]) if len(counts) else 0
+        tier = "host"
+    if tier == "host":
+        return host_triangles.window_count(src, dst)
     if num_vertices <= 2 * DENSE_LIMIT:
         return triangle_count_dense(src, dst, num_vertices, device)
     return triangle_count_sparse(src, dst, num_vertices, device)
@@ -229,10 +377,13 @@ class TriangleWindowKernel:
     wire) and, past it, by `triangle_count_sparse`.
 
     `device=None` means the CUDA card and raises when there is none;
-    `device="cpu"` runs the plain PyTorch path. `ingress=None` is the
-    standard wire. `stream_tier` picks who counts `count_stream` and
-    `count_windows` (STREAM_TIERS; `count`, the one-window recount,
-    stays on the device).
+    `device="cpu"` runs the plain PyTorch path. `stream_tier` picks who
+    counts `count_stream` and `count_windows` (STREAM_TIERS; `count`,
+    the one-window recount, stays on the device). What is left unset
+    (`stream_tier=None`, `ingress=None`, `k_bucket=0`, and the windows
+    per call) is routed by the device's evidence (module docstring):
+    without it "device", the standard wire, `default_kb` and
+    MAX_STREAM_WINDOWS.
     """
 
     MAX_STREAM_WINDOWS = 64  # windows per device call in count_stream
@@ -240,15 +391,20 @@ class TriangleWindowKernel:
 
     def __init__(self, edge_bucket: int, vertex_bucket: int,
                  k_bucket: int = 0, device=None, ingress: str = None,
-                 stream_tier: str = "device"):
+                 stream_tier: str = None):
         self.device = resolve_device(device)
-        self.stream_tier = check_stream_tier(stream_tier)
         self.eb = seg_ops.bucket_size(edge_bucket)
         self.vb = seg_ops.bucket_size(vertex_bucket)
+        self.stream_tier = check_stream_tier(
+            stream_tier if stream_tier is not None
+            else _resolve_stream_impl(self.eb, self.device))
         self.kb = seg_ops.bucket_size(
-            k_bucket if k_bucket else default_kb(self.eb))
+            k_bucket if k_bucket else _tuned_kb(self.eb, self.device))
         self.kb_max = seg_ops.bucket_size(2 * math.isqrt(self.eb))
-        self.ingress = resolve_ingress(ingress, self.vb)
+        # an instance attribute where the device's chunk sweep measured
+        # this bucket
+        self.MAX_STREAM_WINDOWS = _tuned_chunk(self.eb, self.device)
+        self.ingress = resolve_ingress(ingress, self.vb, self.device)
         # an explicit K or wire freezes that dimension for the tuner
         self._pinned_kb = bool(k_bucket)
         self._pinned_ingress = ingress is not None

@@ -11,10 +11,13 @@ how many there were (0: absent; its cell holds the fill, so compare by
 counts). A user fn declared associative (`fn=`) takes the flagged scan
 of ops/segment.py instead of a monoid.
 
-Tiers, by the `tier=` argument (the JAX package routes by committed
-evidence files, `_resolve_reduce_impl` :43; the port reads none of
-them):
-- "device" (the default): the stream in chunks of up to 64 windows
+Tiers, by the `tier=` argument, or where it is None by the device's
+evidence (`_resolve_reduce_impl`, the JAX package's :43-93: "host" where
+every `host_reduce` row of the monoid shows parity and the host rate at
+1.05× the device's, "native" where the C++ rate also clears both and the
+library loads, else "device"; a stream whose values the native tier
+cannot fold re-resolves without it):
+- "device": the stream in chunks of up to 64 windows
   through the ingress pipeline (ops/ingress_pipeline.py: prep and h2d on
   the worker pool into a ring of staging slots, dispatch in chunk order,
   outputs read one chunk behind) into the cell-reduce kernel
@@ -36,8 +39,10 @@ host. `cohort_step` folds N tenants' next windows in one launch.
 Ids outside [0, vb] are refused with ValueError on every tier. Each
 call is one `reduce.stream` telemetry span, its tier an attribute
 (`reduce.sliding` around a sliding call's panes), and the device tier's
-chunks add their per-stage wall time to `stage_timers`. Not ported: the
-evidence routing of tiers, wires and egress (after step 1.1).
+chunks add their per-stage wall time to `stage_timers`. `ingress=None`
+and `egress=None` route as the other engines do
+(ops/triangles.resolve_ingress, ops/delta_egress.resolve_egress; without
+evidence the standard wire and full rows).
 """
 
 from __future__ import annotations
@@ -49,8 +54,10 @@ import torch
 
 from .. import native
 from ..core.platform import resolve_device
+from ..utils import evidence
 from ..utils import telemetry
 from . import compact_ingress
+from . import delta_egress
 from . import ingress_pipeline
 from . import segment as seg_ops
 from .cell_reduce import cell_reduce, cell_reduce_compact
@@ -60,6 +67,50 @@ from .triangles import resolve_ingress
 _DIRECTIONS = ("out", "in", "all")
 TIERS = ("device", "host", "native")
 EGRESS = ("full", "delta")
+
+
+def _reset_reduce_impl() -> None:
+    """Test hook: forget the memoized reduce-tier selections."""
+    evidence.forget("windowed_reduce")
+
+
+def _resolve_reduce_impl(name: str, allow_native: bool = True,
+                         device=None) -> str:
+    """The tier of monoid `name` on the device's evidence: "host" where
+    every `host_reduce` row of the name shows parity and the host rate
+    at 1.05× the device's; "native" (with `allow_native`) where every
+    row also shows native parity and the native rate at 1.05× the better
+    of the two and `native.windowed_reduce_available()`; else "device".
+    On the CPU the rule is the JAX package's, row for row; on a card it
+    is `evidence.worst_clears_bar`, which also needs the device arm's
+    times in every row."""
+
+    def gate(perf, label):
+        rows = [r for r in perf.get("host_reduce", [])
+                if r.get("name") == name]
+        if not rows:
+            return "device"
+        if evidence.on_card(label):
+            host = evidence.worst_clears_bar(rows, "host", "device")
+            nat = evidence.worst_clears_bar(rows, "native",
+                                            ("device", "host"),
+                                            parity_key="native_parity")
+        else:
+            host = all(r.get("parity") is True
+                       and (r.get("host_edges_per_s") or 0)
+                       >= 1.05 * (r.get("device_edges_per_s") or 0)
+                       for r in rows)
+            nat = all(r.get("native_parity") is True
+                      and (r.get("native_edges_per_s") or 0)
+                      >= 1.05 * max(r.get("device_edges_per_s") or 0,
+                                    r.get("host_edges_per_s") or 0)
+                      for r in rows)
+        if allow_native and nat and native.windowed_reduce_available():
+            return "native"
+        return "host" if host else "device"
+
+    return evidence.choose("windowed_reduce", device, gate, "device",
+                           key=(name, allow_native))
 
 
 def _device_cell_fill(name: str, dtype):
@@ -103,8 +154,9 @@ class WindowedEdgeReduce:
 
     `device=None` means the CUDA card (the device tier only; the host
     and native tiers need none); `device="cpu"` runs the kernel's plain
-    version. `ingress=None` is the standard wire, `egress=None` full
-    rows.
+    version. `tier=None`, `ingress=None` and `egress=None` route by the
+    device's evidence (module docstring): without it the device tier,
+    the standard wire and full rows.
     """
 
     MAX_STREAM_WINDOWS = 64
@@ -113,21 +165,28 @@ class WindowedEdgeReduce:
     def __init__(self, vertex_bucket: int, edge_bucket: int,
                  name: str = "sum", direction: str = "out",
                  fn=None, ingress: str = None, egress: str = None,
-                 slide: int = None, tier: str = "device", device=None):
+                 slide: int = None, tier: str = None, device=None):
         if direction not in _DIRECTIONS:
             raise ValueError(f"direction must be one of {_DIRECTIONS}")
-        egress = egress or "full"
+        if not egress:
+            egress = delta_egress.resolve_egress(device)
         if egress not in EGRESS:
             raise ValueError(f"unknown egress: {egress!r}")
-        if tier not in TIERS:
+        if tier is not None and tier not in TIERS:
             raise ValueError("unknown tier %r (choices: %s)"
                              % (tier, ", ".join(TIERS)))
         if fn is not None:
             name = None
-            if tier != "device":
+            if tier not in (None, "device"):
                 raise ValueError("a user fn runs on the device tier only")
+            tier = "device"
         if name not in (None, "sum", "min", "max"):
             raise ValueError("unknown monoid %r" % (name,))
+        # a pinned tier keeps its refusals; a routed one is never native
+        # without the library
+        self._tier_pinned = tier is not None
+        if tier is None:
+            tier = _resolve_reduce_impl(name, device=device)
         if tier == "native" and not native.windowed_reduce_available():
             raise RuntimeError("native tier pinned, but the native library "
                                "is unavailable: %s" % native.build_error())
@@ -150,13 +209,13 @@ class WindowedEdgeReduce:
         self.fn = fn
         self.direction = direction
         self.tier = tier
-        self.ingress = resolve_ingress(ingress, self.vb)
+        self.ingress = resolve_ingress(ingress, self.vb, device)
         self.egress = egress
         self._device_arg = device
-        self.device = resolve_device(device) if tier == "device" else None
+        self.device = self._ring = None
+        if tier == "device":
+            self._ensure_device()
         self.stage_timers = ingress_pipeline.StageTimers()
-        self._ring = (ChunkStager(self.device, slots=self.INFLIGHT + 1)
-                      if self.device is not None else None)
         self.panes_per_window = (self.eb // self.slide
                                  if self.slide else 1)
         self._pane_engine = None
@@ -164,10 +223,18 @@ class WindowedEdgeReduce:
 
     # ---- sliding windows (pane composition) ---------------------------
 
+    def _ensure_device(self) -> None:
+        """The device and staging ring of the device tier, made at the
+        first need."""
+        if self.device is None:
+            self.device = resolve_device(self._device_arg)
+            self._ring = ChunkStager(self.device, slots=self.INFLIGHT + 1)
+
     def _twin(self, eb: int) -> "WindowedEdgeReduce":
         return WindowedEdgeReduce(
             self.vb, eb, name=self.name, direction=self.direction,
-            ingress=self.ingress, egress=self.egress, tier=self.tier,
+            ingress=self.ingress, egress=self.egress,
+            tier=self.tier if self._tier_pinned else None,
             device=self._device_arg)
 
     def _pane_eng(self) -> "WindowedEdgeReduce":
@@ -238,19 +305,27 @@ class WindowedEdgeReduce:
                                 panes_per_window=self.panes_per_window):
                 panes = self._pane_eng().process_stream(src0, dst0, val)
                 return self._compose_panes(panes)
-        if self.tier == "native" \
+        tier = self.tier
+        if tier == "native" \
                 and not np.issubdtype(val.dtype, np.signedinteger):
-            raise ValueError("the native tier folds signed integer "
-                             "values, not %s" % val.dtype)
+            if self._tier_pinned:
+                raise ValueError("the native tier folds signed integer "
+                                 "values, not %s" % val.dtype)
+            # a routed native tier: these values go where the evidence
+            # without it points
+            tier = _resolve_reduce_impl(self.name, allow_native=False,
+                                        device=self._device_arg)
+            if tier == "device":
+                self._ensure_device()
         # the device tier's chunk and stage spans (the ingress pipeline)
         # nest under this one
-        with telemetry.span("reduce.stream", tier=self.tier,
+        with telemetry.span("reduce.stream", tier=tier,
                             monoid=self.name or "fn", edges=n):
-            if self.tier == "native":
+            if tier == "native":
                 return self._native_process_stream(src0, dst0, val)
             src64 = src0.astype(np.int64, copy=False)
             dst64 = dst0.astype(np.int64, copy=False)
-            if self.tier == "host":
+            if tier == "host":
                 return self._host_process_stream(src64, dst64, val)
             return self._device_process_stream(src64, dst64, val)
 

@@ -35,8 +35,11 @@ b) as one int64 key, an all_to_all of the owned edges, a local dedupe,
 then the neighbor rows: "replicated" (each rank writes its kb/n column
 slice of a [vb+1, kb] table, one MAX) or "owner" (an all_gather of the
 row ids the owned edges touch and an all_to_all of the column slices).
-`table=` is an argument; the JAX `resolve_table_mode` reads evidence
-files, which the port does not.
+`table=` pins the mode; None is `resolve_table_mode(device)` (the JAX
+package's :378-428): "owner" only where the device's `sharded_table` row
+(utils/evidence.py), measured on a device of that name (its `backend`),
+shows `counts_match` and the owner rate at 1.05× the replicated one,
+else "replicated". K where `k_bucket=0` is ops/triangles._tuned_kb.
 
 Hooks: every sharded dispatch fires `shard_dispatch`, every copy back of
 replicated outputs `shard_gather`, every mesh-bound stack `shard_wire`
@@ -55,8 +58,7 @@ a prep. A kernel, CUDA or collective error passes through unretried
 window of a chunk, one SUM of the chunk's degree partials, each fixpoint
 on row U with its MIN exchange every round.
 
-Left out: `ICI_GBPS` and `ici_time_model` (TPU v5e link figures) and
-`resolve_table_mode` (evidence routing).
+Not ported: `ICI_GBPS` and `ici_time_model` (TPU v5e link figures).
 """
 
 from __future__ import annotations
@@ -74,15 +76,48 @@ from ..ops.neighborhood import (assoc_window_combine, masked_combine,
                                 window_stack_combine)
 from ..ops.scan_analytics import SummaryEngineBase, check_summary_carry
 from ..ops.staging import ChunkStager, HostCopy
-from ..ops.triangles import default_kb, triangle_count_sparse
+from ..ops.triangles import _tuned_kb, triangle_count_sparse
 from ..ops.window_counter import dedupe_and_positions, orient_by_degree
 from ..ops.window_summary import fresh_carry
-from ..utils import faults, metrics, resilience, telemetry
+from ..utils import evidence, faults, metrics, resilience, telemetry
 from .mesh import (Mesh, make_mesh, mesh_padded_len, pad_edges_for_mesh,
                    shard_count)
 
 TABLE_MODES = ("replicated", "owner")
 _M32 = 0xFFFFFFFF
+
+
+# ----------------------------------------------------------------------
+# the table mode (measured adoption)
+# ----------------------------------------------------------------------
+def _reset_table_mode() -> None:
+    """Test hook: forget the memoized table-mode selections."""
+    evidence.forget("sharded_table")
+
+
+def resolve_table_mode(device=None) -> str:
+    """The neighbor-row mode of a sharded counter given none: "owner"
+    where the device's `sharded_table` row was measured on a device of
+    the same name and shows `counts_match` and the owner rate at 1.05×
+    the replicated one (on a card, in the worst turns of its `rows`);
+    else "replicated". Memoized per device."""
+
+    def gate(perf, label):
+        row = perf.get("sharded_table", {})
+        if row.get("backend") != label:
+            return "replicated"
+        if evidence.on_card(label):
+            won = evidence.worst_clears_bar(
+                row.get("rows"), "owner", "replicated",
+                parity_key="counts_match") and row.get("counts_match") is True
+        else:
+            owner = row.get("owner_edges_per_s") or 0
+            repl = row.get("replicated_edges_per_s") or 0
+            won = (row.get("counts_match") is True and owner and repl
+                   and owner >= 1.05 * repl)
+        return "owner" if won else "replicated"
+
+    return evidence.choose("sharded_table", device, gate, "replicated")
 
 
 # ----------------------------------------------------------------------
@@ -436,8 +471,10 @@ class ShardedTriangleWindowKernel:
 
     def __init__(self, mesh: Mesh, edge_bucket: int, vertex_bucket: int,
                  k_bucket: int = 0, cap_factor: int = 2,
-                 table: str = "replicated"):
+                 table: str = None):
         _require_member(mesh)
+        if table is None:
+            table = resolve_table_mode(mesh.device)
         if table not in TABLE_MODES:
             raise ValueError("unknown table mode %r (choices: %s)"
                              % (table, ", ".join(TABLE_MODES)))
@@ -451,7 +488,7 @@ class ShardedTriangleWindowKernel:
 
         self.eb = _mult_of_n(seg_ops.bucket_size(edge_bucket))
         self.vb = seg_ops.bucket_size(vertex_bucket)
-        kb0 = k_bucket if k_bucket else default_kb(self.eb)
+        kb0 = k_bucket if k_bucket else _tuned_kb(self.eb, mesh.device)
         self.kb = _mult_of_n(seg_ops.bucket_size(kb0))
         self.kb_max = max(
             _mult_of_n(seg_ops.bucket_size(2 * math.isqrt(self.eb))),
@@ -976,7 +1013,7 @@ class ShardedSummaryEngine(SummaryEngineBase):
     METRICS_TIER = "sharded"
 
     def __init__(self, mesh: Mesh, edge_bucket: int, vertex_bucket: int,
-                 k_bucket: int = 0, table: str = "replicated"):
+                 k_bucket: int = 0, table: str = None):
         self.mesh = mesh
         self.n = shard_count(mesh)
         self._tri = ShardedTriangleWindowKernel(

@@ -59,12 +59,13 @@ def parallel_intern_arrays(interner, arrays):
       3. parallel: scatter the unique slots back through each inverse.
 
     Arrays that np.unique cannot order like the interner (objects,
-    floats: NaN != NaN) and runs under forced_sync take the sequential
+    floats: NaN != NaN) and runs with the pipeline off
+    (`ingress_pipeline.pipeline_enabled()`) take the sequential
     loop. Returns (dense arrays, sizes), sizes[i] = len(interner) after
     array i."""
     arrays = [np.asarray(a) for a in arrays]
     orderable = all(a.dtype.kind in "biuSU" for a in arrays)
-    if (not orderable or ingress_pipeline.forced_sync_active()
+    if (not orderable or not ingress_pipeline.pipeline_enabled()
             or len(arrays) < 2):
         out, sizes = [], []
         for a in arrays:

@@ -5,7 +5,9 @@ Port of the JAX package's `utils/knobs.py`: the registry API as it is
 (`Knob`, `KnobError`, `register`, `get_int`, `get_float`, `get_bool`,
 `get_str`, `get_path`, `render_table`; :46-180 and :631-649 there), with
 the knobs the port reads registered under the JAX names, kinds, defaults
-and bounds (:180-625 there): the stage guard's and the demotion
+and bounds (:180-625 there): the ingress pipeline's width, look-ahead
+and prefetch (`ops/ingress_pipeline.py`), the egress pin and cap
+(`ops/delta_egress.py`), the stage guard's and the demotion
 registry's (`utils/resilience.py`; the sharded engines' wire check,
 `parallel/sharded.py`), the dispatch autotuner's
 (`ops/autotune.py`), the resident tier's (`ops/resident_engine.py`), the
@@ -17,7 +19,8 @@ admission cap, queue depth, overflow policy, quarantine probation and
 reorder bound (`core/tenancy.py`), and the serving front end's port,
 deadlines, pump mode and subscriber queue (`core/serve.py`). The
 cost model's peaks are not knobs here: they come from the card's row of
-`utils/costmodel.PEAKS`.
+`utils/costmodel.PEAKS`; nor are the JAX package's `GS_*PALLAS*` knobs,
+which pick between Pallas and XLA forms the port does not have.
 
 - Reads are live: `os.environ` is consulted on every call, never
   cached, so a test or a tool can flip a knob mid-process. The engines
@@ -168,6 +171,34 @@ def get_path(name: str) -> Optional[str]:
 # the registry
 # ----------------------------------------------------------------------
 
+# ingress pipeline (ops/ingress_pipeline.py)
+register("GS_PIPELINE_WORKERS", "int", None, lo=0,
+         help="prep worker-pool width; unset = min(4, cpus-1), `0` "
+              "pins the synchronous single-thread form",
+         default_text="min(4, cpus-1)")
+register("GS_PIPELINE_INFLIGHT", "int", 3, lo=1,
+         help="max prepped+transferred chunks kept in flight ahead of "
+              "dispatch; narrows an `inflight=` a caller gives (the "
+              "engines pass their staging ring's depth, 3), as in JAX")
+register("GS_STREAM_PREFETCH", "bool", True,
+         help="`0` pins the synchronous ingress form everywhere (the "
+              "A/B lever `ops/ingress_pipeline.forced_sync` scopes "
+              "per-measurement)")
+
+# egress (ops/delta_egress.py)
+register("GS_EGRESS", "str", "", choices=("full", "delta", "auto"),
+         help="pin the batched d2h egress: `full` (whole snapshot "
+              "rows) or `delta` (per-window changed-slot wire, "
+              "`ops/delta_egress.py`); unset/`auto` = adopt delta "
+              "only on the device's parity+≥5% `egress_ab` rows",
+         default_text="auto")
+register("GS_EGRESS_CAP", "int", None, lo=1,
+         help="per-window changed-slot capacity of the delta wire "
+              "where no `egress_cap=` is given; a window that "
+              "overflows it refolds its chunk on full rows, so any "
+              "cap stays exact",
+         default_text="min(2·eb, vb)")
+
 # stage guard and tier demotion (utils/resilience.py)
 register("GS_STAGE_TIMEOUT_S", "float", 0.0, lo=0.0,
          help="per-stage deadline of the ingress pipeline's host stages "
@@ -225,8 +256,9 @@ register("GS_TUNE_CACHE", "path", None,
 register("GS_RESIDENT", "str", "", choices=("on", "off", "auto"),
          help="pin the driver's resident snapshot tier "
               "(`ops/resident_engine.py`): `on` selects it, `off` never; "
-              "unset/`auto` = the scan tier until the port has its own "
-              "measured evidence",
+              "unset/`auto` = adopt it only on the device's parity+≥5% "
+              "`resident_ab`/`driver_resident` rows (none committed: "
+              "the scan tier)",
          default_text="auto")
 register("GS_RESIDENT_SPB", "int", 256, lo=1,
          help="windows per super-batch of the resident tier (one CUDA "
@@ -418,8 +450,10 @@ register("GS_COHORT_RESIDENT", "str", "", choices=("on", "off", "auto"),
               "bucket, K) group's carries stay stacked on the device "
               "between rounds, each dispatch one replayed CUDA graph, "
               "restacked only when the group's membership changes; `on` "
-              "selects it, `off`, unset and `auto` run the scan form "
-              "(`auto` waits on the port's own measurements)",
+              "selects it, `off` runs the scan form; unset/`auto` = "
+              "adopt it only on the device's parity+≥5% "
+              "`tenancy_ab`/`cohort_resident` rows (none committed: the "
+              "scan form)",
          default_text="auto")
 register("GS_QUARANTINE_WINDOWS", "int", 4, lo=0,
          help="clean solo probation windows a quarantined tenant must "

@@ -16,7 +16,8 @@ the same instant in seconds.
   pipeline; a window's stage latencies are the consecutive differences,
   so they sum to its end-to-end latency by construction (`reconcile`).
 - Per-lane percentiles in bounded reservoirs, under the metrics
-  registry's cardinality bound; armed metrics add the
+  registry's cardinality bound (`percentile_fields` pools them into a
+  bench row's `e2e_p{50,95,99}_s`); armed metrics add the
   `gs_latency_e2e_seconds` and `gs_latency_stage_seconds` histograms.
 - `queue_age(lane)`: the age of the oldest admitted but unfinalized
   edge (`gs_latency_oldest_edge_age_s`). A lane whose owner reports an
@@ -575,6 +576,22 @@ def health_section(now: Optional[float] = None) -> dict:
 
 def _round_opt(v, nd: int = 6):
     return None if v is None else round(v, nd)
+
+
+def percentile_fields(prefix: str = "e2e") -> dict:
+    """The pooled end-to-end percentiles of every lane as flat
+    `<prefix>_p{50,95,99}_s` fields (the shape of a bench row); empty
+    when nothing was recorded."""
+    p = _plane()
+    with p.lock:
+        pool: List[float] = []
+        for ln in p.lanes.values():
+            pool.extend(ln.e2e)
+    if not pool:
+        return {}
+    pct = telemetry.percentiles(pool)
+    return {"%s_p%d_s" % (prefix, q): round(pct[q], 6)
+            for q in (50, 95, 99)}
 
 
 def recent() -> List[dict]:

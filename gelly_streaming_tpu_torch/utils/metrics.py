@@ -25,6 +25,12 @@ graphs in the port) against the envelope `GS_METRICS_COMPILE_BASE +
 log2(max/min observed size) + 1`; past it a durable `recompile_storm`
 event fires.
 
+And the memory watch: `sample_memory()` returns the live tensor bytes the
+caching allocator holds on each card (`torch.cuda.memory_stats`:
+allocations and bytes in use, and the card's total as its limit), and
+sets their gauges when armed; on a host with no card it reports no
+device rows and no live counts (the allocator tracks only the card's).
+
 `attribute_dispatch` splits one dispatch's seconds (and, with the cost
 observatory armed, its modeled bytes) across rows by valid edges; the
 last nonzero row takes the residue of the left-to-right running sum, so
@@ -805,3 +811,45 @@ def compile_report() -> Dict[str, dict]:
     reg = _reg()
     with reg.lock:
         return {name: dict(c) for name, c in reg.compiles.items()}
+
+
+# ----------------------------------------------------------------------
+# memory watch
+# ----------------------------------------------------------------------
+def sample_memory() -> dict:
+    """A snapshot of the live tensors on the cards: {"live_buffers":
+    allocations in use, "live_buffer_bytes": their bytes, both summed
+    over the cards (None with no card), "devices": one row a card
+    {"device", "bytes_in_use", "bytes_limit"}}. Always returned; the
+    gauges are set only when armed."""
+    out = {"live_buffers": None, "live_buffer_bytes": None,
+           "devices": []}
+    try:
+        import torch
+
+        if torch.cuda.is_available():
+            count = total = 0
+            for i in range(torch.cuda.device_count()):
+                stats = torch.cuda.memory_stats(i)
+                in_use = int(stats.get("allocated_bytes.all.current",
+                                       torch.cuda.memory_allocated(i)))
+                count += int(stats.get("allocation.all.current", 0))
+                total += in_use
+                out["devices"].append({
+                    "device": "cuda:%d" % i, "bytes_in_use": in_use,
+                    "bytes_limit": int(torch.cuda.get_device_properties(
+                        i).total_memory)})
+            out["live_buffers"] = count
+            out["live_buffer_bytes"] = total
+    except Exception as e:
+        telemetry.event("memory_sample_failed",
+                        error="%s: %s" % (type(e).__name__, e))
+        return out
+    if enabled():
+        if out["live_buffers"] is not None:
+            gauge_set("gs_live_buffers", out["live_buffers"])
+            gauge_set("gs_live_buffer_bytes", out["live_buffer_bytes"])
+        for row in out["devices"]:
+            gauge_set("gs_device_bytes_in_use", row["bytes_in_use"],
+                      device=row["device"])
+    return out

@@ -23,6 +23,11 @@ ledger format and `chunk_key`.
   Readers skip a torn last line.
 - Sinks (`register_sink`): the metrics registry and the cost observatory
   see every record while they are armed, even with the recorder off.
+- Per span name, the recorder keeps a count, a total and a bounded
+  reservoir of the last `_SAMPLE_CAP` durations; `summary(top)` renders
+  them as rows (count, total, p50/p95/p99 in ms), the most time first.
+- `stopwatch(name)` is a span whose interval crosses scopes: started
+  when made, recorded once by its first `stop()`, never when unstopped.
 
 With `GS_TELEMETRY=0` (the default) and no armed sink every call is a
 guarded no-op and `span()` is a bare perf_counter stopwatch. Every time
@@ -42,6 +47,8 @@ import time
 from typing import Dict, List, Optional
 
 from . import knobs
+
+_SAMPLE_CAP = 2048  # per-span-name duration reservoir for summary()
 
 clock = time.perf_counter  # the one monotonic clock every record uses
 
@@ -75,9 +82,9 @@ def durable_sync() -> bool:
 # the process-global recorder
 # ----------------------------------------------------------------------
 class _Recorder:
-    """All mutable state behind one lock: the ring, the ledger file and
-    the span-id counter. One instance per process (rebuilt by
-    reset())."""
+    """All mutable state behind one lock: the ring, the per-name span
+    aggregates summary() renders, the ledger file and the span-id
+    counter. One instance per process (rebuilt by reset())."""
 
     def __init__(self):
         self.lock = threading.RLock()
@@ -87,6 +94,7 @@ class _Recorder:
         self.mono = clock()
         self.ring = collections.deque(maxlen=ring_size())
         self.next_sid = 1
+        self.agg: Dict[str, dict] = {}
         self.ledger = None        # open file object, lazily created
         self.ledger_path = None
         self.ledger_failed = False  # sticky: disk broke, stop trying
@@ -174,6 +182,13 @@ class _Recorder:
     def add(self, rec: dict, durable: bool = False) -> None:
         with self.lock:
             self.ring.append(rec)
+            if rec["t"] == "span":
+                a = self.agg.setdefault(rec["name"], {
+                    "count": 0, "total": 0.0,
+                    "samples": collections.deque(maxlen=_SAMPLE_CAP)})
+                a["count"] += 1
+                a["total"] += rec["dur"]
+                a["samples"].append(rec["dur"])
             if durable:
                 self._append(rec, sync=True)
 
@@ -429,6 +444,42 @@ def span(name: str, **attrs) -> _Span:
     return _Span(name, attrs)
 
 
+class _Stopwatch:
+    """A deferred span: started at construction, recorded by its first
+    stop(); an unstopped stopwatch records nothing."""
+
+    __slots__ = ("name", "attrs", "t0", "_done")
+
+    def __init__(self, name: Optional[str], attrs: dict):
+        self.name = name
+        self.attrs = attrs
+        self.t0 = clock()
+        self._done = False
+
+    def stop(self, **extra) -> float:
+        """Close the interval and return its seconds. Idempotent: a later
+        call returns the first measurement and records nothing."""
+        if self._done:
+            return self.attrs.get("_elapsed", 0.0)
+        self._done = True
+        elapsed = clock() - self.t0
+        self.attrs["_elapsed"] = elapsed
+        if self.name is not None and _active():
+            a = dict(self.attrs)
+            a.pop("_elapsed", None)
+            a.update(extra)
+            _record("span", self.name, ts=self.t0, dur=elapsed,
+                    sid=_rec().sid() if enabled() else None,
+                    par=_parent_sid(), a=a or None)
+        return elapsed
+
+
+def stopwatch(name: Optional[str] = None, **attrs) -> _Stopwatch:
+    """A span recorded when it is stopped (`sw.stop()`), for intervals
+    that cross scopes; with no name, a bare stopwatch."""
+    return _Stopwatch(name, attrs)
+
+
 def record_span(name: str, t0: float, dur: float,
                 parent: Optional[int] = None,
                 sid: Optional[int] = None, **attrs) -> None:
@@ -556,6 +607,27 @@ def percentiles(samples, ps=(50, 95, 99)) -> Dict[int, float]:
         rank = max(1, -(-p * n // 100))  # ceil(p*n/100), 1-based
         out[p] = float(xs[min(rank, n) - 1])
     return out
+
+
+def summary(top: int = 0) -> List[dict]:
+    """Per-span-name latency rows (count, total, p50/p95/p99 over the
+    bounded sample reservoir, in ms), the most total time first; the
+    first `top` of them where top > 0."""
+    r = _rec()
+    with r.lock:
+        rows = []
+        for name, a in r.agg.items():
+            pct = percentiles(a["samples"])
+            rows.append({
+                "span": name,
+                "count": a["count"],
+                "total_ms": round(a["total"] * 1e3, 3),
+                "p50_ms": round(pct[50] * 1e3, 3),
+                "p95_ms": round(pct[95] * 1e3, 3),
+                "p99_ms": round(pct[99] * 1e3, 3),
+            })
+    rows.sort(key=lambda x: -x["total_ms"])
+    return rows[:top] if top else rows
 
 
 def records() -> List[dict]:

@@ -1,5 +1,7 @@
 """The port's knob registry (gelly_streaming_tpu_torch/utils/knobs.py)
-against the JAX package's: every knob the port reads (the stage guard
+against the JAX package's: every knob the port reads (the ingress
+pipeline's width, look-ahead and prefetch, the egress pin and cap, the
+stage guard
 and demotion registry, the sharded engines' wire check, the dispatch
 autotuner, the resident tier, the
 host hooks, the GNN engines, the driver's probation and slide, the
@@ -16,6 +18,8 @@ from gelly_streaming_tpu.utils import knobs as jax_knobs
 from gelly_streaming_tpu_torch.utils import knobs
 
 SLICE_KNOBS = (
+    "GS_PIPELINE_WORKERS", "GS_PIPELINE_INFLIGHT", "GS_STREAM_PREFETCH",
+    "GS_EGRESS", "GS_EGRESS_CAP",
     "GS_STAGE_TIMEOUT_S", "GS_STAGE_RETRIES", "GS_STAGE_BACKOFF_S",
     "GS_TIER_RETRY_WINDOWS", "GS_TIER_DEMOTE", "GS_MESH_DEMOTE",
     "GS_MESH_WIRE_CHECK", "GS_AUTOTUNE", "GS_AUTOTUNE_ROUND", "GS_AUTOTUNE_EXPLORE",
@@ -107,7 +111,7 @@ def test_reads_are_live_and_unregistered_knobs_refused(monkeypatch):
     monkeypatch.setenv("GS_RESIDENT_SPB", "64")
     assert knobs.get_int("GS_RESIDENT_SPB") == 64
     with pytest.raises(AssertionError, match="unregistered"):
-        knobs.get_int("GS_PIPELINE_WORKERS")
+        knobs.get_int("GS_PALLAS_CK")       # a TPU knob, not ported
     with pytest.raises(AssertionError):
         knobs.get_bool("GS_RESIDENT_SPB")       # the wrong kind
     with pytest.raises(AssertionError, match="duplicate"):
