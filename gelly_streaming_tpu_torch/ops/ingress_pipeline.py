@@ -67,11 +67,18 @@ wait on the card. Three rules hold whether the guard is armed or not:
 
 Hooks (each a no-op disarmed): the `prep` and `h2d` fault sites
 (utils/faults.py) on the worker before each stage; the flight recorder's
-`ingress.chunk` span with `ingress.prep`, `ingress.h2d`,
+`ingress.chunk` span with `ingress.prep`, `ingress.h2d`, `ingress.wait`
+(the caller's thread getting the chunk's staged payload: blocked on the
+pool's future, or the inline prep and h2d of the synchronous form),
 `ingress.dispatch` (tagged with the launch's program and signature when
 the cost observatory is armed) and `ingress.finalize` children, which
-also feed the metrics registry's stage histograms; the
-`gs_inflight_chunks` and `gs_inflight_oldest_s` gauges.
+also feed the metrics registry's stage histograms; each carries the
+chunk's `chunk` id and, where the caller gives them, its absolute first
+`window` and the caller's `call` ordinal; the `gs_inflight_chunks` and
+`gs_inflight_oldest_s` gauges. While a torch.profiler capture records,
+the caller's thread's spans (wait, dispatch, finalize) also enter it as
+`record_function` annotations, recorder armed or not
+(utils/telemetry.py `profiling`); with neither, a chunk makes no span.
 """
 
 from __future__ import annotations
@@ -82,6 +89,7 @@ import threading
 import time
 import traceback
 from collections import deque
+from contextlib import nullcontext
 from concurrent.futures import ThreadPoolExecutor, wait
 from concurrent.futures import TimeoutError as _FutureTimeout
 from typing import Callable, Iterable, List, Optional
@@ -103,6 +111,7 @@ __all__ = ["DEFAULT_INFLIGHT", "PrepError", "StageFailed", "StageTimeout",
 _MAX_DEFAULT_WORKERS = 4
 DEFAULT_INFLIGHT = 3
 _POLL_S = 0.02   # the guard's wait tick, when a deadline is set
+_OFF = nullcontext()    # a stage's scope while nothing traces it
 
 
 class StageTimers:
@@ -236,13 +245,13 @@ def _mark(cell: Optional[dict], stage: str) -> None:
 
 
 def _span_cell(cell: Optional[dict], item):
-    """(parent span id, chunk correlation id) of a worker stage: the
-    chunk's span handle rides the cell (thread-local nesting cannot
-    cross the pool)."""
-    ctx = cell.get("tctx") if cell else None
-    if ctx is not None:
-        return ctx["sid"], ctx["chunk"]
-    return None, telemetry.chunk_key(item)
+    """(parent span id, correlation attributes) of a chunk's stage: the
+    chunk's span handle and ids ride the cell (thread-local nesting
+    cannot cross the pool)."""
+    if cell and cell.get("ids") is not None:
+        ctx = cell["tctx"]
+        return (ctx["sid"] if ctx is not None else None), cell["ids"]
+    return None, {"chunk": telemetry.chunk_key(item)}
 
 
 def _passes_through(exc: BaseException) -> bool:
@@ -277,9 +286,8 @@ def _timed_prep(prep: Callable, item, timers: Optional[StageTimers],
     if timers is not None:
         timers.add("prep", dt)
     if cell.get("spans") if cell else telemetry.active():
-        par, ck = _span_cell(cell, item)
-        telemetry.record_span("ingress.prep", t0, dt, parent=par,
-                              chunk=ck)
+        par, ids = _span_cell(cell, item)
+        telemetry.record_span("ingress.prep", t0, dt, parent=par, **ids)
     return out
 
 
@@ -311,9 +319,8 @@ def _prep_then_h2d(prep: Callable, h2d: Callable, item,
     if timers is not None:
         timers.add("h2d", dt)
     if cell.get("spans") if cell else telemetry.active():
-        par, ck = _span_cell(cell, item)
-        telemetry.record_span("ingress.h2d", t0, dt, parent=par,
-                              chunk=ck)
+        par, ids = _span_cell(cell, item)
+        telemetry.record_span("ingress.h2d", t0, dt, parent=par, **ids)
     _mark(cell, "done")
     return dev
 
@@ -380,7 +387,7 @@ def _guarded_prep_h2d(prep: Callable, h2d: Callable, item,
         else:
             cell = cell0 if attempt == 0 else {
                 "tctx": cell0.get("tctx"), "spans": cell0.get("spans"),
-                "gate": gate, "attempt": attempt}
+                "ids": cell0.get("ids"), "gate": gate, "attempt": attempt}
             if timeout > 0:
                 box, done = {}, threading.Event()
 
@@ -442,7 +449,9 @@ def run_pipeline(items: Iterable, prep: Callable, h2d: Callable,
                  dispatch: Callable, finalize: Callable,
                  timers: Optional[StageTimers] = None,
                  inflight: Optional[int] = None,
-                 workers: Optional[int] = None) -> None:
+                 workers: Optional[int] = None,
+                 call: Optional[int] = None,
+                 first_window: Optional[int] = None) -> None:
     """Run `items` (ordered chunk descriptors, drawn one at a time as the
     look-ahead admits them: a lazy iterable may decide item k while the
     items before it are in flight) through the three stages:
@@ -465,56 +474,73 @@ def run_pipeline(items: Iterable, prep: Callable, h2d: Callable,
     StageFailed once the attempts are spent (a fatal fault or a device
     error as itself), after the already-dispatched chunk is drained;
     preps not yet started are cancelled and those running are waited
-    for."""
+    for.
+
+    `call` and `first_window` are correlation ids for the chunks' spans:
+    the caller's call ordinal, and the absolute window of the call's
+    first (each chunk's `window` is it plus the chunk's `chunk_key`)."""
     it = iter(items)
     head = list(itertools.islice(it, 2))    # one item: nothing to overlap
     limit = (inflight_limit() if inflight is None
              else min(int(inflight), inflight_limit()))
     pool = prep_pool(workers) if len(head) > 1 else None
     it = itertools.chain(head, it)
-    pending = None          # (item, raw, span handle) one behind dispatch
+    pending = None          # (item, raw, cell) one behind dispatch
     futures: deque = deque()
     guard = resilience.guard_active()
     gauges = metrics.enabled()
-    spans = telemetry.active()    # read once a call: nothing else when off
+    # read once a call: with neither, a chunk makes no span
+    spans = telemetry.active()
+    profile = telemetry.profiling()
+    traced = spans or profile
 
-    def _finalize(item, raw, tctx):
+    def _stage(name, cell):
+        # a stage on this thread, live around its work, so that a
+        # profiler capture can hold it too; the capture alone needs
+        # only its name
+        if not spans:
+            return telemetry.span(name, profile=True)
+        par, ids = _span_cell(cell, None)
+        return telemetry.span(name, parent=par, profile=profile, **ids)
+
+    def _finalize(item, raw, cell):
         t0 = time.perf_counter()
-        finalize(raw)
+        with _stage("ingress.finalize", cell) if traced else _OFF:
+            finalize(raw)
         dt = time.perf_counter() - t0
         if timers is not None:
             timers.add("compute", dt)
             timers.chunks += 1
         if spans:
-            par, ck = _span_cell({"tctx": tctx}, item)
-            telemetry.record_span("ingress.finalize", t0, dt, parent=par,
-                                  chunk=ck)
-            telemetry.close_chunk(tctx)
+            telemetry.close_chunk(cell["tctx"], **cell["ids"])
 
-    def _consume(item, dev, tctx):
+    def _consume(item, dev, cell):
         nonlocal pending
         if spans:
             telemetry.pop_dispatch_tags()   # drop a stale tag
-        t0 = time.perf_counter()
-        raw = dispatch(dev)
-        if spans:
-            par, ck = _span_cell({"tctx": tctx}, item)
-            telemetry.record_span("ingress.dispatch", t0,
-                                  time.perf_counter() - t0, parent=par,
-                                  chunk=ck,
-                                  **telemetry.pop_dispatch_tags())
+        with _stage("ingress.dispatch", cell) if traced else _OFF as sp:
+            raw = dispatch(dev)
+            if spans:
+                sp.attrs.update(telemetry.pop_dispatch_tags())
         if pending is not None:
             done, pending = pending, None
             _finalize(*done)
-        pending = (item, raw, tctx)
+        pending = (item, raw, cell)
 
     def _cell(item) -> dict:
-        # the chunk's span handle (None disarmed); under the guard, when
-        # it was submitted (the queue deadline) and its attempts' gate,
-        # there before any attempt runs
+        # the chunk's span handle and ids (None disarmed); under the
+        # guard, when it was submitted (the queue deadline) and its
+        # attempts' gate, there before any attempt runs
         cell = {"submitted": time.perf_counter(), "spans": spans,
-                "tctx": (telemetry.chunk_ctx(telemetry.chunk_key(item))
-                         if spans else None)}
+                "tctx": None, "ids": None}
+        if spans:
+            ck = telemetry.chunk_key(item)
+            cell["tctx"] = telemetry.chunk_ctx(ck)
+            cell["ids"] = ids = {"chunk": ck}
+            if call is not None:
+                ids["call"] = call
+            if first_window is not None and ck is not None:
+                ids["window"] = first_window + ck
         if guard:
             cell.update(gate={"lock": threading.Lock(), "live": 0},
                         attempt=0)
@@ -529,10 +555,12 @@ def run_pipeline(items: Iterable, prep: Callable, h2d: Callable,
         if pool is None:
             for item in it:
                 cell = _cell(item)
-                dev = (_guarded_prep_h2d(prep, h2d, item, timers, cell)
-                       if guard
-                       else _prep_then_h2d(prep, h2d, item, timers, cell))
-                _consume(item, dev, cell["tctx"])
+                with _stage("ingress.wait", cell) if traced else _OFF:
+                    dev = (_guarded_prep_h2d(prep, h2d, item, timers, cell)
+                           if guard
+                           else _prep_then_h2d(prep, h2d, item, timers,
+                                               cell))
+                _consume(item, dev, cell)
         else:
             width = worker_count() if workers is None else int(workers)
             lookahead = max(1, min(width + 1, limit))
@@ -540,9 +568,10 @@ def run_pipeline(items: Iterable, prep: Callable, h2d: Callable,
                            for item in itertools.islice(it, lookahead))
             while futures:
                 item, cell, fut = futures.popleft()
-                dev = (_guarded_prep_h2d(prep, h2d, item, timers, cell,
-                                         first_future=fut) if guard
-                       else fut.result())
+                with _stage("ingress.wait", cell) if traced else _OFF:
+                    dev = (_guarded_prep_h2d(prep, h2d, item, timers, cell,
+                                             first_future=fut) if guard
+                           else fut.result())
                 for nxt in itertools.islice(it, 1):
                     futures.append(_submit(nxt))
                 if gauges:
@@ -553,7 +582,7 @@ def run_pipeline(items: Iterable, prep: Callable, h2d: Callable,
                         "gs_inflight_oldest_s",
                         time.perf_counter() - futures[0][1]["submitted"]
                         if futures else 0.0)
-                _consume(item, dev, cell["tctx"])
+                _consume(item, dev, cell)
     except Exception:
         # drain the chunk already dispatched before the failure surfaces,
         # so its outputs (and any recount) are not abandoned mid-stream

@@ -66,6 +66,7 @@ device.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Tuple
 
 import numpy as np
@@ -90,6 +91,8 @@ from .window_summary import WindowSummary, fresh_carry
 
 __all__ = ["SlidingSummaryEngine", "StreamSummaryEngine",
            "SummaryEngineBase", "check_summary_carry"]
+
+_OFF = nullcontext()    # a call's phase while nothing traces it
 
 
 class SummaryEngineBase:
@@ -125,6 +128,7 @@ class SummaryEngineBase:
     TUNER_FAMILY = "fused_scan"
     _pinned_ingress = False
     _tuner = None
+    _calls = 0          # process() calls so far: the spans' call ordinal
 
     def reset(self) -> None:
         self._closed_partial = False
@@ -354,7 +358,67 @@ class SummaryEngineBase:
         must be the stream's last call: feed mid-stream chunks in
         edge_bucket multiples. Ids must lie in [0, vertex_bucket) (with
         GS_SANITIZE armed, the others are rejected to the dead-letter
-        journal instead)."""
+        journal instead).
+
+        The call is the `engine.call` span, its admission `engine.admit`
+        and its chunk loop `engine.chunks` (the tuner's arm, the round
+        plan, the ingress pipeline and its unwinding), each with the
+        call's ordinal and first window (the chunks' spans carry the same
+        ids); made while the recorder or a sink is armed, or a
+        torch.profiler capture records, and then also entered in that
+        capture."""
+        self._calls += 1
+        profile = telemetry.profiling()
+        if not (profile or telemetry.active()):
+            return self._process(src, dst, None)
+        with telemetry.span("engine.call", profile=profile,
+                            call=self._calls,
+                            window=self.windows_done) as sp:
+            return self._process(src, dst, sp)
+
+    def _process(self, src, dst, call_span) -> list:
+        """process() inside its `engine.call` span (None untraced)."""
+        with (telemetry.span("engine.admit", profile=call_span.profile,
+                             **call_span.attrs) if call_span else _OFF):
+            admitted = self._admit(src, dst)
+        if admitted is None:
+            return []
+        src, dst = admitted
+        n = len(src)
+        self._closed_partial = n % self.eb != 0
+        out: list = []
+        staged: list = []       # checkpoints due mid-call
+        num_w = -(-n // self.eb)
+        if call_span:
+            call_span.attrs.update(windows=num_w, edges=n)
+        with (telemetry.span("engine.chunks", profile=call_span.profile,
+                             **call_span.attrs) if call_span else _OFF):
+            # long calls run under the tuner, which picks each round's
+            # (windows per dispatch, wire); GS_AUTOTUNE=0 or a short call
+            # runs the static arm, with the same summaries
+            tuner = (self._ensure_tuner()
+                     if self.AUTOTUNE and autotune.enabled()
+                     and num_w > self.MAX_WINDOWS else None)
+            self._run_chunks(src, dst, num_w, tuner, out, staged)
+        if self._ckpt_path is not None:
+            if self._ckpt_policy.due(self.windows_done):
+                self._ckpt_policy.mark(self.windows_done)
+                staged.append(self.state_dict())
+            # only the last two can survive save's rotation
+            for snap in staged[-2:]:
+                checkpoint.save(self._ckpt_path, snap)
+                # journal retention (GS_WAL_RETAIN): what the snapshot's
+                # replay cursor covers
+                self._wal_retention.flushed(
+                    self._wal, self._wal_tenant,
+                    int(snap["windows_done"]) * self.eb)
+        return out
+
+    def _admit(self, src, dst):
+        """Admission: the `admit` fault site, the sanitizer, the int32
+        arrays, the partial-window guard, the id check, the journal
+        append and `latency.on_admit`. Returns the admitted (src, dst),
+        or None for an empty call."""
         lat = latency.enabled()
         t_admit = latency.clock() if lat else 0.0
         metrics.on_stream_start(type(self).__name__)
@@ -378,7 +442,7 @@ class SummaryEngineBase:
         dst = np.asarray(dst, np.int32)
         n = len(src)
         if n == 0:
-            return []
+            return None
         if self._closed_partial:
             raise ValueError(
                 "a previous process() call closed a partial window "
@@ -396,29 +460,7 @@ class SummaryEngineBase:
         if lat and self._lat_admit:
             latency.on_admit(self._lat_lane or self._wal_tenant, n,
                              t0=t_admit)
-        self._closed_partial = n % self.eb != 0
-        out: list = []
-        staged: list = []       # checkpoints due mid-call
-        num_w = -(-n // self.eb)
-        # long calls run under the tuner, which picks each round's
-        # (windows per dispatch, wire); GS_AUTOTUNE=0 or a short call
-        # runs the static arm, with the same summaries
-        tuner = (self._ensure_tuner() if self.AUTOTUNE and autotune.enabled()
-                 and num_w > self.MAX_WINDOWS else None)
-        self._run_chunks(src, dst, num_w, tuner, out, staged)
-        if self._ckpt_path is not None:
-            if self._ckpt_policy.due(self.windows_done):
-                self._ckpt_policy.mark(self.windows_done)
-                staged.append(self.state_dict())
-            # only the last two can survive save's rotation
-            for snap in staged[-2:]:
-                checkpoint.save(self._ckpt_path, snap)
-                # journal retention (GS_WAL_RETAIN): what the snapshot's
-                # replay cursor covers
-                self._wal_retention.flushed(
-                    self._wal, self._wal_tenant,
-                    int(snap["windows_done"]) * self.eb)
-        return out
+        return src, dst
 
     def _run_chunks(self, src, dst, num_w: int, tuner, out: list,
                     staged: list) -> None:
@@ -514,7 +556,8 @@ class SummaryEngineBase:
             ingress_pipeline.run_pipeline(
                 plan, prep, h2d, dispatch, finalize,
                 timers=self.stage_timers,
-                inflight=self.INFLIGHT if slots is None else slots)
+                inflight=self.INFLIGHT if slots is None else slots,
+                call=self._calls, first_window=base)
         except BaseException:
             if self._ring is not None:
                 self._ring.release_all()

@@ -274,7 +274,13 @@ register("GS_TELEMETRY", "bool", False,
          help="arm the flight recorder (`utils/telemetry.py`): spans, "
               "events, counters and gauges with a per-run trace id and "
               "per-chunk correlation; off, every hook is a guarded "
-              "no-op and results are bit-identical",
+              "no-op and results are bit-identical. The dispatching "
+              "thread's spans (`engine.call`, `engine.admit`, "
+              "`engine.chunks`, `ingress.wait`, `ingress.dispatch`, "
+              "`ingress.finalize`) also enter any running "
+              "`torch.profiler` capture, with this off too; the pool's "
+              "prep and h2d reach the trace only through `ingress.wait` "
+              "and `device_trace`'s clock anchor",
          default_text="0 (off)")
 register("GS_TRACE_DIR", "path", None,
          help="directory of the crash-safe JSONL run ledger "

@@ -7,7 +7,13 @@ ingress pipeline's `ingress.chunk`, `ingress.prep`, `ingress.h2d`,
 `ingress.dispatch`, `ingress.finalize`; the engines' `fused_scan.round`,
 `triangles.round`, `sliding.emit`; the events of `utils/faults.py`,
 `resilience.py`, `wal.py`, `sanitize.py` and the engines), the same
-ledger format and `chunk_key`.
+ledger format and `chunk_key`. The port adds four spans of its own,
+all on the dispatching thread: `engine.call` (a summary engine's whole
+`process()`), `engine.admit` (its admission, up to the chunk loop),
+`engine.chunks` (the chunk loop: the round plan, the pipeline and its
+unwinding) and `ingress.wait` (the pipeline's wait for a chunk's staged
+payload: the pool's future, or the inline prep and h2d of the
+synchronous form).
 
 - Spans (named timed intervals with attributes), events, counters and
   gauges carry the process's run trace id and the correlation attributes
@@ -33,6 +39,17 @@ With `GS_TELEMETRY=0` (the default) and no armed sink every call is a
 guarded no-op and `span()` is a bare perf_counter stopwatch. Every time
 here is the host's `time.perf_counter`: the recorder reads no device
 clock and waits for no device work.
+
+The device trace: a span made with `profile=True` also enters a
+`torch.profiler.record_function` of its name for its interval, so that
+a running `torch.profiler` capture shows it as a `user_annotation` on
+the card's timeline, whether or not the recorder or a sink is armed.
+`profiling()` says whether a capture is recording (one flag read); the
+hot paths read it once a call and make no such span while it is off.
+The profiler keeps annotations of the thread that runs the capture
+only, so the spans made so are the dispatching thread's; the pool's
+stages reach the timeline through that thread's `ingress.wait`, and
+through the clock anchor that utils/tracing.py `device_trace` stamps.
 """
 
 from __future__ import annotations
@@ -396,23 +413,49 @@ def _record(kind: str, name: str, durable: bool = False,
 # ----------------------------------------------------------------------
 # spans
 # ----------------------------------------------------------------------
+_PROFILER = None    # torch.autograd.profiler, imported at first use
+
+
+def profiling() -> bool:
+    """Whether a torch.profiler capture is recording now: one read of
+    the profiler's own flag, what a hot loop reads once a call to decide
+    whether its spans enter the device trace (`span(profile=True)`)."""
+    global _PROFILER
+    if _PROFILER is None:
+        import torch.autograd.profiler as _PROFILER
+    return _PROFILER._is_profiler_enabled
+
+
 class _Span:
     """Context manager AND stopwatch. Always measures (callers like
     the autotune round loops need `.elapsed` whether or not telemetry
     is armed); records only when armed at __exit__ time. Nesting is
-    tracked per thread via the span-id stack."""
+    tracked per thread via the span-id stack; an explicit `parent`
+    (a chunk's span id, whose stages cross threads) wins over it. With
+    `profile`, the interval is also a torch.profiler `record_function`
+    of the span's name."""
 
-    __slots__ = ("name", "attrs", "t0", "elapsed", "sid", "_pushed")
+    __slots__ = ("name", "attrs", "t0", "elapsed", "sid", "parent",
+                 "profile", "_pushed", "_rf")
 
-    def __init__(self, name: str, attrs: dict):
+    def __init__(self, name: str, attrs: dict, parent: Optional[int] = None,
+                 profile: bool = False):
         self.name = name
         self.attrs = attrs
         self.t0 = clock()
         self.elapsed = 0.0
         self.sid = None
+        self.parent = parent
+        self.profile = profile
         self._pushed = False
+        self._rf = None
 
     def __enter__(self):
+        if self.profile:
+            from torch.profiler import record_function
+
+            self._rf = record_function(self.name)
+            self._rf.__enter__()
         self.t0 = clock()
         if enabled():
             self.sid = _rec().sid()
@@ -425,23 +468,34 @@ class _Span:
 
     def __exit__(self, exc_type, exc, tb):
         self.elapsed = clock() - self.t0
-        if self._pushed:
-            _TLS.stack.pop()
-            self._pushed = False
-        if _active():
-            par = _parent_sid()
-            a = dict(self.attrs) if self.attrs else {}
-            if exc_type is not None:
-                a["error"] = exc_type.__name__
-            _record("span", self.name, ts=self.t0, dur=self.elapsed,
-                    sid=self.sid, par=par, a=a or None)
+        try:
+            if self._pushed:
+                _TLS.stack.pop()
+                self._pushed = False
+            if _active():
+                par = self.parent if self.parent is not None \
+                    else _parent_sid()
+                a = dict(self.attrs) if self.attrs else {}
+                if exc_type is not None:
+                    a["error"] = exc_type.__name__
+                _record("span", self.name, ts=self.t0, dur=self.elapsed,
+                        sid=self.sid, par=par, a=a or None)
+        finally:
+            # last: the annotation covers the span's own bookkeeping
+            if self._rf is not None:
+                self._rf.__exit__(exc_type, exc, tb)
+                self._rf = None
         return False
 
 
-def span(name: str, **attrs) -> _Span:
+def span(name: str, *, parent: Optional[int] = None, profile: bool = False,
+         **attrs) -> _Span:
     """A named span: `with telemetry.span("step.intern", records=n)
-    as sp: ...`; sp.elapsed holds the measured seconds either way."""
-    return _Span(name, attrs)
+    as sp: ...`; sp.elapsed holds the measured seconds either way.
+    `parent` names the parent span's id where thread nesting cannot
+    (see chunk_ctx); `profile=True` (where `profiling()` said so) puts
+    the interval on a running torch.profiler capture's timeline too."""
+    return _Span(name, attrs, parent, profile)
 
 
 class _Stopwatch:

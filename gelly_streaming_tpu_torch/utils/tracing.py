@@ -20,8 +20,14 @@ Port of the JAX package's `utils/tracing.py`:
   becomes a no-op with a `device_trace_failed` telemetry event; a
   finished capture is kept whatever device records the profiler dropped
   and stamps a durable `device_trace_captured` event with the log
-  directory, the trace file, its kernel events and the cost
-  observatory's program inventory (utils/costmodel.py).
+  directory, the trace file, its kernel events, the cost observatory's
+  program inventory (utils/costmodel.py) and the clock anchor: as the
+  capture starts, the calling thread enters a `gs.clock_anchor`
+  annotation and reads the flight recorder's clock inside it
+  (`clock_anchor`), so one offset (the annotation's start in the trace
+  less that reading) maps any recorder span, the pool's worker stages
+  that the profiler does not hold among them, onto the trace's
+  timeline.
 """
 
 from __future__ import annotations
@@ -123,17 +129,20 @@ class TraceCapture:
 
 
 def _start_profiler():
-    """A started torch.profiler session: host calls, and the card's
-    kernels where CUDA is available."""
+    """A started torch.profiler session (host calls, and the card's
+    kernels where CUDA is available) and the recorder's clock read
+    inside its `gs.clock_anchor` annotation."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
     prof.start()
-    return prof
+    with record_function("gs.clock_anchor"):
+        anchor = telemetry.clock()
+    return prof, anchor
 
 
 def _stop_profiler(prof, log_dir: str) -> tuple:
@@ -159,11 +168,11 @@ def device_trace(log_dir: str):
     global _TRACE_DEPTH
     os.makedirs(log_dir, exist_ok=True)
     cap = TraceCapture(str(log_dir))
-    prof = None
+    prof = anchor = None
     with _TRACE_LOCK:
         if _TRACE_DEPTH == 0:
             try:
-                prof = _start_profiler()
+                prof, anchor = _start_profiler()
             except Exception as e:  # an observer must not stop the job
                 telemetry.event(
                     "device_trace_failed", log_dir=str(log_dir),
@@ -190,4 +199,5 @@ def device_trace(log_dir: str):
                         "device_trace_captured", durable=True,
                         log_dir=str(log_dir), path=cap.path,
                         kernel_events=cap.kernel_events,
-                        programs=len(costmodel.programs()))
+                        programs=len(costmodel.programs()),
+                        clock_anchor=anchor)

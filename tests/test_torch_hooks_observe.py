@@ -142,7 +142,8 @@ def test_percentiles_summary_and_chunk_key_match_jax():
 def test_pipeline_spans_match_jax(monkeypatch):
     """The pipeline's span tree: ingress.chunk parents prep, h2d,
     dispatch and finalize of its chunk, the names and chunk attributes
-    the JAX pipeline records for the same items."""
+    the JAX pipeline records for the same items; the port's own
+    ingress.wait, one a chunk, hangs under its chunk too."""
     monkeypatch.setenv("GS_TELEMETRY", "1")
     from gelly_streaming_tpu.ops import ingress_pipeline as jax_ip
 
@@ -159,7 +160,9 @@ def test_pipeline_spans_match_jax(monkeypatch):
         for r in spans:
             if r["name"] != "ingress.chunk":
                 assert r["par"] == chunk_sid[r["a"]["chunk"]]
-    assert got["torch"] == got["jax"]
+    waits = [x for x in got["torch"] if x[0] == "ingress.wait"]
+    assert waits == [("ingress.wait", c) for c in range(3)]
+    assert [x for x in got["torch"] if x[0] != "ingress.wait"] == got["jax"]
 
 
 # ----------------------------------------------------------------------
