@@ -15,7 +15,9 @@ Zipf chunk, a repeated edge across a whole window, a star, a row past
 kb, ids 0 and vb-1, the L2 tier; its device scratch and launches a
 call), summary (the summary body of csrc/summary_body.cuh at
 vb=65536, its L2 tier, on sparse, bipartite,
-ragged, star (hub) and late-odd chunks), gnn, cohort (the same body
+ragged, star (hub) and late-odd chunks), gnn (F = 3 to 256, held
+and ragged windows, and the benchmark's two F = 256 slabs, vb = 262,144
+and 4,194,304, each update timed beside its bound), cohort (the same body
 through the cohort kernel on five dispatches at eb=4096: 64 Zipf
 tenants at vb=8192 and a ragged batch in the shared-memory tier, 8
 tenants at vb=65536 in the L2 tier, one tenant at vb=8192, and 4
@@ -189,6 +191,8 @@ torch.addmm; index_add_ beside the cell reduce), and it counts the tensor-core i
 libraries' SASS where the toolkit has cuobjdump (a diagnostic only).
 
     python3 chip_smoke.py          # from the repository root
+    python3 chip_smoke.py --gnn    # phases gnn, gnn_stream, gnn_cohort
+                                   # and gnn_resident alone
 
 Output: progress lines; then, before the last line, the card's name and
 power limit (nvidia-smi) and one JSON line {"kernels": [...]}; last, one
@@ -1382,6 +1386,76 @@ def gnn_fixtures():
                gw.default_features(VB, F, seed=seed), zipf(EB, seed=9 + F))
 
 
+# the benchmark's two GNN slabs at F=256 (portbench/configs): (name,
+# vertex bucket, ids drawn below, windows), Zipf windows of EB edges
+GNN_CELL_F = 256
+GNN_CELLS = (("arxiv vb=262144", 262_144, 169_343, CHUNK),
+             ("products vb=4194304", 4_194_304, 2_449_029, 2))
+
+
+def gnn_check(dev, name, eb, F, act, W, b, slab, chunk) -> tuple:
+    """One fixture through `GnnRound` and `gnn_rounds_plain` from the same
+    slab (a numpy array or a tensor on `dev`): slab and all 4×W sums
+    equal, the fixture neither saturating nor dying out. Returns (the
+    call's arguments, the round, the sums, the largest absolute
+    difference of slab and sums between the two)."""
+    from gelly_streaming_tpu_torch.ops import gnn_round as gr
+
+    st, dt, vt = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                  for x in chunk)
+    Wt, bt = torch.from_numpy(W).to(dev), torch.from_numpy(b).to(dev)
+    h0 = slab if torch.is_tensor(slab) else torch.from_numpy(slab).to(dev)
+    h, ph = h0.clone(), h0.clone()
+    sums = torch.empty(4, st.shape[0], dtype=torch.int32, device=dev)
+    psums = torch.empty_like(sums)
+    rnd = gr.GnnRound(h.shape[0] - 1, F, h.device)
+    rnd(h, Wt, bt, st, dt, vt, act, sums)
+    gr.gnn_rounds_plain(ph, Wt, bt, st, dt, vt, act, psums)
+    torch.cuda.synchronize()
+    slab_err = float((h - ph).abs().max())
+    require(torch.equal(h, ph), "gnn %s: slab kernel != plain (max "
+            "diff %g)" % (name, slab_err))
+    del ph
+    got, want = sums.cpu().numpy(), psums.cpu().numpy()
+    require(np.array_equal(got, want), "gnn %s: sums kernel %s != "
+            "plain %s" % (name, got, want))
+    err = max(slab_err, float(np.abs(got.astype(np.int64)
+                                     - want.astype(np.int64)).max()))
+    maxf, active, csum, _nmsg = want
+    require((maxf < 511).any() and len(set(active.tolist())) > 1,
+            "gnn %s: the fixture saturates or dies out: max_feat %s "
+            "active %s" % (name, maxf, active))
+    print("phase gnn %s: ok  max_feat %d..%d  active %d..%d  "
+          "checksum %d..%d" % (name, maxf.min(), maxf.max(),
+                               active.min(), active.max(), csum.min(),
+                               csum.max()))
+    return (h, Wt, bt, st, dt, vt, act, sums), rnd, want, err
+
+
+def update_bound_us(vb: int, F: int, dt, vt) -> float:
+    """One window's update alone at its least: the slab read and written,
+    the aggregate read in the rows the window's messages reach (the
+    chunk's mean), the product's 2(vb+1)F² operations at the fp16
+    rate."""
+    reached = np.mean([int(torch.unique(dt[w][vt[w]]).numel())
+                       for w in range(dt.shape[0])])
+    return 1e3 * bound(4 * F * (2 * (vb + 1) + reached),
+                       2 * (vb + 1) * F * F, "fp16_tc")[0]
+
+
+def update_us_per_window(rnd, args) -> float:
+    """The update kernel's µs a launch over one call, from
+    torch.profiler."""
+    prof = profile_run(lambda: rnd(*args))
+    ms = {k: (v, prof["launches_by_name"][k])
+          for k, v in prof["device_ms_by_name"].items()
+          if "update_kernel" in k}
+    require(len(ms) == 1, "gnn: no single update kernel in the profile: %s"
+            % sorted(prof["device_ms_by_name"]))
+    (total, n), = ms.values()
+    return 1e3 * total / n
+
+
 def phase_gnn(dev) -> dict:
     """The GNN round kernel vs its plain version on 64-window chunks at
     vb=65536 from a loaded slab: F=64 relu on Zipf windows, F=16 abs,
@@ -1390,33 +1464,17 @@ def phase_gnn(dev) -> dict:
     all 4×W sums equal. Then, at F=64, times of the whole call and the
     plain version, each kernel's µs a window from torch.profiler, and
     torch.addmm(b, p, W) on one window's [vb+1, F] as the product's
-    yardstick."""
+    yardstick. Last, the benchmark's two slabs at F=256 (GNN_CELLS),
+    each checked the same way and its update kernel timed beside its
+    bound, the plain version and torch.addmm."""
     from gelly_streaming_tpu_torch.ops import gnn_round as gr
 
-    err = 0
-    timed = None
+    timed, err = None, 0.0
     for name, eb, F, act, (W, b), slab, chunk in gnn_fixtures():
-        st, dt, vt = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-                      for x in chunk)
-        Wt, bt = torch.from_numpy(W).to(dev), torch.from_numpy(b).to(dev)
-        h0 = torch.from_numpy(slab).to(dev)
-        h, ph = h0.clone(), h0.clone()
-        sums = torch.empty(4, CHUNK, dtype=torch.int32, device=dev)
-        psums = torch.empty_like(sums)
-        rnd = gr.GnnRound(VB, F, h.device)
-        rnd(h, Wt, bt, st, dt, vt, act, sums)
-        gr.gnn_rounds_plain(ph, Wt, bt, st, dt, vt, act, psums)
-        torch.cuda.synchronize()
-        require(torch.equal(h, ph), "gnn %s: slab kernel != plain (max "
-                "diff %g)" % (name, float((h - ph).abs().max())))
-        got, want = sums.cpu().numpy(), psums.cpu().numpy()
-        require(np.array_equal(got, want), "gnn %s: sums kernel %s != "
-                "plain %s" % (name, got, want))
-        err = max(err, int(np.abs(got.astype(np.int64) - want).max()))
-        maxf, active, csum, nmsg = want
-        require((maxf < 511).any() and len(set(active.tolist())) > 1,
-                "gnn %s: the fixture saturates or dies out: max_feat %s "
-                "active %s" % (name, maxf, active))
+        args, rnd, want, fixture_err = gnn_check(dev, name, eb, F, act, W,
+                                                 b, slab, chunk)
+        err = max(err, fixture_err)
+        _maxf, _active, csum, nmsg = want
         if name == "F=128 identity":
             exact = int(slab.astype(np.int64).sum())
             require(exact >= 2 ** 31 and csum[0] == exact - 2 ** 32
@@ -1429,24 +1487,20 @@ def phase_gnn(dev) -> dict:
                     and nmsg[36] == EB // 3 and (nmsg[37:] == 0).all()
                     and (csum[37:] == csum[36]).all(),
                     "gnn ragged: hold/loops/padding %s %s" % (csum, nmsg))
-        print("phase gnn %s: ok  max_feat %d..%d  active %d..%d  "
-              "checksum %d..%d" % (name, maxf.min(), maxf.max(),
-                                   active.min(), active.max(), csum.min(),
-                                   csum.max()))
         if name == "zipf F=64 relu":
-            timed = (rnd, h, Wt, bt, st, dt, vt, act, sums)
+            timed = (rnd, args)
 
-    rnd, h, Wt, bt, st, dt, vt, act, sums = timed
-    ms = cuda_ms(lambda: rnd(h, Wt, bt, st, dt, vt, act, sums), 10)
-    plain_ms = cuda_ms(lambda: gr.gnn_rounds_plain(
-        h, Wt, bt, st, dt, vt, act, sums), 2)
+    rnd, args = timed
+    h, Wt, bt, st, dt, vt, act, sums = args
+    ms = cuda_ms(lambda: rnd(*args), 10)
+    plain_ms = cuda_ms(lambda: gr.gnn_rounds_plain(*args), 2)
     F = GNN_F
     # each input read once, each output written once: the edge slab, the
     # feature slab in and out (16.8 MB: it and the aggregate stay in L2
     # across the chunk's windows), W and b, the [4, W] sums
     # (utils/costmodel.gnn_work)
     b_ms, b_by = bound(*cm_work("gnn", CHUNK, EB, VB, F))
-    prof = profile_run(lambda: rnd(h, Wt, bt, st, dt, vt, act, sums))
+    prof = profile_run(lambda: rnd(*args))
     per_window = {k: {"launches": n, "us_per_launch":
                       1e3 * prof["device_ms_by_name"][k] / n}
                   for k, n in prof["launches_by_name"].items()}
@@ -1455,22 +1509,59 @@ def phase_gnn(dev) -> dict:
                                           20)}
     ph, Wh, bh = p.half(), Wt.half(), bt.half()
     yard["addmm_f16_us"] = 1e3 * cuda_ms(lambda: torch.addmm(bh, ph, Wh), 20)
-    # one window's update alone: the slab read and written, the aggregate
-    # read in the rows the window's messages reach (this chunk's mean);
-    # the product's 2(vb+1)F² operations take 0.5 µs at the fp16 rate
-    reached = np.mean([int(torch.unique(dt[w][vt[w]]).numel())
-                       for w in range(CHUNK)])
-    yard["update_bound_us"] = 1e3 * bound(
-        4 * F * (2 * (VB + 1) + reached), 2 * (VB + 1) * F * F,
-        "fp16_tc")[0]
+    yard["update_bound_us"] = update_bound_us(VB, F, dt, vt)
     print(json.dumps({"gnn_kernels_us_per_window": per_window,
                       "gnn_yardsticks": yard}))
     print("phase gnn: ok  kernel %.3f ms/chunk  plain %.3f ms/chunk  "
           "(%d windows, eb=%d, vb=%d, F=%d)" % (ms, plain_ms, CHUNK, EB, VB,
                                                 F))
+    del timed, rnd, args, h, p, ph
+    cells = {name: phase_gnn_cell(dev, name, vb, ids, windows)
+             for name, vb, ids, windows in GNN_CELLS}
+    err = max([err] + [c["max_abs_err"] for c in cells.values()])
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "max_abs_err": err,
-            "us_per_window": per_window, **yard}
+            "us_per_window": per_window, **yard, "cells": cells}
+
+
+def phase_gnn_cell(dev, name: str, vb: int, ids: int, windows: int) -> dict:
+    """One of the benchmark's slabs at F=256, relu, eb=EB: a slab of
+    units in [0, 8) made on the card, `windows` Zipf windows over ids
+    below `ids`, checked against the plain version, then the update
+    kernel's µs a window (torch.profiler) beside its bound, the plain
+    version's ms a window and torch.addmm's µs on the [vb+1, F] product
+    in fp16 (its operands made from the slab)."""
+    from gelly_streaming_tpu_torch import make_stream
+    from gelly_streaming_tpu_torch.ops import gnn_round as gr
+    from gelly_streaming_tpu_torch.ops import segment as seg
+
+    F = GNN_CELL_F
+    src, dst = make_stream(windows * EB, ids, seed=17)
+    chunk = seg.window_stack(src, dst, EB, sentinel=vb)[1:]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    slab = torch.randint(0, 8, (vb + 1, F), generator=gen, device=dev,
+                         dtype=torch.float32)
+    slab[vb] = 0.0
+    args, rnd, _want, err = gnn_check(dev, name, EB, F, "relu",
+                                      *gnn_weights(F, -12, -3), slab, chunk)
+    del slab
+    torch.cuda.empty_cache()
+    h, Wt, bt, st, dt, vt, act, sums = args
+    us = update_us_per_window(rnd, args)
+    bound_us = update_bound_us(vb, F, dt, vt)
+    plain_ms = cuda_ms(lambda: gr.gnn_rounds_plain(*args), 1) / windows
+    ph, Wh, bh = h.half(), Wt.half(), bt.half()
+    addmm_us = 1e3 * cuda_ms(lambda: torch.addmm(bh, ph, Wh), 5)
+    out = {"vb": vb, "F": F, "windows": windows,
+           "update_us_per_window": us, "update_bound_us": bound_us,
+           "update_share_of_bound": bound_us / us, "max_abs_err": err,
+           "plain_ms_per_window": plain_ms, "addmm_f16_us": addmm_us}
+    print(json.dumps({"gnn_cell": {name: out}}))
+    print("phase gnn %s: update %.1f µs a window, bound %.1f µs (%.1f %%)"
+          % (name, us, bound_us, 100 * bound_us / us))
+    del args, rnd, h, ph, sums
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_gnn_stream(dev) -> dict:
@@ -8012,6 +8103,10 @@ def phase_evidence(m, counts: list, summaries: list, driver_got: list,
             "launches_a": base["launches"], "launches_c": routed["launches"]}
 
 
+# `python3 chip_smoke.py --gnn` runs the GNN phases alone
+GNN_FLAG = "--gnn"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -8019,6 +8114,9 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:] == [CAPTURE_FLAG]:
         return cell_reduce_capture_child()
+    if sys.argv[1:] not in ([], [GNN_FLAG]):
+        print("usage: chip_smoke.py [%s]" % GNN_FLAG, file=sys.stderr)
+        return 2
     import tempfile
 
     from gelly_streaming_tpu_torch.utils import evidence
@@ -8034,7 +8132,8 @@ def main() -> int:
                   "the default paths" % evidence.PERF_PATH)
         evidence.PERF_PATH = os.path.join(cache, "PERF_torch.json")
         evidence.forget()
-        return run_phases()
+        return run_gnn_phases() if sys.argv[1:] == [GNN_FLAG] else \
+            run_phases()
 
 
 class Laps:
@@ -8049,6 +8148,40 @@ class Laps:
         now = time.perf_counter()
         self.seconds[name] = round(now - self._mark, 2)
         self._mark = now
+
+
+def run_gnn_phases() -> int:
+    """Phases gnn, gnn_stream, gnn_cohort and gnn_resident alone, as the
+    whole run runs them: the GNN round kernel against its plain version
+    at every width, with the update timed at the benchmark's two slabs,
+    then the kernel on the GNN engine's, the cohort's and the resident
+    engine's paths."""
+    from gelly_streaming_tpu_torch import kernels
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    print(card())
+    lap = Laps()
+    for name, log in sorted(kernels.build().items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas %s: %s" % (name, line.strip()))
+    lap("build")
+    os.environ["GS_AUTOTUNE"] = "0"
+    gnn = phase_gnn(dev)
+    lap("gnn")
+    _launches, gnn_out, gnn_slab, _scan = phase_gnn_stream(dev)
+    lap("gnn_stream")
+    no_demotions("phase gnn_stream")
+    phase_gnn_cohort(dev)
+    lap("gnn_cohort")
+    no_demotions("phase gnn_cohort")
+    phase_gnn_resident(dev, gnn_out, gnn_slab)
+    lap("gnn_resident")
+    no_demotions("phase gnn_resident")
+    print(json.dumps({"gnn_phases_s": lap.seconds,
+                      "gnn_max_abs_err": gnn["max_abs_err"]}))
+    print("chip_smoke %s: ok" % GNN_FLAG)
+    return 0
 
 
 def run_phases() -> int:

@@ -76,7 +76,8 @@ SIGNATURES = {
     },
     "gnn_round": {
         "gs_gnn_rounds": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _P, _P, _P, _I, _P],
+                          _P, _P, _P, _P, _I, _P],
+        "gs_gnn_w_image_bytes": [_I, _P],
     },
     "dense_triangles": {
         "gs_six_t_partials": [_P, _I, _P, _I, _P],

@@ -24,6 +24,8 @@ other. The two agree bit for bit.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import kernels
@@ -117,8 +119,15 @@ class GnnRound:
 
     On a card it is the only owner of the kernel's [vb+1, F] float32
     aggregate scratch, allocated at its first call and reused after, and
-    launches `gnn_rounds` (two launches per window on the current
-    stream, no host synchronisation). On the CPU it runs
+    launches `gnn_rounds` on the current stream with no host
+    synchronisation: W's fp16 image once a call, then a scatter and an
+    update launch a window. The update is bound by bytes (the slab read
+    and written in place, 536.9 MB and 0.160 ms at 3.35 TB/s a window at
+    vb = 262,144, F = 256; 8.59 GB and 2.564 ms at vb = 4,194,304), so it
+    streams the slab: persistent blocks keep the next rows' copies in
+    flight in a ring in shared memory while the tensor cores multiply
+    the rows before them by W (resident in shared memory) and the
+    epilogue writes them back (csrc/gnn_round.cu). On the CPU it runs
     `gnn_rounds_plain`."""
 
     def __init__(self, vb: int, F: int, device: torch.device):
@@ -153,7 +162,8 @@ def gnn_rounds(h, W, b, src, dst, valid, act: str, sums: torch.Tensor,
     `scratch` a float32 tensor shaped like h that the call zeroes and
     leaves zero (the kernel reads and clears it only in the rows that
     a window's messages reach, which it marks in a uint8 [vb+1] tensor
-    allocated here)."""
+    allocated here, beside the scratch of W's fp16 image that the update
+    blocks copy, of the size the library gives)."""
     act_id = _act_code(act)
     _check(h, W, b, src, dst, valid, sums, scratch)
     vb, feat = h.shape[0] - 1, h.shape[1]
@@ -162,11 +172,17 @@ def gnn_rounds(h, W, b, src, dst, valid, act: str, sums: torch.Tensor,
     # zeroes it first); from PyTorch's caching allocator, on the stream
     touched = torch.empty(vb + 1, dtype=torch.uint8, device=h.device)
     lib = kernels.library("gnn_round")
+    image_bytes = ctypes.c_int()
+    kernels.check("gnn_round", lib.gs_gnn_w_image_bytes(
+        feat, ctypes.byref(image_bytes)))
+    w_image = torch.empty(image_bytes.value, dtype=torch.uint8,
+                          device=h.device)
     code = lib.gs_gnn_rounds(
         h.data_ptr(), W.data_ptr(), b.data_ptr(), src.data_ptr(),
         dst.data_ptr(), valid.data_ptr(), windows, eb, vb, feat, act_id,
         agg_shift(eb), scratch.data_ptr(), touched.data_ptr(),
-        sums.data_ptr(), h.device.index, kernels.stream_of(h))
+        w_image.data_ptr(), sums.data_ptr(), h.device.index,
+        kernels.stream_of(h))
     kernels.check("gnn_round", code)
     kernels.LAUNCHES["gnn_round"] += 1
 

@@ -115,6 +115,7 @@ def test_lattice_helpers_match_jax():
     (64, 128, 8, "abs"),
     (128, 64, 72, "identity"),     # weight_shift 1
     (65536, 64, 8, "relu"),        # agg_shift 1
+    (32768, 4096, 256, "relu"),    # the benchmark's width: weight cap 128
 ])
 def test_round_plain_matches_jax_round(eb, vb, F, act):
     """One window through `gnn_round_plain` and the JAX XLA round, from a

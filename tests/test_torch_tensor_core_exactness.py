@@ -1,6 +1,6 @@
 """The premise of the GNN round's tensor-core product (gelly_streaming_
 tpu_torch/csrc/gnn_round.cu), checked on the CPU: lattice operands are
-exact in fp16, and a product taken as the kernel's `mma.sync` takes it
+exact in fp16, and a product taken as the kernel's `wgmma` takes it
 (fp16 operands, fp32 sums over k-steps of 16, in any order) equals the
 plain version's float64 product (`gnn_round.lattice_product`) bit for
 bit at every width the kernel takes. bf16 would round the same operands,
@@ -18,7 +18,7 @@ from gelly_streaming_tpu_torch.ops import gnn_window as gw
 
 FEATURE_DIMS = [1, 8, 16, 64, 72, 128, 256]
 ROWS = 48
-K_STEP = 16          # the k depth of one mma.sync.m16n8k16
+K_STEP = 16          # the k depth of one wgmma.m64n64k16
 
 
 @pytest.fixture(autouse=True)
